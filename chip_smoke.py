@@ -7,20 +7,32 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero):
 
 1. build the hand-written kernels from ``fedml_tpu_torch/csrc`` into
-   ``build/`` and print the card's name and power limit;
+   ``build/`` (one nvcc per source, all at once) and print the card's
+   name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes of the main path, and time kernel, plain version, one library
-   call computing the same function (a yardstick only) and the bound;
-3. drive the main path -- lane-packed FedAvg on full-width ResNet-56
-   (bf16, 8 lanes, batch 64, synthetic LDA alpha=0.5 CIFAR-shaped data,
-   augmentation on, ``lane_lowering="pallas"``) for 2 rounds through
-   ``FedAvgAPI`` -- and show from the launch counters that it ran through
-   the kernel (53 stride-1 convs per step);
-4. print the ``kernels`` JSON line and, last, the ``ok`` line.
+   shapes of its main path, and time kernel, plain version, one library
+   call computing the same function (a yardstick only) and the bound:
+   the grouped-conv dW (B1) at ResNet-56's four shapes; the
+   flash-attention forward, dq and dk/dv (B2-B4) at the LM flagship's
+   launch ([32, 80, 4, 128] bf16 causal), a ragged T and a non-causal
+   case;
+3. drive the ResNet main path -- lane-packed FedAvg on full-width
+   ResNet-56 (bf16, 8 lanes, batch 64, synthetic LDA alpha=0.5
+   CIFAR-shaped data, augmentation on, ``lane_lowering="pallas"``) for 2
+   rounds through ``FedAvgAPI`` -- and show from the launch counters that
+   it ran through B1 (53 stride-1 convs per step);
+4. drive the LM main path -- the federated LM flagship (``bench.py
+   --lm``): TransformerLM d_model 512, 4 layers, 4 heads of 128, T 80,
+   vocab 90, bf16, 32 LEAF-shaped synthetic clients, batch 4, AMSGrad lr
+   3e-4, bucketed streaming in chunks of 8 -- for 2 rounds through
+   ``FedAvgAPI`` from the bench's own argument namespace, show that every
+   layer of every chunk step ran B2, B3 and B4, and hold the trained
+   model's logits on the card against the plain versions on the CPU;
+5. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, one
 timed round per lane lowering and a ``torch.profiler`` breakdown of a
-``pallas`` round by kernel.
+``pallas`` ResNet round and of an LM round by kernel.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -39,6 +51,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 L, B = 8, 64
+# the LM flagship (bench.py --lm defaults): one attention launch is the
+# 8 clients x batch 4 of a chunk at T=80, 4 heads of 128
+LM_D, LM_LAYERS, LM_CLIENTS, LM_BATCH, LM_CHUNK = 512, 4, 32, 4, 8
+ATTN_CASES = [("flagship", 32, 80, True), ("ragged_T", 32, 100, True),
+              ("non_causal", 32, 80, False)]
+ATTN_H, ATTN_D = 4, 128
 # (label, Ci, Co, H, stride-1 convs of this shape in one ResNet-56 step)
 DW_SHAPES = [("stem", 3, 16, 32, 1), ("stage1", 16, 16, 32, 18),
              ("stage2", 32, 32, 16, 17), ("stage3", 64, 64, 8, 17)]
@@ -51,7 +69,10 @@ def fail(msg):
 
 def timed_ms(fn, flush, iters=20, warmup=3):
     """Mean device time of ``fn`` per call (CUDA events), with the L2
-    cache flushed before each call as the training step would find it."""
+    cache flushed before each call as the training step would find it.
+    A spin of about half a millisecond on the device after the flush
+    covers the host's time to enqueue ``fn``, so the events time the
+    device's work and not the launch path."""
     import torch
 
     for _ in range(warmup):
@@ -59,6 +80,7 @@ def timed_ms(fn, flush, iters=20, warmup=3):
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -106,6 +128,124 @@ def phase_kernels(torch, grouped_conv):
         print("dw_shape " + json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+def _check(label, got, ref, rel, abs_):
+    """max|got - ref|; fails above ``rel * max|ref| + abs_``."""
+    err = float((got.float() - ref.float()).abs().max())
+    tol = rel * float(ref.float().abs().max()) + abs_
+    if not math.isfinite(err) or err > tol:
+        fail(f"{label}: max|err| {err} > tol {tol}")
+    return err
+
+
+def _attn_bounds(B, T, causal, itemsize=2):
+    """Least times (ms) of B2, B3, B4 on this launch: bytes (each input
+    read once, each output written once) over the memory rate, and the
+    products' operations on this data's valid (query, key) pairs over
+    the bf16 peak; the larger of the two, and which."""
+    tensor = B * T * ATTN_H * ATTN_D * itemsize
+    row = B * ATTN_H * T * 4                    # lse or delta, fp32
+    pairs = B * ATTN_H * (T * (T + 1) // 2 if causal else T * T)
+    out = {}
+    for name, n_tensors, n_rows, products in (("fwd", 4, 1, 2),
+                                              ("dq", 5, 2, 3),
+                                              ("dkv", 6, 2, 4)):
+        nbytes = n_tensors * tensor + n_rows * row
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * products * ATTN_D * pairs / BF16_OPS_PER_S * 1e3
+        out[name] = {"bytes": nbytes, "ops": 2 * products * ATTN_D * pairs,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations"}
+    return out
+
+
+def phase_attention(torch, fa):
+    """B2-B4, at the strided q, k, v layout of the main path, against
+    their plain versions (bf16, tolerance 1.6e-2 *
+    max|ref| + 1e-3: both round to bf16 and the kernel rounds p against
+    its running row maximum; lse fp32 at 1e-4 * max|lse| + 1e-5), then,
+    at the flagship launch, times of kernel, plain version and
+    ``scaled_dot_product_attention`` (forward; its backward through
+    autograd computes dq, dk and dv together and stands for both B3 and
+    B4)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    timing = None
+    C = ATTN_H * ATTN_D
+    for label, Bq, T, causal in ATTN_CASES:
+        # q, k, v as the model hands them over: column slices of one fused
+        # qkv product [B, T, 3C], each viewed as [B, T, H, D] (rows of
+        # D elements 3C apart), with no copy
+        qkv = torch.randn(Bq, T, 3 * C, generator=gen, device=dev
+                          ).to(torch.bfloat16)
+        q, k, v = (qkv[..., j * C:(j + 1) * C].reshape(Bq, T, ATTN_H, ATTN_D)
+                   for j in range(3))
+        do = torch.randn(Bq, T, ATTN_H, ATTN_D, generator=gen, device=dev
+                         ).to(torch.bfloat16)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal)
+        delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, do, lse_ref, delta.contiguous(), causal)
+        dq = fa.flash_attention_dq(*args)
+        dk, dv = fa.flash_attention_dkv(*args)
+        dq_ref, dk_ref, dv_ref = fa.flash_attention_bwd_reference(*args)
+        torch.cuda.synchronize()
+        row = {"case": label, "shape": [Bq, T, ATTN_H, ATTN_D],
+               "causal": causal, "max_abs_ref": {
+                   n: float(r.float().abs().max()) for n, r in (
+                       ("o", o_ref), ("dq", dq_ref), ("dk", dk_ref),
+                       ("dv", dv_ref))},
+               "fwd_err": _check(f"fwd {label}", o, o_ref, 1.6e-2, 1e-3),
+               "lse_err": _check(f"lse {label}", lse, lse_ref, 1e-4, 1e-5),
+               "dq_err": _check(f"dq {label}", dq, dq_ref, 1.6e-2, 1e-3),
+               "dkv_err": max(
+                   _check(f"dk {label}", dk, dk_ref, 1.6e-2, 1e-3),
+                   _check(f"dv {label}", dv, dv_ref, 1.6e-2, 1e-3))}
+        for name in errs:
+            errs[name] = max(errs[name], row[f"{name}_err"])
+        print("attention_case " + json.dumps(row), flush=True)
+        if label != "flagship":
+            continue
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=causal)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qs, ks, vs))
+        out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        g = do.transpose(1, 2)
+        sdpa_bwd = lambda: torch.autograd.grad(out_g, (qg, kg, vg), g,
+                                               retain_graph=True)
+        bwd_lib = timed_ms(sdpa_bwd, flush)
+        ref_args = args[:-1] + (causal, ATTN_D ** -0.5, T)
+        timing = {
+            "fwd": {"ms": timed_ms(lambda: fa.flash_attention_fwd(
+                        q, k, v, causal), flush),
+                    "plain_ms": timed_ms(
+                        lambda: fa.flash_attention_fwd_reference(
+                            q, k, v, causal), flush),
+                    "library_ms": timed_ms(sdpa, flush)},
+            "dq": {"ms": timed_ms(lambda: fa.flash_attention_dq(*args),
+                                  flush),
+                   "plain_ms": timed_ms(
+                       lambda: fa.flash_attention_dq_reference(*ref_args),
+                       flush),
+                   "library_ms": bwd_lib},
+            "dkv": {"ms": timed_ms(lambda: fa.flash_attention_dkv(*args),
+                                   flush),
+                    "plain_ms": timed_ms(
+                        lambda: fa.flash_attention_dkv_reference(*ref_args),
+                        flush),
+                    "library_ms": bwd_lib}}
+        for name, b in _attn_bounds(Bq, T, causal).items():
+            timing[name].update(b)
+            print(f"attention_time {name} " + json.dumps(timing[name]),
+                  flush=True)
+    return timing, errs
 
 
 def build_api(torch, lowering="pallas"):
@@ -173,18 +313,89 @@ def phase_main_path(torch, grouped_conv):
     return launches
 
 
-def phase_profile(torch):
-    """``--profile``: one round per lane lowering after a warm-up round
-    (round time), then one ``pallas`` round under ``torch.profiler``:
-    device time by kernel and the device's busy share of the round."""
+def build_lm_api(torch):
+    """FedAvgAPI of the LM flagship, from the argument namespace
+    ``bench.py --lm`` builds (``run_lm_bench``), on the card."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.specs import make_seq_classification_spec
+    from fedml_tpu_torch.data.shakespeare import (
+        SEQUENCE_LENGTH, VOCAB_SIZE, synthetic_shakespeare_clients)
+    from fedml_tpu_torch.models.transformer import TransformerLM
+
+    T, V = SEQUENCE_LENGTH, VOCAB_SIZE
+    dataset = synthetic_shakespeare_clients(LM_CLIENTS, T, V)
+    model = TransformerLM(vocab_size=V, n_layers=LM_LAYERS,
+                          n_heads=max(1, LM_D // 128), d_model=LM_D,
+                          max_len=T, dtype=torch.bfloat16)
+    spec = make_seq_classification_spec(model, name="lm")
+    run_args = types.SimpleNamespace(
+        client_num_in_total=LM_CLIENTS, client_num_per_round=LM_CLIENTS,
+        comm_round=10 ** 9, epochs=1, batch_size=LM_BATCH,
+        lr=3e-4, wd=0.0, client_optimizer="adam",
+        frequency_of_the_test=10 ** 9, seed=0,
+        client_chunk=LM_CHUNK, bucket_edges="geometric",
+        device_resident="0")
+    return FedAvgAPI(dataset, spec, run_args), model
+
+
+def phase_lm_main_path(torch, fa):
+    """Two rounds of the LM flagship through the flash-attention kernels;
+    then the trained model's logits on two test sequences, on the card
+    (kernels, fp32 compute) against the CPU (plain versions, fp32):
+    tolerance 1e-3 * max|logit| + 1e-4, fp32 sums in another order."""
+    from fedml_tpu_torch.models.transformer import TransformerLM
+
+    api, model = build_lm_api(torch)
+    if api.device.type != "cuda":
+        fail(f"FedAvgAPI chose {api.device}")
+    torch.cuda.reset_peak_memory_stats()
+    g0 = {k: v.clone() for k, v in api.global_state["params"].items()}
+    for name in fa.launches:
+        fa.launches[name] = 0
+    records, trips = [], 0
+    for _ in range(2):
+        r = api.train_one_round()
+        records.append(r)
+        trips += r["bucket/executed_steps"] // LM_CHUNK
+    launches = dict(fa.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    records[-1].update(api.evaluate_global())
+    for r in records:
+        print("lm_round " + json.dumps(r), flush=True)
+    expect = LM_LAYERS * trips
+    for name, n in launches.items():
+        if n != expect:
+            fail(f"flash attention {name} launched {n} times, expected "
+                 f"{LM_LAYERS} layers x {trips} chunk steps = {expect}")
+    for r in records:
+        if not (math.isfinite(r["Train/Loss"])
+                and math.isfinite(r.get("Test/Loss", 0.0))):
+            fail(f"non-finite LM loss in {r}")
+    params = api.global_state["params"]
+    moved = max(float((params[k] - g0[k]).abs().max()) for k in g0)
+    finite = all(bool(torch.isfinite(v).all()) for v in params.values())
+    if not finite or moved <= 0.0:
+        fail(f"LM global state finite={finite}, max param change {moved}")
+    fp32 = TransformerLM(vocab_size=model.vocab_size,
+                         n_layers=model.n_layers, n_heads=model.n_heads,
+                         d_model=model.d_model, max_len=model.max_len)
+    x = torch.as_tensor(api.test_data_global["x"][:2])
+    got = fp32.apply_params(params, x.cuda())
+    ref = fp32.apply_params({k: v.cpu() for k, v in params.items()}, x)
+    logit_err = _check("LM logits card vs CPU", got.cpu(), ref, 1e-3, 1e-4)
+    print(f"lm_main_path rounds={len(records)} chunk_steps={trips} "
+          f"launches={launches} max_param_change={moved} "
+          f"logit_err={logit_err} peak_memory_gb={peak_gb:.3f} "
+          f"round_time_s={[r['round_time_s'] for r in records]}",
+          flush=True)
+    return launches
+
+
+def _profile_round(torch, api, label):
+    """One round of ``api`` under ``torch.profiler``: device time by
+    kernel and the device's busy share of the round."""
     from torch.profiler import ProfilerActivity, profile
 
-    for lowering in ("blockdiag", "bgc", "auto", "pallas"):
-        api = build_api(torch, lowering)
-        api.train_one_round()
-        r = api.train_one_round()
-        print(f"profile lowering={lowering} lane_steps={api._last_trip} "
-              f"round_time_s={r['round_time_s']}", flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -197,12 +408,30 @@ def phase_profile(torch):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
     busy = sum(by_name.values())
-    print(f"profile round wall_us={wall_us:.0f} device_busy_us={busy:.0f} "
-          f"busy_share={busy / wall_us:.4f} kernels={len(by_name)}",
-          flush=True)
+    print(f"profile {label} round wall_us={wall_us:.0f} "
+          f"device_busy_us={busy:.0f} busy_share={busy / wall_us:.4f} "
+          f"kernels={len(by_name)}", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        print(f"profile kernel us={us:.0f} share={us / busy:.4f} "
+        print(f"profile {label} kernel us={us:.0f} share={us / busy:.4f} "
               f"{name[:110]}", flush=True)
+
+
+def phase_profile(torch):
+    """``--profile``: one ResNet round per lane lowering after a warm-up
+    round (round time), then one ``pallas`` ResNet round and one LM
+    round (after two warm-up rounds) under ``torch.profiler``."""
+    for lowering in ("blockdiag", "bgc", "auto", "pallas"):
+        api = build_api(torch, lowering)
+        api.train_one_round()
+        r = api.train_one_round()
+        print(f"profile lowering={lowering} lane_steps={api._last_trip} "
+              f"round_time_s={r['round_time_s']}", flush=True)
+    _profile_round(torch, api, "resnet")
+    api, _ = build_lm_api(torch)
+    for _ in range(2):
+        r = api.train_one_round()
+    print(f"profile lm round_time_s={r['round_time_s']}", flush=True)
+    _profile_round(torch, api, "lm")
 
 
 def main():
@@ -212,11 +441,16 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke test needs "
              "an NVIDIA GPU")
     sys.path.insert(0, HERE)
-    from fedml_tpu_torch.ops import grouped_conv
+    from fedml_tpu_torch.ops import _build, grouped_conv
+    from fedml_tpu_torch.ops import flash_attention as fa
 
+    # fp32 products in full fp32 for the fp32 reference checks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
-    report = grouped_conv.build()
-    print(report, file=sys.stderr)
+    reports = _build.build_all([grouped_conv.LIBRARY, fa.LIBRARY])
+    for name, report in reports.items():
+        print(f"== {name}\n{report}", file=sys.stderr)
     print(f"build_s {time.time() - t0:.1f}", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -224,7 +458,9 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
     rows = phase_kernels(torch, grouped_conv)
+    attn_times, attn_errs = phase_attention(torch, fa)
     launches = phase_main_path(torch, grouped_conv)
+    attn_launches = phase_lm_main_path(torch, fa)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch)
 
@@ -242,6 +478,18 @@ def main():
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": per_step("library_ms")}]
+    # times per launch at the LM flagship's attention launch
+    for name, line in (("fwd", 123), ("dq", 241), ("dkv", 255)):
+        t = attn_times[name]
+        kernels.append({
+            "name": f"flash_attention_{name}", "route": "cuda",
+            "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"fedml_tpu/ops/pallas_attention.py:{line}",
+            "launches": attn_launches[name],
+            "max_abs_err": attn_errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

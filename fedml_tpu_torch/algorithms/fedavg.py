@@ -1,12 +1,17 @@
-"""FedAvg round loop (counterpart of ``fedml_tpu/algorithms/fedavg.py``),
-restricted to the single-device, device-resident, packed-lane path
-(``wave_mode=3``).
+"""FedAvg round loop (counterpart of ``fedml_tpu/algorithms/fedavg.py``)
+on one device, along two of the reference's paths:
 
-Every client's padded shard is uploaded to the device once; a round is
-a seeded cohort draw, an index schedule on the host, and one
-``LaneRunner(packed=True)`` pass. The other round paths (waves, vmap
-lanes, flat, bucketed streaming, compression, resilience, meshes) and
-the ``RoundProgram`` object wait for ROADMAP A6, A8, A11, A12 and A15.
+- ``--bucket_edges`` (the LM flagship): the cohort's raw shards stream
+  through ``BucketedStreamRunner`` chunk by chunk, folded on the host in
+  fp64 (the synchronous fold; ``--async_agg`` waits for ROADMAP A10);
+- otherwise the device-resident packed-lane path (``wave_mode=3``):
+  every client's padded shard is uploaded once, and a round is a seeded
+  cohort draw, an index schedule and one ``LaneRunner(packed=True)``
+  pass.
+
+The other round paths (waves, vmap lanes, flat, compression,
+resilience, meshes) and the ``RoundProgram`` object wait for ROADMAP A6,
+A8, A11, A12 and A15.
 """
 
 from __future__ import annotations
@@ -18,9 +23,12 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.core.trainer import TrainSpec
-from fedml_tpu_torch.parallel.engine import (ClientUpdateConfig, LaneRunner,
+from fedml_tpu_torch.parallel.engine import (BucketedStreamRunner,
+                                             ClientUpdateConfig, LaneRunner,
                                              fold_seed)
-from fedml_tpu_torch.parallel.packing import (pack_eval, pack_schedule,
+from fedml_tpu_torch.parallel.packing import (_steps_for, pack_eval,
+                                              pack_schedule,
+                                              parse_bucket_edges,
                                               stack_clients)
 from fedml_tpu_torch.program.cohort import client_sampling
 from fedml_tpu_torch.utils.device import resolve_device
@@ -28,8 +36,7 @@ from fedml_tpu_torch.utils.device import resolve_device
 # reference args whose non-default values select a path not ported yet
 _UNPORTED = {
     "compressor": "ROADMAP A12 (compression)",
-    "bucket_edges": "ROADMAP A10 (bucketed streaming)",
-    "async_agg": "ROADMAP A10 (bucketed streaming)",
+    "async_agg": "ROADMAP A10 (the bucketed path's async aggregator)",
     "overselect": "ROADMAP A11 (SimResilience)",
     "straggler_p": "ROADMAP A11 (SimResilience)",
     "pace_steering": "ROADMAP A11 (pace steering)",
@@ -42,10 +49,12 @@ class FedAvgAPI:
     Args:
       dataset: the 8-tuple contract ``[train_num, test_num, train_global,
         test_global, train_local_num_dict, train_local_dict,
-        test_local_dict, class_num]`` with NHWC numpy shards.
-      spec: a :class:`TrainSpec` with a ``lane_loss_builder``.
+        test_local_dict, class_num]`` with numpy shards (NHWC images or
+        ``[n, T]`` token ids).
+      spec: a :class:`TrainSpec`: with a ``stacked_loss_fn`` for the
+        bucketed path, a ``lane_loss_builder`` for packed lanes.
       args: the reference's hyperparameter namespace (``lr``, ``wd``,
-        ``batch_size``, ``epochs``, ``client_chunk`` lanes,
+        ``batch_size``, ``epochs``, ``client_chunk``, ``bucket_edges``,
         ``wave_mode=3``, ``device_data_cap_gb``, ``device_dtype``, ...).
       device: ``None`` runs on the GPU and raises without one; pass
         ``"cpu"`` to run on the CPU.
@@ -71,6 +80,46 @@ class FedAvgAPI:
             if getattr(args, name, None) not in (None, 0, 0.0, False,
                                                  "none"):
                 raise NotImplementedError(f"--{name} waits for {item}")
+
+        self.cfg = ClientUpdateConfig(
+            optimizer=getattr(args, "client_optimizer", "sgd"),
+            lr=args.lr,
+            weight_decay=getattr(args, "wd", 0.0),
+            momentum=getattr(args, "momentum", 0.0),
+            grad_clip=getattr(args, "grad_clip", None))
+        self.server_state = server_state if server_state is not None else ()
+        self.seed = int(getattr(args, "seed", 0))
+        self._data_rng = np.random.default_rng(self.seed)
+        self.round_idx = 0
+        self.history = []
+        self.bucket_runner = None
+        if getattr(args, "bucket_edges", None) is not None:
+            self._init_bucketed(spec, args, payload_fn, server_fn)
+        else:
+            self._init_packed_lanes(spec, args, payload_fn, server_fn)
+        self.global_state = spec.init_fn(self.seed, self.device)
+
+    def _init_bucketed(self, spec, args, payload_fn, server_fn):
+        """The streaming runner, its edges sized from the POPULATION's
+        maximum step count so the bucket shapes hold across rounds."""
+        if spec.stacked_loss_fn is None:
+            raise NotImplementedError(
+                f"spec '{spec.name}' has no stacked_loss_fn: the bucketed "
+                "path is ported for the TransformerLM "
+                "(make_seq_classification_spec)")
+        pop_ns = [int(v) for v in self.train_data_local_num_dict.values()]
+        eff_bs = (args.batch_size if args.batch_size not in (-1, 0)
+                  else max(1, max(pop_ns)))
+        s_max = max(_steps_for(max(n, 1), eff_bs, args.epochs)
+                    for n in pop_ns)
+        edges = parse_bucket_edges(getattr(args, "bucket_edges", None),
+                                   s_max)
+        self.bucket_runner = BucketedStreamRunner(
+            spec, self.cfg, payload_fn, server_fn,
+            client_chunk=getattr(args, "client_chunk", 8) or 8,
+            batch_size=eff_bs, epochs=args.epochs, edges=edges)
+
+    def _init_packed_lanes(self, spec, args, payload_fn, server_fn):
         if int(getattr(args, "wave_mode", 1)) != 3:
             raise NotImplementedError(
                 "only wave_mode=3 (packed lanes) is ported; the other "
@@ -84,13 +133,6 @@ class FedAvgAPI:
             raise NotImplementedError(
                 "host-packed rounds wait for ROADMAP A6")
 
-        self.cfg = ClientUpdateConfig(
-            optimizer=getattr(args, "client_optimizer", "sgd"),
-            lr=args.lr,
-            weight_decay=getattr(args, "wd", 0.0),
-            momentum=getattr(args, "momentum", 0.0),
-            grad_clip=getattr(args, "grad_clip", None))
-
         stacked = self._stack_if_fits(args)
         if stacked is None:
             raise NotImplementedError(
@@ -101,13 +143,6 @@ class FedAvgAPI:
         self.packed_lane_runner = LaneRunner(
             spec, self.cfg, payload_fn, server_fn,
             n_lanes=getattr(args, "client_chunk", 8) or 8, packed=True)
-        self.server_state = server_state if server_state is not None else ()
-
-        self.seed = int(getattr(args, "seed", 0))
-        self.global_state = spec.init_fn(self.seed, self.device)
-        self._data_rng = np.random.default_rng(self.seed)
-        self.round_idx = 0
-        self.history = []
 
     def _stack_if_fits(self, args):
         """Stack every client's padded shard onto the device when it fits
@@ -154,13 +189,15 @@ class FedAvgAPI:
     def _traced_round_body(self, t0):
         client_indexes = self._sample_cohort(self.round_idx)
         logging.info("client_indexes = %s", client_indexes)
+        round_seed = int(fold_seed(self.seed, self.round_idx))
+        if self.bucket_runner is not None:
+            return self._bucketed_round(client_indexes, round_seed, t0)
         ns = [self._client_ns[i] for i in client_indexes]
         if sum(ns) == 0:
             raise ValueError(f"round {self.round_idx}: every sampled "
                              f"client has an empty shard")
         sched = pack_schedule(ns, self.args.batch_size, self.args.epochs,
                               rng=self._data_rng, native=False)
-        round_seed = int(fold_seed(self.seed, self.round_idx))
         (self.global_state, self.server_state,
          info) = self.packed_lane_runner.run_round(
             self.global_state, self.server_state, self.device_data,
@@ -174,9 +211,33 @@ class FedAvgAPI:
                 "Train/Acc": m["correct"] / max(m["count"], 1),
                 "round_time_s": dt}
 
+    def _bucketed_round(self, client_indexes, round_seed, t0):
+        datasets = [self.train_data_local_dict[i] for i in client_indexes]
+        if all(len(d["y"]) == 0 for d in datasets):
+            raise ValueError(f"round {self.round_idx}: every sampled "
+                             f"client has an empty shard")
+        (self.global_state, self.server_state,
+         info) = self.bucket_runner.run_round(
+            self.global_state, self.server_state, datasets, round_seed,
+            data_rng=self._data_rng)
+        self._sync()
+        dt = time.time() - t0
+        self._last_bucket_info = info
+        m, b = info["metrics"], info["bucket"]
+        return {"round": self.round_idx,
+                "Train/Loss": float(m["loss_sum"] / max(m["count"], 1)),
+                "Train/Acc": float(m["correct"] / max(m["count"], 1)),
+                "round_time_s": dt,
+                "bucket/clients": b["clients"],
+                "bucket/shapes": b["buckets_used"],
+                "bucket/chunks": b["chunks"],
+                "bucket/executed_steps": b["executed_steps"],
+                "bucket/true_steps": b["true_steps"],
+                "bucket/waste_frac": b["waste_frac"]}
+
     def evaluate_global(self):
         """Test loss and accuracy of the global model on the global test
-        set, in batches of ``batch_size``."""
+        set (images or ``[n, T]`` tokens), in batches of ``batch_size``."""
         packed = pack_eval(self.test_data_global, self.args.batch_size)
         totals = {}
         for s in range(packed["mask"].shape[0]):

@@ -1,5 +1,5 @@
-"""TrainSpec builders (counterpart of ``fedml_tpu/algorithms/specs.py``,
-``make_classification_spec`` only).
+"""TrainSpec builders (counterpart of ``fedml_tpu/algorithms/specs.py``:
+``make_classification_spec`` and ``make_seq_classification_spec``).
 
 Softmax cross-entropy over logits; metrics are sums (``loss_sum``,
 ``correct``, ``count``) that the host divides.
@@ -77,4 +77,54 @@ def make_classification_spec(model, example_x=None, num_classes=None,
                                                    lowering=lane_lowering))
 
 
-__all__ = ["make_classification_spec"]
+def _seq_loss_and_metrics(logits, y, mask, ignore_index, dims):
+    """Per-token cross-entropy over ``logits [..., T, V]``, token mask =
+    sample mask x ``(y != ignore_index)``; sums over ``dims``."""
+    tok_mask = (y != ignore_index).float() * mask[..., None]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, y.long()[..., None])[..., 0]
+    count = tok_mask.sum(dim=dims)
+    loss_sum = (-ll * tok_mask).sum(dim=dims)
+    correct = ((logits.argmax(dim=-1) == y).float() * tok_mask).sum(dim=dims)
+    return (loss_sum / torch.clamp(count, min=1.0),
+            {"loss_sum": loss_sum, "correct": correct, "count": count})
+
+
+def make_seq_classification_spec(model, ignore_index=0, name="nwp"):
+    """Per-token cross-entropy over ``[B, T, V]`` logits with padding-id
+    masking (the reference NWP trainer's ``ignore_index=0``), for a
+    :class:`~fedml_tpu_torch.models.transformer.TransformerLM`.
+
+    ``init_fn(seed, device)`` draws the reference initialisers from a
+    generator seeded with ``seed``. ``stacked_loss_fn`` trains K clients
+    at once (the streamed client update). The dense model sows no
+    auxiliary loss; the reference's ``aux_loss_weight`` comes with the
+    MoE model (ROADMAP A10)."""
+
+    def init_fn(seed, device):
+        model.reset_parameters_(torch.Generator().manual_seed(int(seed)))
+        return {"params": {k: v.detach().clone().to(device)
+                           for k, v in model.named_parameters()}}
+
+    def loss_fn(state, batch, train):
+        logits = model.apply_params(state["params"], batch["x"])
+        loss, metrics = _seq_loss_and_metrics(
+            logits, batch["y"], batch["mask"], ignore_index, (0, 1))
+        return loss, (state, metrics)
+
+    def stacked_loss_fn(state, batch, train):
+        logits = model.apply_params(state["params"], batch["x"],
+                                    stacked=True)
+        loss, metrics = _seq_loss_and_metrics(
+            logits, batch["y"], batch["mask"], ignore_index, (1, 2))
+        return loss.sum(), (state, metrics)
+
+    def metrics_fn(state, batch):
+        with torch.no_grad():
+            return loss_fn(state, batch, False)[1][1]
+
+    return TrainSpec(init_fn=init_fn, loss_fn=loss_fn, metrics_fn=metrics_fn,
+                     name=name, stacked_loss_fn=stacked_loss_fn)
+
+
+__all__ = ["make_classification_spec", "make_seq_classification_spec"]

@@ -3,8 +3,8 @@
 ``TrainSpec`` bundles the model-specific functions an FL engine calls.
 The port's state is ``{"params": {name: tensor}, "batch_stats": {name:
 tensor}}`` with the torch ``state_dict`` names of the model
-(``models/resnet.py``); lane-stacked state carries a leading lane axis on
-every leaf.
+(``models/resnet.py``; ``{"params": ...}`` alone for the TransformerLM);
+lane- or client-stacked state carries a leading axis on every leaf.
 """
 
 from __future__ import annotations
@@ -29,6 +29,13 @@ class TrainSpec:
         ``lane_loss_fn(stacked_state, batch, rng, train) -> (loss_sum,
         (new_stacked_state, per_lane_metrics))`` over all lanes at once
         with the lane axis folded into channels (``models/lane_packed.py``).
+    stacked_loss_fn(stacked_state, batch, train) -> (loss_sum,
+        (new_stacked_state, per_client_metrics))
+        K clients at once over a client axis written out: every leaf of
+        the state and of ``batch`` (``x``/``y`` ``[K, B, ...]``, ``mask``
+        ``[K, B]``) leads with K; ``loss_sum`` is the sum of the K
+        per-client losses, so one backward gives each client its own
+        gradient (the streamed client update, ``parallel/engine.py``).
     """
     init_fn: Callable[..., Any]
     loss_fn: Callable[..., Any]
@@ -36,6 +43,7 @@ class TrainSpec:
     name: str = "model"
     augment_fn: Optional[Any] = None
     lane_loss_builder: Optional[Callable[..., Any]] = None
+    stacked_loss_fn: Optional[Callable[..., Any]] = None
 
 
 __all__ = ["TrainSpec"]

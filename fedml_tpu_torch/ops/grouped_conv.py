@@ -13,79 +13,44 @@ stride 1, is
 computed by ``csrc/grouped_conv_dw.cu`` on a CUDA tensor and by
 :func:`grouped_conv_dw_reference` (plain PyTorch) on a CPU tensor. The
 kernel is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at its
-first use and loaded with ``ctypes``; nothing is compiled at import.
+first use and loaded with ``ctypes`` (``ops/_build.py``); nothing is
+compiled at import.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 import torch.nn.functional as F
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SOURCE = os.path.join(_REPO, "fedml_tpu_torch", "csrc", "grouped_conv_dw.cu")
-_BUILD_DIR = os.path.join(_REPO, "build")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libgrouped_conv_dw.so")
+from fedml_tpu_torch.ops._build import CudaLibrary
+
 _MAX_CH = 64      # kMaxCh in the CUDA source
 
 #: launches of the CUDA kernel made by :func:`grouped_conv_dw`; the
 #: plain version on CPU tensors does not count
 launches = 0
 
-_lib = None
-_lib_lock = threading.Lock()
+
+def _bind(lib):
+    fn = lib.fedml_grouped_conv_dw
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
+                   + [ctypes.c_void_p])
+    plan = lib.fedml_grouped_conv_dw_nsplit
+    plan.restype = ctypes.c_int
+    plan.argtypes = [ctypes.c_int] * 13
 
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the grouped-conv dW kernel is "
-                       "built from source with the CUDA toolkit")
+LIBRARY = CudaLibrary("grouped_conv_dw", _bind)
 
 
 def build():
     """Compile ``csrc/grouped_conv_dw.cu`` into ``build/`` (when the
     library is missing or older than its source) and load it. Returns
     the compiler's ``-Xptxas -v`` report when it compiled, else ``""``."""
-    global _lib
-    with _lib_lock:
-        report = ""
-        stale = (not os.path.exists(_LIB_PATH)
-                 or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SOURCE))
-        if stale:
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, _SOURCE]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, _LIB_PATH)
-            report = proc.stdout + proc.stderr
-            _lib = None
-        if _lib is None:
-            lib = ctypes.CDLL(_LIB_PATH)
-            fn = lib.fedml_grouped_conv_dw
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 14
-                           + [ctypes.c_void_p])
-            plan = lib.fedml_grouped_conv_dw_nsplit
-            plan.restype = ctypes.c_int
-            plan.argtypes = [ctypes.c_int] * 13
-            _lib = lib
-        return report
+    return LIBRARY.build()
 
 
 def _check(x, dy, L, kh, kw, padding):
@@ -145,11 +110,10 @@ def grouped_conv_dw(x, dy, L, kh, kw, padding):
     if Ci > _MAX_CH or Co > _MAX_CH:
         raise ValueError(f"Ci={Ci}, Co={Co}: the kernel takes at most "
                          f"{_MAX_CH} channels per lane")
-    if _lib is None:
-        build()
+    lib = LIBRARY.lib
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     dims = (B, L, Ci, Co, H, W, Ho, Wo, kh, kw, padding[0], padding[1], n_sm)
-    nsplit = _lib.fedml_grouped_conv_dw_nsplit(*dims)
+    nsplit = lib.fedml_grouped_conv_dw_nsplit(*dims)
     if nsplit < 1:
         raise ValueError(f"grouped_conv_dw does not take x {tuple(x.shape)}, "
                          f"dy {tuple(dy.shape)}, kernel {kh}x{kw}")
@@ -158,7 +122,7 @@ def grouped_conv_dw(x, dy, L, kh, kw, padding):
     work = torch.empty((L * kh * kw, nsplit, Ci * Co), device=x.device,
                        dtype=torch.float32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib.fedml_grouped_conv_dw(
+    err = lib.fedml_grouped_conv_dw(
         x.data_ptr(), dy.data_ptr(), out.data_ptr(), work.data_ptr(),
         int(x.dtype == torch.bfloat16), *dims, stream)
     if err != 0:

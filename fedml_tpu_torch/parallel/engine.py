@@ -1,5 +1,6 @@
 """The federated round engine (counterpart of
-``fedml_tpu/parallel/engine.py``; the packed-lane path only).
+``fedml_tpu/parallel/engine.py``; the packed-lane path and the bucketed
+streaming path).
 
 ``LaneRunner(packed=True)`` runs a round's cohort as ``L`` packed lanes:
 :func:`~fedml_tpu_torch.parallel.packing.pack_lanes` lays the clients'
@@ -14,29 +15,41 @@ caller's global state is never written.
 
 Random draws (augmentation) come from a ``torch.Generator`` seeded per
 (client, local step) by :func:`fold_step_seeds`, the counterpart of the
-reference's ``fold_step_keys``. Other runners (vmap lanes, waves, flat,
-sharded) wait for ROADMAP A6/A15.
+reference's ``fold_step_keys``.
+
+``BucketedStreamRunner`` streams a cohort of any size through chunks of
+``client_chunk`` clients sorted by step count; a chunk's clients train
+at once over a client axis written out (the spec's
+``stacked_loss_fn``), where the reference vmaps them. Other runners
+(vmap lanes, waves, flat, sharded) wait for ROADMAP A6/A15.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
 
 from fedml_tpu_torch.core.trainer import TrainSpec
-from fedml_tpu_torch.parallel.packing import pack_lanes
+from fedml_tpu_torch.parallel.packing import (_steps_for, bucket_edge_for,
+                                              gather_batches, pack_lanes,
+                                              pack_schedule, zero_pad_leading)
 
 _LANE_KEYS = ("idx", "mask", "slot", "flush", "flush_n", "flush_steps")
+# chunks of the bucketed path in flight before the host first reads one
+# (the reference's synchronous window; only its async aggregator, not
+# ported, changes it)
+_ASYNC_WINDOW = 4
 
 
 @dataclasses.dataclass(frozen=True)
 class ClientUpdateConfig:
     """Local-training hyperparameters (``--client_optimizer --lr --wd``):
-    plain SGD, weight decay coupled into the gradient before momentum,
-    fresh optimizer state every round."""
+    plain SGD or AMSGrad (``"adam"``), weight decay coupled into the
+    gradient first, fresh optimizer state every round."""
     optimizer: str = "sgd"
     lr: float = 0.03
     weight_decay: float = 0.0
@@ -63,7 +76,8 @@ class SGD:
         self.lr, self.wd, self.momentum = (cfg.lr, cfg.weight_decay,
                                            cfg.momentum)
 
-    def init(self, params):
+    def init(self, params, count_shape=()):
+        """Fresh state; ``count_shape`` is unused (SGD keeps no count)."""
         if not self.momentum:
             return {}
         return {k: torch.zeros_like(v) for k, v in params.items()}
@@ -82,15 +96,61 @@ class SGD:
         return new_params, new_state
 
 
-def make_optimizer(cfg: ClientUpdateConfig) -> SGD:
+class AMSGrad:
+    """``optax.chain(add_decayed_weights(wd), amsgrad(lr))`` over dicts of
+    tensors (b1 0.9, b2 0.999, eps 1e-8, eps_root 0): ``g' = g + wd*p``,
+    ``mu = (1-b1) g' + b1 mu``, ``nu = (1-b2) g'^2 + b2 nu``, bias
+    corrections ``1 - b^count``, ``nu_max = max(nu_max, nu_hat)`` of the
+    CORRECTED second moment, ``p <- p - lr * mu_hat / (sqrt(nu_max) +
+    eps)``. (``torch.optim.Adam(amsgrad=True)`` takes the maximum of the
+    raw moment and corrects afterwards: a different optimizer from step 2
+    on.) The count is per client: ``init(params, count_shape=(K,))`` for
+    K stacked clients, whose bias corrections broadcast over each leaf's
+    trailing axes."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, cfg: ClientUpdateConfig):
+        self.lr, self.wd = cfg.lr, cfg.weight_decay
+
+    def init(self, params, count_shape=()):
+        dev = next(iter(params.values())).device
+        zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
+        return {"count": torch.zeros(count_shape, dtype=torch.int32,
+                                     device=dev),
+                "mu": zeros(), "nu": zeros(), "nu_max": zeros()}
+
+    def update(self, grads, opt_state, params):
+        """Returns ``(new_params, new_opt_state)``; inputs untouched."""
+        b1, b2 = self.b1, self.b2
+        count = opt_state["count"] + 1
+        bc1 = 1 - b1 ** count.float()
+        bc2 = 1 - b2 ** count.float()
+        new_params, mu, nu, nu_max = {}, {}, {}, {}
+        for k, p in params.items():
+            g = grads[k]
+            if self.wd:
+                g = g + self.wd * p
+            lead = bc1.shape + (1,) * (p.dim() - bc1.dim())
+            mu[k] = (1 - b1) * g + b1 * opt_state["mu"][k]
+            nu[k] = (1 - b2) * (g * g) + b2 * opt_state["nu"][k]
+            nu_max[k] = torch.maximum(opt_state["nu_max"][k],
+                                      nu[k] / bc2.reshape(lead))
+            u = (mu[k] / bc1.reshape(lead)) / (torch.sqrt(nu_max[k])
+                                               + self.eps)
+            new_params[k] = p + (-self.lr) * u
+        return new_params, {"count": count, "mu": mu, "nu": nu,
+                            "nu_max": nu_max}
+
+
+def make_optimizer(cfg: ClientUpdateConfig):
     if cfg.grad_clip:
         raise NotImplementedError(
             "grad_clip waits for ROADMAP A14 (fednas)")
-    if cfg.optimizer != "sgd":
-        raise NotImplementedError(
-            f"client optimizer {cfg.optimizer!r} waits for ROADMAP A5 "
-            "(only sgd is ported)")
-    return SGD(cfg)
+    if cfg.optimizer == "sgd":
+        return SGD(cfg)
+    if cfg.optimizer == "adam":
+        return AMSGrad(cfg)
+    raise ValueError(f"unknown optimizer {cfg.optimizer}")
 
 
 _U64 = np.uint64
@@ -120,6 +180,13 @@ def fold_step_seeds(client_seeds, slot, local_step):
     -- one stream per (client, local step), whatever lane runs it."""
     client_seeds = np.asarray(client_seeds, np.int64)
     return fold_seed(client_seeds[np.asarray(slot)], local_step)
+
+
+def _select(pred, new, old):
+    """Per-client ``torch.where`` over same-structured trees whose leaves
+    lead with the client axis of ``pred [K]``."""
+    return _tree_map(lambda a, b: torch.where(
+        pred.reshape(pred.shape + (1,) * (a.dim() - 1)), a, b), new, old)
 
 
 def _default_payload(local_state, global_state, aux):
@@ -163,16 +230,12 @@ def make_packed_lane_update(spec: TrainSpec, cfg: ClientUpdateConfig,
         lane_loss_fn = spec.lane_loss_builder(L)
         dev = data_x.device
 
-        def select(pred, new, old):
-            return _tree_map(lambda a, b: torch.where(
-                pred.reshape((L,) + (1,) * (a.dim() - 1)), a, b), new, old)
-
         stack = lambda t: _tree_map(
             lambda a: a.unsqueeze(0).expand((L,) + a.shape).clone(), t)
         g_params = stack(global_state["params"])
         g_rest = stack({k: v for k, v in global_state.items()
                         if k != "params"})
-        g_opt = optimizer.init(g_params)
+        g_opt = optimizer.init(g_params, (L,))
         params, rest, opt = g_params, g_rest, g_opt
         pay = w = msum = None
         gens = ([torch.Generator(device=dev) for _ in range(L)]
@@ -203,7 +266,7 @@ def make_packed_lane_update(spec: TrainSpec, cfg: ClientUpdateConfig,
                 new_rest = {k: _tree_map(torch.Tensor.detach, new_state[k])
                             for k in rest}
                 valid = mask_b.sum(dim=1) > 0
-                params, rest, opt = select(valid, (new_params, new_rest,
+                params, rest, opt = _select(valid, (new_params, new_rest,
                                                    new_opt),
                                            (params, rest, opt))
                 msum = (metrics if msum is None
@@ -222,11 +285,226 @@ def make_packed_lane_update(spec: TrainSpec, cfg: ClientUpdateConfig,
                 pay = (contrib if pay is None
                        else _tree_map(torch.add, pay, contrib))
                 w = scale if w is None else w + scale
-                params, rest, opt = select(f > 0, (g_params, g_rest, g_opt),
+                params, rest, opt = _select(f > 0, (g_params, g_rest, g_opt),
                                            (params, rest, opt))
         return pay, w, msum
 
     return packed_update
+
+
+def make_streamed_client_update(spec: TrainSpec, cfg: ClientUpdateConfig):
+    """Local training of K clients at once over pre-gathered batches with
+    a dynamic trip count: grad of the spec's ``stacked_loss_fn``,
+    optimizer step, per-client valid-select (a fully masked step leaves a
+    client's params, state and optimizer state, its count included,
+    untouched) and running metric sums.
+
+    Returns ``fn(global_state, batches, n, trip) -> (local_states, aux,
+    metrics_sum)``, every leaf leading with the client axis: ``batches``
+    is ``{"x": [K, S, B, ...], "y": [K, S, B, ...], "mask": [K, S, B]}``
+    padded to a bucket edge S, exactly ``trip`` steps run, and ``aux`` is
+    ``{"n": n, "steps": [K]}``."""
+    optimizer = make_optimizer(cfg)
+    if spec.stacked_loss_fn is None:
+        raise ValueError(
+            f"spec '{spec.name}' has no stacked_loss_fn: the streamed "
+            "client update trains a chunk's clients at once over a client "
+            "axis (algorithms/specs.py make_seq_classification_spec)")
+    if spec.augment_fn is not None:
+        raise NotImplementedError(
+            "augmentation on the streamed client update waits for ROADMAP "
+            "A10 (only the LM flagship, which has none, is ported)")
+
+    def client_update(global_state, batches, n, trip):
+        if int(trip) < 1:
+            raise ValueError(f"trip={trip}: a chunk runs at least one step")
+        K = batches["mask"].shape[0]
+        stack = lambda t: _tree_map(
+            lambda a: a.unsqueeze(0).expand((K,) + a.shape).clone(), t)
+        params = stack(global_state["params"])
+        rest = stack({k: v for k, v in global_state.items()
+                      if k != "params"})
+        opt = optimizer.init(params, (K,))
+        msum = None
+        for i in range(int(trip)):
+            batch = {k: batches[k][:, i] for k in ("x", "y", "mask")}
+            p_req = {k: v.detach().requires_grad_(True)
+                     for k, v in params.items()}
+            state = dict(rest)
+            state["params"] = p_req
+            loss, (new_state, metrics) = spec.stacked_loss_fn(state, batch,
+                                                              True)
+            grads = dict(zip(p_req, torch.autograd.grad(
+                loss, list(p_req.values()))))
+            with torch.no_grad():
+                new_params, new_opt = optimizer.update(grads, opt, params)
+                new_rest = {k: _tree_map(torch.Tensor.detach, new_state[k])
+                            for k in rest}
+                valid = batch["mask"].sum(dim=1) > 0
+                params, rest, opt = _select(valid, (new_params, new_rest,
+                                                    new_opt),
+                                            (params, rest, opt))
+                metrics = _tree_map(torch.Tensor.detach, metrics)
+                msum = (metrics if msum is None
+                        else _tree_map(torch.add, msum, metrics))
+        local_state = dict(rest)
+        local_state["params"] = params
+        steps_done = (batches["mask"] > 0).any(dim=-1).sum(dim=1)
+        return local_state, {"n": n, "steps": steps_done}, msum
+
+    return client_update
+
+
+class BucketedStreamRunner:
+    """Bucketed ragged streaming: one device, a cohort of any size.
+
+    The cohort is sorted ASCENDING by local step count (stable argsort)
+    and cut into chunks of ``client_chunk``. Each chunk's schedule pads to
+    the smallest bucket edge covering it, while its trip is the chunk's
+    true maximum, so steps past it never run. A ragged final chunk is
+    padded with inert clients (``n`` = 0, fully masked). Each chunk
+    trains its clients at once and returns only its weighted payload sum
+    (fp32, on the device); the partials fold on the host in fp64 in chunk
+    order, and ``server_fn`` applies the average. Up to
+    ``_ASYNC_WINDOW`` chunks stay in flight before their first host
+    read.
+
+    The synchronous fold only: ``aggregator=`` (buffered async, ROADMAP
+    A10) and ``compressor=`` (streaming error feedback, ROADMAP A12)
+    raise."""
+
+    def __init__(self, spec: TrainSpec, cfg: ClientUpdateConfig,
+                 payload_fn=None, server_fn=None, client_chunk=256,
+                 batch_size=32, epochs=1, edges=(8,), compressor=None):
+        if compressor is not None:
+            raise NotImplementedError(
+                "streaming-EF (compressor=) on the bucketed path waits for "
+                "ROADMAP A12 (compression)")
+        self.payload_fn = payload_fn or _default_payload
+        self.server_fn = server_fn or _default_server
+        self.client_chunk = max(1, int(client_chunk))
+        self.batch_size = int(batch_size)
+        self.epochs = int(epochs)
+        self.edges = sorted(int(e) for e in edges)
+        self._update = make_streamed_client_update(spec, cfg)
+        self._dtypes = None
+
+    def _chunk(self, global_state, batches, ns, trip):
+        local_states, aux, metrics = self._update(global_state, batches, ns,
+                                                  trip)
+        with torch.no_grad():
+            payloads = self.payload_fn(local_states, global_state, aux)
+            w = aux["n"].float()
+            pay_sum = _tree_map(lambda x: torch.tensordot(
+                w, x.float(), dims=([0], [0])), payloads)
+            return (pay_sum, w.sum(),
+                    _tree_map(lambda m: m.sum(dim=0), metrics))
+
+    def run_round(self, global_state, server_state, datasets, round_seed,
+                  data_rng=None, aggregator=None):
+        """One round over ``datasets`` (the cohort's raw client shards,
+        ``{"x", "y"}`` each), streamed chunk by chunk. Returns
+        ``(new_global, new_server_state, info)`` with ``info["bucket"]``
+        (the reference's waste accounting), ``info["aux"]`` and the
+        fp64-summed ``info["metrics"]``."""
+        if aggregator is not None:
+            raise NotImplementedError(
+                "the buffered async aggregator on the bucketed path waits "
+                "for ROADMAP A10 (async aggregation)")
+        data_rng = data_rng or np.random.default_rng(0)
+        C = len(datasets)
+        if C == 0:
+            raise ValueError("bucketed round over an empty cohort")
+        ns = [len(d["y"]) for d in datasets]
+        if sum(ns) == 0:
+            raise ValueError("bucketed round: every client shard is empty")
+        if self.batch_size in (-1, 0):
+            self.batch_size = max(1, max(ns))
+        bs = self.batch_size
+        steps_pc = np.asarray(
+            [_steps_for(max(n, 1), bs, self.epochs) for n in ns], np.int64)
+        bucket_edge_for(steps_pc.max(), self.edges)  # top-edge guard
+        if self._dtypes is None:
+            self._dtypes = payload_dtype_template(self.payload_fn,
+                                                  global_state)
+        dev = next(iter(global_state["params"].values())).device
+        num, w_total, metrics_acc = None, 0.0, None
+        inflight = deque()
+
+        def fold_oldest():
+            # the first host read of a chunk's outputs: the sync point
+            nonlocal num, w_total, metrics_acc
+            pay, w, msum = inflight.popleft()
+            contrib = _tree_map(
+                lambda x: x.cpu().numpy().astype(np.float64), pay)
+            num = contrib if num is None else _tree_map(np.add, num, contrib)
+            w_total += float(w)
+            m_host = _tree_map(lambda m: np.float64(m.item()), msum)
+            metrics_acc = (m_host if metrics_acc is None
+                           else _tree_map(np.add, metrics_acc, m_host))
+
+        order = np.argsort(steps_pc, kind="stable")
+        b_stats = {e: {"clients": 0, "chunks": 0, "executed_steps": 0,
+                       "true_steps": 0} for e in self.edges}
+        chunks = exec_steps = 0
+        for c0 in range(0, C, self.client_chunk):
+            chunk = [int(i) for i in order[c0:c0 + self.client_chunk]]
+            k = len(chunk)
+            trip = int(steps_pc[chunk].max())
+            edge = int(bucket_edge_for(trip, self.edges))
+            sched = pack_schedule([ns[i] for i in chunk], bs, self.epochs,
+                                  rng=data_rng, s_max=edge)
+            xb, yb = gather_batches(datasets, sched, chunk)
+            maskb, n_arr = sched["mask"], sched["n"]
+            xb, yb, maskb, n_arr = zero_pad_leading(
+                (xb, yb, maskb, n_arr), self.client_chunk - k)
+            batches = {"x": torch.as_tensor(xb, device=dev),
+                       "y": torch.as_tensor(yb, device=dev),
+                       "mask": torch.as_tensor(maskb, device=dev)}
+            inflight.append(self._chunk(global_state, batches,
+                                        torch.as_tensor(n_arr, device=dev),
+                                        trip))
+            chunks += 1
+            st = b_stats[edge]
+            st["clients"] += k
+            st["chunks"] += 1
+            # the padded clients of a ragged final chunk run too
+            st["executed_steps"] += trip * self.client_chunk
+            st["true_steps"] += int(steps_pc[chunk].sum())
+            exec_steps += trip * self.client_chunk
+            while len(inflight) > _ASYNC_WINDOW:
+                fold_oldest()
+        while inflight:
+            fold_oldest()
+        if num is None or w_total <= 0:
+            raise ValueError("bucketed round folded zero weight (every "
+                             "cohort shard empty?)")
+        avg = _tree_map(lambda x, d: torch.as_tensor(
+            (x / w_total).astype(np.float32), device=dev).to(d), num,
+            self._dtypes)
+        new_global, new_server = self.server_fn(
+            global_state, avg, server_state, int(fold_seed(round_seed, 2)))
+        per_bucket = [{"edge": int(e), "skipped": int(b_stats[e]["chunks"]
+                                                       == 0), **b_stats[e]}
+                      for e in self.edges]
+        true_steps = int(steps_pc.sum())
+        info = {
+            "aux": {"n": np.asarray(ns, np.float32),
+                    "steps": steps_pc.astype(np.int64)},
+            "metrics": metrics_acc,
+            "bucket": {
+                "edges": list(self.edges),
+                "buckets_used": sum(1 for b in per_bucket
+                                    if not b["skipped"]),
+                "clients": C, "chunks": chunks,
+                "executed_steps": int(exec_steps),
+                "true_steps": true_steps,
+                "waste_frac": round(1.0 - true_steps / max(exec_steps, 1),
+                                    4),
+                "per_bucket": per_bucket,
+            },
+        }
+        return new_global, new_server, info
 
 
 class LaneRunner:
@@ -288,6 +566,7 @@ class LaneRunner:
                                         "trip": trip}
 
 
-__all__ = ["ClientUpdateConfig", "SGD", "make_optimizer", "fold_seed",
-           "fold_step_seeds", "make_packed_lane_update", "LaneRunner",
-           "payload_dtype_template"]
+__all__ = ["ClientUpdateConfig", "SGD", "AMSGrad", "make_optimizer",
+           "fold_seed", "fold_step_seeds", "make_packed_lane_update",
+           "LaneRunner", "make_streamed_client_update",
+           "BucketedStreamRunner", "payload_dtype_template"]

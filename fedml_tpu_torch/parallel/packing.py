@@ -4,8 +4,11 @@
 Ragged client shards become device-resident padded stacks once
 (:func:`stack_clients`); each round then needs only an index schedule
 (:func:`pack_schedule`) re-laid into LPT-balanced lanes
-(:func:`pack_lanes`). The reference's C++ backend is not ported yet
-(ROADMAP A2).
+(:func:`pack_lanes`). The bucketed streaming path instead pads each
+chunk's schedule to a bucket edge (:func:`parse_bucket_edges`,
+:func:`bucket_edge_for`, ``pack_schedule(s_max=)``) and stages the
+chunk's batches from the raw shards (:func:`gather_batches`). The
+reference's C++ backend is not ported yet (ROADMAP A2).
 """
 
 from __future__ import annotations
@@ -51,10 +54,12 @@ def stack_clients(client_datasets, n_max=None):
 
 
 def pack_schedule(ns, batch_size, epochs, rng=None, drop_last=False,
-                  step_bucket=8, native="auto"):
+                  step_bucket=8, native="auto", s_max=None):
     """Per-client epoch schedule as indices: ``{"idx": [C, S, B] int32,
     "mask": [C, S, B] float32, "n": [C] float32}``. Draws exactly one
-    seed from ``rng`` and shuffles from a generator seeded with it."""
+    seed from ``rng`` and shuffles from a generator seeded with it.
+    ``s_max`` forces the step axis to a caller-chosen length (a bucket
+    edge); it must cover the cohort's true maximum."""
     _numpy_only(native)
     rng = rng or np.random.default_rng(0)
     ns = [int(v) for v in ns]
@@ -63,6 +68,11 @@ def pack_schedule(ns, batch_size, epochs, rng=None, drop_last=False,
         batch_size = max(1, max(ns))
     true_max = max(_steps_for(n, batch_size, epochs, drop_last) for n in ns)
     S = int(math.ceil(true_max / step_bucket) * step_bucket)
+    if s_max is not None:
+        if int(s_max) < true_max:
+            raise ValueError(f"s_max={s_max} below the cohort's true max "
+                             f"step count {true_max}")
+        S = int(s_max)
     B = batch_size
     seed = int(rng.integers(0, 2 ** 63 - 1))
     rng = np.random.default_rng(seed)
@@ -133,6 +143,69 @@ def pack_lanes(sched, n_lanes, step_bucket=8, native="auto"):
             "flush_steps": flush_steps, "trip": int(loads.max())}
 
 
+def parse_bucket_edges(spec, s_max):
+    """A ``--bucket_edges`` spec as sorted step-count edges: ``None`` /
+    ``"geometric"`` / ``"geo"`` / ``"auto"`` for ``[8, 16, 32, ...]``
+    covering ``s_max``, or an explicit comma list, extended by doubling
+    until it covers ``s_max``."""
+    s_max = max(1, int(s_max))
+    if spec is None or str(spec).strip().lower() in ("geometric", "geo",
+                                                     "auto", ""):
+        edges = [8]
+        while edges[-1] < s_max:
+            edges.append(edges[-1] * 2)
+        return edges
+    edges = sorted({int(v) for v in str(spec).split(",") if str(v).strip()})
+    if not edges or any(e <= 0 for e in edges):
+        raise ValueError(f"invalid bucket edge spec {spec!r}")
+    while edges[-1] < s_max:
+        edges.append(edges[-1] * 2)
+    return edges
+
+
+def bucket_edge_for(steps, edges):
+    """The smallest edge covering ``steps`` (vector or scalar); a count
+    exactly on an edge lands in that edge's bucket. Raises when a count
+    exceeds the top edge."""
+    steps = np.asarray(steps, np.int64)
+    edge_arr = np.asarray(sorted(int(e) for e in edges), np.int64)
+    if steps.size and int(steps.max()) > edge_arr[-1]:
+        raise ValueError(
+            f"client with {int(steps.max())} steps exceeds the top bucket "
+            f"edge {edge_arr[-1]} (size edges from the population max)")
+    return edge_arr[np.searchsorted(edge_arr, steps, side="left")]
+
+
+def gather_batches(datasets, sched, members):
+    """A schedule's batches from raw client shards:
+    ``xb[c, s, b] = datasets[members[c]]["x"][sched["idx"][c, s, b]]``
+    (masked slots gather row 0 of their client)."""
+    idx = np.asarray(sched["idx"])
+    C, S, B = idx.shape
+    x0 = np.asarray(datasets[members[0]]["x"])
+    y0 = np.asarray(datasets[members[0]]["y"])
+    xb = np.zeros((C, S, B) + x0.shape[1:], x0.dtype)
+    yb = np.zeros((C, S, B) + y0.shape[1:], y0.dtype)
+    for c, m in enumerate(members):
+        d = datasets[m]
+        x, y = np.asarray(d["x"]), np.asarray(d["y"])
+        if len(y) == 0:
+            continue
+        xb[c] = x[idx[c]]
+        yb[c] = y[idx[c]]
+    return xb, yb
+
+
+def zero_pad_leading(arrays, pad):
+    """Zero-pad every array's leading (client) axis by ``pad`` rows: the
+    inert clients (``n`` = 0, fully masked schedules) that fill a ragged
+    chunk."""
+    if not pad:
+        return arrays
+    return tuple(np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+                 for a in arrays)
+
+
 def pack_eval(data, batch_size):
     """Pack a flat eval set into ``[S, B]`` masked batches."""
     x, y = np.asarray(data["x"]), np.asarray(data["y"])
@@ -151,4 +224,6 @@ def pack_eval(data, batch_size):
     return {"x": xs, "y": ys, "mask": mask}
 
 
-__all__ = ["stack_clients", "pack_schedule", "pack_lanes", "pack_eval"]
+__all__ = ["stack_clients", "pack_schedule", "pack_lanes", "pack_eval",
+           "parse_bucket_edges", "bucket_edge_for", "gather_batches",
+           "zero_pad_leading"]

@@ -1,5 +1,6 @@
-"""The port's weight carrier: the JAX package's CifarResNet variables
-<-> the port's state (counterpart of ``fedml_tpu/utils/torch_import.py``).
+"""The port's weight carrier: the JAX package's CifarResNet and
+TransformerLM variables <-> the port's state (counterpart of
+``fedml_tpu/utils/torch_import.py``).
 
 JAX side: ``{"params": ..., "batch_stats": ...}`` nested dicts of numpy
 arrays with flax names (``layer{s}_block{b}/{conv1,bn1,...}``), conv
@@ -9,6 +10,13 @@ names (``layer{s}.{b}.conv1.weight``, ``layer{s}.{b}.downsample.{0,1}``),
 conv weights OIHW, linear weights ``[out, in]``. Both directions take
 single or lane-stacked variables (a leading lane axis on every leaf);
 the layout transforms act on the trailing axes. Round trips are exact.
+
+TransformerLM (:func:`lm_variables_to_state`): ``tok_embed``/``pos_embed``
+``embedding`` -> ``{tok,pos}_embed.weight``; ``block{i}/{ln1,ln2}/{scale,
+bias}`` -> ``blocks.{i}.{ln1,ln2}.{weight,bias}``; the ``qkv``/``proj``
+kernels (no bias) and ``mlp_up``/``mlp_down`` kernel and bias ->
+``blocks.{i}.<name>.weight`` ``[out, in]`` (and ``.bias``); ``ln_f`` and
+``head`` alike. The port's state is ``{"params": {...}}``.
 """
 
 from __future__ import annotations
@@ -113,6 +121,63 @@ def state_to_variables(state, depth):
     return {"params": params, "batch_stats": stats}
 
 
+def _lm_modules(n_layers):
+    """``(flax path, torch prefix, kind)`` for every TransformerLM layer."""
+    out = [(("tok_embed",), "tok_embed", "embed"),
+           (("pos_embed",), "pos_embed", "embed")]
+    for i in range(n_layers):
+        blk, tp = f"block{i}", f"blocks.{i}"
+        out += [((blk, "ln1"), f"{tp}.ln1", "ln"),
+                ((blk, "qkv"), f"{tp}.qkv", "dense"),
+                ((blk, "proj"), f"{tp}.proj", "dense"),
+                ((blk, "ln2"), f"{tp}.ln2", "ln"),
+                ((blk, "mlp_up"), f"{tp}.mlp_up", "dense"),
+                ((blk, "mlp_down"), f"{tp}.mlp_down", "dense")]
+    return out + [(("ln_f",), "ln_f", "ln"), (("head",), "head", "dense")]
+
+
+def lm_variables_to_state(variables, device="cpu"):
+    """JAX TransformerLM variables (numpy or jax arrays, single or
+    client-stacked) -> fp32 port state ``{"params": ...}`` on ``device``."""
+    params = variables["params"]
+    n_layers = sum(1 for k in params if k.startswith("block"))
+    p = {}
+    for path, tp, kind in _lm_modules(n_layers):
+        mp = _get(params, path)
+        if kind == "embed":
+            p[f"{tp}.weight"] = np.asarray(mp["embedding"])
+        elif kind == "ln":
+            p[f"{tp}.weight"] = np.asarray(mp["scale"])
+            p[f"{tp}.bias"] = np.asarray(mp["bias"])
+        else:
+            p[f"{tp}.weight"] = _swap_last2(mp["kernel"])
+            if "bias" in mp:
+                p[f"{tp}.bias"] = np.asarray(mp["bias"])
+    return {"params": {k: torch.as_tensor(np.array(v, np.float32, order="C"),
+                                          device=device)
+                       for k, v in p.items()}}
+
+
+def lm_state_to_variables(state):
+    """Inverse of :func:`lm_variables_to_state`: port state -> JAX
+    TransformerLM variables as nested numpy dicts."""
+    p = {k: v.detach().cpu().numpy() for k, v in state["params"].items()}
+    n_layers = len({k.split(".")[1] for k in p if k.startswith("blocks.")})
+    params = {}
+    for path, tp, kind in _lm_modules(n_layers):
+        if kind == "embed":
+            _put(params, path, {"embedding": p[f"{tp}.weight"]})
+        elif kind == "ln":
+            _put(params, path, {"scale": p[f"{tp}.weight"],
+                                "bias": p[f"{tp}.bias"]})
+        else:
+            leaf = {"kernel": _swap_last2(p[f"{tp}.weight"])}
+            if f"{tp}.bias" in p:
+                leaf["bias"] = p[f"{tp}.bias"]
+            _put(params, path, leaf)
+    return {"params": params}
+
+
 def module_state(model):
     """The port state of an ``nn.Module`` (its parameters and its
     running BatchNorm statistics), detached."""
@@ -123,4 +188,5 @@ def module_state(model):
                             if k.endswith(("running_mean", "running_var"))}}
 
 
-__all__ = ["variables_to_state", "state_to_variables", "module_state"]
+__all__ = ["variables_to_state", "state_to_variables",
+           "lm_variables_to_state", "lm_state_to_variables", "module_state"]

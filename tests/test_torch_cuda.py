@@ -8,14 +8,22 @@ installed:
 (``--noconftest`` skips ``tests/conftest.py``, which sets JAX up for the
 CPU suite). Without a GPU every test skips.
 
-Tolerance: max|err| <= 1e-3*max|ref| + 1e-3 against the plain version
-computed in fp32 from the same inputs -- fp32 sums taken in another
-order over K = B*Ho*Wo up to 65,536.
+Tolerances. Grouped-conv dW (B1): max|err| <= 1e-3*max|ref| + 1e-3
+against the plain version computed in fp32 from the same inputs -- fp32
+sums taken in another order over K = B*Ho*Wo up to 65,536. Flash
+attention (B2-B4): against the plain versions on the same inputs in the
+same dtype; fp32 max|err| <= 1e-4*max|ref| + 1e-5 (sums in another
+order); bf16 max|err| <= 1.6e-2*max|ref| + 1e-3 -- both sides round
+their fp32 results to bf16 (one ulp is 2^-8 relative) and the kernel
+rounds p to bf16 against its running row maximum, tile by tile, where
+the plain version uses the final maximum. lse is fp32 on both sides and
+held at 1e-4*max|lse| + 1e-5.
 """
 
 import pytest
 import torch
 
+from fedml_tpu_torch.ops import flash_attention as fa
 from fedml_tpu_torch.ops import grouped_conv
 
 pytestmark = pytest.mark.requires_cuda
@@ -84,3 +92,106 @@ def test_lane_conv_pallas_on_card_matches_cpu(cuda, stride):
     assert launched == (1 if stride == 1 else 0)
     for got, ref in zip(outs[1], outs[0]):
         _close(got, ref)
+
+
+def _close_rel(got, ref, rel, abs_):
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= rel * float(ref.float().abs().max()) + abs_, err
+
+
+def _tol(dtype):
+    return (1e-4, 1e-5) if dtype == torch.float32 else (1.6e-2, 1e-3)
+
+
+def _qkv_do(dev, dtype, B, Tq, Tk, H, D, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(B, Tq, H, D, generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Tk, H, D, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+# (B, Tq, Tk, H, D): the LM flagship's launch (8 clients x batch 4 at
+# T=80, 4 heads of 128), T of 1 and 129 (one row; one past two tiles),
+# Tq != Tk both ways, head dim 64
+ATTN_SHAPES = [(32, 80, 80, 4, 128), (2, 1, 1, 2, 128), (2, 129, 129, 2, 64),
+               (2, 129, 129, 2, 128), (2, 40, 24, 3, 64),
+               (2, 24, 70, 2, 128), (3, 80, 80, 2, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,Tq,Tk,H,D", ATTN_SHAPES)
+def test_flash_kernels_match_plain_versions(cuda, dtype, causal, B, Tq, Tk,
+                                            H, D):
+    q, k, v, do = _qkv_do(cuda, dtype, B, Tq, Tk, H, D, Tq * 7 + Tk + D)
+    rel, abs_ = _tol(dtype)
+    before = dict(fa.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal)
+    assert o.dtype == dtype and lse.shape == (B, H, Tq)
+    _close_rel(o, o_ref, rel, abs_)
+    _close_rel(lse, lse_ref, 1e-4, 1e-5)
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse_ref, delta, causal)
+    dq = fa.flash_attention_dq(*args)
+    dk, dv = fa.flash_attention_dkv(*args)
+    for got, ref in zip((dq, dk, dv), fa.flash_attention_bwd_reference(*args)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _close_rel(got, ref, rel, abs_)
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        "fwd": 1, "dq": 1, "dkv": 1}
+    # each output tile has one owner and no atomics: repeats are bit-equal
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(dq, fa.flash_attention_dq(*args))
+    assert all(torch.equal(a, b)
+               for a, b in zip((dk, dv), fa.flash_attention_dkv(*args)))
+
+
+def test_flash_kernels_read_strided_qkv_views(cuda):
+    """q, k, v as column slices of one fused qkv product (the model's
+    layout) give the same bits as contiguous copies."""
+    B, T, H, D = 4, 80, 4, 128
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(B, T, 3 * H * D, generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, T, H, D)
+               for i in range(3))
+    assert not q.is_contiguous()
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    oc, lsec = fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), True)
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+
+
+def test_fully_masked_rows_give_zero_output_and_lse(cuda):
+    q, k, v, _ = _qkv_do(cuda, torch.float32, 2, 24, 24, 2, 64, 5)
+    o, lse = fa.flash_attention_fwd(q, k, v, False, k_len=0)
+    assert torch.equal(o, torch.zeros_like(o))
+    assert torch.equal(lse, torch.zeros_like(lse))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_function_gradients_match_plain_backward(cuda,
+                                                                 causal):
+    q, k, v, g = _qkv_do(cuda, torch.float32, 2, 70, 70, 2, 64, 11)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fa.flash_attention(qr, kr, vr, causal)
+    o.backward(g)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal)
+    delta = (g * o_ref).sum(-1).transpose(1, 2).contiguous()
+    ref = fa.flash_attention_bwd_reference(q, k, v, g, lse_ref, delta,
+                                           causal)
+    _close_rel(o.detach(), o_ref, 1e-4, 1e-5)
+    for got, want in zip((qr.grad, kr.grad, vr.grad), ref):
+        _close_rel(got, want, 1e-4, 1e-5)
+
+
+def test_flash_kernels_refuse_unsupported_head_dims(cuda):
+    q, k, v, _ = _qkv_do(cuda, torch.float32, 1, 8, 8, 1, 48, 0)
+    with pytest.raises(ValueError, match="blockwise_attention"):
+        fa.flash_attention_fwd(q, k, v)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.half(), k.half(), v.half())

@@ -7,7 +7,9 @@ initial weights carried over. Both sides use the numpy packing backend,
 so schedules are byte-equal. Tolerance 1e-4 on the global state and the
 round metrics: multi-step BatchNorm trajectories reassociate (ROADMAP
 A5). Both sides run ``train()`` with a test evaluation after every
-round, and record each round through its ``on_round`` hook."""
+round, and record each round through its ``on_round`` hook. One more
+round runs with ``client_optimizer="adam"`` (AMSGrad over lanes) at the
+tolerance its test states."""
 
 import types
 
@@ -84,6 +86,62 @@ def test_round_matches_jax_fedavg(trajectories, rnd):
         moved = max(moved, float(np.abs(leaf - dict(
             jax.tree_util.tree_leaves_with_path(init))[path]).max()))
     assert moved > 1e-3  # the round really trained
+
+
+ADAM_LR = 1e-3
+
+
+@pytest.fixture(scope="module")
+def adam_round():
+    """One packed-lane round with ``client_optimizer="adam"`` (AMSGrad,
+    a per-lane count reset at each flush) on both sides."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("FEDML_TPU_PACKING", "python")
+    try:
+        dataset = load_synthetic_images(client_num=4, n_train=120, n_test=32,
+                                        image_size=H, partition="hetero",
+                                        partition_alpha=0.5, seed=0)
+        args = _args()
+        args.client_optimizer, args.lr = "adam", ADAM_LR
+        jspec = jax_spec(JaxResNet(depth=DEPTH, num_classes=10),
+                         jnp.zeros((1, H, H, 3)), lane_lowering="pallas")
+        japi = JaxFedAvgAPI(dataset, jspec, args)
+        init = jax.tree.map(np.array, japi.global_state)
+        spec = make_classification_spec(CifarResNet(depth=DEPTH),
+                                         lane_lowering="pallas")
+        api = FedAvgAPI(dataset, spec, args, device="cpu")
+        api.global_state = variables_to_state(init, DEPTH)
+        ref = (japi.train_one_round(), jax.tree.map(np.array,
+                                                    japi.global_state))
+        got = (api.train_one_round(),
+               state_to_variables(api.global_state, DEPTH))
+        return ref, got, init
+    finally:
+        mp.undo()
+
+
+def test_packed_lanes_adam_round_matches_jax_fedavg(adam_round):
+    """Train loss to 1e-4 (the SGD rounds' tolerance); parameters to
+    lr/2 elementwise, 99.9% of them within lr/10. Adam's update is about
+    lr * g / (|g| + eps) whatever the size of g, so BatchNorm's
+    reassociated fp32 sums move an element whose gradient sits near 0 by
+    up to lr either way (observed: 0.04% of elements past lr/10, the
+    largest 5.0e-4; torch's AMSGrad, which takes the maximum of the
+    uncorrected moment, puts 17% past lr/10)."""
+    (rm, rs), (gm, gs), init = adam_round
+    np.testing.assert_allclose(gm["Train/Loss"], rm["Train/Loss"], atol=1e-4)
+    np.testing.assert_allclose(gm["Train/Acc"], rm["Train/Acc"], atol=1e-4)
+    want = jax.tree_util.tree_leaves_with_path(rs)
+    have = dict(jax.tree_util.tree_leaves_with_path(gs))
+    start = dict(jax.tree_util.tree_leaves_with_path(init))
+    assert len(want) == len(have)
+    errs, moved = [], 0.0
+    for path, leaf in want:
+        np.testing.assert_allclose(have[path], leaf, rtol=0, atol=ADAM_LR / 2)
+        errs.append(np.abs(have[path] - leaf).ravel())
+        moved = max(moved, float(np.abs(leaf - start[path]).max()))
+    assert np.mean(np.concatenate(errs) > ADAM_LR / 10) < 1e-3
+    assert moved > ADAM_LR  # the round really trained
 
 
 def test_train_loop_keeps_a_record_per_round(trajectories):
