@@ -7,15 +7,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero):
 
 1. build the hand-written kernels from ``fedml_tpu_torch/csrc`` into
-   ``build/`` (one nvcc per source, all at once) and print the card's
-   name and power limit;
+   ``build/`` (one nvcc per source, all at once), print the bf16 dq and
+   dk/dv kernels' registers and spills (``-Xptxas -v``) with their
+   shared memory and blocks an SM, and read the card's name and power
+   limit;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes of its main path, and time kernel, plain version, one library
    call computing the same function (a yardstick only) and the bound:
    the grouped-conv dW (B1) at ResNet-56's four shapes; the
    flash-attention forward, dq and dk/dv (B2-B4) at the LM flagship's
    launch ([32, 80, 4, 128] bf16 causal), a ragged T and a non-causal
-   case;
+   case, and the whole ``FlashAttention`` backward (delta, B3, B4)
+   against SDPA's backward;
 3. drive the ResNet main path -- lane-packed FedAvg on full-width
    ResNet-56 (bf16, 8 lanes, batch 64, synthetic LDA alpha=0.5
    CIFAR-shaped data, augmentation on, ``lane_lowering="pallas"``) for 2
@@ -30,7 +33,9 @@ Phases (any failure exits non-zero):
    model's logits on the card against the plain versions on the CPU;
 5. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
-``python3 chip_smoke.py --profile`` adds, before the last lines, one
+``python3 chip_smoke.py --profile`` adds, before the last lines, B3 and
+B4 built with 32-row block tiles against the default 64, the attention
+backward's kernels (ours and SDPA's) under ``torch.profiler``, one
 timed round per lane lowering and a ``torch.profiler`` breakdown of a
 ``pallas`` ResNet round and of an LM round by kernel.
 
@@ -68,27 +73,29 @@ def fail(msg):
 
 
 def timed_ms(fn, flush, iters=20, warmup=3):
-    """Mean device time of ``fn`` per call (CUDA events), with the L2
+    """Median device time of ``fn`` per call (CUDA events), with the L2
     cache flushed before each call as the training step would find it.
-    A spin of about half a millisecond on the device after the flush
-    covers the host's time to enqueue ``fn``, so the events time the
-    device's work and not the launch path."""
+    A spin of a few milliseconds on the device after the flush covers
+    the host's time to enqueue ``fn`` (autograd's backward of one
+    attention call outlasted a spin of half a millisecond), so the
+    events time the device's work and not the launch path; the median
+    drops a call whose host side stalled past the spin."""
     import torch
 
     for _ in range(warmup):
         fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(10_000_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
         e.record()
         e.synchronize()
-        total += s.elapsed_time(e)
-    return total / iters
+        times.append(s.elapsed_time(e))
+    return sorted(times)[iters // 2]
 
 
 def phase_kernels(torch, grouped_conv):
@@ -139,18 +146,48 @@ def _check(label, got, ref, rel, abs_):
     return err
 
 
+def _mismatch(got, ref):
+    """Share of the elements of the tensors ``got`` that are not
+    bit-equal to those of ``ref``."""
+    differ = sum(int((g != r).sum()) for g, r in zip(got, ref))
+    return differ / sum(g.numel() for g in got)
+
+
+def bwd_kernel_usage(_build, fa, report):
+    """Registers and spills (bytes) of the bf16 dq and dk/dv kernels per
+    head dim from the ``-Xptxas -v`` report, with threads, shared memory
+    and blocks an SM of their launch on this card. Fails when a kernel is
+    missing from the report."""
+    usage = _build.ptxas_usage(report)
+    out = {}
+    for D in (128, 64):
+        info = fa.bwd_launch_info(D)
+        for name in ("dq", "dkv"):
+            fn = f"{name}_mma_kernel"
+            tag = f"{len(fn)}{fn}ILi{D}E"  # as the name is mangled
+            found = [u for k, u in usage.items() if tag in k]
+            if len(found) != 1:
+                fail(f"{name}_mma_kernel<{D}> not in the ptxas report")
+            out[f"{name}_bf16_D{D}"] = {**found[0], **info[name]}
+    return out
+
+
 def _attn_bounds(B, T, causal, itemsize=2):
-    """Least times (ms) of B2, B3, B4 on this launch: bytes (each input
-    read once, each output written once) over the memory rate, and the
-    products' operations on this data's valid (query, key) pairs over
-    the bf16 peak; the larger of the two, and which."""
+    """Least times (ms) of B2, B3, B4 and of the whole backward on this
+    launch: bytes (each input read once, each output written once) over
+    the memory rate, and the products' operations on this data's valid
+    (query, key) pairs over the bf16 peak; the larger of the two, and
+    which."""
     tensor = B * T * ATTN_H * ATTN_D * itemsize
     row = B * ATTN_H * T * 4                    # lse or delta, fp32
     pairs = B * ATTN_H * (T * (T + 1) // 2 if causal else T * T)
     out = {}
+    # "bwd": the whole backward as one function -- q, k, v, O, dO and lse
+    # in, dq, dk, dv out; five products (S, dP, dQ, dK, dV)
     for name, n_tensors, n_rows, products in (("fwd", 4, 1, 2),
                                               ("dq", 5, 2, 3),
-                                              ("dkv", 6, 2, 4)):
+                                              ("dkv", 6, 2, 4),
+                                              ("bwd", 8, 1, 5)):
         nbytes = n_tensors * tensor + n_rows * row
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * products * ATTN_D * pairs / BF16_OPS_PER_S * 1e3
@@ -169,7 +206,8 @@ def phase_attention(torch, fa):
     at the flagship launch, times of kernel, plain version and
     ``scaled_dot_product_attention`` (forward; its backward through
     autograd computes dq, dk and dv together and stands for both B3 and
-    B4)."""
+    B4), and of the whole ``FlashAttention`` backward through autograd
+    (delta, B3, B4) against SDPA's backward and the plain backward."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
@@ -206,7 +244,9 @@ def phase_attention(torch, fa):
                "dq_err": _check(f"dq {label}", dq, dq_ref, 1.6e-2, 1e-3),
                "dkv_err": max(
                    _check(f"dk {label}", dk, dk_ref, 1.6e-2, 1e-3),
-                   _check(f"dv {label}", dv, dv_ref, 1.6e-2, 1e-3))}
+                   _check(f"dv {label}", dv, dv_ref, 1.6e-2, 1e-3)),
+               "bwd_mismatch": _mismatch((dq, dk, dv),
+                                         (dq_ref, dk_ref, dv_ref))}
         for name in errs:
             errs[name] = max(errs[name], row[f"{name}_err"])
         print("attention_case " + json.dumps(row), flush=True)
@@ -222,6 +262,19 @@ def phase_attention(torch, fa):
                                                retain_graph=True)
         bwd_lib = timed_ms(sdpa_bwd, flush)
         ref_args = args[:-1] + (causal, ATTN_D ** -0.5, T)
+        qf, kf, vf = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out_f = fa.flash_attention(qf, kf, vf, causal)
+        fa_bwd = lambda: torch.autograd.grad(out_f, (qf, kf, vf), do,
+                                             retain_graph=True)
+
+        def plain_bwd(o=o_ref, lse=lse_ref):
+            d = (do.float() * o.float()).sum(-1).transpose(1, 2)
+            return fa.flash_attention_bwd_reference(
+                q, k, v, do, lse, d.contiguous(), causal)
+
+        for name, got, ref in zip(("dq", "dk", "dv"), fa_bwd(),
+                                  plain_bwd(o, lse)):
+            _check(f"FlashAttention backward {name}", got, ref, 1.6e-2, 1e-3)
         timing = {
             "fwd": {"ms": timed_ms(lambda: fa.flash_attention_fwd(
                         q, k, v, causal), flush),
@@ -240,6 +293,9 @@ def phase_attention(torch, fa):
                     "plain_ms": timed_ms(
                         lambda: fa.flash_attention_dkv_reference(*ref_args),
                         flush),
+                    "library_ms": bwd_lib},
+            "bwd": {"ms": timed_ms(fa_bwd, flush),
+                    "plain_ms": timed_ms(plain_bwd, flush),
                     "library_ms": bwd_lib}}
         for name, b in _attn_bounds(Bq, T, causal).items():
             timing[name].update(b)
@@ -391,9 +447,25 @@ def phase_lm_main_path(torch, fa):
     return launches
 
 
+def _device_us(torch, prof):
+    """Device time (us) by kernel name of a ``torch.profiler`` run."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+    return by_name
+
+
+# the port's attention kernels by the name the profiler gives them
+ATTN_KERNELS = {"fwd": "::fwd_kernel<", "dq": "::dq_mma_kernel<",
+                "dkv": "::dkv_mma_kernel<"}
+
+
 def _profile_round(torch, api, label):
     """One round of ``api`` under ``torch.profiler``: device time by
-    kernel and the device's busy share of the round."""
+    kernel, the device's busy share of the round and, of the LM, the
+    attention kernels' time and share."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -402,11 +474,7 @@ def _profile_round(torch, api, label):
         api.train_one_round()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us()
+    by_name = _device_us(torch, prof)
     busy = sum(by_name.values())
     print(f"profile {label} round wall_us={wall_us:.0f} "
           f"device_busy_us={busy:.0f} busy_share={busy / wall_us:.4f} "
@@ -414,12 +482,63 @@ def _profile_round(torch, api, label):
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"profile {label} kernel us={us:.0f} share={us / busy:.4f} "
               f"{name[:110]}", flush=True)
+    if label == "lm":
+        attn = {k: sum(us for n, us in by_name.items() if sub in n)
+                for k, sub in ATTN_KERNELS.items()}
+        print(f"profile lm attention_us {json.dumps(attn)} share="
+              f"{sum(attn.values()) / busy:.4f}", flush=True)
 
 
-def phase_profile(torch):
-    """``--profile``: one ResNet round per lane lowering after a warm-up
-    round (round time), then one ``pallas`` ResNet round and one LM
-    round (after two warm-up rounds) under ``torch.profiler``."""
+def _profile_attention_bwd(torch, fa):
+    """The whole attention backward at the flagship launch (bf16 causal,
+    strided q, k, v) under ``torch.profiler``, ours and SDPA's: device us
+    a call by kernel, mean of 20 calls with warm caches. Also the floor
+    of ``timed_ms``: its reading for a one-element fill."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    Bq, T, C = 32, 80, ATTN_H * ATTN_D
+    qkv = torch.randn(Bq, T, 3 * C, generator=gen, device=dev
+                      ).to(torch.bfloat16)
+    q, k, v = (qkv[..., j * C:(j + 1) * C].reshape(Bq, T, ATTN_H, ATTN_D)
+               .detach().requires_grad_(True) for j in range(3))
+    do = torch.randn(Bq, T, ATTN_H, ATTN_D, generator=gen, device=dev
+                     ).to(torch.bfloat16)
+    out = fa.flash_attention(q, k, v, True)
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    out_s = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    one = torch.empty(1, device=dev)
+    print(f"profile timer_floor_ms {timed_ms(one.zero_, flush)}", flush=True)
+    for label, fn in (
+            ("flash_attention", lambda: torch.autograd.grad(
+                out, (q, k, v), do, retain_graph=True)),
+            ("sdpa", lambda: torch.autograd.grad(
+                out_s, (qs, ks, vs), do.transpose(1, 2),
+                retain_graph=True))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        by_name = _device_us(torch, prof)
+        print(f"profile attention_bwd {label} device_us_per_call="
+              f"{sum(by_name.values()) / 20:.2f} " + json.dumps(
+                  {n[:90]: round(us / 20, 2) for n, us in sorted(
+                      by_name.items(), key=lambda kv: -kv[1])}), flush=True)
+
+
+def phase_profile(torch, fa):
+    """``--profile``: the attention backward's kernels, ours and SDPA's;
+    one ResNet round per lane lowering after a warm-up round (round
+    time), then one ``pallas`` ResNet round and one LM round (after two
+    warm-up rounds) under ``torch.profiler``."""
+    _profile_attention_bwd(torch, fa)
     for lowering in ("blockdiag", "bgc", "auto", "pallas"):
         api = build_api(torch, lowering)
         api.train_one_round()
@@ -452,6 +571,8 @@ def main():
     for name, report in reports.items():
         print(f"== {name}\n{report}", file=sys.stderr)
     print(f"build_s {time.time() - t0:.1f}", flush=True)
+    print("bwd_kernels " + json.dumps(bwd_kernel_usage(
+        _build, fa, reports[fa.LIBRARY.name])), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -462,7 +583,7 @@ def main():
     launches = phase_main_path(torch, grouped_conv)
     attn_launches = phase_lm_main_path(torch, fa)
     if "--profile" in sys.argv[1:]:
-        phase_profile(torch)
+        phase_profile(torch, fa)
 
     per_step = lambda key: sum(r[key] * r["convs_per_step"] for r in rows)
     bytes_ms, ops_ms = per_step("bytes_ms"), per_step("ops_ms")

@@ -20,39 +20,81 @@
 // the TPU's block layout). Keys at or past k_len are masked and, causal,
 // keys after their query (absolute positions, kpos <= qpos).
 //
-// Numerics. Inputs are bf16 or fp32. Every product is an fp32 FMA of
-// values of the input type (exact for bf16), summed in fp32, as the Pallas
-// kernels' preferred_element_type=float32. p (B2, B4) and ds (B3, B4) are
-// rounded to the input type before their second product, as the Pallas
-// kernels cast them. The online-softmax state m, l, acc stays fp32,
-// including the s <= NEG_INF/2 -> p = 0 guard and the m_keep rule. Each
-// output tile is owned by one block and there are no atomics, so a repeat
-// call is bit-equal.
+// Numerics. Inputs are bf16 or fp32. Products take values of the input
+// type and sum in fp32, as the Pallas kernels' preferred_element_type=
+// float32. p (B2, B4) and ds (B3, B4) are rounded to the input type
+// before their second product, as the Pallas kernels cast them. The
+// online-softmax state m, l, acc stays fp32, including the s <= NEG_INF/2
+// -> p = 0 guard and the m_keep rule. In bf16, B3 and B4 take exp from
+// ex2.approx (`bwd_exp`), a few fp32 ulps off, before p and ds are
+// rounded to bf16: measured faster than expf on the card. Each output
+// tile is owned by one block and there are no atomics, so a repeat call
+// is bit-equal.
 //
-// Design. One block of 256 threads per (batch*head, 64-row tile): query
-// tiles for B2 and B3, key tiles for B4, which loop over the opposite
-// operand's tiles (skipping, causal, the tiles above the diagonal). The
-// block stages its own tile and each opposite tile in shared memory as
-// fp32, rows padded to D+4 floats: 16-byte aligned for float4 loads, and
-// the four threads of a row and the eight rows of a warp hit distinct
-// banks. Four threads share a tile row: each computes the scores of every
-// fourth column (16 of 64) and owns four of every sixteen columns of the
-// head dim of the row's accumulators; row maxima and sums reduce over the
-// four lanes by shuffles. Every shared-memory read is a float4 (four FMAs
-// per operand read, in the same summation order as one at a time).
-// Tiles arrive by 16-byte loads, all of a thread's in flight at once, and
-// the forward's p tile takes the K tile's place, so two forward blocks
-// share an SM. Products run on the CUDA cores (fp32 FMA).
+// What bounds them on the card. At the LM flagship's launch ([32, 80, 4,
+// 128] bf16, causal) the functions move 10.5 MB (B2), 13.1 MB (B3) and
+// 15.7 MB (B4): 3.1-4.7 us at 3.35 TB/s, against 0.2-0.4 GFLOP on the
+// valid (query, key) pairs, 0.2-0.4 us on the tensor cores. So bytes set
+// the bound. But with 128 (batch, head) problems of 80 rows each, what a
+// kernel reaches is set by how soon each block has its tiles and how long
+// the chain of dependent instructions between them and the result is.
 //
-// What bounds it. At the LM flagship's shape ([32, 80, 4, 128] bf16,
-// causal) the function moves 10.5 MB (B2), 13.1 MB (B3) and 15.7 MB (B4):
-// about 3-5 us at 3.35 TB/s, against 0.2-0.4 GFLOP, well under a us on
-// the tensor cores. So bytes bound it on the card. This first version is
-// instead bound by shared-memory loads (about one per FMA) and by its
-// CUDA-core FMAs; tensor cores (mma/wgmma) and TMA are later work.
+// B3 and B4 in bf16 (the LM path): tensor cores. Every product is a
+// warp-level mma.m16n8k16 (bf16 operands, fp32 accumulators; hopper_mma.cuh)
+// fed by ldmatrix from bf16 tiles in shared memory: S = Q.K^T, dP = dO.V^T,
+// then dQ += dS.K (B3); S^T = K.Q^T, dP^T = V.dO^T, then dV += P^T.dO and
+// dK += dS^T.Q (B4). The score accumulators are, once rounded to bf16
+// pairs, the A operand of the accumulating product, so p and ds never
+// leave registers; the operands whose reduction axis is the tile's rows
+// (K in B3, dO and Q in B4) come through ldmatrix.trans, so nothing is
+// transposed in memory. A block owns kBwdRows rows (queries in B3, keys
+// in B4) and loops over tiles of kBwdStep rows of the opposite operand,
+// double-buffered: the next tile's 16-byte cp.async copies are in flight
+// while this tile's products run. Work is cut at 16 rows, and a warp
+// skips the 16x16 sub-tiles that lie wholly past Tq, past k_len or
+// (causal) above the diagonal; ragged edges inside a sub-tile are masked.
+// At the flagship's launch the 256 blocks of each kernel fill the 132 SMs
+// in one wave and all load at once. A trace probe that is not in the
+// repository (per-warp clock stamps) read a block waiting longer for its
+// first tiles than its products then took, with a warp's products
+// running in turn. So:
+// - B3: two warps share each 16 query rows and take every other 16-key
+//   group, which halves the longest chain of sub-tiles a warp runs (dQ
+//   summed in registers, the odd warp's onto the even one's through
+//   shared memory at the end, in that order). K and V arrive 16 keys at a
+//   time, each chunk with an mbarrier, so a warp starts on the first keys
+//   while the rest are in flight.
+// - B4: one warp owns 16 keys and all of the head dim of dK and dV (2 x 64
+//   fp32 registers at D = 128, no spills), so no score product is
+//   computed twice, and writes them through shared memory, 16 contiguous
+//   bytes a lane. Its query tiles arrive whole (commit groups and a block
+//   barrier): waiting 16 queries at a time measured slower here.
+// Tiles are bf16 rows of D + 8 elements (bank-conflict-free ldmatrix),
+// about 103 KB a block, so two blocks share an SM. Rows that do not
+// start on 16 bytes are loaded element by element instead.
+//
+// B2, and B3 and B4 in fp32 (which only the tests run): the first design,
+// on the CUDA cores. One block of 256 threads per (batch*head, 64-row
+// tile): query tiles for B2 and B3, key tiles for B4, which loop over the
+// opposite operand's tiles (skipping, causal, the tiles above the
+// diagonal). The block stages its own tile and each opposite tile in
+// shared memory as fp32, rows padded to D+4 floats. Four threads share a
+// tile row: each computes the scores of every fourth column (16 of 64)
+// and owns four of every sixteen columns of the head dim of the row's
+// accumulators; row maxima and sums reduce over the four lanes by
+// shuffles. Every shared-memory read is a float4; each product is an fp32
+// FMA (exact for bf16 inputs). Tiles arrive by 16-byte loads, all of a
+// thread's in flight at once, and the forward's p tile takes the K tile's
+// place, so two forward blocks share an SM. This design is bound by
+// instruction issue at low occupancy, far above its byte bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -90,15 +132,26 @@ __device__ __forceinline__ bool score_valid(int qpos, int kpos, int k_len,
   return kpos < k_len && (!causal || kpos <= qpos);
 }
 
+// exp of the backward's re-formation: for bf16 inputs the fast one
+// (ex2.approx, a few fp32 ulps), whose p and ds are rounded to bf16
+// (2^-8) before their products; for fp32 inputs the accurate one.
+template <typename T> __device__ __forceinline__ float bwd_exp(float x) {
+  return expf(x);
+}
+template <> __device__ __forceinline__ float bwd_exp<__nv_bfloat16>(float x) {
+  return __expf(x);
+}
+
 // `_probs_and_ds`: from the raw q.k and dO.v products of one score,
 // p = exp(s - lse) with the saved logsumexp (0 where s is masked) and
 // ds = p * (dO.v - delta). The one re-formation B3 and B4 share.
+template <typename T>
 __device__ __forceinline__ void probs_and_ds(float qk, float dov, float lse,
                                              float delta, bool valid,
                                              float scale, float* p,
                                              float* ds) {
   const float s = valid ? qk * scale : kNegInf;
-  *p = s <= kNegInf / 2 ? 0.f : expf(s - lse);
+  *p = s <= kNegInf / 2 ? 0.f : bwd_exp<T>(s - lse);
   *ds = *p * (dov - delta);
 }
 
@@ -322,7 +375,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       float p, ds;
-      probs_and_ds(s[j], dov[j], lse_r, delta_r,
+      probs_and_ds<T>(s[j], dov[j], lse_r, delta_r,
                    row_ok && score_valid(qpos, k0 + t + 4 * j, k_len, causal),
                    scale, &p, &ds);
       sDS[r * kLP + t + 4 * j] = round_to<T>(ds);
@@ -404,7 +457,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kCols; ++j) {
       const int rr = t + 4 * j, qpos = q0 + rr;
       float p, ds;
-      probs_and_ds(s[j], dov[j], sL[rr], sDl[rr],
+      probs_and_ds<T>(s[j], dov[j], sL[rr], sDl[rr],
                    qpos < Tq && score_valid(qpos, kpos, k_len, causal), scale,
                    &p, &ds);
       sPT[c * kLP + rr] = round_to<T>(p);
@@ -439,6 +492,406 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// B3 and B4 in bf16, on tensor cores
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int kBwdRows = 64;  // rows a block owns (queries B3, keys B4)
+constexpr int kBwdStep = 64;  // rows of a loop tile
+
+// A bf16 tile row in shared memory: D + 8 elements, so that every row
+// starts on 16 bytes and the eight rows one ldmatrix matrix reads lie in
+// distinct banks.
+template <int D> __host__ __device__ constexpr int tile_ld() { return D + 8; }
+
+// dq block: Q and dO tiles, then two buffers of a K and a V tile
+template <int D> constexpr size_t dq_smem_bytes() {
+  return (2 * kBwdRows + 4 * kBwdStep) * tile_ld<D>() * sizeof(bf16);
+}
+// dk/dv block: K and V tiles, two buffers of a Q and a dO tile, then two
+// buffers of the Q tile's lse and delta rows
+template <int D> constexpr size_t dkv_smem_bytes() {
+  return (2 * kBwdRows + 4 * kBwdStep) * tile_ld<D>() * sizeof(bf16)
+         + 4 * kBwdStep * sizeof(float);
+}
+constexpr int kDqThreads = kBwdRows * 4;   // two warps per 16 query rows
+constexpr int kDkvThreads = kBwdRows * 2;  // one warp per 16 key rows
+
+// Issues the copies of rows [row0, row0 + ROWS) of one (batch, head) of a
+// [B, T, H, D] bf16 tensor into a shared tile; rows at or past `len` are
+// zero. Rows that start on 16 bytes (the model's qkv views and contiguous
+// tensors) go by cp.async, 16 bytes at a time; others by element loads.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_tile(bf16* dst,
+                                           const bf16* __restrict__ src,
+                                           Strides st, int b, int h,
+                                           int row0, int len) {
+  const bf16* base = src + b * st.b + h * st.h;
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(base) % 16 == 0 && st.t % 8 == 0;
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += THREADS) {
+    const int r = e / kChunks, c = e % kChunks * 8, t = row0 + r;
+    const bool ok = t < len;
+    bf16* d = dst + r * tile_ld<D>() + c;
+    const bf16* s = base + (long long)(ok ? t : 0) * st.t + c;
+    if (aligned) {
+      hopper::cp_async16(d, s, ok);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[i] = ok ? s[i] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Issues the copies of entries [row0, row0 + ROWS) of one fp32 row vector
+// (lse or delta) into shared memory; zero at or past `len`.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void stage_vec(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int len) {
+  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
+    const int t = row0 + i;
+    hopper::cp_async4(dst + i, src + (t < len ? t : 0), t < len);
+  }
+}
+
+// Lane's row address for an ldmatrix.x4 of the 16x16 A operand at
+// (row r, col c) of a tile: matrices (rows 0-7, 8-15) x (cols 0-7, 8-15).
+template <int D>
+__device__ __forceinline__ const bf16* a_rows(const bf16* tile, int r, int c,
+                                             int lane) {
+  return tile + (r + (lane & 15)) * tile_ld<D>() + c + (lane >> 4) * 8;
+}
+// ... for the B operands of two side-by-side n8 products that read rows
+// [r, r + 16) of a tile as their n axis and cols [c, c + 16) as k: r[0],
+// r[1] feed the product of rows r..r+7, r[2], r[3] that of rows r+8..r+15.
+template <int D>
+__device__ __forceinline__ const bf16* bn_rows(const bf16* tile, int r, int c,
+                                              int lane) {
+  return tile + (r + (lane & 7) + (lane >> 4) * 8) * tile_ld<D>() + c
+         + ((lane >> 3) & 1) * 8;
+}
+// ... and, with ldmatrix.trans, for those that read rows [r, r + 16) as
+// their k axis and cols [c, c + 16) as n: r[0], r[1] feed the product of
+// cols c..c+7, r[2], r[3] that of cols c+8..c+15.
+template <int D>
+__device__ __forceinline__ const bf16* bk_rows(const bf16* tile, int r, int c,
+                                              int lane) {
+  return tile + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * tile_ld<D>() + c
+         + (lane >> 4) * 8;
+}
+
+// Rounds a warp's 16 x D accumulators (acc[n]: columns 8n..8n+7 of rows g
+// and g + 8), times `mul`, to bf16 rows of a shared tile.
+template <int D>
+__device__ __forceinline__ void stage_acc(bf16* tile,
+                                          const float (&acc)[D / 8][4],
+                                          float mul, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(tile + (g + 8 * i) * tile_ld<D>()
+                                         + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(mul * acc[n][2 * i], mul * acc[n][2 * i + 1]);
+}
+
+// Writes 16 rows of a shared tile to rows [row0, row0 + 16) of one (batch,
+// head) of a [B, T, H, D] bf16 tensor whose rows start on 16 bytes, 16
+// bytes a lane; rows at or past `len` are not written.
+template <int D>
+__device__ __forceinline__ void store_rows16(bf16* __restrict__ dst,
+                                             Strides st, int b, int h,
+                                             int row0, int len,
+                                             const bf16* tile, int lane) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int e = lane; e < 16 * kChunks; e += 32) {
+    const int r = e / kChunks, c = e % kChunks * 8;
+    if (row0 + r < len)
+      *reinterpret_cast<uint4*>(dst + b * st.b + (long long)(row0 + r) * st.t
+                                + h * st.h + c) =
+          *reinterpret_cast<const uint4*>(tile + r * tile_ld<D>() + c);
+  }
+}
+
+// The 16x16 sub-tile of scores s = a . b^T and of dP = da . db^T from rows
+// [ra, ra+16) of tiles a, da and rows [rb, rb+16) of tiles b, db, over the
+// head dim: acc[j] holds columns 8j..8j+7.
+template <int D>
+__device__ __forceinline__ void score_pair(float (&s)[2][4], float (&dp)[2][4],
+                                           const bf16* a, const bf16* da,
+                                           int ra, const bf16* b,
+                                           const bf16* db, int rb, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += 16) {
+    uint32_t fa[4], fb[4];
+    hopper::ldmatrix_x4(fa, a_rows<D>(a, ra, c, lane));
+    hopper::ldmatrix_x4(fb, bn_rows<D>(b, rb, c, lane));
+    hopper::mma_bf16(s[0], fa, fb[0], fb[1]);
+    hopper::mma_bf16(s[1], fa, fb[2], fb[3]);
+    hopper::ldmatrix_x4(fa, a_rows<D>(da, ra, c, lane));
+    hopper::ldmatrix_x4(fb, bn_rows<D>(db, rb, c, lane));
+    hopper::mma_bf16(dp[0], fa, fb[0], fb[1]);
+    hopper::mma_bf16(dp[1], fa, fb[2], fb[3]);
+  }
+}
+
+// B3: one block of kDqThreads per (batch*head, kBwdRows query rows); warps
+// 2m and 2m+1 own query rows [16m, 16m + 16) of the tile and take its
+// even and odd 16-key groups, each summing its own dQ in registers (D/8
+// fragments of 16x8); at the end the odd warp's sum is added to the even
+// one's through shared memory, in that order. Two blocks an SM, as shared
+// memory allows: at most 128 registers a thread.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 2)
+    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  Strides sq, Strides sk, Strides sv, Strides sdo,
+                  Strides sdq, int H, int Tq, int Tk, int k_len, float scale,
+                  bool causal) {
+  constexpr int BQ = kBwdRows, BK = kBwdStep, LD = tile_ld<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdO = sQ + BQ * LD;
+  bf16* sKV = sdO + BQ * LD;  // [buffer][K, V][BK][LD]
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, q0 = blockIdx.y * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp >> 1, par = warp & 1, r0 = q0 + 16 * rg;
+  // keys the block, and this warp, need: before k_len and, causal, not
+  // after the last query
+  const int kend = causal ? min(k_len, min(q0 + BQ, Tq)) : k_len;
+  const int kend_w = causal ? min(k_len, min(r0 + 16, Tq)) : k_len;
+  const int nkt = (kend + BK - 1) / BK;
+
+  // one barrier per 16 keys of each K and V buffer: a warp waits for just
+  // the keys it takes next, while the rest of the tile is in flight
+  __shared__ uint64_t bars[2][BK / 16];
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 2 * (BK / 16); ++i)
+      hopper::mbar_init(&bars[0][0] + i, kDqThreads);
+  __syncthreads();
+  auto stage_kv = [&](int kt) {
+    bf16* dst = sKV + (kt & 1) * 2 * BK * LD;
+    for (int c = 0; c < BK / 16; ++c) {
+      const int row0 = kt * BK + 16 * c;
+      stage_tile<D, 16, kDqThreads>(dst + 16 * c * LD, k, sk, b, h, row0, Tk);
+      stage_tile<D, 16, kDqThreads>(dst + (BK + 16 * c) * LD, v, sv, b, h,
+                                    row0, Tk);
+      hopper::mbar_arrive_copies(&bars[kt & 1][c]);
+    }
+  };
+  // Q and dO first: the first 16 keys' barrier covers them too
+  stage_tile<D, BQ, kDqThreads>(sQ, q, sq, b, h, q0, Tq);
+  stage_tile<D, BQ, kDqThreads>(sdO, dout, sdo, b, h, q0, Tq);
+  if (nkt > 0) stage_kv(0);
+
+  float lse_r[2], delta_r[2];  // of rows g and g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = r0 + g + 8 * i;
+    lse_r[i] = qpos < Tq ? lse[(long long)bh * Tq + qpos] : 0.f;
+    delta_r[i] = qpos < Tq ? delta[(long long)bh * Tq + qpos] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) stage_kv(kt + 1);
+    const bf16* sK = sKV + (kt & 1) * 2 * BK * LD;
+    const bf16* sV = sK + BK * LD;
+    const int k0 = kt * BK;
+    // the warp's 16-key groups of this tile (every other one): none past
+    // its last key
+    const int kn = r0 < Tq ? min(BK, kend_w - k0) : 0;
+    for (int kk = 16 * par; kk < kn; kk += 32) {
+      hopper::mbar_wait(&bars[kt & 1][kk / 16], (kt >> 1) & 1);
+      float s[2][4], dp[2][4], ds[2][4];
+      score_pair<D>(s, dp, sQ, sdO, 16 * rg, sK, sV, kk, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qpos = r0 + g + 8 * (i >> 1);
+          const int kpos = k0 + kk + 8 * j + 2 * t + (i & 1);
+          float p;
+          probs_and_ds<bf16>(
+              s[j][i], dp[j][i], lse_r[i >> 1], delta_r[i >> 1],
+              qpos < Tq && score_valid(qpos, kpos, k_len, causal), scale,
+              &p, &ds[j][i]);
+        }
+      uint32_t da[4];  // dS, rounded to bf16: the A operand of dS.K
+      hopper::pack_a(da, ds[0], ds[1]);
+#pragma unroll
+      for (int c = 0; c < D; c += 16) {
+        uint32_t fk[4];
+        hopper::ldmatrix_x4_trans(fk, bk_rows<D>(sK, kk, c, lane));
+        hopper::mma_bf16(acc[c / 8], da, fk[0], fk[1]);
+        hopper::mma_bf16(acc[c / 8 + 1], da, fk[2], fk[3]);
+      }
+    }
+    __syncthreads();  // this buffer is read before it is staged again
+  }
+  hopper::cp_async_wait_all();
+
+  // the odd warp's dQ onto the even one's, through the K and V buffers
+  __syncthreads();
+  float4* red = reinterpret_cast<float4*>(sKV) + rg * (D / 8) * 32 + lane;
+  if (par) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      red[n * 32] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+  }
+  __syncthreads();
+  if (par) return;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const float4 o = red[n * 32];
+    acc[n][0] += o.x;
+    acc[n][1] += o.y;
+    acc[n][2] += o.z;
+    acc[n][3] += o.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = r0 + g + 8 * i;
+    if (qpos >= Tq) continue;
+    bf16* row = dq + b * sdq.b + (long long)qpos * sdq.t + h * sdq.h;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(scale * acc[n][2 * i],
+                                scale * acc[n][2 * i + 1]);
+  }
+}
+
+// B4: one block of kDkvThreads per (batch*head, kBwdRows key rows); warp
+// m owns key rows [16m, 16m + 16) of the tile and their dK and dV in
+// registers (2 x D/8 fragments of 16x8). Two blocks an SM, as shared
+// memory allows: up to 255 registers a thread. dk and dv rows start on 16
+// bytes (the wrapper allocates them).
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 2)
+    dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                   Strides sdo, Strides sdk, Strides sdv, int H, int Tq,
+                   int Tk, int k_len, float scale, bool causal) {
+  constexpr int BK = kBwdRows, BQ = kBwdStep, LD = tile_ld<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + BK * LD;
+  bf16* sQdO = sV + BK * LD;  // [buffer][Q, dO][BQ][LD]
+  // [buffer][lse, delta][BQ]
+  float* sLD = reinterpret_cast<float*>(sQdO + 4 * BQ * LD);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, k0 = blockIdx.y * BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = 16 * warp, kw = k0 + kr;
+  // query tiles the block needs: none when all its keys are masked; causal,
+  // none wholly before its first key
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int nqt = k0 < k_len ? (Tq + BQ - 1) / BQ : qt0;
+
+  auto stage_q = [&](int qt) {
+    const int buf = (qt - qt0) & 1;
+    bf16* dst = sQdO + buf * 2 * BQ * LD;
+    float* vec = sLD + buf * 2 * BQ;
+    stage_tile<D, BQ, kDkvThreads>(dst, q, sq, b, h, qt * BQ, Tq);
+    stage_tile<D, BQ, kDkvThreads>(dst + BQ * LD, dout, sdo, b, h, qt * BQ,
+                                   Tq);
+    stage_vec<BQ, kDkvThreads>(vec, lse + (long long)bh * Tq, qt * BQ, Tq);
+    stage_vec<BQ, kDkvThreads>(vec + BQ, delta + (long long)bh * Tq, qt * BQ,
+                               Tq);
+  };
+  stage_tile<D, BK, kDkvThreads>(sK, k, sk, b, h, k0, Tk);
+  stage_tile<D, BK, kDkvThreads>(sV, v, sv, b, h, k0, Tk);
+  if (qt0 < nqt) stage_q(qt0);
+  hopper::cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    if (qt + 1 < nqt) stage_q(qt + 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();
+    __syncthreads();
+    const int buf = (qt - qt0) & 1;
+    const bf16* sQ = sQdO + buf * 2 * BQ * LD;
+    const bf16* sdO = sQ + BQ * LD;
+    const float* sL = sLD + buf * 2 * BQ;
+    const float* sDl = sL + BQ;
+    const int q0 = qt * BQ;
+    // the warp's 16-query groups of this tile: none past Tq, none when all
+    // its keys are masked
+    const int qn = kw < k_len ? min(BQ, Tq - q0) : 0;
+    for (int qq = 0; qq < qn; qq += 16) {
+      if (causal && q0 + qq + 15 < kw) continue;  // wholly above the diagonal
+      // a sub-tile wholly inside k_len, Tq and (causal) the diagonal needs
+      // no mask
+      const bool inner = kw + 16 <= k_len && q0 + qq + 16 <= Tq
+                         && (!causal || kw + 15 <= q0 + qq);
+      float s[2][4], dp[2][4], p[2][4], ds[2][4];  // keys x queries
+      score_pair<D>(s, dp, sK, sV, kr, sQ, sdO, qq, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kpos = kw + g + 8 * (i >> 1);
+          const int col = qq + 8 * j + 2 * t + (i & 1), qpos = q0 + col;
+          probs_and_ds<bf16>(
+              s[j][i], dp[j][i], sL[col], sDl[col],
+              inner
+                  || (qpos < Tq && score_valid(qpos, kpos, k_len, causal)),
+              scale, &p[j][i], &ds[j][i]);
+        }
+      uint32_t pa[4], da[4];  // P^T and dS^T, rounded to bf16
+      hopper::pack_a(pa, p[0], p[1]);
+      hopper::pack_a(da, ds[0], ds[1]);
+#pragma unroll
+      for (int c = 0; c < D; c += 16) {
+        uint32_t f[4];
+        hopper::ldmatrix_x4_trans(f, bk_rows<D>(sdO, qq, c, lane));
+        hopper::mma_bf16(dv_acc[c / 8], pa, f[0], f[1]);
+        hopper::mma_bf16(dv_acc[c / 8 + 1], pa, f[2], f[3]);
+        hopper::ldmatrix_x4_trans(f, bk_rows<D>(sQ, qq, c, lane));
+        hopper::mma_bf16(dk_acc[c / 8], da, f[0], f[1]);
+        hopper::mma_bf16(dk_acc[c / 8 + 1], da, f[2], f[3]);
+      }
+    }
+    __syncthreads();  // this buffer is read before it is staged again
+  }
+  hopper::cp_async_wait<0>();
+
+  // dK and dV leave through the Q and dO buffers, so that a lane writes 16
+  // contiguous bytes of a row (fragment by fragment it would write 4)
+  __syncthreads();
+  bf16* stage = sQdO + warp * 32 * LD;
+  stage_acc<D>(stage, dk_acc, scale, g, t);
+  stage_acc<D>(stage + 16 * LD, dv_acc, 1.f, g, t);
+  __syncwarp();
+  store_rows16<D>(dk, sdk, b, h, kw, Tk, stage, lane);
+  store_rows16<D>(dv, sdv, b, h, kw, Tk, stage + 16 * LD, lane);
+}
+
 Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
@@ -469,15 +922,29 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
        const void* lse, const void* delta, void* dq_out, int B, int H,
        int Tq, int Tk, int k_len, const long long* st, float scale,
        int causal, cudaStream_t stream) {
-  const size_t smem = (4 * kTile * (D + 4) + kTile * kLP) * sizeof(float);
-  cudaError_t err = prepare(dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
-  dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dq_out, strides_at(st, 0),
-      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
-      strides_at(st, 4), H, Tq, Tk, k_len, scale, causal != 0);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = dq_smem_bytes<D>();
+    cudaError_t err = prepare(dq_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * H, (Tq + kBwdRows - 1) / kBwdRows);
+    dq_mma_kernel<D><<<grid, kDqThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, (const float*)delta, (bf16*)dq_out,
+        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+        strides_at(st, 3), strides_at(st, 4), H, Tq, Tk, k_len, scale,
+        causal != 0);
+  } else {  // fp32, which only the tests run: the CUDA-core loop
+    const size_t smem = (4 * kTile * (D + 4) + kTile * kLP) * sizeof(float);
+    cudaError_t err = prepare(dq_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
+    dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (T*)dq_out,
+        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+        strides_at(st, 3), strides_at(st, 4), H, Tq, Tk, k_len, scale,
+        causal != 0);
+  }
   return cudaGetLastError();
 }
 
@@ -486,17 +953,30 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int B,
         int H, int Tq, int Tk, int k_len, const long long* st, float scale,
         int causal, cudaStream_t stream) {
-  const size_t smem =
-      (4 * kTile * (D + 4) + 2 * kTile * kLP + 2 * kTile) * sizeof(float);
-  cudaError_t err = prepare(dkv_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tk + kTile - 1) / kTile);
-  dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
-      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Tq, Tk,
-      k_len, scale, causal != 0);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = dkv_smem_bytes<D>();
+    cudaError_t err = prepare(dkv_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * H, (Tk + kBwdRows - 1) / kBwdRows);
+    dkv_mma_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
+        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+        strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Tq, Tk,
+        k_len, scale, causal != 0);
+  } else {  // fp32, which only the tests run: the CUDA-core loop
+    const size_t smem =
+        (4 * kTile * (D + 4) + 2 * kTile * kLP + 2 * kTile) * sizeof(float);
+    cudaError_t err = prepare(dkv_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * H, (Tk + kTile - 1) / kTile);
+    dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
+        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+        strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Tq, Tk,
+        k_len, scale, causal != 0);
+  }
   return cudaGetLastError();
 }
 
@@ -546,4 +1026,40 @@ extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v,
                                float scale, int causal, void* stream) {
   DISPATCH(dkv, q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, k_len, st,
            scale, causal, (cudaStream_t)stream)
+}
+
+namespace {
+
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = threads;
+  out[1] = (int)smem;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
+                                                       threads, smem);
+}
+
+template <int D>
+int bwd_info(int* out) {
+  const int err = occupancy(dq_mma_kernel<D>, kDqThreads, dq_smem_bytes<D>(),
+                            out);
+  return err ? err : occupancy(dkv_mma_kernel<D>, kDkvThreads,
+                               dkv_smem_bytes<D>(), out + 3);
+}
+
+}  // namespace
+
+// The bf16 dq and dk/dv kernels' launch shape at head dim D: out[0..2] =
+// dq's threads a block, shared bytes a block, blocks an SM can hold;
+// out[3..5] the same for dk/dv. Returns 0 or a CUDA error code.
+extern "C" int fedml_flash_bwd_info(int D, int* out) {
+  switch (D) {
+    case 64:
+      return bwd_info<64>(out);
+    case 128:
+      return bwd_info<128>(out);
+    default:
+      return -1;
+  }
 }

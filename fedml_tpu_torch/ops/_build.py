@@ -1,19 +1,24 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``fedml_tpu_torch/csrc/<name>.cu`` has a plain C interface. It is
-compiled by ``nvcc`` for ``sm_90a`` into ``build/lib<name>.so`` at the
-root of the checkout (git-ignored) when the library is missing or older
-than its source, and loaded with ``ctypes``; every pointer and the
-stream cross as ``c_void_p``. Nothing is compiled when a module is
-imported: a wrapper builds its library at its first launch, and
-:func:`build_all` builds several at once, one ``nvcc`` per source, all
-started together.
+compiled by ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<key>.so`` at
+the root of the checkout (git-ignored) and loaded with ``ctypes``; every
+pointer and the stream cross as ``c_void_p``. The key is a hash of the
+source, of every ``csrc/*.cuh`` header and of the compiler flags, so an
+edit to any of them builds a new library and nothing stale is loaded.
+The compiler's ``-Xptxas -v`` report is kept beside the library
+(``.log``). Nothing is compiled when a module is imported: a wrapper
+builds its library at its first launch, and :func:`build_all` builds
+several at once, one ``nvcc`` per source, all started together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
+import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,51 +49,68 @@ class CudaLibrary:
     ``bind(lib)`` declares ``argtypes``/``restype`` of the library's C
     functions once it is loaded. :attr:`lib` builds on first use."""
 
-    def __init__(self, name, bind):
+    def __init__(self, name, bind, csrc=_CSRC, build_dir=_BUILD_DIR):
         self.name = name
-        self.source = os.path.join(_CSRC, f"{name}.cu")
-        self.path = os.path.join(_BUILD_DIR, f"lib{name}.so")
+        self.csrc = csrc
+        self.build_dir = build_dir
+        self.source = os.path.join(csrc, f"{name}.cu")
         self._bind = bind
         self._lib = None
         self._lock = threading.Lock()
 
-    def _stale(self):
-        return (not os.path.exists(self.path)
-                or os.path.getmtime(self.path) < os.path.getmtime(self.source))
+    def key(self):
+        """Hash of the source, the ``csrc/*.cuh`` headers and the flags."""
+        h = hashlib.sha256()
+        for path in [self.source,
+                     *sorted(glob.glob(os.path.join(self.csrc, "*.cuh")))]:
+            with open(path, "rb") as f:
+                h.update(os.path.basename(path).encode() + b"\0" + f.read()
+                         + b"\0")
+        h.update("\0".join(_NVCC_FLAGS).encode())
+        return h.hexdigest()[:16]
 
-    def _start(self):
-        """Start ``nvcc`` when the library is stale; returns the process
-        and its output path, or None."""
-        if not self._stale():
+    def path(self):
+        """``build/lib<name>-<key>.so``: the library of the files as they
+        stand now."""
+        return os.path.join(self.build_dir, f"lib{self.name}-{self.key()}.so")
+
+    def _start(self, path):
+        """Start ``nvcc`` when ``path`` is not built yet; returns the
+        process and its output path, or None."""
+        if os.path.exists(path):
             return None
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{self.path}.{os.getpid()}.tmp"
+        os.makedirs(self.build_dir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
         proc = subprocess.Popen([nvcc(), *_NVCC_FLAGS, "-o", tmp, self.source],
                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                 text=True)
         return proc, tmp
 
-    def _finish(self, started, output):
-        """Load and bind after the compiler (if it ran) has exited with
-        ``output``. Returns the compiler's ``-Xptxas -v`` report, or
-        ``""``."""
-        report = ""
+    def _finish(self, path, started, output):
+        """Load and bind ``path`` after the compiler (if it ran) has exited
+        with ``output``. Returns the compiler's report for this library."""
+        log = path + ".log"
         if started is not None:
             proc, tmp = started
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {self.source} "
                                    f"({proc.returncode}):\n{output}")
-            os.replace(tmp, self.path)
-            report = output
+            with open(log, "w") as f:
+                f.write(output)
+            os.replace(tmp, path)
             self._lib = None
         if self._lib is None:
-            lib = ctypes.CDLL(self.path)
+            lib = ctypes.CDLL(path)
             self._bind(lib)
             self._lib = lib
-        return report
+        if not os.path.exists(log):
+            return ""
+        with open(log) as f:
+            return f.read()
 
     def build(self):
-        """Compile (when stale) and load; returns the compiler's report."""
+        """Compile (when not built yet) and load; returns the compiler's
+        report."""
         return build_all([self])[self.name]
 
     @property
@@ -99,20 +121,44 @@ class CudaLibrary:
 
 
 def build_all(libraries):
-    """Compile every stale library at once, one ``nvcc`` each, then load
-    them all. Returns ``{name: compiler report}``."""
+    """Compile every library not built yet at once, one ``nvcc`` each,
+    then load them all. Returns ``{name: compiler report}``."""
     libraries = sorted(libraries, key=lambda lib: lib.name)
     for lib in libraries:
         lib._lock.acquire()
     try:
-        started = [lib._start() for lib in libraries]
+        paths = [lib.path() for lib in libraries]
+        started = [lib._start(p) for lib, p in zip(libraries, paths)]
         # every compiler has exited before any result is judged
         outputs = ["".join(s[0].communicate()) if s else "" for s in started]
-        return {lib.name: lib._finish(s, out)
-                for lib, s, out in zip(libraries, started, outputs)}
+        return {lib.name: lib._finish(p, s, out)
+                for lib, p, s, out in zip(libraries, paths, started, outputs)}
     finally:
         for lib in libraries:
             lib._lock.release()
 
 
-__all__ = ["CudaLibrary", "build_all", "nvcc"]
+def ptxas_usage(report):
+    """Per kernel of a ``-Xptxas -v`` report: ``{mangled name:
+    {"registers", "spill_stores", "spill_loads"}}`` (bytes for spills)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+__all__ = ["CudaLibrary", "build_all", "nvcc", "ptxas_usage"]

@@ -12,7 +12,10 @@ PyTorch op in the backward, as the reference computes it outside Pallas.
 
 Layout ``[B, T, H, D]`` at every public function; the kernels read it
 through its strides (no transposes, no padded copies) and mask ragged
-``Tq``/``Tk`` themselves. lse is fp32 ``[B, H, Tq]``. Keys at or past
+``Tq``/``Tk`` themselves. Rows that start on 16 bytes (contiguous
+tensors, the model's qkv column slices) are staged by 16-byte copies;
+rows that do not are read element by element by the same kernels, with
+the same results. lse is fp32 ``[B, H, Tq]``. Keys at or past
 ``k_len`` (default ``Tk``) are masked and, causal, keys after their
 query in absolute positions (``kpos <= qpos``). A fully masked row gets
 O = 0 and lse = 0.
@@ -50,16 +53,29 @@ def _bind(lib):
         fn = getattr(lib, name)
         fn.restype = _I
         fn.argtypes = [_P] * n_ptr + tail
+    lib.fedml_flash_bwd_info.restype = _I
+    lib.fedml_flash_bwd_info.argtypes = [_I, _P]
 
 
 LIBRARY = CudaLibrary("flash_attention", _bind)
 
 
 def build():
-    """Compile ``csrc/flash_attention.cu`` into ``build/`` (when the
-    library is missing or older than its source) and load it. Returns
-    the compiler's ``-Xptxas -v`` report when it compiled, else ``""``."""
+    """Compile ``csrc/flash_attention.cu`` into ``build/`` (unless this
+    source, its headers and flags are built already) and load it.
+    Returns the compiler's ``-Xptxas -v`` report."""
     return LIBRARY.build()
+
+
+def bwd_launch_info(D=128):
+    """Launch shape of the bf16 dq (B3) and dk/dv (B4) kernels at head
+    dim ``D`` on the current card: ``{"dq": {"threads", "smem_bytes",
+    "blocks_per_sm"}, "dkv": {...}}``."""
+    out = (ctypes.c_int * 6)()
+    _raise_on(LIBRARY.lib.fedml_flash_bwd_info(D, out), "bwd_info")
+    return {name: {"threads": out[i], "smem_bytes": out[i + 1],
+                   "blocks_per_sm": out[i + 2]}
+            for name, i in (("dq", 0), ("dkv", 3))}
 
 
 # ---------------------------------------------------------------------------
@@ -301,8 +317,9 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
     return FlashAttention.apply(q, k, v, causal, scale)
 
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "build", "launches", "flash_attention",
-           "FlashAttention", "flash_attention_fwd", "flash_attention_dq",
-           "flash_attention_dkv", "flash_attention_fwd_reference",
+__all__ = ["SUPPORTED_HEAD_DIMS", "build", "bwd_launch_info", "launches",
+           "flash_attention", "FlashAttention", "flash_attention_fwd",
+           "flash_attention_dq", "flash_attention_dkv",
+           "flash_attention_fwd_reference",
            "flash_attention_bwd_reference", "flash_attention_dq_reference",
            "flash_attention_dkv_reference"]

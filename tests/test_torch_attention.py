@@ -4,10 +4,11 @@ against ``pallas_attention._fa_fwd``/``_fa_bwd`` (Pallas in interpret
 mode on the CPU), ``mha`` and ``blockwise_attention`` against theirs, and
 the autograd Function on CPU tensors against autograd through ``mha``.
 
-Inputs are made with numpy from a seed, fp32. Tolerances: 2e-5 on the
-forward (the JAX package's own, ``tests/test_ops.py``), 1e-5 on the
-backward (tighter than its gradient tolerance of 5e-4; the observed
-error is about 1e-6): fp32 sums in another order.
+Inputs are made with numpy from a seed, fp32 (and the backward's also
+in bf16, the LM path's dtype). Tolerances: 2e-5 on the forward (the JAX
+package's own, ``tests/test_ops.py``), 1e-5 on the backward (tighter
+than its gradient tolerance of 5e-4; the observed error is about 1e-6):
+fp32 sums in another order; one bf16 ulp on the bf16 backward.
 """
 
 import jax.numpy as jnp
@@ -67,6 +68,38 @@ def test_plain_backward_matches_pallas_bwd(causal, tq, tk):
                                            causal)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+def _bf16(x):
+    """numpy (or a JAX array's values) -> bf16 tensor, rounded to nearest
+    even as ``jnp.asarray(x, jnp.bfloat16)`` rounds."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal,tq,tk", CASES)
+def test_plain_backward_matches_pallas_bwd_in_bf16(causal, tq, tk):
+    """The kernels' oracle in the main path's dtype: both backwards take
+    the same bf16 q, k, v, dO and the JAX forward's O and lse, and round
+    p and ds to bf16 before their second product. Tolerance one bf16 ulp
+    at the outputs' magnitude, 2^-8 * max|ref| (the card tests hold the
+    kernels to this oracle at 1.6e-2 * max|ref| + 1e-3): both round fp32
+    sums taken in another order (the Pallas kernel scales each tile's dq
+    and dk, the plain version the sum) to bf16. Observed: 0."""
+    q, k, v = _inputs(tq, tk)
+    g = _np(4, tq)
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+    _, res = jpa._fa_fwd(jq, jk, jv, causal, None, BLOCK, BLOCK)
+    want = jpa._fa_bwd(causal, None, BLOCK, BLOCK, res, jg)
+    out, lse = _bf16(res[3]), torch.from_numpy(np.array(res[4]))
+    tq_, tk_, tv_, tg = (_bf16(x) for x in (q, k, v, g))
+    delta = (tg.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_attention_bwd_reference(
+        tq_, tk_, tv_, tg, lse.transpose(1, 2).contiguous(), delta, causal)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        ref = np.asarray(b, np.float32)
+        err = np.abs(a.float().numpy() - ref).max()
+        assert err <= 2.0 ** -8 * np.abs(ref).max(), err
 
 
 def test_fully_masked_rows_give_zero_lse():

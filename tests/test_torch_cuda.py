@@ -114,10 +114,15 @@ def _qkv_do(dev, dtype, B, Tq, Tk, H, D, seed):
 
 # (B, Tq, Tk, H, D): the LM flagship's launch (8 clients x batch 4 at
 # T=80, 4 heads of 128), T of 1 and 129 (one row; one past two tiles),
-# Tq != Tk both ways, head dim 64
+# Tq != Tk both ways, head dim 64; then the edges of the bf16 backward's
+# 16-row sub-tiles and 32/64-row tiles (T of 15, 16, 17, 33, 63, 65) and
+# a T above 128 with Tq != Tk
 ATTN_SHAPES = [(32, 80, 80, 4, 128), (2, 1, 1, 2, 128), (2, 129, 129, 2, 64),
                (2, 129, 129, 2, 128), (2, 40, 24, 3, 64),
-               (2, 24, 70, 2, 128), (3, 80, 80, 2, 64)]
+               (2, 24, 70, 2, 128), (3, 80, 80, 2, 64),
+               (2, 15, 15, 2, 128), (2, 16, 16, 2, 64), (2, 17, 17, 2, 128),
+               (2, 33, 33, 2, 64), (2, 63, 63, 2, 128), (2, 65, 65, 2, 128),
+               (2, 200, 150, 2, 128)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -150,20 +155,77 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, causal, B, Tq, Tk,
                for a, b in zip((dk, dv), fa.flash_attention_dkv(*args)))
 
 
+def _bwd_args(q, k, v, do, causal, k_len=None):
+    """(q, k, v, dO, lse, delta, causal) from the plain forward."""
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal, k_len=k_len)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, causal
+
+
+def _bwd(args, k_len=None):
+    """(dq, dk, dv) from the kernels."""
+    return ((fa.flash_attention_dq(*args, k_len=k_len),)
+            + fa.flash_attention_dkv(*args, k_len=k_len))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("k_len", [0, 1, 37, 64])
+def test_flash_backward_masks_keys_past_k_len(cuda, dtype, causal, k_len):
+    """Keys at or past ``k_len`` get no attention: dq, dk and dv match the
+    plain versions, and with ``k_len = 0`` all three are zero."""
+    q, k, v, do = _qkv_do(cuda, dtype, 2, 80, 80, 2, 128, 17 + k_len)
+    args = _bwd_args(q, k, v, do, causal, k_len)
+    rel, abs_ = _tol(dtype)
+    got = _bwd(args, k_len)
+    for g, ref in zip(got, fa.flash_attention_bwd_reference(*args,
+                                                             k_len=k_len)):
+        _close_rel(g, ref, rel, abs_)
+    if k_len == 0:
+        assert all(torch.equal(g, torch.zeros_like(g)) for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, _bwd(args, k_len)))
+
+
 def test_flash_kernels_read_strided_qkv_views(cuda):
     """q, k, v as column slices of one fused qkv product (the model's
-    layout) give the same bits as contiguous copies."""
+    layout) give the same bits as contiguous copies: O and lse, dq, dk
+    and dv."""
     B, T, H, D = 4, 80, 4, 128
     gen = torch.Generator(device=cuda).manual_seed(3)
     qkv = torch.randn(B, T, 3 * H * D, generator=gen,
                       device=cuda).to(torch.bfloat16)
+    do = torch.randn(B, T, H, D, generator=gen, device=cuda).to(torch.bfloat16)
     q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, T, H, D)
                for i in range(3))
     assert not q.is_contiguous()
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
     o, lse = fa.flash_attention_fwd(q, k, v, True)
-    oc, lsec = fa.flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), True)
+    oc, lsec = fa.flash_attention_fwd(qc, kc, vc, True)
     assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    got = _bwd(_bwd_args(q, k, v, do, True))
+    want = _bwd(_bwd_args(qc, kc, vc, do, True))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_take_views_off_16_byte_rows(cuda, causal):
+    """q, k, v and dO whose rows do not start on 16 bytes (views one
+    element into a buffer with an odd row stride) are read element by
+    element: forward and backward match the plain versions."""
+    B, T, H, D = 2, 70, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    buf = torch.randn(4, B, T, H * D + 1, generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v, do = (buf[i, :, :, 1:].reshape(B, T, H, D) for i in range(4))
+    assert q.data_ptr() % 16 and q.stride(1) % 8
+    rel, abs_ = _tol(torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal)
+    _close_rel(o, o_ref, rel, abs_)
+    _close_rel(lse, lse_ref, 1e-4, 1e-5)
+    args = _bwd_args(q, k, v, do, causal)
+    for g, ref in zip(_bwd(args), fa.flash_attention_bwd_reference(*args)):
+        _close_rel(g, ref, rel, abs_)
 
 
 def test_fully_masked_rows_give_zero_output_and_lse(cuda):
