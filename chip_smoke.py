@@ -7,10 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero):
 
 1. build the hand-written kernels from ``fedml_tpu_torch/csrc`` into
-   ``build/`` (one nvcc per source, all at once), print the bf16 dq and
-   dk/dv kernels' registers and spills (``-Xptxas -v``) with their
-   shared memory and blocks an SM, and read the card's name and power
-   limit;
+   ``build/`` (one nvcc per source, all at once), print the bf16
+   forward, dq and dk/dv kernels' registers and spills (``-Xptxas -v``)
+   with their threads, shared memory and blocks an SM, and read the
+   card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes of its main path, and time kernel, plain version, one library
    call computing the same function (a yardstick only) and the bound:
@@ -33,11 +33,11 @@ Phases (any failure exits non-zero):
    model's logits on the card against the plain versions on the CPU;
 5. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
-``python3 chip_smoke.py --profile`` adds, before the last lines, B3 and
-B4 built with 32-row block tiles against the default 64, the attention
-backward's kernels (ours and SDPA's) under ``torch.profiler``, one
-timed round per lane lowering and a ``torch.profiler`` breakdown of a
-``pallas`` ResNet round and of an LM round by kernel.
+``python3 chip_smoke.py --profile`` adds, before the last lines, the
+timer's floor, the attention backward's kernels (ours and SDPA's) under
+``torch.profiler``, one timed round per lane lowering and a
+``torch.profiler`` breakdown of a ``pallas`` ResNet round and of an LM
+round by kernel.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -153,21 +153,20 @@ def _mismatch(got, ref):
     return differ / sum(g.numel() for g in got)
 
 
-def bwd_kernel_usage(_build, fa, report):
-    """Registers and spills (bytes) of the bf16 dq and dk/dv kernels per
-    head dim from the ``-Xptxas -v`` report, with threads, shared memory
-    and blocks an SM of their launch on this card. Fails when a kernel is
-    missing from the report."""
+def mma_kernel_usage(_build, fa, report):
+    """Registers and spills (bytes) of the bf16 forward, dq and dk/dv
+    kernels per head dim from the ``-Xptxas -v`` report, with threads,
+    shared memory and blocks an SM of their launch on this card. Fails
+    when a kernel is missing from the report."""
     usage = _build.ptxas_usage(report)
     out = {}
     for D in (128, 64):
-        info = fa.bwd_launch_info(D)
-        for name in ("dq", "dkv"):
-            fn = f"{name}_mma_kernel"
-            tag = f"{len(fn)}{fn}ILi{D}E"  # as the name is mangled
+        info = fa.mma_launch_info(D)
+        for name, fn in fa.MMA_KERNELS.items():
+            tag = fa.mma_kernel_tag(name, D)
             found = [u for k, u in usage.items() if tag in k]
             if len(found) != 1:
-                fail(f"{name}_mma_kernel<{D}> not in the ptxas report")
+                fail(f"{fn}<{D}> not in the ptxas report")
             out[f"{name}_bf16_D{D}"] = {**found[0], **info[name]}
     return out
 
@@ -245,6 +244,7 @@ def phase_attention(torch, fa):
                "dkv_err": max(
                    _check(f"dk {label}", dk, dk_ref, 1.6e-2, 1e-3),
                    _check(f"dv {label}", dv, dv_ref, 1.6e-2, 1e-3)),
+               "fwd_mismatch": _mismatch((o,), (o_ref,)),
                "bwd_mismatch": _mismatch((dq, dk, dv),
                                          (dq_ref, dk_ref, dv_ref))}
         for name in errs:
@@ -457,11 +457,6 @@ def _device_us(torch, prof):
     return by_name
 
 
-# the port's attention kernels by the name the profiler gives them
-ATTN_KERNELS = {"fwd": "::fwd_kernel<", "dq": "::dq_mma_kernel<",
-                "dkv": "::dkv_mma_kernel<"}
-
-
 def _profile_round(torch, api, label):
     """One round of ``api`` under ``torch.profiler``: device time by
     kernel, the device's busy share of the round and, of the LM, the
@@ -483,8 +478,11 @@ def _profile_round(torch, api, label):
         print(f"profile {label} kernel us={us:.0f} share={us / busy:.4f} "
               f"{name[:110]}", flush=True)
     if label == "lm":
-        attn = {k: sum(us for n, us in by_name.items() if sub in n)
-                for k, sub in ATTN_KERNELS.items()}
+        from fedml_tpu_torch.ops.flash_attention import MMA_KERNELS
+
+        # the bf16 attention kernels by the name the profiler gives them
+        attn = {k: sum(us for n, us in by_name.items() if f"::{fn}<" in n)
+                for k, fn in MMA_KERNELS.items()}
         print(f"profile lm attention_us {json.dumps(attn)} share="
               f"{sum(attn.values()) / busy:.4f}", flush=True)
 
@@ -571,7 +569,7 @@ def main():
     for name, report in reports.items():
         print(f"== {name}\n{report}", file=sys.stderr)
     print(f"build_s {time.time() - t0:.1f}", flush=True)
-    print("bwd_kernels " + json.dumps(bwd_kernel_usage(
+    print("mma_kernels " + json.dumps(mma_kernel_usage(
         _build, fa, reports[fa.LIBRARY.name])), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

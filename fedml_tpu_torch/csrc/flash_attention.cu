@@ -25,11 +25,15 @@
 // float32. p (B2, B4) and ds (B3, B4) are rounded to the input type
 // before their second product, as the Pallas kernels cast them. The
 // online-softmax state m, l, acc stays fp32, including the s <= NEG_INF/2
-// -> p = 0 guard and the m_keep rule. In bf16, B3 and B4 take exp from
-// ex2.approx (`bwd_exp`), a few fp32 ulps off, before p and ds are
-// rounded to bf16: measured faster than expf on the card. Each output
-// tile is owned by one block and there are no atomics, so a repeat call
-// is bit-equal.
+// -> p = 0 guard and the m_keep rule. B2 takes the exact expf; in bf16 it
+// rounds p against the running maximum of the keys its warp has taken,
+// 16 at a time (the Pallas kernel at block 16 against the row's running
+// maximum, the plain version against the whole row's). In bf16, B3 and
+// B4 take exp from ex2.approx (`bwd_exp`), a few fp32 ulps off, before p
+// and ds are rounded to bf16: measured faster than expf on the card. Each
+// output tile is owned by one block, the partial sums of a warp pair
+// meet in a fixed order and there are no atomics, so a repeat call is
+// bit-equal.
 //
 // What bounds them on the card. At the LM flagship's launch ([32, 80, 4,
 // 128] bf16, causal) the functions move 10.5 MB (B2), 13.1 MB (B3) and
@@ -39,25 +43,35 @@
 // kernel reaches is set by how soon each block has its tiles and how long
 // the chain of dependent instructions between them and the result is.
 //
-// B3 and B4 in bf16 (the LM path): tensor cores. Every product is a
+// B2, B3 and B4 in bf16 (the LM path): tensor cores. Every product is a
 // warp-level mma.m16n8k16 (bf16 operands, fp32 accumulators; hopper_mma.cuh)
-// fed by ldmatrix from bf16 tiles in shared memory: S = Q.K^T, dP = dO.V^T,
-// then dQ += dS.K (B3); S^T = K.Q^T, dP^T = V.dO^T, then dV += P^T.dO and
-// dK += dS^T.Q (B4). The score accumulators are, once rounded to bf16
-// pairs, the A operand of the accumulating product, so p and ds never
-// leave registers; the operands whose reduction axis is the tile's rows
-// (K in B3, dO and Q in B4) come through ldmatrix.trans, so nothing is
-// transposed in memory. A block owns kBwdRows rows (queries in B3, keys
-// in B4) and loops over tiles of kBwdStep rows of the opposite operand,
-// double-buffered: the next tile's 16-byte cp.async copies are in flight
-// while this tile's products run. Work is cut at 16 rows, and a warp
-// skips the 16x16 sub-tiles that lie wholly past Tq, past k_len or
-// (causal) above the diagonal; ragged edges inside a sub-tile are masked.
+// fed by ldmatrix from bf16 tiles in shared memory: S = Q.K^T, then O +=
+// P.V (B2); S = Q.K^T, dP = dO.V^T, then dQ += dS.K (B3); S^T = K.Q^T,
+// dP^T = V.dO^T, then dV += P^T.dO and dK += dS^T.Q (B4). The score
+// accumulators are, once rounded to bf16 pairs, the A operand of the
+// accumulating product, so p and ds never leave registers; the operands
+// whose reduction axis is the tile's rows (V in B2, K in B3, dO and Q in
+// B4) come through ldmatrix.trans, so nothing is transposed in memory. A
+// block owns 64 rows (queries in B2 and B3, keys in B4) and loops over
+// 64-row tiles of the opposite operand, double-buffered: the next tile's
+// 16-byte cp.async copies are in flight while this tile's products run.
+// Work is cut at 16 rows, and a warp skips the 16x16 sub-tiles that lie
+// wholly past Tq, past k_len or (causal) above the diagonal; ragged edges
+// inside a sub-tile are masked.
 // At the flagship's launch the 256 blocks of each kernel fill the 132 SMs
 // in one wave and all load at once. A trace probe that is not in the
-// repository (per-warp clock stamps) read a block waiting longer for its
-// first tiles than its products then took, with a warp's products
-// running in turn. So:
+// repository (per-warp clock stamps) read a backward block waiting longer
+// for its first tiles than its products then took, with a warp's
+// products running in turn. So:
+// - B2: two warps share each 16 query rows and take every other 16-key
+//   group, as in B3, each with its own online-softmax state (m, l and O
+//   in fp32 registers) and one softmax step per 16 keys as soon as they
+//   have landed; at the end the odd warp's state is merged into the even
+//   one's through shared memory, in that order, and O leaves through
+//   shared memory, 16 contiguous bytes a lane. A softmax step per 64-key
+//   tile with one warp per 16 rows (p rounded against the CUDA-core
+//   forward's running maximum) measured 1.7x slower, waiting for whole
+//   tiles and running the five sub-tiles of rows 64-79 in one warp.
 // - B3: two warps share each 16 query rows and take every other 16-key
 //   group, which halves the longest chain of sub-tiles a warp runs (dQ
 //   summed in registers, the odd warp's onto the even one's through
@@ -70,23 +84,25 @@
 //   bytes a lane. Its query tiles arrive whole (commit groups and a block
 //   barrier): waiting 16 queries at a time measured slower here.
 // Tiles are bf16 rows of D + 8 elements (bank-conflict-free ldmatrix),
-// about 103 KB a block, so two blocks share an SM. Rows that do not
-// start on 16 bytes are loaded element by element instead.
+// about 103 KB a backward block and 87 KB a forward block at D = 128, so
+// two blocks share an SM. Rows that do not start on 16 bytes are loaded
+// element by element instead.
 //
-// B2, and B3 and B4 in fp32 (which only the tests run): the first design,
-// on the CUDA cores. One block of 256 threads per (batch*head, 64-row
-// tile): query tiles for B2 and B3, key tiles for B4, which loop over the
-// opposite operand's tiles (skipping, causal, the tiles above the
-// diagonal). The block stages its own tile and each opposite tile in
-// shared memory as fp32, rows padded to D+4 floats. Four threads share a
-// tile row: each computes the scores of every fourth column (16 of 64)
-// and owns four of every sixteen columns of the head dim of the row's
-// accumulators; row maxima and sums reduce over the four lanes by
-// shuffles. Every shared-memory read is a float4; each product is an fp32
-// FMA (exact for bf16 inputs). Tiles arrive by 16-byte loads, all of a
-// thread's in flight at once, and the forward's p tile takes the K tile's
-// place, so two forward blocks share an SM. This design is bound by
-// instruction issue at low occupancy, far above its byte bound.
+// B2, B3 and B4 in fp32 (which only the tests and the fp32 logits check
+// of chip_smoke.py run): the first design, on the CUDA cores. One block
+// of 256 threads per (batch*head, 64-row tile): query tiles for B2 and
+// B3, key tiles for B4, which loop over the opposite operand's tiles
+// (skipping, causal, the tiles above the diagonal). The block stages its
+// own tile and each opposite tile in shared memory as fp32, rows padded
+// to D+4 floats. Four threads share a tile row: each computes the scores
+// of every fourth column (16 of 64) and owns four of every sixteen
+// columns of the head dim of the row's accumulators; row maxima and sums
+// reduce over the four lanes by shuffles. Every shared-memory read is a
+// float4; each product is an fp32 FMA (exact for bf16 inputs). Tiles
+// arrive by 16-byte loads, all of a thread's in flight at once, and the
+// forward's p tile takes the K tile's place, so two forward blocks share
+// an SM. This design is bound by instruction issue at low occupancy, far
+// above its byte bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -493,7 +509,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// B3 and B4 in bf16, on tensor cores
+// B3 and B4 in bf16, on tensor cores (B2's kernel below shares the helpers)
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
@@ -892,6 +908,222 @@ __global__ void __launch_bounds__(kDkvThreads, 2)
   store_rows16<D>(dv, sdv, b, h, kw, Tk, stage + 16 * LD, lane);
 }
 
+// ---------------------------------------------------------------------------
+// B2 in bf16, on tensor cores
+// ---------------------------------------------------------------------------
+constexpr int kFwdRows = 64;               // query rows a block owns
+constexpr int kFwdStep = 64;               // keys of a loop tile
+constexpr int kFwdThreads = kFwdRows * 4;  // two warps per 16 query rows
+
+// forward block: the Q tile, then two buffers of a K and a V tile
+template <int D> constexpr size_t fwd_smem_bytes() {
+  return (kFwdRows + 4 * kFwdStep) * tile_ld<D>() * sizeof(bf16);
+}
+
+// B2: one block of kFwdThreads per (batch*head, kFwdRows query rows);
+// warps 2m and 2m+1 own query rows [16m, 16m + 16) of the tile and take
+// its even and odd 16-key groups. Each keeps its own m, l and O (D/8
+// fragments of 16x8) in registers and takes one online-softmax step per
+// 16-key sub-tile: S into registers, row max and sum over the row's four
+// lanes, rescale of O, then p, rounded to bf16 in registers as the A
+// operand, times V. K and V arrive double-buffered, 16 keys at a time
+// behind an mbarrier each, as B3 stages them. At the end the odd warp's
+// state is merged into the even one's through shared memory, in that
+// order. A warp whose rows lie wholly past Tq only helps stage. Two
+// blocks an SM, as shared memory allows: at most 128 registers a thread.
+// o rows start on 16 bytes (the wrapper allocates it).
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o,
+                   float* __restrict__ lse, Strides sq, Strides sk,
+                   Strides sv, Strides so, int H, int Tq, int Tk, int k_len,
+                   float scale, bool causal) {
+  constexpr int BQ = kFwdRows, BK = kFwdStep, LD = tile_ld<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sKV = sQ + BQ * LD;  // [buffer][K, V][BK][LD]
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, q0 = blockIdx.y * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp >> 1, par = warp & 1, r0 = q0 + 16 * rg;
+  // keys the block, and this warp, need: before k_len and, causal, not
+  // after the last query; none for rows wholly past Tq
+  const int kend = causal ? min(k_len, min(q0 + BQ, Tq)) : k_len;
+  const int kend_w = r0 >= Tq ? 0
+                     : causal ? min(k_len, min(r0 + 16, Tq))
+                              : k_len;
+  const int nkt = (kend + BK - 1) / BK;
+
+  __shared__ uint64_t bars[2][BK / 16];
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 2 * (BK / 16); ++i)
+      hopper::mbar_init(&bars[0][0] + i, kFwdThreads);
+  __syncthreads();
+  auto stage_kv = [&](int kt) {
+    bf16* dst = sKV + (kt & 1) * 2 * BK * LD;
+    for (int c = 0; c < BK / 16; ++c) {
+      const int row0 = kt * BK + 16 * c;
+      stage_tile<D, 16, kFwdThreads>(dst + 16 * c * LD, k, sk, b, h, row0,
+                                     Tk);
+      stage_tile<D, 16, kFwdThreads>(dst + (BK + 16 * c) * LD, v, sv, b, h,
+                                     row0, Tk);
+      hopper::mbar_arrive_copies(&bars[kt & 1][c]);
+    }
+  };
+  // Q first: the first 16 keys' barrier covers it too
+  if (nkt > 0) {
+    stage_tile<D, BQ, kFwdThreads>(sQ, q, sq, b, h, q0, Tq);
+    stage_kv(0);
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g, g + 8
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) stage_kv(kt + 1);
+    const bf16* sK = sKV + (kt & 1) * 2 * BK * LD;
+    const bf16* sV = sK + BK * LD;
+    const int k0 = kt * BK;
+    const int kn = min(BK, kend_w - k0);  // keys of this tile the warp takes
+    // one online-softmax step per 16-key sub-tile, as soon as its keys
+    // have landed: S into registers, masked on the diagonal and edge
+    // sub-tiles only; rows g and g + 8 reduced over their four lanes
+    for (int kk = 16 * par; kk < kn; kk += 32) {
+      hopper::mbar_wait(&bars[kt & 1][kk / 16], (kt >> 1) & 1);
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int c = 0; c < D; c += 16) {
+        uint32_t fq[4], fk[4];
+        hopper::ldmatrix_x4(fq, a_rows<D>(sQ, 16 * rg, c, lane));
+        hopper::ldmatrix_x4(fk, bn_rows<D>(sK, kk, c, lane));
+        hopper::mma_bf16(s[0], fq, fk[0], fk[1]);
+        hopper::mma_bf16(s[1], fq, fk[2], fk[3]);
+      }
+      const int kb = k0 + kk;
+      const bool inner = kb + 16 <= k_len && (!causal || kb + 15 <= r0);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qpos = r0 + g + 8 * (i >> 1);
+          const int kpos = kb + 8 * jj + 2 * t + (i & 1);
+          s[jj][i] = inner || score_valid(qpos, kpos, k_len, causal)
+                         ? s[jj][i] * scale
+                         : kNegInf;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s[jj][i]);
+        }
+      float m_new[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m[r], mx[r]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = s[jj][i];
+          const float p = x <= kNegInf / 2 ? 0.f : expf(x - m_new[i >> 1]);
+          s[jj][i] = p;
+          psum[i >> 1] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+        psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+        const float corr = expf(m[r] - m_new[r]);
+        l[r] = l[r] * corr + psum[r];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[n][2 * r] *= corr;
+          acc[n][2 * r + 1] *= corr;
+        }
+        m[r] = m_new[r] <= kNegInf / 2 ? m[r] : m_new[r];  // m_keep
+      }
+      // O += P.V, p rounded to bf16 (the Pallas `p.astype(v.dtype)`)
+      uint32_t pa[4];
+      hopper::pack_a(pa, s[0], s[1]);
+#pragma unroll
+      for (int c = 0; c < D; c += 16) {
+        uint32_t fv[4];
+        hopper::ldmatrix_x4_trans(fv, bk_rows<D>(sV, kk, c, lane));
+        hopper::mma_bf16(acc[c / 8], pa, fv[0], fv[1]);
+        hopper::mma_bf16(acc[c / 8 + 1], pa, fv[2], fv[3]);
+      }
+    }
+    __syncthreads();  // this buffer is read before it is staged again
+  }
+  hopper::cp_async_wait_all();
+
+  // the odd warp's m, l and O onto the even one's, through the K and V
+  // buffers; O leaves through the warp pair's Q rows, 16 contiguous bytes
+  // a lane; a fully masked row (l == 0) gets O = 0 and lse 0: the backward
+  // re-masks it
+  __syncthreads();  // every copy has landed
+  float4* red =
+      reinterpret_cast<float4*>(sKV) + rg * (D / 8 + 1) * 32 + lane;
+  if (par) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      red[n * 32] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+    red[D / 8 * 32] = make_float4(m[0], m[1], l[0], l[1]);
+  }
+  __syncthreads();
+  if (par) return;
+  {
+    const float4 ml = red[D / 8 * 32];
+    const float mo[2] = {ml.x, ml.y}, lo[2] = {ml.z, ml.w};
+    float ce[2], co[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mt = fmaxf(m[r], mo[r]);
+      ce[r] = expf(m[r] - mt);
+      co[r] = expf(mo[r] - mt);
+      l[r] = l[r] * ce[r] + lo[r] * co[r];
+      m[r] = mt;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float4 a = red[n * 32];
+      acc[n][0] = acc[n][0] * ce[0] + a.x * co[0];
+      acc[n][1] = acc[n][1] * ce[0] + a.y * co[0];
+      acc[n][2] = acc[n][2] * ce[1] + a.z * co[1];
+      acc[n][3] = acc[n][3] * ce[1] + a.w * co[1];
+    }
+  }
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    denom[r] = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / denom[r];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][2 * r] *= inv;
+      acc[n][2 * r + 1] *= inv;
+    }
+  }
+  bf16* stage = sQ + 16 * rg * LD;
+  stage_acc<D>(stage, acc, 1.f, g, t);
+  __syncwarp();
+  store_rows16<D>(o, so, b, h, r0, Tq, stage, lane);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = r0 + g + 8 * r;
+      if (qpos < Tq)
+        lse[(long long)bh * Tq + qpos] =
+            l[r] > 0.f ? m[r] + logf(denom[r]) : 0.f;
+    }
+  }
+}
+
 Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
@@ -906,14 +1138,26 @@ template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int Tq, int Tk, int k_len, const long long* st,
         float scale, int causal, cudaStream_t stream) {
-  const size_t smem = 3 * kTile * (D + 4) * sizeof(float);
-  cudaError_t err = prepare(fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
-  fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), H, Tq, Tk, k_len, scale, causal != 0);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = fwd_smem_bytes<D>();
+    cudaError_t err = prepare(fwd_mma_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * H, (Tq + kFwdRows - 1) / kFwdRows);
+    fwd_mma_kernel<D><<<grid, kFwdThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
+        (float*)lse, strides_at(st, 0), strides_at(st, 1),
+        strides_at(st, 2), strides_at(st, 3), H, Tq, Tk, k_len, scale,
+        causal != 0);
+  } else {  // fp32, which only the tests run: the CUDA-core loop
+    const size_t smem = 3 * kTile * (D + 4) * sizeof(float);
+    cudaError_t err = prepare(fwd_kernel<T, D>, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
+    fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
+        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+        strides_at(st, 3), H, Tq, Tk, k_len, scale, causal != 0);
+  }
   return cudaGetLastError();
 }
 
@@ -1041,24 +1285,28 @@ int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
 }
 
 template <int D>
-int bwd_info(int* out) {
-  const int err = occupancy(dq_mma_kernel<D>, kDqThreads, dq_smem_bytes<D>(),
-                            out);
+int mma_info(int* out) {
+  int err = occupancy(fwd_mma_kernel<D>, kFwdThreads, fwd_smem_bytes<D>(),
+                      out);
+  if (!err)
+    err = occupancy(dq_mma_kernel<D>, kDqThreads, dq_smem_bytes<D>(),
+                    out + 3);
   return err ? err : occupancy(dkv_mma_kernel<D>, kDkvThreads,
-                               dkv_smem_bytes<D>(), out + 3);
+                               dkv_smem_bytes<D>(), out + 6);
 }
 
 }  // namespace
 
-// The bf16 dq and dk/dv kernels' launch shape at head dim D: out[0..2] =
-// dq's threads a block, shared bytes a block, blocks an SM can hold;
-// out[3..5] the same for dk/dv. Returns 0 or a CUDA error code.
-extern "C" int fedml_flash_bwd_info(int D, int* out) {
+// The bf16 forward, dq and dk/dv kernels' launch shape at head dim D:
+// out[0..2] = the forward's threads a block, shared bytes a block, blocks
+// an SM can hold; out[3..5] the same for dq, out[6..8] for dk/dv. Returns
+// 0 or a CUDA error code.
+extern "C" int fedml_flash_mma_info(int D, int* out) {
   switch (D) {
     case 64:
-      return bwd_info<64>(out);
+      return mma_info<64>(out);
     case 128:
-      return bwd_info<128>(out);
+      return mma_info<128>(out);
     default:
       return -1;
   }

@@ -53,8 +53,8 @@ def _bind(lib):
         fn = getattr(lib, name)
         fn.restype = _I
         fn.argtypes = [_P] * n_ptr + tail
-    lib.fedml_flash_bwd_info.restype = _I
-    lib.fedml_flash_bwd_info.argtypes = [_I, _P]
+    lib.fedml_flash_mma_info.restype = _I
+    lib.fedml_flash_mma_info.argtypes = [_I, _P]
 
 
 LIBRARY = CudaLibrary("flash_attention", _bind)
@@ -67,15 +67,28 @@ def build():
     return LIBRARY.build()
 
 
-def bwd_launch_info(D=128):
-    """Launch shape of the bf16 dq (B3) and dk/dv (B4) kernels at head
-    dim ``D`` on the current card: ``{"dq": {"threads", "smem_bytes",
-    "blocks_per_sm"}, "dkv": {...}}``."""
-    out = (ctypes.c_int * 6)()
-    _raise_on(LIBRARY.lib.fedml_flash_bwd_info(D, out), "bwd_info")
+#: the bf16 tensor-core kernels by wrapper: B2, B3, B4
+MMA_KERNELS = {"fwd": "fwd_mma_kernel", "dq": "dq_mma_kernel",
+               "dkv": "dkv_mma_kernel"}
+
+
+def mma_kernel_tag(name, D):
+    """The part of the mangled name of the bf16 kernel of wrapper ``name``
+    (a key of :data:`MMA_KERNELS`) at head dim ``D`` that names it alone,
+    as ``-Xptxas -v`` reports it: ``14fwd_mma_kernelILi128E``."""
+    fn = MMA_KERNELS[name]
+    return f"{len(fn)}{fn}ILi{D}E"
+
+
+def mma_launch_info(D=128):
+    """Launch shape of the bf16 forward (B2), dq (B3) and dk/dv (B4)
+    kernels at head dim ``D`` on the current card: ``{"fwd": {"threads",
+    "smem_bytes", "blocks_per_sm"}, "dq": {...}, "dkv": {...}}``."""
+    out = (ctypes.c_int * 9)()
+    _raise_on(LIBRARY.lib.fedml_flash_mma_info(D, out), "mma_info")
     return {name: {"threads": out[i], "smem_bytes": out[i + 1],
                    "blocks_per_sm": out[i + 2]}
-            for name, i in (("dq", 0), ("dkv", 3))}
+            for name, i in (("fwd", 0), ("dq", 3), ("dkv", 6))}
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +330,8 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
     return FlashAttention.apply(q, k, v, causal, scale)
 
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "build", "bwd_launch_info", "launches",
+__all__ = ["SUPPORTED_HEAD_DIMS", "MMA_KERNELS", "build", "mma_kernel_tag",
+           "mma_launch_info", "launches",
            "flash_attention", "FlashAttention", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_fwd_reference",

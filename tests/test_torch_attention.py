@@ -4,11 +4,12 @@ against ``pallas_attention._fa_fwd``/``_fa_bwd`` (Pallas in interpret
 mode on the CPU), ``mha`` and ``blockwise_attention`` against theirs, and
 the autograd Function on CPU tensors against autograd through ``mha``.
 
-Inputs are made with numpy from a seed, fp32 (and the backward's also
-in bf16, the LM path's dtype). Tolerances: 2e-5 on the forward (the JAX
-package's own, ``tests/test_ops.py``), 1e-5 on the backward (tighter
-than its gradient tolerance of 5e-4; the observed error is about 1e-6):
-fp32 sums in another order; one bf16 ulp on the bf16 backward.
+Inputs are made with numpy from a seed, fp32 (and the forward's and
+backward's also in bf16, the LM path's dtype). Tolerances: 2e-5 on the
+forward (the JAX package's own, ``tests/test_ops.py``), 1e-5 on the
+backward (tighter than its gradient tolerance of 5e-4; the observed error
+is about 1e-6): fp32 sums in another order; one bf16 ulp on the bf16
+forward and backward.
 """
 
 import jax.numpy as jnp
@@ -100,6 +101,31 @@ def test_plain_backward_matches_pallas_bwd_in_bf16(causal, tq, tk):
         ref = np.asarray(b, np.float32)
         err = np.abs(a.float().numpy() - ref).max()
         assert err <= 2.0 ** -8 * np.abs(ref).max(), err
+
+
+@pytest.mark.parametrize("causal,tq,tk", CASES)
+def test_plain_forward_matches_pallas_fwd_in_bf16(causal, tq, tk):
+    """The forward kernel's oracle in the main path's dtype: both forwards
+    take the same bf16 q, k, v and round p to bf16 before the PV product.
+    O is held to one bf16 ulp at the magnitude of max|ref|,
+    2^(floor(log2 max|ref|) - 7), between 2^-8 and 2^-7 times max|ref|
+    (the card tests hold the kernel to this oracle at 1.6e-2 * max|ref| +
+    1e-3): Pallas rounds p against a 16-key running maximum, the plain
+    version against the whole row's, so an fp32 O a hair apart may round
+    to the neighbouring bf16 value. lse is fp32 on both sides, at 2e-5.
+    Observed: O one ulp non-causal at Tq 24 (0.0078 at max|ref| 1.12),
+    a quarter or half of one elsewhere; lse 4.8e-7."""
+    q, k, v = _inputs(tq, tk)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    o_ref, res = jpa._fa_fwd(jq, jk, jv, causal, None, BLOCK, BLOCK)
+    o, lse = fa.flash_attention_fwd(*(_bf16(x) for x in (q, k, v)), causal)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    ref = np.asarray(o_ref, np.float32)
+    err = np.abs(o.float().numpy() - ref).max()
+    assert err <= 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7), err
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(res[4]).transpose(0, 2, 1),
+                               atol=2e-5)
 
 
 def test_fully_masked_rows_give_zero_lse():

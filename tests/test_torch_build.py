@@ -8,6 +8,7 @@ import os
 import pytest
 
 from fedml_tpu_torch.ops import _build
+from fedml_tpu_torch.ops import flash_attention as fa
 from fedml_tpu_torch.ops._build import CudaLibrary
 
 
@@ -85,11 +86,44 @@ ptxas info    : Function properties for _Z10dkv_kernelILi128EEvv
 ptxas info    : Used 128 registers, used 1 barriers, 432 bytes cmem[0]
 """
 
+# the bf16 tensor-core forward and the fp32 CUDA-core forward at D = 128,
+# mangled as the Itanium ABI mangles their signatures in
+# csrc/flash_attention.cu
+FWD_MMA = ("_ZN12_GLOBAL__N_114fwd_mma_kernelILi128EEEvPK13__nv_bfloat16"
+           "S3_S3_PS1_PfNS_7StridesES6_S6_S6_iiiifb")
+FWD_F32 = ("_ZN12_GLOBAL__N_110fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_PfNS_"
+           "7StridesES6_S6_S6_iiiifb")
+FWD_REPORT = f"""\
+ptxas info    : Compiling entry function '{FWD_F32}' for 'sm_90a'
+ptxas info    : Function properties for {FWD_F32}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 440 bytes cmem[0]
+ptxas info    : Compiling entry function '{FWD_MMA}' for 'sm_90a'
+ptxas info    : Function properties for {FWD_MMA}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 440 bytes cmem[0]
+"""
 
-def test_ptxas_usage_reads_registers_and_spills_per_kernel():
-    assert _build.ptxas_usage(REPORT) == {
-        "_Z9dq_kernelILi128EEvv": {"spill_stores": 0, "spill_loads": 0,
-                                   "registers": 126},
-        "_Z10dkv_kernelILi128EEvv": {"spill_stores": 12, "spill_loads": 28,
-                                     "registers": 128}}
+
+@pytest.mark.parametrize("report,want,tagged", [
+    (REPORT, {"_Z9dq_kernelILi128EEvv": {"spill_stores": 0, "spill_loads": 0,
+                                         "registers": 126},
+              "_Z10dkv_kernelILi128EEvv": {"spill_stores": 12,
+                                           "spill_loads": 28,
+                                           "registers": 128}}, None),
+    (FWD_REPORT, {FWD_F32: {"spill_stores": 0, "spill_loads": 0,
+                            "registers": 90},
+                  FWD_MMA: {"spill_stores": 0, "spill_loads": 0,
+                            "registers": 168}}, FWD_MMA)],
+    ids=["bwd", "fwd_mma"])
+def test_ptxas_usage_reads_registers_and_spills_per_kernel(report, want,
+                                                           tagged):
+    """Registers and spills per mangled name; the tag by which
+    ``chip_smoke.py`` finds the bf16 forward names it alone, not the fp32
+    forward."""
+    usage = _build.ptxas_usage(report)
+    assert usage == want
     assert _build.ptxas_usage("") == {}
+    if tagged:
+        tag = fa.mma_kernel_tag("fwd", 128)
+        assert [k for k in usage if tag in k] == [tagged]

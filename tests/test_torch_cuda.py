@@ -15,8 +15,9 @@ attention (B2-B4): against the plain versions on the same inputs in the
 same dtype; fp32 max|err| <= 1e-4*max|ref| + 1e-5 (sums in another
 order); bf16 max|err| <= 1.6e-2*max|ref| + 1e-3 -- both sides round
 their fp32 results to bf16 (one ulp is 2^-8 relative) and the kernel
-rounds p to bf16 against its running row maximum, tile by tile, where
-the plain version uses the final maximum. lse is fp32 on both sides and
+rounds p to bf16 against its running row maximum, 16 keys at a time in
+bf16 (B2) or tile by tile in fp32, where the plain version uses the
+final maximum. lse is fp32 on both sides and
 held at 1e-4*max|lse| + 1e-5.
 """
 
@@ -114,7 +115,7 @@ def _qkv_do(dev, dtype, B, Tq, Tk, H, D, seed):
 
 # (B, Tq, Tk, H, D): the LM flagship's launch (8 clients x batch 4 at
 # T=80, 4 heads of 128), T of 1 and 129 (one row; one past two tiles),
-# Tq != Tk both ways, head dim 64; then the edges of the bf16 backward's
+# Tq != Tk both ways, head dim 64; then the edges of the bf16 kernels'
 # 16-row sub-tiles and 32/64-row tiles (T of 15, 16, 17, 33, 63, 65) and
 # a T above 128 with Tq != Tk
 ATTN_SHAPES = [(32, 80, 80, 4, 128), (2, 1, 1, 2, 128), (2, 129, 129, 2, 64),
@@ -184,6 +185,29 @@ def test_flash_backward_masks_keys_past_k_len(cuda, dtype, causal, k_len):
     if k_len == 0:
         assert all(torch.equal(g, torch.zeros_like(g)) for g in got)
     assert all(torch.equal(a, b) for a, b in zip(got, _bwd(args, k_len)))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Tq,Tk,k_len", [(40, 70, 37), (24, 70, 45),
+                                         (70, 40, 37), (80, 50, 21),
+                                         (40, 70, 0)])
+def test_bf16_causal_forward_masks_keys_past_k_len(cuda, D, Tq, Tk, k_len):
+    """The bf16 forward, causal, with ``k_len`` ending inside a 16-key
+    sub-tile, Tq < Tk and Tq > Tk, or at 0 (every row fully masked: O and
+    lse zero): O and lse match the plain version and a repeat is
+    bit-equal."""
+    q, k, v, _ = _qkv_do(cuda, torch.bfloat16, 2, Tq, Tk, 2, D,
+                         Tq + 3 * Tk + k_len)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, k_len=k_len)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, True,
+                                                      k_len=k_len)
+    _close_rel(o, o_ref, *_tol(torch.bfloat16))
+    _close_rel(lse, lse_ref, 1e-4, 1e-5)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, True, k_len=k_len)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    if k_len == 0:
+        assert torch.equal(o, torch.zeros_like(o))
+        assert torch.equal(lse, torch.zeros_like(lse))
 
 
 def test_flash_kernels_read_strided_qkv_views(cuda):
