@@ -7,14 +7,16 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero):
 
 1. build the hand-written kernels from ``fedml_tpu_torch/csrc`` into
-   ``build/`` (one nvcc per source, all at once), print the bf16
-   forward, dq and dk/dv kernels' registers and spills (``-Xptxas -v``)
-   with their threads, shared memory and blocks an SM, and read the
-   card's name and power limit;
+   ``build/`` (one nvcc per source, all at once), print the tensor-core
+   kernels' registers and spills (``-Xptxas -v``) with their threads,
+   shared memory and blocks an SM -- the bf16 dW kernel at each of
+   ResNet-56's four shapes, the bf16 forward, dq and dk/dv -- and read
+   the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes of its main path, and time kernel, plain version, one library
    call computing the same function (a yardstick only) and the bound:
-   the grouped-conv dW (B1) at ResNet-56's four shapes; the
+   the grouped-conv dW (B1) at ResNet-56's four shapes in bf16 (each
+   line names the kernel's route, tensor cores or CUDA cores); the
    flash-attention forward, dq and dk/dv (B2-B4) at the LM flagship's
    launch ([32, 80, 4, 128] bf16 causal), a ragged T and a non-causal
    case, and the whole ``FlashAttention`` backward (delta, B3, B4)
@@ -23,7 +25,7 @@ Phases (any failure exits non-zero):
    ResNet-56 (bf16, 8 lanes, batch 64, synthetic LDA alpha=0.5
    CIFAR-shaped data, augmentation on, ``lane_lowering="pallas"``) for 2
    rounds through ``FedAvgAPI`` -- and show from the launch counters that
-   it ran through B1 (53 stride-1 convs per step);
+   it ran through B1's tensor-core kernel (53 stride-1 convs per step);
 4. drive the LM main path -- the federated LM flagship (``bench.py
    --lm``): TransformerLM d_model 512, 4 layers, 4 heads of 128, T 80,
    vocab 90, bf16, 32 LEAF-shaped synthetic clients, batch 4, AMSGrad lr
@@ -110,7 +112,10 @@ def phase_kernels(torch, grouped_conv):
         dy = torch.randn((B, L * co, hw, hw), generator=gen, device=dev
                          ).to(torch.bfloat16)
         args = (x, dy, L, 3, 3, (1, 1))
+        before = dict(grouped_conv.route_launches)
         got = grouped_conv.grouped_conv_dw(*args)
+        route = [k for k, n in grouped_conv.route_launches.items()
+                 if n != before[k]]
         ref = grouped_conv.grouped_conv_dw_reference(x.float(), dy.float(),
                                                      L, 3, 3, (1, 1))
         torch.cuda.synchronize()
@@ -127,8 +132,8 @@ def phase_kernels(torch, grouped_conv):
         K = B * hw * hw
         nbytes = x.numel() * 2 + dy.numel() * 2 + L * co * ci * 9 * 4
         ops = 2 * L * ci * co * 9 * K
-        row = {"shape": label, "x": list(x.shape), "dy": list(dy.shape),
-               "convs_per_step": per_step, "max_abs_err": err, "tol": tol,
+        row = {"shape": label, "route": route[0], "x": list(x.shape),
+               "dy": list(dy.shape), "convs_per_step": per_step, "max_abs_err": err, "tol": tol,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "ops_ms": ops / BF16_OPS_PER_S * 1e3}
@@ -153,13 +158,25 @@ def _mismatch(got, ref):
     return differ / sum(g.numel() for g in got)
 
 
-def mma_kernel_usage(_build, fa, report):
-    """Registers and spills (bytes) of the bf16 forward, dq and dk/dv
-    kernels per head dim from the ``-Xptxas -v`` report, with threads,
-    shared memory and blocks an SM of their launch on this card. Fails
-    when a kernel is missing from the report."""
-    usage = _build.ptxas_usage(report)
+def mma_kernel_usage(_build, fa, grouped_conv, reports):
+    """Registers and spills (bytes) of the tensor-core kernels from the
+    ``-Xptxas -v`` reports, with threads, shared memory and blocks an SM
+    of their launch on this card: the bf16 dW kernel at each of the main
+    path's four shapes (its ``CH`` instance and K splits too), the bf16
+    forward, dq and dk/dv kernels per head dim. Fails when a kernel is
+    missing from a report."""
     out = {}
+    usage = _build.ptxas_usage(reports[grouped_conv.LIBRARY.name])
+    fn = grouped_conv.MMA_KERNEL
+    for label, ci, co, hw, _ in DW_SHAPES:
+        info = grouped_conv.mma_launch_info(B, L, ci, co, hw, hw, 3, 3,
+                                            (1, 1))
+        tag = f"{len(fn)}{fn}ILi{info['ch']}E"
+        found = [u for k, u in usage.items() if tag in k]
+        if len(found) != 1:
+            fail(f"{fn}<{info['ch']}> not in the ptxas report")
+        out[f"dw_{label}"] = {**found[0], **info}
+    usage = _build.ptxas_usage(reports[fa.LIBRARY.name])
     for D in (128, 64):
         info = fa.mma_launch_info(D)
         for name, fn in fa.MMA_KERNELS.items():
@@ -338,11 +355,14 @@ def phase_main_path(torch, grouped_conv):
         fail(f"FedAvgAPI chose {api.device}")
     g0 = {k: v.clone() for k, v in api.global_state["params"].items()}
     grouped_conv.launches = 0
+    for route in grouped_conv.route_launches:
+        grouped_conv.route_launches[route] = 0
     records, trips = [], []
     for _ in range(2):
         records.append(api.train_one_round())
         trips.append(api._last_trip)
     launches = grouped_conv.launches
+    routes = dict(grouped_conv.route_launches)
     records[-1].update(api.evaluate_global())
     for r in records:
         print("round " + json.dumps(r), flush=True)
@@ -350,6 +370,9 @@ def phase_main_path(torch, grouped_conv):
     if launches != expect:
         fail(f"grouped_conv_dw launched {launches} times, expected 53 x "
              f"{sum(trips)} lane steps = {expect}")
+    if routes != {"tensor_core": expect, "cuda_core": 0}:
+        fail(f"grouped_conv_dw routes {routes}: every main-path call should "
+             f"take the tensor-core kernel ({expect})")
     for r in records:
         if not (math.isfinite(r["Train/Loss"])
                 and math.isfinite(r["Test/Loss"] if "Test/Loss" in r
@@ -363,7 +386,8 @@ def phase_main_path(torch, grouped_conv):
     if not finite or moved <= 0.0:
         fail(f"global state finite={finite}, max param change {moved}")
     print(f"main_path rounds={len(records)} lane_steps={sum(trips)} "
-          f"kernel_launches={launches} max_param_change={moved} "
+          f"kernel_launches={launches} routes={json.dumps(routes)} "
+          f"max_param_change={moved} "
           f"round_time_s={[r['round_time_s'] for r in records]}",
           flush=True)
     return launches
@@ -570,7 +594,7 @@ def main():
         print(f"== {name}\n{report}", file=sys.stderr)
     print(f"build_s {time.time() - t0:.1f}", flush=True)
     print("mma_kernels " + json.dumps(mma_kernel_usage(
-        _build, fa, reports[fa.LIBRARY.name])), flush=True)
+        _build, fa, grouped_conv, reports)), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

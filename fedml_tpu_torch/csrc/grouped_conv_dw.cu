@@ -16,25 +16,55 @@
 // 33.5 MB per stage-1 conv of ResNet-56 at L=8, B=64, 32x32 in bf16) and
 // does 2*Ci*Co*kh*kw*K operations, far below the card's compute/byte ratio.
 //
-// Design. At the main path's shapes there are only L*kh*kw = 72 (lane, tap)
-// pairs for 132 SMs, and Ci, Co <= 64, so one block per pair would leave
-// most of the card idle behind a 65,536-long serial reduction. The kernel
-// therefore splits K across blocks (split-K) and sums the splits in a
-// second pass, in a fixed order, so the result is deterministic (no
-// atomics).
+// Two kernels compute it; the wrapper (ops/grouped_conv.py `_route`) picks
+// one per call and each has its own C entry points.
 //
-// K is walked in tiles of R output rows x CW output columns of one image.
-// A block stages the tile's dy and the x window the tile's taps read (the
-// tile plus a halo of kh-1 rows and kw-1 columns; outside the image the
-// window is filled by masking, no padded copy exists) in shared memory as
-// fp32, so x is read once for all the taps a block serves instead of once
-// per tap. A block serves TPB taps (all nine of a 3x3 kernel when Ci, Co
-// <= 16, one row of three when <= 32, one when <= 64); each thread owns a
-// 4x4 register tile of the [Ci, Co] product of one tap. Tensor cores
-// (wgmma, TMA) are later work.
+// dw_mma_kernel (bf16, the main path): tensor cores, mma.sync m16n8k16
+// with fp32 accumulators (csrc/hopper_mma.cuh). In lane-merged NCHW both
+// operands of a (lane, tap) product already have the reduction axis
+// contiguous: A = the tap-shifted x, [Ci x K], one channel plane a row,
+// and B = dy stored as Co rows of K, the `.col` operand; so plain
+// ldmatrix (no .trans) loads both. A K tile is R whole output rows of one
+// image. The block copies the tile's dy rows and the x rows h0-pt ..
+// h0-pt+R+kh-2 with 16-byte cp.async (rows outside the image zero-filled;
+// no padded copy exists in device memory), double-buffered so that the
+// copies of tile t+1 land while tile t is multiplied. The one
+// misalignment is the column shift dw-pl (+-2 bytes for a 3x3 kernel):
+// from the staged rows the block builds one column-shifted copy per
+// filter column in shared memory (funnel shifts of 16-byte chunks, zero
+// outside the image), and copy dw serves all kh taps of that column at
+// the 16-byte aligned row offset dh*Wo. So each byte of x and dy is read
+// from device memory once for all the taps a block serves. M = Ci and
+// N = Co are padded with zero rows to CH = 16, 32 or 64 (the stem's
+// Ci = 3 runs here too). A warp owns up to TWM taps of one filter column
+// x one m16 tile x up to four n8 tiles and reuses its dy fragments across
+// its taps; where a block has fewer such units than 8 warps, its warps
+// split the tile's k16 steps and merge through shared memory in a fixed
+// order. It takes bf16, Ci and Co <= 64, W and Wo multiples of 8 (rows of
+// whole 16-byte chunks), 16-byte aligned x and dy, W <= 64 and kernels up
+// to 5x5, so that its tiles fit in shared memory.
+//
+// dw_partial_kernel (fp32, and the bf16 shapes the first does not take):
+// CUDA cores. K is walked in tiles of R output rows x CW output columns
+// of one image. A block stages the tile's dy and the x window the tile's
+// taps read (the tile plus a halo of kh-1 rows and kw-1 columns; outside
+// the image the window is filled by masking) in shared memory as fp32, so
+// x is read once for all the taps a block serves instead of once per tap.
+// A block serves TPB taps (all nine of a 3x3 kernel when Ci, Co <= 16,
+// one row of three when <= 32, one when <= 64); each thread owns a 4x4
+// register tile of the [Ci, Co] product of one tap.
+//
+// Both split K across blocks (split-K): at the main path's shapes there
+// are only L*kh*kw = 72 (lane, tap) pairs for 132 SMs. Each block writes
+// its partial sums to `work` [L*kh*kw, nsplit, Ci*Co] and a second pass
+// (dw_reduce_kernel) adds the splits in split order, so the result is
+// deterministic (no atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -215,6 +245,379 @@ __global__ void dw_reduce_kernel(const float* __restrict__ work,
   out[e] = v;
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core route (bf16)
+// ---------------------------------------------------------------------------
+constexpr int kMmaMaxWarps = 8;
+constexpr int kMmaMaxW = 64;         // widest x row
+constexpr int kMmaMaxK = 5;          // largest kh, kw
+constexpr int kMmaKTarget = 128;     // output positions per K tile, at least
+constexpr int kMmaMaxSmem = 227 * 1024;
+
+// Per channel count CH (Ci and Co rounded up to 16, 32 or 64): a warp's
+// unit is TWM taps at most x one m16 tile x NTW n8 tiles.
+template <int CH>
+struct MmaCfg {
+  static constexpr int MT = CH / 16;             // m16 tiles
+  static constexpr int NT = CH / 8;              // n8 tiles
+  static constexpr int NTW = NT < 4 ? NT : 4;    // n8 tiles a warp
+  static constexpr int NG = NT / NTW;            // n groups
+  static constexpr int TWM = CH == 16 ? 9 : 3;   // taps a warp at most
+  static constexpr int ACC = TWM * NTW * 4;      // fp32 accumulators a lane
+};
+
+int mma_twm(int ch) { return ch == 16 ? 9 : 3; }
+int mma_acc(int ch) {
+  const int nt = ch / 8;
+  return mma_twm(ch) * (nt < 4 ? nt : 4) * 4;
+}
+
+struct MmaPlan {
+  int B, L, Ci, Co, H, W, Ho, Wo, kh, kw, pt, pl;
+  int ch;          // Ci, Co rounded up to 16, 32 or 64
+  int tw;          // taps a warp (consecutive in column-major tap order)
+  int tpb;         // taps a block
+  int tap_blocks;  // blocks a lane's taps take
+  int kwb;         // filter columns (shifted copies) a block spans, at most
+  int units;       // (taps, m16, n group) units a block
+  int ks;          // warps that split each unit's k16 steps
+  int threads;
+  int R, HX;       // K tile: output rows; staged x rows (R + kh - 1)
+  int SA, SB;      // row strides (elements) of the copies and of dy
+  int nrb, ntiles, tps, nsplit;
+  int smem;
+};
+
+int round_stride(int n) {  // an odd number of 16-byte chunks: ldmatrix's
+  return (n / 8) % 2 ? n : n + 8;  // eight rows fall in eight bank groups
+}
+
+MmaPlan make_mma_plan(int B, int L, int Ci, int Co, int H, int W, int Ho,
+                      int Wo, int kh, int kw, int pt, int pl, int n_sm) {
+  MmaPlan p{B, L, Ci, Co, H, W, Ho, Wo, kh, kw, pt, pl};
+  const int c = Ci > Co ? Ci : Co;
+  p.ch = c <= 16 ? 16 : (c <= 32 ? 32 : 64);
+  const int taps = kh * kw, twm = mma_twm(p.ch);
+  const int nt = p.ch / 8;
+  const int unit_tiles = (p.ch / 16) * (nt / (nt < 4 ? nt : 4));
+  p.tw = 1;
+  if (taps <= twm) {
+    p.tw = taps;
+  } else {
+    for (int d = 1; d <= kh; ++d)
+      if (kh % d == 0 && d <= twm) p.tw = d;
+  }
+  const int groups = taps / p.tw;
+  int gpb = 1;
+  for (int d = 1; d <= groups; ++d)
+    if (groups % d == 0 && d * unit_tiles <= kMmaMaxWarps) gpb = d;
+  p.tpb = gpb * p.tw;
+  p.tap_blocks = groups / gpb;
+  p.units = gpb * unit_tiles;
+  p.ks = 1;
+  while (p.units * p.ks * 2 <= kMmaMaxWarps) p.ks *= 2;
+  p.threads = 32 * p.units * p.ks;
+  p.kwb = 0;
+  for (int tb = 0; tb < p.tap_blocks; ++tb) {
+    const int q0 = tb * p.tpb, q1 = q0 + p.tpb - 1;
+    const int span = q1 / kh - q0 / kh + 1;
+    if (span > p.kwb) p.kwb = span;
+  }
+  // K tile: whole output rows, a multiple of 16 positions
+  p.R = (kMmaKTarget + Wo - 1) / Wo;
+  if (p.R > Ho) p.R = Ho;
+  if ((p.R * Wo) % 16) ++p.R;
+  p.HX = p.R + kh - 1;
+  p.SA = round_stride(p.HX * Wo);
+  p.SB = round_stride(p.R * Wo);
+  p.nrb = (Ho + p.R - 1) / p.R;
+  p.ntiles = B * p.nrb;
+  // about two blocks an SM, and no more partial sums than input bytes
+  const int base = L * p.tap_blocks;
+  const long long in_bytes = 2LL * B * L * (Ci * (long long)H * W +
+                                            Co * (long long)Ho * Wo);
+  const long long part_bytes = 4LL * L * taps * Ci * Co;
+  long long want = (2LL * n_sm + base - 1) / base;
+  if (want > in_bytes / part_bytes) want = in_bytes / part_bytes;
+  if (want > p.ntiles) want = p.ntiles;
+  if (want < 1) want = 1;
+  p.tps = (int)((p.ntiles + want - 1) / want);
+  p.nsplit = (p.ntiles + p.tps - 1) / p.tps;
+  const int pipe = 2 * 2 * Ci * p.HX * W          // staged x, two stages
+                   + 2 * p.kwb * p.ch * p.SA      // shifted copies
+                   + 2 * 2 * p.ch * p.SB;         // staged dy, two stages
+  const int merge = 4 * (p.ks - 1) * p.units * mma_acc(p.ch) * 32;
+  p.smem = pipe > merge ? pipe : merge;
+  return p;
+}
+
+bool mma_plan_ok(const MmaPlan& p) {
+  return p.Ci >= 1 && p.Co >= 1 && p.Ci <= kMaxCh && p.Co <= kMaxCh &&
+         p.kh >= 1 && p.kw >= 1 && p.kh <= kMmaMaxK && p.kw <= kMmaMaxK &&
+         p.Ho >= 1 && p.Wo >= 8 && p.W >= 8 && p.W <= kMmaMaxW &&
+         p.W % 8 == 0 && p.Wo % 8 == 0 && p.smem <= kMmaMaxSmem;
+}
+
+// 8 bf16 starting `off` (0..7) elements into the 16 elements a, b
+__device__ __forceinline__ uint4 shift_chunk(uint4 a, uint4 b, int off) {
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int q = off >> 1;
+  const unsigned sh = (off & 1) * 16;
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = q == 0 ? w[i] : q == 1 ? w[i + 1]
+                      : q == 2 ? w[i + 2] : w[i + 3];
+    const uint32_t hi = q == 0 ? w[i + 1] : q == 1 ? w[i + 2]
+                      : q == 2 ? w[i + 3] : w[i + 4];
+    o[i] = __funnelshift_r(lo, hi, sh);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// floor division by 8
+__device__ __forceinline__ int floor8(int v) {
+  return v >= 0 ? v / 8 : -((7 - v) / 8);
+}
+
+template <int CH>
+__global__ void __launch_bounds__(kMmaMaxWarps * 32, 2)
+dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
+              const __nv_bfloat16* __restrict__ dy,
+              float* __restrict__ work, MmaPlan p) {
+  using Cfg = MmaCfg<CH>;
+  constexpr int TWM = Cfg::TWM, NTW = Cfg::NTW, ACC = Cfg::ACC;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const int WC = p.W / 8, WoC = p.Wo / 8;
+  const int raw_n = p.Ci * p.HX * p.W;             // one stage, elements
+  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  __nv_bfloat16* cpy = raw + 2 * raw_n;            // [kwb][CH][SA]
+  __nv_bfloat16* gs = cpy + p.kwb * CH * p.SA;     // [2][CH][SB]
+
+  const int taps = p.kh * p.kw;
+  const int l = blockIdx.x / p.tap_blocks;
+  const int q0 = (blockIdx.x % p.tap_blocks) * p.tpb;  // column-major taps
+  const int dw_lo = q0 / p.kh;
+  const int dw_hi = min((q0 + p.tpb - 1) / p.kh, p.kw - 1);
+  const int ncopy = dw_hi - dw_lo + 1;
+  const int split = blockIdx.y;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int unit = warp % p.units, kslot = warp / p.units;
+  const int ng = unit % Cfg::NG, mt = (unit / Cfg::NG) % Cfg::MT;
+  const int grp = unit / (Cfg::NG * Cfg::MT);
+  const int qw = q0 + grp * p.tw;                  // this warp's first tap
+
+  // shared offsets (elements) of this warp's A rows for each of its taps
+  int aoff[TWM];
+#pragma unroll
+  for (int j = 0; j < TWM; ++j) {
+    const int q = qw + (j < p.tw ? j : 0);
+    const int cdw = q / p.kh, cdh = q % p.kh;
+    aoff[j] = ((cdw - dw_lo) * CH + mt * 16 + ((lane >> 3) & 1) * 8 +
+               (lane & 7)) * p.SA + cdh * p.Wo + (lane >> 4) * 8;
+  }
+  const int boff = ((ng * NTW + (lane >> 4)) * 8 + (lane & 7)) * p.SB +
+                   ((lane >> 3) & 1) * 8;
+
+  float acc[TWM][NTW][4];
+#pragma unroll
+  for (int j = 0; j < TWM; ++j)
+#pragma unroll
+    for (int n = 0; n < NTW; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][n][c] = 0.f;
+
+  // zero the copies and dy stages once: rows past Ci and Co stay zero
+  {
+    uint4* z = reinterpret_cast<uint4*>(cpy);
+    const int n16 = (p.kwb * CH * p.SA + 2 * CH * p.SB) / 8;
+    for (int e = tid; e < n16; e += nthr) z[e] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  const long long HW = (long long)p.H * p.W, HWo = (long long)p.Ho * p.Wo;
+  auto issue = [&](int tile, int st) {
+    const int b = tile / p.nrb, h0 = (tile % p.nrb) * p.R;
+    const __nv_bfloat16* xb = x + ((long long)b * p.L + l) * p.Ci * HW;
+    const __nv_bfloat16* gb = dy + ((long long)b * p.L + l) * p.Co * HWo;
+    __nv_bfloat16* rs = raw + st * raw_n;
+    const int nx = p.Ci * p.HX * WC;
+    for (int e = tid; e < nx; e += nthr) {
+      const int c = e % WC, r = (e / WC) % p.HX, ci = e / (WC * p.HX);
+      const int ih = h0 - p.pt + r;
+      const bool ok = ih >= 0 && ih < p.H;
+      hopper::cp_async16(rs + (ci * p.HX + r) * p.W + c * 8,
+                         ok ? xb + ci * HW + (long long)ih * p.W + c * 8 : x,
+                         ok);
+    }
+    __nv_bfloat16* gd = gs + st * CH * p.SB;
+    const int ng_ = p.Co * p.R * WoC;
+    for (int e = tid; e < ng_; e += nthr) {
+      const int c = e % WoC, r = (e / WoC) % p.R, co = e / (WoC * p.R);
+      const int h = h0 + r;
+      const bool ok = h < p.Ho;
+      hopper::cp_async16(gd + co * p.SB + r * p.Wo + c * 8,
+                         ok ? gb + co * HWo + (long long)h * p.Wo + c * 8 : dy,
+                         ok);
+    }
+  };
+
+  const int t_begin = split * p.tps;
+  const int t_end = min(p.ntiles, t_begin + p.tps);
+  const int k16 = p.R * p.Wo / 16;
+  issue(t_begin, 0);
+  hopper::cp_async_commit();
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      issue(t + 1, st ^ 1);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();
+    // column-shifted copies: cpy[d][ci][r*Wo + w] = x row r, column
+    // w + dw - pl (zero outside the image), for the block's columns
+    {
+      const uint4* rs = reinterpret_cast<const uint4*>(raw + st * raw_n);
+      const int nb = ncopy * p.Ci * p.HX * WoC;
+      for (int e = tid; e < nb; e += nthr) {
+        const int c = e % WoC, r = (e / WoC) % p.HX;
+        const int ci = (e / (WoC * p.HX)) % p.Ci;
+        const int d = e / (WoC * p.HX * p.Ci);
+        const int s = dw_lo + d - p.pl;
+        const int cb = c + floor8(s);
+        const int off = s - 8 * floor8(s);
+        const uint4* row = rs + (ci * p.HX + r) * WC;
+        const uint4 zero = make_uint4(0, 0, 0, 0);
+        const uint4 a = cb >= 0 && cb < WC ? row[cb] : zero;
+        const uint4 b2 = cb + 1 >= 0 && cb + 1 < WC ? row[cb + 1] : zero;
+        *reinterpret_cast<uint4*>(cpy + (d * CH + ci) * p.SA + r * p.Wo +
+                                  c * 8) = shift_chunk(a, b2, off);
+      }
+    }
+    __syncthreads();
+    const __nv_bfloat16* gst = gs + st * CH * p.SB + boff;
+    for (int kk = kslot; kk < k16; kk += p.ks) {
+      uint32_t bf[NTW / 2][4];
+#pragma unroll
+      for (int q = 0; q < NTW / 2; ++q)
+        hopper::ldmatrix_x4(bf[q], gst + q * 16 * p.SB + kk * 16);
+#pragma unroll
+      for (int j = 0; j < TWM; ++j) {
+        if (j < p.tw) {
+          uint32_t a[4];
+          hopper::ldmatrix_x4(a, cpy + aoff[j] + kk * 16);
+#pragma unroll
+          for (int n = 0; n < NTW; ++n)
+            hopper::mma_bf16(acc[j][n], a, bf[n / 2][(n % 2) * 2],
+                             bf[n / 2][(n % 2) * 2 + 1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // warps that split a unit's k16 steps merge onto kslot 0, in kslot order
+  if (p.ks > 1) {
+    float* red = reinterpret_cast<float*>(smem_mma);
+    if (kslot > 0) {
+      float* dst = red + ((kslot - 1) * p.units + unit) * ACC * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < TWM; ++j)
+#pragma unroll
+        for (int n = 0; n < NTW; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            dst[((j * NTW + n) * 4 + c) * 32] = acc[j][n][c];
+    }
+    __syncthreads();
+    if (kslot == 0) {
+      for (int k = 1; k < p.ks; ++k) {
+        const float* src = red + ((k - 1) * p.units + unit) * ACC * 32 + lane;
+#pragma unroll
+        for (int j = 0; j < TWM; ++j)
+#pragma unroll
+          for (int n = 0; n < NTW; ++n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[j][n][c] += src[((j * NTW + n) * 4 + c) * 32];
+      }
+    }
+  }
+  if (kslot > 0) return;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < TWM; ++j) {
+    if (j >= p.tw) break;
+    const int q = qw + j;
+    const int tap = (q % p.kh) * p.kw + q / p.kh;
+    float* dst = work + (((long long)l * taps + tap) * p.nsplit + split) *
+                            p.Ci * p.Co;
+#pragma unroll
+    for (int n = 0; n < NTW; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int ci = mt * 16 + g + (c >> 1) * 8;
+        const int co = (ng * NTW + n) * 8 + 2 * t4 + (c & 1);
+        if (ci < p.Ci && co < p.Co) dst[ci * p.Co + co] = acc[j][n][c];
+      }
+  }
+}
+
+template <int CH>
+cudaError_t prepare_mma(const MmaPlan& p) {
+  return cudaFuncSetAttribute(dw_mma_kernel<CH>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              p.smem);
+}
+
+template <int CH>
+cudaError_t launch_mma_ch(const void* x, const void* dy, void* work,
+                          const MmaPlan& p, cudaStream_t st) {
+  cudaError_t err = prepare_mma<CH>(p);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.L * p.tap_blocks, p.nsplit);
+  dw_mma_kernel<CH><<<grid, p.threads, p.smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(dy), static_cast<float*>(work), p);
+  return cudaGetLastError();
+}
+
+template <int CH>
+int mma_occupancy(const MmaPlan& p, int* out) {
+  cudaError_t err = prepare_mma<CH>(p);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, dw_mma_kernel<CH>, p.threads, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = p.threads;
+  out[1] = p.smem;
+  out[2] = blocks;
+  out[3] = p.nsplit;
+  out[4] = p.ch;
+  return 0;
+}
+
+// the reduction pass reads only the shape and nsplit of a Plan
+Plan reduce_plan(const MmaPlan& m) {
+  Plan p{m.B, m.L, m.Ci, m.Co, m.H, m.W, m.Ho, m.Wo, m.kh, m.kw, m.pt, m.pl};
+  p.nsplit = m.nsplit;
+  return p;
+}
+
+cudaError_t launch_reduce(const float* work, float* out, const Plan& p,
+                          cudaStream_t st) {
+  const long long total = (long long)p.L * p.Co * p.Ci * p.kh * p.kw;
+  const int threads = 256;
+  dw_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+                     st>>>(work, out, p);
+  return cudaGetLastError();
+}
+
 template <typename T, int CH>
 cudaError_t launch_ch(const void* x, const void* dy, void* work,
                       const Plan& p, cudaStream_t st) {
@@ -271,10 +674,55 @@ extern "C" int fedml_grouped_conv_dw(const void* x, const void* dy, void* out,
       ? launch_partial<__nv_bfloat16>(x, dy, work, p, st)
       : launch_partial<float>(x, dy, work, p, st);
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)L * Co * Ci * kh * kw;
-  const int threads = 256;
-  dw_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
-                     st>>>(static_cast<const float*>(work),
-                           static_cast<float*>(out), p);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce(static_cast<const float*>(work),
+                            static_cast<float*>(out), p, st);
+}
+
+// The tensor-core route (bf16 x and dy, 16-byte aligned): the number of K
+// splits, to size `work` as [L*kh*kw, nsplit, Ci*Co] fp32, or -1 for
+// shapes it does not take.
+extern "C" int fedml_grouped_conv_dw_mma_nsplit(int B, int L, int Ci, int Co,
+                                                int H, int W, int Ho, int Wo,
+                                                int kh, int kw, int pt,
+                                                int pl, int n_sm) {
+  const MmaPlan p =
+      make_mma_plan(B, L, Ci, Co, H, W, Ho, Wo, kh, kw, pt, pl, n_sm);
+  return mma_plan_ok(p) ? p.nsplit : -1;
+}
+
+extern "C" int fedml_grouped_conv_dw_mma(const void* x, const void* dy,
+                                         void* out, void* work, int B, int L,
+                                         int Ci, int Co, int H, int W, int Ho,
+                                         int Wo, int kh, int kw, int pt,
+                                         int pl, int n_sm, void* stream) {
+  const MmaPlan p =
+      make_mma_plan(B, L, Ci, Co, H, W, Ho, Wo, kh, kw, pt, pl, n_sm);
+  if (!mma_plan_ok(p)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (p.ch == 16)
+    err = launch_mma_ch<16>(x, dy, work, p, st);
+  else if (p.ch == 32)
+    err = launch_mma_ch<32>(x, dy, work, p, st);
+  else
+    err = launch_mma_ch<64>(x, dy, work, p, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_reduce(static_cast<const float*>(work),
+                            static_cast<float*>(out), reduce_plan(p), st);
+}
+
+// The tensor-core route's launch at a shape: out[0] threads a block,
+// out[1] shared bytes a block, out[2] blocks an SM can hold, out[3] K
+// splits, out[4] the channel count CH it is instantiated at. Returns 0,
+// -1 for shapes it does not take, or a CUDA error code.
+extern "C" int fedml_grouped_conv_dw_mma_info(int B, int L, int Ci, int Co,
+                                              int H, int W, int Ho, int Wo,
+                                              int kh, int kw, int pt, int pl,
+                                              int n_sm, int* out) {
+  const MmaPlan p =
+      make_mma_plan(B, L, Ci, Co, H, W, Ho, Wo, kh, kw, pt, pl, n_sm);
+  if (!mma_plan_ok(p)) return -1;
+  if (p.ch == 16) return mma_occupancy<16>(p, out);
+  if (p.ch == 32) return mma_occupancy<32>(p, out);
+  return mma_occupancy<64>(p, out);
 }

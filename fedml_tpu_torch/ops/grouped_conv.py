@@ -12,7 +12,10 @@ stride 1, is
 
 computed by ``csrc/grouped_conv_dw.cu`` on a CUDA tensor and by
 :func:`grouped_conv_dw_reference` (plain PyTorch) on a CPU tensor. The
-kernel is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at its
+source holds two kernels, and :func:`_route` picks one per call: the
+tensor-core kernel (``dw_mma_kernel``, bf16 at the shapes it takes, the
+whole main path) or the CUDA-core kernel (``dw_partial_kernel``, fp32
+and every other shape). The source is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at its
 first use and loaded with ``ctypes`` (``ops/_build.py``); nothing is
 compiled at import.
 """
@@ -27,10 +30,16 @@ import torch.nn.functional as F
 from fedml_tpu_torch.ops._build import CudaLibrary
 
 _MAX_CH = 64      # kMaxCh in the CUDA source
+_MMA_MAX_W = 64   # kMmaMaxW
+_MMA_MAX_K = 5    # kMmaMaxK
 
-#: launches of the CUDA kernel made by :func:`grouped_conv_dw`; the
+#: launches of the CUDA kernels made by :func:`grouped_conv_dw`; the
 #: plain version on CPU tensors does not count
 launches = 0
+#: the same launches by route (:func:`_route`)
+route_launches = {"tensor_core": 0, "cuda_core": 0}
+#: the tensor-core kernel's name in the source, templated on CH
+MMA_KERNEL = "dw_mma_kernel"
 
 
 def _bind(lib):
@@ -41,6 +50,16 @@ def _bind(lib):
     plan = lib.fedml_grouped_conv_dw_nsplit
     plan.restype = ctypes.c_int
     plan.argtypes = [ctypes.c_int] * 13
+    fn = lib.fedml_grouped_conv_dw_mma
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
+                   + [ctypes.c_void_p])
+    plan = lib.fedml_grouped_conv_dw_mma_nsplit
+    plan.restype = ctypes.c_int
+    plan.argtypes = [ctypes.c_int] * 13
+    info = lib.fedml_grouped_conv_dw_mma_info
+    info.restype = ctypes.c_int
+    info.argtypes = [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 
 LIBRARY = CudaLibrary("grouped_conv_dw", _bind)
@@ -87,13 +106,42 @@ def grouped_conv_dw_reference(x, dy, L, kh, kw, padding):
     return out.reshape(LCo, LCi // L, kh, kw)
 
 
+def _route(dtype, Ci, Co, W, Wo, kh, kw, aligned):
+    """The kernel that takes a launch: ``"tensor_core"`` for bf16 with Ci
+    and Co at most 64, x rows (W) and dy rows (Wo) of whole 16-byte
+    chunks, W at most 64, kernels up to 5x5 and x and dy on 16-byte
+    addresses (``aligned``); ``"cuda_core"`` for everything else."""
+    if (dtype == torch.bfloat16 and Ci <= _MAX_CH and Co <= _MAX_CH
+            and W % 8 == 0 and Wo % 8 == 0 and W <= _MMA_MAX_W
+            and kh <= _MMA_MAX_K and kw <= _MMA_MAX_K and aligned):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def mma_launch_info(B, L, Ci, Co, H, W, kh, kw, padding, device=None):
+    """Launch shape of the tensor-core kernel at a bf16 shape on the
+    current card: ``{"ch", "threads", "smem_bytes", "blocks_per_sm",
+    "nsplit"}``; ``ch`` names the template instance (``CH``)."""
+    ph, pw = padding
+    Ho, Wo = H + 2 * ph - kh + 1, W + 2 * pw - kw + 1
+    n_sm = torch.cuda.get_device_properties(
+        device or torch.device("cuda", 0)).multi_processor_count
+    out = (ctypes.c_int * 5)()
+    err = LIBRARY.lib.fedml_grouped_conv_dw_mma_info(
+        B, L, Ci, Co, H, W, Ho, Wo, kh, kw, ph, pw, n_sm, out)
+    if err != 0:
+        raise RuntimeError(f"grouped_conv_dw mma_info failed ({err})")
+    return {"ch": out[4], "threads": out[0], "smem_bytes": out[1],
+            "blocks_per_sm": out[2], "nsplit": out[3]}
+
+
 def grouped_conv_dw(x, dy, L, kh, kw, padding):
     """Per-lane stride-1 conv weight gradient, ``[L*Co, Ci, kh, kw]`` fp32.
 
-    On CUDA tensors this launches the hand-written kernel (bf16 or fp32
-    inputs, contiguous, Ci and Co at most 64) and raises on anything it
-    does not take; on CPU tensors it computes
-    :func:`grouped_conv_dw_reference`."""
+    On CUDA tensors this launches a hand-written kernel, the one
+    :func:`_route` names (bf16 or fp32 inputs, contiguous, Ci and Co at
+    most 64), and raises on anything it does not take; on CPU tensors it
+    computes :func:`grouped_conv_dw_reference`."""
     global launches
     if x.device.type == "cpu":
         return grouped_conv_dw_reference(x, dy, L, kh, kw, padding)
@@ -113,7 +161,12 @@ def grouped_conv_dw(x, dy, L, kh, kw, padding):
     lib = LIBRARY.lib
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     dims = (B, L, Ci, Co, H, W, Ho, Wo, kh, kw, padding[0], padding[1], n_sm)
-    nsplit = lib.fedml_grouped_conv_dw_nsplit(*dims)
+    route = _route(x.dtype, Ci, Co, W, Wo, kh, kw,
+                   x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+    if route == "tensor_core":
+        nsplit = lib.fedml_grouped_conv_dw_mma_nsplit(*dims)
+    else:
+        nsplit = lib.fedml_grouped_conv_dw_nsplit(*dims)
     if nsplit < 1:
         raise ValueError(f"grouped_conv_dw does not take x {tuple(x.shape)}, "
                          f"dy {tuple(dy.shape)}, kernel {kh}x{kw}")
@@ -122,12 +175,17 @@ def grouped_conv_dw(x, dy, L, kh, kw, padding):
     work = torch.empty((L * kh * kw, nsplit, Ci * Co), device=x.device,
                        dtype=torch.float32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.fedml_grouped_conv_dw(
-        x.data_ptr(), dy.data_ptr(), out.data_ptr(), work.data_ptr(),
-        int(x.dtype == torch.bfloat16), *dims, stream)
+    ptrs = (x.data_ptr(), dy.data_ptr(), out.data_ptr(), work.data_ptr())
+    if route == "tensor_core":
+        err = lib.fedml_grouped_conv_dw_mma(*ptrs, *dims, stream)
+    else:
+        err = lib.fedml_grouped_conv_dw(
+            *ptrs, int(x.dtype == torch.bfloat16), *dims, stream)
     if err != 0:
-        raise RuntimeError(f"grouped_conv_dw launch failed: CUDA error {err}")
+        raise RuntimeError(f"grouped_conv_dw ({route}) launch failed: CUDA "
+                           f"error {err}")
     launches += 1
+    route_launches[route] += 1
     return out
 
 
@@ -174,5 +232,6 @@ def lane_conv_pallas(x, w, L, stride=(1, 1), padding=(1, 1)):
     return LaneConvPallas.apply(x, w, L, tuple(stride), tuple(padding))
 
 
-__all__ = ["build", "grouped_conv_dw", "grouped_conv_dw_reference",
-           "LaneConvPallas", "lane_conv_pallas", "launches"]
+__all__ = ["MMA_KERNEL", "build", "grouped_conv_dw",
+           "grouped_conv_dw_reference", "LaneConvPallas", "lane_conv_pallas",
+           "launches", "mma_launch_info", "route_launches"]

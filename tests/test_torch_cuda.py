@@ -8,9 +8,10 @@ installed:
 (``--noconftest`` skips ``tests/conftest.py``, which sets JAX up for the
 CPU suite). Without a GPU every test skips.
 
-Tolerances. Grouped-conv dW (B1): max|err| <= 1e-3*max|ref| + 1e-3
-against the plain version computed in fp32 from the same inputs -- fp32
-sums taken in another order over K = B*Ho*Wo up to 65,536. Flash
+Tolerances. Grouped-conv dW (B1), either kernel: max|err| <=
+1e-3*max|ref| + 1e-3 against the plain version computed in fp32 from the
+same inputs -- the same bf16 or fp32 products, fp32 sums taken in
+another order over K = B*Ho*Wo up to 65,536. Flash
 attention (B2-B4): against the plain versions on the same inputs in the
 same dtype; fp32 max|err| <= 1e-4*max|ref| + 1e-5 (sums in another
 order); bf16 max|err| <= 1.6e-2*max|ref| + 1e-3 -- both sides round
@@ -51,6 +52,18 @@ SHAPES = [(8, 64, 3, 16, 32, 32, 3, 1), (8, 64, 16, 16, 32, 32, 3, 1),
           (2, 5, 3, 16, 13, 11, 3, 1), (8, 2, 64, 48, 9, 7, 1, 0)]
 
 
+def _dw_launch(x, dy, L, k, p):
+    """dW from the kernel, and the route the launch took."""
+    before = dict(grouped_conv.route_launches)
+    launches = grouped_conv.launches
+    got = grouped_conv.grouped_conv_dw(x, dy, L, k, k, (p, p))
+    assert grouped_conv.launches == launches + 1
+    took = [r for r, n in grouped_conv.route_launches.items()
+            if n != before[r]]
+    assert len(took) == 1
+    return got, took[0]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("L,B,ci,co,H,W,k,p", SHAPES)
 def test_kernel_matches_plain_version(cuda, dtype, L, B, ci, co, H, W, k,
@@ -59,9 +72,12 @@ def test_kernel_matches_plain_version(cuda, dtype, L, B, ci, co, H, W, k,
     ho, wo = H + 2 * p - k + 1, W + 2 * p - k + 1
     x = torch.randn(B, L * ci, H, W, generator=gen, device=cuda).to(dtype)
     dy = torch.randn(B, L * co, ho, wo, generator=gen, device=cuda).to(dtype)
-    before = grouped_conv.launches
-    got = grouped_conv.grouped_conv_dw(x, dy, L, k, k, (p, p))
-    assert grouped_conv.launches == before + 1
+    got, route = _dw_launch(x, dy, L, k, p)
+    # bf16 rows of whole 16-byte chunks take the tensor cores (the main
+    # path's four shapes and the 5x5 case); fp32, W 11, 7 and Wo 6 take
+    # the CUDA cores
+    tensor_core = dtype == torch.bfloat16 and W % 8 == 0 and wo % 8 == 0
+    assert route == ("tensor_core" if tensor_core else "cuda_core")
     assert got.dtype == torch.float32 and got.shape == (L * co, ci, k, k)
     _close(got, grouped_conv.grouped_conv_dw_reference(
         x.float(), dy.float(), L, k, k, (p, p)))
@@ -69,6 +85,59 @@ def test_kernel_matches_plain_version(cuda, dtype, L, B, ci, co, H, W, k,
     # the result bit for bit
     assert torch.equal(got, grouped_conv.grouped_conv_dw(x, dy, L, k, k,
                                                          (p, p)))
+
+
+# (L, B, Ci, Co, H, W, k, padding), bf16 on the tensor-core kernel: a last
+# K tile that is partial (Ho 20 in 8-row tiles, B*Ho*Wo not a multiple of
+# the tile) and one taller than the image (Ho 4); Ci/Co of 16, 48, 64 and
+# Ci 3; a 1x1 kernel at padding 0 and 5x5 at padding 2; W 64, the widest
+# the route takes, at 3x3 and at 5x5 with 64 channels (the most shared
+# memory)
+MMA_SHAPES = [(2, 3, 16, 16, 20, 16, 3, 1), (2, 2, 16, 16, 4, 8, 3, 1),
+              (2, 4, 16, 48, 16, 16, 3, 1), (2, 4, 48, 64, 8, 8, 3, 1),
+              (2, 4, 64, 16, 16, 16, 3, 1), (2, 4, 3, 64, 16, 16, 3, 1),
+              (2, 3, 16, 32, 16, 16, 1, 0), (2, 3, 32, 16, 16, 16, 5, 2),
+              (2, 3, 48, 48, 24, 24, 5, 2), (1, 2, 16, 16, 64, 64, 3, 1),
+              (1, 2, 64, 64, 64, 64, 5, 2)]
+
+
+@pytest.mark.parametrize("L,B,ci,co,H,W,k,p", MMA_SHAPES)
+def test_tensor_core_kernel_matches_plain_version(cuda, L, B, ci, co, H, W,
+                                                  k, p):
+    gen = torch.Generator(device=cuda).manual_seed(ci * 7 + co + H)
+    ho, wo = H + 2 * p - k + 1, W + 2 * p - k + 1
+    x = torch.randn(B, L * ci, H, W, generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    dy = torch.randn(B, L * co, ho, wo, generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    got, route = _dw_launch(x, dy, L, k, p)
+    assert route == "tensor_core"
+    assert got.dtype == torch.float32 and got.shape == (L * co, ci, k, k)
+    _close(got, grouped_conv.grouped_conv_dw_reference(
+        x.float(), dy.float(), L, k, k, (p, p)))
+    # split-K and the warps' k16 split are merged in a fixed order
+    assert torch.equal(got, _dw_launch(x, dy, L, k, p)[0])
+
+
+@pytest.mark.parametrize("case", ["x_off_16_bytes", "dy_off_16_bytes",
+                                  "W_72"])
+def test_bf16_outside_the_tensor_core_route_takes_cuda_cores(cuda, case):
+    """bf16 inputs the tensor-core kernel does not take -- x or dy not on
+    a 16-byte address (a view one element into a buffer), W above 64 --
+    go to the CUDA-core kernel and match the plain version."""
+    L, B, ci, co, H = 2, 3, 16, 16, (72 if case == "W_72" else 16)
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    bufs = [torch.randn(B * L * c * H * H + 8, generator=gen,
+                        device=cuda).to(torch.bfloat16) for c in (ci, co)]
+    shift = {"x_off_16_bytes": (1, 0), "dy_off_16_bytes": (0, 1)}.get(
+        case, (0, 0))
+    x, dy = (b[s:s + B * L * c * H * H].view(B, L * c, H, H)
+             for b, s, c in zip(bufs, shift, (ci, co)))
+    assert (x.data_ptr() % 16 != 0) == (shift[0] == 1)
+    got, route = _dw_launch(x, dy, L, 3, 1)
+    assert route == "cuda_core"
+    _close(got, grouped_conv.grouped_conv_dw_reference(
+        x.float(), dy.float(), L, 3, 3, (1, 1)))
 
 
 @pytest.mark.parametrize("stride", [1, 2])

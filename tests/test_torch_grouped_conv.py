@@ -117,3 +117,34 @@ def test_wrapper_rejects_other_devices_and_bad_shapes():
                                      torch.randn(2, 20, 5, 5), 4, 3, 3,
                                      (1, 1))
 
+
+
+@pytest.mark.parametrize("dtype,ci,co,W,Wo,k,aligned,route", [
+    # the main path's four stride-1 shapes in bf16
+    (torch.bfloat16, 3, 16, 32, 32, 3, True, "tensor_core"),
+    (torch.bfloat16, 16, 16, 32, 32, 3, True, "tensor_core"),
+    (torch.bfloat16, 32, 32, 16, 16, 3, True, "tensor_core"),
+    (torch.bfloat16, 64, 64, 8, 8, 3, True, "tensor_core"),
+    # 1x1 and 5x5 kernels with rows of whole 16-byte chunks
+    (torch.bfloat16, 48, 16, 16, 16, 1, True, "tensor_core"),
+    (torch.bfloat16, 16, 48, 64, 64, 5, True, "tensor_core"),
+    # everything else goes to the CUDA cores
+    (torch.float32, 16, 16, 32, 32, 3, True, "cuda_core"),
+    (torch.float32, 64, 64, 8, 8, 3, True, "cuda_core"),
+    (torch.bfloat16, 3, 16, 11, 11, 3, True, "cuda_core"),
+    (torch.bfloat16, 5, 7, 8, 6, 3, True, "cuda_core"),
+    (torch.bfloat16, 16, 16, 32, 32, 3, False, "cuda_core"),
+    (torch.bfloat16, 16, 16, 72, 72, 3, True, "cuda_core"),
+    (torch.bfloat16, 16, 16, 16, 16, 7, True, "cuda_core"),
+    (torch.bfloat16, 65, 16, 16, 16, 3, True, "cuda_core"),
+])
+def test_route_picks_the_kernel(dtype, ci, co, W, Wo, k, aligned, route):
+    assert grouped_conv._route(dtype, ci, co, W, Wo, k, k, aligned) == route
+
+
+def test_cpu_tensors_count_no_route():
+    before = dict(grouped_conv.route_launches)
+    x = torch.randn(2, 4 * 3, 8, 8, dtype=torch.bfloat16)
+    dy = torch.randn(2, 4 * 16, 8, 8, dtype=torch.bfloat16)
+    grouped_conv.grouped_conv_dw(x, dy, 4, 3, 3, (1, 1))
+    assert grouped_conv.route_launches == before
