@@ -35,8 +35,9 @@ Phases (any failure exits non-zero):
    model's logits on the card against the plain versions on the CPU;
 5. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
-``python3 chip_smoke.py --profile`` adds, before the last lines, the
-timer's floor, the attention backward's kernels (ours and SDPA's) under
+``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
+kernels (products and split-K pass) at each shape, the timer's floor,
+the attention backward's kernels (ours and SDPA's) under
 ``torch.profiler``, one timed round per lane lowering and a
 ``torch.profiler`` breakdown of a ``pallas`` ResNet round and of an LM
 round by kernel.
@@ -555,11 +556,37 @@ def _profile_attention_bwd(torch, fa):
                       by_name.items(), key=lambda kv: -kv[1])}), flush=True)
 
 
-def phase_profile(torch, fa):
-    """``--profile``: the attention backward's kernels, ours and SDPA's;
-    one ResNet round per lane lowering after a warm-up round (round
-    time), then one ``pallas`` ResNet round and one LM round (after two
-    warm-up rounds) under ``torch.profiler``."""
+def _profile_dw(torch, grouped_conv):
+    """B1 at each main-path shape under ``torch.profiler``: device us a
+    call by kernel (the products and the split-K pass), mean of 10 calls
+    with warm caches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, ci, co, hw, _ in DW_SHAPES:
+        x, dy = (torch.randn((B, L * c, hw, hw), generator=gen, device=dev
+                             ).to(torch.bfloat16) for c in (ci, co))
+        for _ in range(3):
+            grouped_conv.grouped_conv_dw(x, dy, L, 3, 3, (1, 1))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                grouped_conv.grouped_conv_dw(x, dy, L, 3, 3, (1, 1))
+            torch.cuda.synchronize()
+        by_name = _device_us(torch, prof)
+        print(f"profile dw {label} " + json.dumps(
+            {n[:60]: round(us / 10, 2) for n, us in sorted(
+                by_name.items(), key=lambda kv: -kv[1])}), flush=True)
+
+
+def phase_profile(torch, fa, grouped_conv):
+    """``--profile``: B1's kernels at each shape; the attention
+    backward's kernels, ours and SDPA's; one ResNet round per lane
+    lowering after a warm-up round (round time), then one ``pallas``
+    ResNet round and one LM round (after two warm-up rounds) under
+    ``torch.profiler``."""
+    _profile_dw(torch, grouped_conv)
     _profile_attention_bwd(torch, fa)
     for lowering in ("blockdiag", "bgc", "auto", "pallas"):
         api = build_api(torch, lowering)
@@ -605,7 +632,7 @@ def main():
     launches = phase_main_path(torch, grouped_conv)
     attn_launches = phase_lm_main_path(torch, fa)
     if "--profile" in sys.argv[1:]:
-        phase_profile(torch, fa)
+        phase_profile(torch, fa, grouped_conv)
 
     per_step = lambda key: sum(r[key] * r["convs_per_step"] for r in rows)
     bytes_ms, ops_ms = per_step("bytes_ms"), per_step("ops_ms")

@@ -27,8 +27,8 @@
 // ldmatrix (no .trans) loads both. A K tile is R whole output rows of one
 // image. The block copies the tile's dy rows and the x rows h0-pt ..
 // h0-pt+R+kh-2 with 16-byte cp.async (rows outside the image zero-filled;
-// no padded copy exists in device memory), double-buffered so that the
-// copies of tile t+1 land while tile t is multiplied. The one
+// no padded copy exists in device memory), up to four tiles at once, so
+// that three tiles are in flight while one is multiplied. The one
 // misalignment is the column shift dw-pl (+-2 bytes for a 3x3 kernel):
 // from the staged rows the block builds one column-shifted copy per
 // filter column in shared memory (funnel shifts of 16-byte chunks, zero
@@ -86,6 +86,10 @@ struct Walk {
   __device__ Walk(int t, int n, int NH, int NW)
       : w(t % NW), h((t / NW) % NH), c(t / (NW * NH)),
         dw(n % NW), dh((n / NW) % NH), dc(n / (NW * NH)) {}
+  // from a start and a step already split into digits
+  __device__ Walk(const int* start, const int* step)
+      : w(start[0]), h(start[1]), c(start[2]),
+        dw(step[0]), dh(step[1]), dc(step[2]) {}
   __device__ void next(int NH, int NW) {
     w += dw;
     int carry = w >= NW;
@@ -251,8 +255,12 @@ __global__ void dw_reduce_kernel(const float* __restrict__ work,
 constexpr int kMmaMaxWarps = 8;
 constexpr int kMmaMaxW = 64;         // widest x row
 constexpr int kMmaMaxK = 5;          // largest kh, kw
-constexpr int kMmaKTarget = 128;     // output positions per K tile, at least
+// output positions per K tile, at least: 256 where CH is 16 (a tile's
+// products are few, so fewer tiles), else 128
+constexpr int kMmaKTarget16 = 256, kMmaKTarget = 128;
 constexpr int kMmaMaxSmem = 227 * 1024;
+constexpr int kMmaMaxStages = 4;     // K tiles staged at once, at most
+constexpr int kMmaStageBudget = 113 * 1024;  // fewer stages above: 2 an SM
 
 // Per channel count CH (Ci and Co rounded up to 16, 32 or 64): a warp's
 // unit is TWM taps at most x one m16 tile x NTW n8 tiles.
@@ -285,6 +293,11 @@ struct MmaPlan {
   int R, HX;       // K tile: output rows; staged x rows (R + kh - 1)
   int SA, SB;      // row strides (elements) of the copies and of dy
   int nrb, ntiles, tps, nsplit;
+  int nstage;      // K tiles staged at once (2..4)
+  // the block's index walks, a step of `threads` as (w, h, c) digits: the
+  // x rows [Ci][HX][W/8], the dy rows [Co][R][Wo/8], the copies
+  // [Ci][HX][Wo/8] (16-byte chunks)
+  int steps[9];
   int smem;
 };
 
@@ -324,7 +337,8 @@ MmaPlan make_mma_plan(int B, int L, int Ci, int Co, int H, int W, int Ho,
     if (span > p.kwb) p.kwb = span;
   }
   // K tile: whole output rows, a multiple of 16 positions
-  p.R = (kMmaKTarget + Wo - 1) / Wo;
+  const int target = p.ch == 16 ? kMmaKTarget16 : kMmaKTarget;
+  p.R = (target + Wo - 1) / Wo;
   if (p.R > Ho) p.R = Ho;
   if ((p.R * Wo) % 16) ++p.R;
   p.HX = p.R + kh - 1;
@@ -332,20 +346,35 @@ MmaPlan make_mma_plan(int B, int L, int Ci, int Co, int H, int W, int Ho,
   p.SB = round_stride(p.R * Wo);
   p.nrb = (Ho + p.R - 1) / p.R;
   p.ntiles = B * p.nrb;
-  // about two blocks an SM, and no more partial sums than input bytes
+  // about two blocks an SM, and no more than twice the input bytes in
+  // partial sums
   const int base = L * p.tap_blocks;
   const long long in_bytes = 2LL * B * L * (Ci * (long long)H * W +
                                             Co * (long long)Ho * Wo);
   const long long part_bytes = 4LL * L * taps * Ci * Co;
   long long want = (2LL * n_sm + base - 1) / base;
-  if (want > in_bytes / part_bytes) want = in_bytes / part_bytes;
+  if (want > 2 * in_bytes / part_bytes) want = 2 * in_bytes / part_bytes;
   if (want > p.ntiles) want = p.ntiles;
   if (want < 1) want = 1;
   p.tps = (int)((p.ntiles + want - 1) / want);
   p.nsplit = (p.ntiles + p.tps - 1) / p.tps;
-  const int pipe = 2 * 2 * Ci * p.HX * W          // staged x, two stages
-                   + 2 * p.kwb * p.ch * p.SA      // shifted copies
-                   + 2 * 2 * p.ch * p.SB;         // staged dy, two stages
+  // as many stages as fit: x rows and dy rows a stage, plus the copies
+  const int stage = 2 * (Ci * p.HX * W + p.ch * p.SB);
+  const int copies = 2 * p.kwb * p.ch * p.SA;
+  const int starts = 4 * 9 * p.threads;
+  p.nstage = kMmaMaxStages;
+  while (p.nstage > 2 && p.nstage * stage + copies + starts > kMmaStageBudget)
+    --p.nstage;
+  const int dims[3][2] = {{W / 8, p.HX}, {Wo / 8, p.R}, {Wo / 8, p.HX}};
+  for (int i = 0; i < 3; ++i) {
+    const int nw = dims[i][0], nh = dims[i][1];
+    p.steps[3 * i] = p.threads % nw;
+    p.steps[3 * i + 1] = (p.threads / nw) % nh;
+    p.steps[3 * i + 2] = p.threads / (nw * nh);
+  }
+  // each thread's walk starts, kept in shared memory: a Walk's divisions,
+  // once a block instead of once a tile
+  const int pipe = p.nstage * stage + copies + starts;
   const int merge = 4 * (p.ks - 1) * p.units * mma_acc(p.ch) * 32;
   p.smem = pipe > merge ? pipe : merge;
   return p;
@@ -358,21 +387,37 @@ bool mma_plan_ok(const MmaPlan& p) {
          p.W % 8 == 0 && p.Wo % 8 == 0 && p.smem <= kMmaMaxSmem;
 }
 
-// 8 bf16 starting `off` (0..7) elements into the 16 elements a, b
-__device__ __forceinline__ uint4 shift_chunk(uint4 a, uint4 b, int off) {
+// 8 bf16 starting OFF (0..7) elements into the 16 elements a, b
+template <int OFF>
+__device__ __forceinline__ uint4 shift_chunk(uint4 a, uint4 b) {
   const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  const int q = off >> 1;
-  const unsigned sh = (off & 1) * 16;
+  constexpr int q = OFF >> 1;
   uint32_t o[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t lo = q == 0 ? w[i] : q == 1 ? w[i + 1]
-                      : q == 2 ? w[i + 2] : w[i + 3];
-    const uint32_t hi = q == 0 ? w[i + 1] : q == 1 ? w[i + 2]
-                      : q == 2 ? w[i + 3] : w[i + 4];
-    o[i] = __funnelshift_r(lo, hi, sh);
-  }
+  for (int i = 0; i < 4; ++i)
+    o[i] = OFF & 1 ? __funnelshift_r(w[i + q], w[i + q + 1], 16) : w[i + q];
   return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// One column-shifted copy: dst[ci][r*Wo + w] = x row r of channel ci at
+// column w + s, s = 8*sc + OFF, zero outside the row; `rs` the staged
+// rows [Ci][HX][W/8] in 16-byte chunks, `k` this thread's walk over
+// [Ci][HX][Wo/8].
+template <int OFF>
+__device__ __forceinline__ void shift_rows(const uint4* rs,
+                                           __nv_bfloat16* dst, Walk k,
+                                           int Ci, int HX, int WC, int WoC,
+                                           int Wo, int SA, int sc) {
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (; k.c < Ci; k.next(HX, WoC)) {
+    const int cb = k.w + sc;
+    const uint4* row = rs + (k.c * HX + k.h) * WC;
+    const uint4 a = cb >= 0 && cb < WC ? row[cb] : zero;
+    uint4 b = zero;
+    if (OFF != 0 && cb + 1 >= 0 && cb + 1 < WC) b = row[cb + 1];
+    *reinterpret_cast<uint4*>(dst + k.c * SA + k.h * Wo + k.w * 8) =
+        shift_chunk<OFF>(a, b);
+  }
 }
 
 // floor division by 8
@@ -390,9 +435,10 @@ dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem_mma[];
   const int WC = p.W / 8, WoC = p.Wo / 8;
   const int raw_n = p.Ci * p.HX * p.W;             // one stage, elements
+  const int S = p.nstage;
   __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* cpy = raw + 2 * raw_n;            // [kwb][CH][SA]
-  __nv_bfloat16* gs = cpy + p.kwb * CH * p.SA;     // [2][CH][SB]
+  __nv_bfloat16* cpy = raw + S * raw_n;            // [kwb][CH][SA]
+  __nv_bfloat16* gs = cpy + p.kwb * CH * p.SA;     // [S][CH][SB]
 
   const int taps = p.kh * p.kw;
   const int l = blockIdx.x / p.tap_blocks;
@@ -428,74 +474,104 @@ dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[j][n][c] = 0.f;
 
+  // this thread's walk starts, as (w, h, c) digits of tid
+  int* wst = reinterpret_cast<int*>(gs + S * CH * p.SB);  // [9][nthr]
+  {
+    const int dims[3][2] = {{WC, p.HX}, {WoC, p.R}, {WoC, p.HX}};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const int nw = dims[i][0], nh = dims[i][1];
+      wst[(3 * i) * nthr + tid] = tid % nw;
+      wst[(3 * i + 1) * nthr + tid] = (tid / nw) % nh;
+      wst[(3 * i + 2) * nthr + tid] = tid / (nw * nh);
+    }
+  }
+  auto walk = [&](int i) {
+    const int start[3] = {wst[(3 * i) * nthr + tid],
+                          wst[(3 * i + 1) * nthr + tid],
+                          wst[(3 * i + 2) * nthr + tid]};
+    return Walk(start, p.steps + 3 * i);
+  };
+
   // zero the copies and dy stages once: rows past Ci and Co stay zero
   {
     uint4* z = reinterpret_cast<uint4*>(cpy);
-    const int n16 = (p.kwb * CH * p.SA + 2 * CH * p.SB) / 8;
+    const int n16 = (p.kwb * CH * p.SA + S * CH * p.SB) / 8;
     for (int e = tid; e < n16; e += nthr) z[e] = make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
 
   const long long HW = (long long)p.H * p.W, HWo = (long long)p.Ho * p.Wo;
-  auto issue = [&](int tile, int st) {
-    const int b = tile / p.nrb, h0 = (tile % p.nrb) * p.R;
+  const int t_begin = split * p.tps;
+  const int t_end = min(p.ntiles, t_begin + p.tps);
+  // tiles are issued in order: the next one's image and row block
+  int nb = t_begin / p.nrb, nrow = t_begin - nb * p.nrb;
+  auto issue = [&](int st) {
+    const int b = nb, h0 = nrow * p.R;
+    if (++nrow == p.nrb) {
+      nrow = 0;
+      ++nb;
+    }
     const __nv_bfloat16* xb = x + ((long long)b * p.L + l) * p.Ci * HW;
     const __nv_bfloat16* gb = dy + ((long long)b * p.L + l) * p.Co * HWo;
     __nv_bfloat16* rs = raw + st * raw_n;
-    const int nx = p.Ci * p.HX * WC;
-    for (int e = tid; e < nx; e += nthr) {
-      const int c = e % WC, r = (e / WC) % p.HX, ci = e / (WC * p.HX);
-      const int ih = h0 - p.pt + r;
+    for (Walk k = walk(0); k.c < p.Ci; k.next(p.HX, WC)) {
+      const int ih = h0 - p.pt + k.h;
       const bool ok = ih >= 0 && ih < p.H;
-      hopper::cp_async16(rs + (ci * p.HX + r) * p.W + c * 8,
-                         ok ? xb + ci * HW + (long long)ih * p.W + c * 8 : x,
-                         ok);
+      hopper::cp_async16(
+          rs + (k.c * p.HX + k.h) * p.W + k.w * 8,
+          ok ? xb + k.c * HW + (long long)ih * p.W + k.w * 8 : x, ok);
     }
     __nv_bfloat16* gd = gs + st * CH * p.SB;
-    const int ng_ = p.Co * p.R * WoC;
-    for (int e = tid; e < ng_; e += nthr) {
-      const int c = e % WoC, r = (e / WoC) % p.R, co = e / (WoC * p.R);
-      const int h = h0 + r;
+    for (Walk k = walk(1); k.c < p.Co; k.next(p.R, WoC)) {
+      const int h = h0 + k.h;
       const bool ok = h < p.Ho;
-      hopper::cp_async16(gd + co * p.SB + r * p.Wo + c * 8,
-                         ok ? gb + co * HWo + (long long)h * p.Wo + c * 8 : dy,
-                         ok);
+      hopper::cp_async16(
+          gd + k.c * p.SB + k.h * p.Wo + k.w * 8,
+          ok ? gb + k.c * HWo + (long long)h * p.Wo + k.w * 8 : dy, ok);
     }
   };
 
-  const int t_begin = split * p.tps;
-  const int t_end = min(p.ntiles, t_begin + p.tps);
   const int k16 = p.R * p.Wo / 16;
-  issue(t_begin, 0);
-  hopper::cp_async_commit();
-  for (int t = t_begin; t < t_end; ++t) {
-    const int st = (t - t_begin) & 1;
-    if (t + 1 < t_end) {
-      issue(t + 1, st ^ 1);
-      hopper::cp_async_commit();
+  // S-1 tiles in flight ahead of the one multiplied, one commit group a
+  // tile (empty past the end)
+  for (int i = 0; i < S - 1; ++i) {
+    if (t_begin + i < t_end) issue(i);
+    hopper::cp_async_commit();
+  }
+  for (int t = t_begin, st = 0; t < t_end;
+       ++t, st = st + 1 == S ? 0 : st + 1) {
+    // tile t has landed once at most S-2 later groups are pending
+    if (S == 4)
+      hopper::cp_async_wait<2>();
+    else if (S == 3)
       hopper::cp_async_wait<1>();
-    } else {
+    else
       hopper::cp_async_wait<0>();
-    }
+    // every thread's copies of tile t have landed, and every warp is done
+    // with tile t-1: its stage may be refilled and the copies rebuilt
     __syncthreads();
+    if (t + S - 1 < t_end) issue(st == 0 ? S - 1 : st - 1);
+    hopper::cp_async_commit();
     // column-shifted copies: cpy[d][ci][r*Wo + w] = x row r, column
     // w + dw - pl (zero outside the image), for the block's columns
     {
       const uint4* rs = reinterpret_cast<const uint4*>(raw + st * raw_n);
-      const int nb = ncopy * p.Ci * p.HX * WoC;
-      for (int e = tid; e < nb; e += nthr) {
-        const int c = e % WoC, r = (e / WoC) % p.HX;
-        const int ci = (e / (WoC * p.HX)) % p.Ci;
-        const int d = e / (WoC * p.HX * p.Ci);
+      for (int d = 0; d < ncopy; ++d) {
         const int s = dw_lo + d - p.pl;
-        const int cb = c + floor8(s);
-        const int off = s - 8 * floor8(s);
-        const uint4* row = rs + (ci * p.HX + r) * WC;
-        const uint4 zero = make_uint4(0, 0, 0, 0);
-        const uint4 a = cb >= 0 && cb < WC ? row[cb] : zero;
-        const uint4 b2 = cb + 1 >= 0 && cb + 1 < WC ? row[cb + 1] : zero;
-        *reinterpret_cast<uint4*>(cpy + (d * CH + ci) * p.SA + r * p.Wo +
-                                  c * 8) = shift_chunk(a, b2, off);
+        const int sc = floor8(s);
+        __nv_bfloat16* dst = cpy + d * CH * p.SA;
+        const Walk k = walk(2);
+        switch (s - 8 * sc) {
+#define FEDML_SHIFT_CASE(OFF)                                              \
+  case OFF:                                                                \
+    shift_rows<OFF>(rs, dst, k, p.Ci, p.HX, WC, WoC, p.Wo, p.SA, sc);      \
+    break;
+          FEDML_SHIFT_CASE(0) FEDML_SHIFT_CASE(1) FEDML_SHIFT_CASE(2)
+          FEDML_SHIFT_CASE(3) FEDML_SHIFT_CASE(4) FEDML_SHIFT_CASE(5)
+          FEDML_SHIFT_CASE(6) FEDML_SHIFT_CASE(7)
+#undef FEDML_SHIFT_CASE
+        }
       }
     }
     __syncthreads();
@@ -517,8 +593,8 @@ dw_mma_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
     }
-    __syncthreads();
   }
+  __syncthreads();  // the products are done before `red` reuses the stages
 
   // warps that split a unit's k16 steps merge onto kslot 0, in kslot order
   if (p.ks > 1) {
@@ -600,6 +676,24 @@ int mma_occupancy(const MmaPlan& p, int* out) {
   out[3] = p.nsplit;
   out[4] = p.ch;
   return 0;
+}
+
+// Second pass of the tensor-core route: the sums of dw_reduce_kernel, over
+// the splits in split order (so the same bits), with a thread for each
+// element of `work`'s contiguous Ci*Co axis, so that its reads coalesce.
+__global__ void dw_mma_reduce_kernel(const float* __restrict__ work,
+                                     float* __restrict__ out, Plan p) {
+  const int P = p.Ci * p.Co, taps = p.kh * p.kw;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)p.L * taps * P) return;
+  const int io = (int)(e % P);
+  const long long pair = e / P;
+  const int tap = (int)(pair % taps), l = (int)(pair / taps);
+  const int i = io / p.Co, o = io % p.Co;
+  const float* src = work + pair * p.nsplit * P + io;
+  float v = 0.f;
+  for (int q = 0; q < p.nsplit; ++q) v += src[(long long)q * P];
+  out[(((long long)l * p.Co + o) * p.Ci + i) * taps + tap] = v;
 }
 
 // the reduction pass reads only the shape and nsplit of a Plan
@@ -707,8 +801,11 @@ extern "C" int fedml_grouped_conv_dw_mma(const void* x, const void* dy,
   else
     err = launch_mma_ch<64>(x, dy, work, p, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(static_cast<const float*>(work),
-                            static_cast<float*>(out), reduce_plan(p), st);
+  const long long total = (long long)L * kh * kw * Ci * Co;
+  dw_mma_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(work), static_cast<float*>(out),
+      reduce_plan(p));
+  return (int)cudaGetLastError();
 }
 
 // The tensor-core route's launch at a shape: out[0] threads a block,
