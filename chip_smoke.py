@@ -134,7 +134,8 @@ def phase_kernels(torch, grouped_conv):
         nbytes = x.numel() * 2 + dy.numel() * 2 + L * co * ci * 9 * 4
         ops = 2 * L * ci * co * 9 * K
         row = {"shape": label, "route": route[0], "x": list(x.shape),
-               "dy": list(dy.shape), "convs_per_step": per_step, "max_abs_err": err, "tol": tol,
+               "dy": list(dy.shape), "convs_per_step": per_step,
+               "max_abs_err": err, "tol": tol,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "ops_ms": ops / BF16_OPS_PER_S * 1e3}

@@ -274,10 +274,18 @@ struct MmaCfg {
   static constexpr int ACC = TWM * NTW * 4;      // fp32 accumulators a lane
 };
 
-int mma_twm(int ch) { return ch == 16 ? 9 : 3; }
+int mma_twm(int ch) {
+  return ch == 16 ? MmaCfg<16>::TWM : ch == 32 ? MmaCfg<32>::TWM
+                                               : MmaCfg<64>::TWM;
+}
 int mma_acc(int ch) {
-  const int nt = ch / 8;
-  return mma_twm(ch) * (nt < 4 ? nt : 4) * 4;
+  return ch == 16 ? MmaCfg<16>::ACC : ch == 32 ? MmaCfg<32>::ACC
+                                               : MmaCfg<64>::ACC;
+}
+int mma_unit_tiles(int ch) {  // (m16, n group) units a tap group has
+  return ch == 16 ? MmaCfg<16>::MT * MmaCfg<16>::NG
+       : ch == 32 ? MmaCfg<32>::MT * MmaCfg<32>::NG
+                  : MmaCfg<64>::MT * MmaCfg<64>::NG;
 }
 
 struct MmaPlan {
@@ -311,8 +319,7 @@ MmaPlan make_mma_plan(int B, int L, int Ci, int Co, int H, int W, int Ho,
   const int c = Ci > Co ? Ci : Co;
   p.ch = c <= 16 ? 16 : (c <= 32 ? 32 : 64);
   const int taps = kh * kw, twm = mma_twm(p.ch);
-  const int nt = p.ch / 8;
-  const int unit_tiles = (p.ch / 16) * (nt / (nt < 4 ? nt : 4));
+  const int unit_tiles = mma_unit_tiles(p.ch);
   p.tw = 1;
   if (taps <= twm) {
     p.tw = taps;
@@ -682,7 +689,7 @@ int mma_occupancy(const MmaPlan& p, int* out) {
 // the splits in split order (so the same bits), with a thread for each
 // element of `work`'s contiguous Ci*Co axis, so that its reads coalesce.
 __global__ void dw_mma_reduce_kernel(const float* __restrict__ work,
-                                     float* __restrict__ out, Plan p) {
+                                     float* __restrict__ out, MmaPlan p) {
   const int P = p.Ci * p.Co, taps = p.kh * p.kw;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (long long)p.L * taps * P) return;
@@ -694,22 +701,6 @@ __global__ void dw_mma_reduce_kernel(const float* __restrict__ work,
   float v = 0.f;
   for (int q = 0; q < p.nsplit; ++q) v += src[(long long)q * P];
   out[(((long long)l * p.Co + o) * p.Ci + i) * taps + tap] = v;
-}
-
-// the reduction pass reads only the shape and nsplit of a Plan
-Plan reduce_plan(const MmaPlan& m) {
-  Plan p{m.B, m.L, m.Ci, m.Co, m.H, m.W, m.Ho, m.Wo, m.kh, m.kw, m.pt, m.pl};
-  p.nsplit = m.nsplit;
-  return p;
-}
-
-cudaError_t launch_reduce(const float* work, float* out, const Plan& p,
-                          cudaStream_t st) {
-  const long long total = (long long)p.L * p.Co * p.Ci * p.kh * p.kw;
-  const int threads = 256;
-  dw_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
-                     st>>>(work, out, p);
-  return cudaGetLastError();
 }
 
 template <typename T, int CH>
@@ -768,8 +759,12 @@ extern "C" int fedml_grouped_conv_dw(const void* x, const void* dy, void* out,
       ? launch_partial<__nv_bfloat16>(x, dy, work, p, st)
       : launch_partial<float>(x, dy, work, p, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_reduce(static_cast<const float*>(work),
-                            static_cast<float*>(out), p, st);
+  const long long total = (long long)L * Co * Ci * kh * kw;
+  const int threads = 256;
+  dw_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+                     st>>>(static_cast<const float*>(work),
+                           static_cast<float*>(out), p);
+  return (int)cudaGetLastError();
 }
 
 // The tensor-core route (bf16 x and dy, 16-byte aligned): the number of K
@@ -803,8 +798,7 @@ extern "C" int fedml_grouped_conv_dw_mma(const void* x, const void* dy,
   if (err != cudaSuccess) return (int)err;
   const long long total = (long long)L * kh * kw * Ci * Co;
   dw_mma_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(work), static_cast<float*>(out),
-      reduce_plan(p));
+      static_cast<const float*>(work), static_cast<float*>(out), p);
   return (int)cudaGetLastError();
 }
 

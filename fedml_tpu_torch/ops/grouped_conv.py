@@ -15,9 +15,9 @@ computed by ``csrc/grouped_conv_dw.cu`` on a CUDA tensor and by
 source holds two kernels, and :func:`_route` picks one per call: the
 tensor-core kernel (``dw_mma_kernel``, bf16 at the shapes it takes, the
 whole main path) or the CUDA-core kernel (``dw_partial_kernel``, fp32
-and every other shape). The source is compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at its
-first use and loaded with ``ctypes`` (``ops/_build.py``); nothing is
-compiled at import.
+and every other shape). The source is compiled with ``nvcc`` for
+``sm_90a`` into ``build/`` at its first use and loaded with ``ctypes``
+(``ops/_build.py``); nothing is compiled at import.
 """
 
 from __future__ import annotations
