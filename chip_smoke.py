@@ -33,7 +33,15 @@ Phases (any failure exits non-zero):
    ``FedAvgAPI`` from the bench's own argument namespace, show that every
    layer of every chunk step ran B2, B3 and B4, and hold the trained
    model's logits on the card against the plain versions on the CPU;
-5. print the ``kernels`` JSON line and, last, the ``ok`` line.
+5. run the port's bench (``python -m fedml_tpu_torch.bench``) in-process
+   twice: the LM flagship for 1 measured round, and the ResNet recipe on
+   its full data (32 clients, 50,000 samples) for 1 epoch and 1 measured
+   round under ``--lane_lowering pallas``; hold each record to
+   ``value > 0``, ``0 < mfu < 1``, the reference's round spans in
+   ``phase_timings_s`` and counted FLOPs within ``FLOPS_XCHECK_TOL`` of
+   the analytic count, and show from the counters that the ResNet run
+   went through B1's tensor-core kernel and the LM run through B2-B4;
+6. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -473,6 +481,57 @@ def phase_lm_main_path(torch, fa):
     return launches
 
 
+def phase_bench(grouped_conv, fa):
+    """The port's bench through its ``main``, as a user runs it: the LM
+    flagship (1 measured round) and the ResNet recipe at full data for 1
+    epoch under ``--lane_lowering pallas`` (1 measured round), each with
+    every kernel counter set to 0 just before and read just after. The
+    FLOP cross-check reads ``flops_vs_analytic`` of the ResNet record and
+    its LM counterpart ``step_cost_vs_analytic``. ``bench.main`` prints
+    each record on a line of its own."""
+    from fedml_tpu_torch import bench
+
+    runs = (("lm", ["--lm", "--rounds", "1"], "step_cost_vs_analytic",
+             {"bucket-chunk"}),
+            ("resnet", ["--epochs", "1", "--rounds", "1", "--lane_lowering",
+                        "pallas"], "flops_vs_analytic",
+             {"broadcast", "lanes"}))
+    for label, argv, ratio_key, spans in runs:
+        for name in fa.launches:
+            fa.launches[name] = 0
+        grouped_conv.launches = 0
+        for route in grouped_conv.route_launches:
+            grouped_conv.route_launches[route] = 0
+        rec = bench.main(argv + ["--ledger", ""])
+        attn = dict(fa.launches)
+        dw, routes = grouped_conv.launches, dict(grouped_conv.route_launches)
+        if "error" in rec:
+            fail(f"bench {label}: {rec['error']}")
+        if not (rec["value"] > 0 and rec["mfu"] is not None
+                and 0 < rec["mfu"] < 1):
+            fail(f"bench {label}: value {rec['value']}, mfu {rec['mfu']}")
+        want = {"round", "cohort-select", "local-train", "aggregate",
+                "report"} | spans
+        if not want <= set(rec["phase_timings_s"]):
+            fail(f"bench {label}: spans {sorted(rec['phase_timings_s'])} "
+                 f"lack {sorted(want - set(rec['phase_timings_s']))}")
+        if abs(rec[ratio_key] - 1.0) > bench.FLOPS_XCHECK_TOL:
+            fail(f"bench {label}: {ratio_key} {rec[ratio_key]} outside "
+                 f"1 +- {bench.FLOPS_XCHECK_TOL}")
+        if label == "lm":
+            if (len(set(attn.values())) != 1 or attn["fwd"] <= 0
+                    or attn["fwd"] % LM_LAYERS or dw):
+                fail(f"bench lm: attention launches {attn}, dW {dw}")
+        elif (dw <= 0 or dw % 53 or routes != {"tensor_core": dw,
+                                                "cuda_core": 0}
+              or any(attn.values())):
+            fail(f"bench resnet: dW launches {dw}, routes {routes}, "
+                 f"attention {attn}")
+        print(f"bench_phase {label} attention_launches={json.dumps(attn)} "
+              f"dw_launches={dw} routes={json.dumps(routes)} "
+              f"{ratio_key}={rec[ratio_key]}", flush=True)
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -632,6 +691,7 @@ def main():
     attn_times, attn_errs = phase_attention(torch, fa)
     launches = phase_main_path(torch, grouped_conv)
     attn_launches = phase_lm_main_path(torch, fa)
+    phase_bench(grouped_conv, fa)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

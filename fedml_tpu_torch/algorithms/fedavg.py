@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.core.trainer import TrainSpec
+from fedml_tpu_torch.observability.tracing import get_tracer
 from fedml_tpu_torch.parallel.engine import (BucketedStreamRunner,
                                              ClientUpdateConfig, LaneRunner,
                                              fold_seed)
@@ -173,67 +174,77 @@ class FedAvgAPI:
         return {"x": x, "y": y, "n": host["n"]}
 
     def _sample_cohort(self, round_idx):
-        return client_sampling(round_idx, len(self.train_data_local_dict),
-                               self.args.client_num_per_round)
+        with get_tracer().span("cohort-select", round=int(round_idx)):
+            return client_sampling(round_idx,
+                                   len(self.train_data_local_dict),
+                                   self.args.client_num_per_round)
 
     def train_one_round(self):
+        # span model (the reference's): the host enqueues the round's
+        # device work asynchronously, so "local-train" measures the
+        # enqueue (plus the host work inside it) and the device wait lands
+        # in "aggregate", where the end-of-round synchronize sits
+        tracer = get_tracer()
         t0 = time.time()
-        metrics = self._traced_round_body(t0)
+        with tracer.span("round", round=int(self.round_idx)):
+            metrics = self._traced_round_body(tracer, t0)
         self.round_idx += 1
         return metrics
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def _traced_round_body(self, t0):
+    def _traced_round_body(self, tracer, t0):
         client_indexes = self._sample_cohort(self.round_idx)
         logging.info("client_indexes = %s", client_indexes)
         round_seed = int(fold_seed(self.seed, self.round_idx))
         if self.bucket_runner is not None:
-            return self._bucketed_round(client_indexes, round_seed, t0)
-        ns = [self._client_ns[i] for i in client_indexes]
-        if sum(ns) == 0:
-            raise ValueError(f"round {self.round_idx}: every sampled "
-                             f"client has an empty shard")
-        sched = pack_schedule(ns, self.args.batch_size, self.args.epochs,
-                              rng=self._data_rng, native=False)
-        (self.global_state, self.server_state,
-         info) = self.packed_lane_runner.run_round(
-            self.global_state, self.server_state, self.device_data,
-            client_indexes, sched, round_seed)
-        self._sync()
+            datasets = [self.train_data_local_dict[i]
+                        for i in client_indexes]
+            if all(len(d["y"]) == 0 for d in datasets):
+                raise ValueError(f"round {self.round_idx}: every sampled "
+                                 f"client has an empty shard")
+            with tracer.span("local-train", mode="bucketed",
+                             clients=len(client_indexes)):
+                (self.global_state, self.server_state,
+                 info) = self.bucket_runner.run_round(
+                    self.global_state, self.server_state, datasets,
+                    round_seed, data_rng=self._data_rng)
+            self._last_bucket_info = info
+        else:
+            ns = [self._client_ns[i] for i in client_indexes]
+            if sum(ns) == 0:
+                raise ValueError(f"round {self.round_idx}: every sampled "
+                                 f"client has an empty shard")
+            with tracer.span("broadcast", clients=len(client_indexes)):
+                sched = pack_schedule(ns, self.args.batch_size,
+                                      self.args.epochs, rng=self._data_rng,
+                                      native=False)
+            with tracer.span("local-train", mode="mxu-lanes"):
+                (self.global_state, self.server_state,
+                 info) = self.packed_lane_runner.run_round(
+                    self.global_state, self.server_state, self.device_data,
+                    client_indexes, sched, round_seed)
+            self._last_trip = info["trip"]
+        with tracer.span("aggregate"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         dt = time.time() - t0
-        m = {k: float(v.sum()) for k, v in info["metrics"].items()}
-        self._last_trip = info["trip"]
-        return {"round": self.round_idx,
-                "Train/Loss": m["loss_sum"] / max(m["count"], 1),
-                "Train/Acc": m["correct"] / max(m["count"], 1),
-                "round_time_s": dt}
-
-    def _bucketed_round(self, client_indexes, round_seed, t0):
-        datasets = [self.train_data_local_dict[i] for i in client_indexes]
-        if all(len(d["y"]) == 0 for d in datasets):
-            raise ValueError(f"round {self.round_idx}: every sampled "
-                             f"client has an empty shard")
-        (self.global_state, self.server_state,
-         info) = self.bucket_runner.run_round(
-            self.global_state, self.server_state, datasets, round_seed,
-            data_rng=self._data_rng)
-        self._sync()
-        dt = time.time() - t0
-        self._last_bucket_info = info
-        m, b = info["metrics"], info["bucket"]
-        return {"round": self.round_idx,
-                "Train/Loss": float(m["loss_sum"] / max(m["count"], 1)),
-                "Train/Acc": float(m["correct"] / max(m["count"], 1)),
-                "round_time_s": dt,
+        with tracer.span("report"):
+            m = {k: float(v.sum()) for k, v in info["metrics"].items()}
+        self._last_metrics = m
+        train_metrics = {
+            "round": self.round_idx,
+            "Train/Loss": m["loss_sum"] / max(m["count"], 1),
+            "Train/Acc": m["correct"] / max(m["count"], 1),
+            "round_time_s": dt}
+        if self.bucket_runner is not None:
+            b = info["bucket"]
+            train_metrics.update({
                 "bucket/clients": b["clients"],
                 "bucket/shapes": b["buckets_used"],
                 "bucket/chunks": b["chunks"],
                 "bucket/executed_steps": b["executed_steps"],
                 "bucket/true_steps": b["true_steps"],
-                "bucket/waste_frac": b["waste_frac"]}
+                "bucket/waste_frac": b["waste_frac"]})
+        return train_metrics
 
     def evaluate_global(self):
         """Test loss and accuracy of the global model on the global test

@@ -10,6 +10,8 @@ The compiler's ``-Xptxas -v`` report is kept beside the library
 (``.log``). Nothing is compiled when a module is imported: a wrapper
 builds its library at its first launch, and :func:`build_all` builds
 several at once, one ``nvcc`` per source, all started together.
+:data:`build_stats` counts this process's ``nvcc`` runs (the bench's
+compile fields).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -29,6 +32,9 @@ _CSRC = os.path.join(_REPO, "fedml_tpu_torch", "csrc")
 _BUILD_DIR = os.path.join(_REPO, "build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: this process's builds: ``nvcc`` runs, the wall seconds spent waiting on
+#: them, and libraries loaded as already built (a cache hit)
+build_stats = {"builds": 0, "seconds": 0.0, "cached": 0}
 
 
 def nvcc():
@@ -128,9 +134,16 @@ def build_all(libraries):
         lib._lock.acquire()
     try:
         paths = [lib.path() for lib in libraries]
+        t0 = time.perf_counter()
         started = [lib._start(p) for lib, p in zip(libraries, paths)]
         # every compiler has exited before any result is judged
         outputs = ["".join(s[0].communicate()) if s else "" for s in started]
+        built = sum(s is not None for s in started)
+        if built:
+            build_stats["builds"] += built
+            build_stats["seconds"] += time.perf_counter() - t0
+        build_stats["cached"] += sum(s is None and lib._lib is None
+                                     for lib, s in zip(libraries, started))
         return {lib.name: lib._finish(p, s, out)
                 for lib, p, s, out in zip(libraries, paths, started, outputs)}
     finally:
@@ -161,4 +174,5 @@ def ptxas_usage(report):
     return out
 
 
-__all__ = ["CudaLibrary", "build_all", "nvcc", "ptxas_usage"]
+__all__ = ["CudaLibrary", "build_all", "build_stats", "nvcc",
+           "ptxas_usage"]

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.core.trainer import TrainSpec
+from fedml_tpu_torch.observability.tracing import get_tracer
 from fedml_tpu_torch.parallel.packing import (_steps_for, bucket_edge_for,
                                               gather_batches, pack_lanes,
                                               pack_schedule, zero_pad_leading)
@@ -269,6 +270,7 @@ def make_packed_lane_update(spec: TrainSpec, cfg: ClientUpdateConfig,
                 params, rest, opt = _select(valid, (new_params, new_rest,
                                                    new_opt),
                                            (params, rest, opt))
+                metrics = _tree_map(torch.Tensor.detach, metrics)
                 msum = (metrics if msum is None
                         else _tree_map(torch.add, msum, metrics))
 
@@ -430,6 +432,7 @@ class BucketedStreamRunner:
         dev = next(iter(global_state["params"].values())).device
         num, w_total, metrics_acc = None, 0.0, None
         inflight = deque()
+        tracer = get_tracer()
 
         def fold_oldest():
             # the first host read of a chunk's outputs: the sync point
@@ -461,9 +464,11 @@ class BucketedStreamRunner:
             batches = {"x": torch.as_tensor(xb, device=dev),
                        "y": torch.as_tensor(yb, device=dev),
                        "mask": torch.as_tensor(maskb, device=dev)}
-            inflight.append(self._chunk(global_state, batches,
-                                        torch.as_tensor(n_arr, device=dev),
-                                        trip))
+            n_dev = torch.as_tensor(n_arr, device=dev)
+            with tracer.span("bucket-chunk", edge=edge, clients=int(k),
+                             trip=trip):
+                inflight.append(self._chunk(global_state, batches, n_dev,
+                                            trip))
             chunks += 1
             st = b_stats[edge]
             st["clients"] += k
@@ -546,19 +551,24 @@ class LaneRunner:
         lane_t["slot"] = lane_t["slot"].long()
         rows = torch.as_tensor(np.asarray(ids, np.int64), device=dev)
         R, n_max = dx.shape[0], dx.shape[1]
-        pay, w, msum = self._update(
-            global_state, dx.reshape((R * n_max,) + dx.shape[2:]),
-            dy.reshape((R * n_max,) + dy.shape[2:]), n_max, rows, lane_t,
-            step_seeds, trip)
         if self._dtypes is None:
             self._dtypes = payload_dtype_template(self.payload_fn,
                                                   global_state)
-        w_sum = torch.clamp(w.sum(), min=1e-12)
-        avg = _tree_map(lambda s, d: (s.sum(dim=0) / w_sum).to(d), pay,
-                        self._dtypes)
-        new_global, new_server = self.server_fn(
-            global_state, avg, server_state, int(fold_seed(round_seed, 2)))
-        metrics = _tree_map(lambda m: m.sum(dim=0), msum)
+        # the reference's one jitted round program: the trip, the
+        # weighted average and the server step
+        with get_tracer().span("lanes", clients=int(C),
+                               n_lanes=int(self.n_lanes), trip=int(trip)):
+            pay, w, msum = self._update(
+                global_state, dx.reshape((R * n_max,) + dx.shape[2:]),
+                dy.reshape((R * n_max,) + dy.shape[2:]), n_max, rows, lane_t,
+                step_seeds, trip)
+            w_sum = torch.clamp(w.sum(), min=1e-12)
+            avg = _tree_map(lambda s, d: (s.sum(dim=0) / w_sum).to(d), pay,
+                            self._dtypes)
+            new_global, new_server = self.server_fn(
+                global_state, avg, server_state,
+                int(fold_seed(round_seed, 2)))
+            metrics = _tree_map(lambda m: m.sum(dim=0), msum)
         steps_pc = (np.asarray(sched["mask"]).sum(axis=2) > 0).sum(axis=1)
         aux = {"n": np.asarray(sched["n"], np.float32),
                "steps": steps_pc.astype(np.int64)}
