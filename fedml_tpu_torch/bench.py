@@ -48,7 +48,11 @@ Where the port differs from ``bench.py`` on purpose:
   item. Every failure prints the one-line record with ``error``, and the
   command exits non-zero.
 - ``device`` is the card's name and ``power_limit_w`` its power limit
-  (``nvidia-smi``).
+  (``nvidia-smi``); ``host_cpu`` and ``host_cpus`` name the host that
+  enqueues the rounds' work.
+- With ``--profile_dir`` on the card the record adds ``device_busy_s``
+  (the card's kernel and copy seconds a profiled round) and
+  ``device_busy_share`` (their share of the profiled rounds' wall time).
 
 ``BASELINE_ROUNDS_PER_HOUR`` (60) is ``bench.py``'s estimate of the
 original FedML recipe on 8 V100s under MPI; it is not a measured number.
@@ -59,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import platform
 import subprocess
 import sys
 import threading
@@ -205,12 +210,13 @@ def _phase_fields(tracer, rounds):
 def _measured_rounds(api, rounds, profile_dir):
     """``rounds`` rounds under a fresh :class:`Tracer` (and, with
     ``profile_dir``, ``torch.profiler``): round times, each round's
-    metrics and sample counts, and the tracer."""
+    metrics and sample counts, the tracer and the profile's fields."""
     tracer = Tracer()
     prev = set_tracer(tracer)
     times, metrics, samples = [], [], []
     try:
-        with profile_trace(profile_dir, enabled=profile_dir is not None):
+        with profile_trace(profile_dir,
+                           enabled=profile_dir is not None) as prof:
             for _ in range(rounds):
                 t0 = time.time()
                 metrics.append(api.train_one_round())
@@ -218,7 +224,42 @@ def _measured_rounds(api, rounds, profile_dir):
                 samples.append(api._last_metrics["count"])
     finally:
         set_tracer(prev)
-    return times, metrics, samples, tracer
+    return times, metrics, samples, tracer, _profile_fields(prof, rounds)
+
+
+def _profile_fields(prof, rounds):
+    """With ``--profile_dir`` on the card: ``device_busy_s``, the card's
+    busy seconds a profiled round, and ``device_busy_share``, their share
+    of the profiled rounds' wall time (the profiler's own host cost
+    included)."""
+    if prof["device_busy_s"] is None:
+        return {}
+    return {"device_busy_s": round(prof["device_busy_s"] / rounds, 4),
+            "device_busy_share": round(prof["device_busy_s"]
+                                       / prof["wall_s"], 4)}
+
+
+def _host_fields(cpuinfo="/proc/cpuinfo"):
+    """The host the record was taken on, which enqueues every launch of
+    the round: its CPU model and the CPUs this process may use."""
+    info = {}
+    try:
+        with open(cpuinfo) as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first CPU's block
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    model = info.get("model name")
+    if model in (None, "", "unknown") and "model" in info:
+        # a virtual machine may hide the name; its family and model
+        # numbers still name the generation
+        model = (f"{info.get('vendor_id', '?')} family "
+                 f"{info.get('cpu family', '?')} model {info['model']}")
+    return {"host_cpu": model or platform.processor() or None,
+            "host_cpus": len(os.sched_getaffinity(0))}
 
 
 def _peak_memory_gb(device):
@@ -278,8 +319,8 @@ def run_resnet_bench(args, device):
     compile_s = time.time() - t0
     warm = _builds_since(builds0)
     rounds = 1 if args.smoke else args.rounds
-    times, _, samples, tracer = _measured_rounds(api, rounds,
-                                                 args.profile_dir)
+    times, _, samples, tracer, prof = _measured_rounds(api, rounds,
+                                                       args.profile_dir)
     peak_mem = _peak_memory_gb(device)
     round_s = float(np.median(times))
     samples_per_round = float(np.mean(samples))
@@ -325,8 +366,10 @@ def run_resnet_bench(args, device):
         "mfu": None if peak is None else round(achieved / peak, 4),
         "assumed_peak_tflops": None if peak is None else peak / 1e12,
         **fields,
+        **_host_fields(),
         "peak_memory_gb": peak_mem,
         **_phase_fields(tracer, rounds),
+        **prof,
         "exec_mode": "mxu-lanes",
     }
 
@@ -381,8 +424,8 @@ def run_lm_bench(args, device):
     warm = _builds_since(builds0)
     rounds = 1 if args.smoke else args.rounds
     builds1 = _build_counts()
-    times, metrics, _, tracer = _measured_rounds(api, rounds,
-                                                 args.profile_dir)
+    times, metrics, _, tracer, prof = _measured_rounds(api, rounds,
+                                                       args.profile_dir)
     steady = _builds_since(builds1)
     peak_mem = _peak_memory_gb(device)
     round_s = float(np.median(times))
@@ -431,8 +474,10 @@ def run_lm_bench(args, device):
         "n_params": sum(int(v.numel())
                         for v in api.global_state["params"].values()),
         **fields,
+        **_host_fields(),
         "peak_memory_gb": peak_mem,
         **_phase_fields(tracer, rounds),
+        **prof,
         "train_flops_per_token_step_cost": step_flops / (bs * T),
         "step_cost_vs_analytic": round(step_flops / (bs * T) / analytic, 3),
     }
@@ -475,7 +520,8 @@ def _parser():
                    help="halve the device residency of the image data")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the "
-                        "measured rounds")
+                        "measured rounds and record the card's busy "
+                        "share of them")
     p.add_argument("--algo", choices=("fedavg", "fedopt"), default="fedavg",
                    help="fedopt is not ported (ROADMAP A11)")
     p.add_argument("--lm", action="store_true",

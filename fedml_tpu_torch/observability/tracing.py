@@ -4,21 +4,18 @@ copy: the port imports nothing of the JAX package).
 
 Dapper-style distributed tracing (Sigelman et al., 2010) scaled down to
 this control plane: every span carries a ``trace_id`` shared by the whole
-round tree and a ``parent_id`` naming the span it hangs under. Inside one
-process, parentage flows through a thread-local context stack; across
-ranks it rides the message envelope -- :meth:`Tracer.inject` writes a
-``{"trace_id", "span_id"}`` dict under the reserved ``__trace__`` control
-field and the receiving side re-establishes it around its handlers via
-:meth:`Tracer.remote_context`. Finished spans export as Chrome trace
-events (Perfetto / ``chrome://tracing``, :meth:`Tracer.export_chrome`)
-or JSONL, and :meth:`Tracer.durations_by_name` feeds the bench's
-per-phase times.
+round tree and a ``parent_id`` naming the span it hangs under;
+parentage flows through a thread-local context stack. Finished spans
+export as Chrome trace events (Perfetto / ``chrome://tracing``,
+:meth:`Tracer.export_chrome`), and :meth:`Tracer.durations_by_name`
+feeds the bench's per-phase times. The reference's cross-process context
+propagation (``inject``/``extract``/``remote_context``) and JSONL export
+are left out until a transport that carries the context is ported.
 
 Disabled-path contract: the module-level tracer defaults to
 :data:`NOOP_TRACER`, whose spans are a single shared no-op context
-manager and whose ``inject`` leaves messages untouched -- a run without
-a tracer executes no tracing code beyond one global read per
-instrumentation point.
+manager -- a run without a tracer executes no tracing code beyond one
+global read per instrumentation point.
 
 Stdlib only.
 """
@@ -29,10 +26,6 @@ import json
 import os
 import threading
 import time
-
-
-#: Reserved message control field carrying the trace context on the wire.
-TRACE_KEY = "__trace__"
 
 
 def _new_id(nbytes=8):
@@ -47,16 +40,6 @@ class SpanContext:
     def __init__(self, trace_id, span_id):
         self.trace_id = trace_id
         self.span_id = span_id
-
-    def as_dict(self):
-        return {"trace_id": self.trace_id, "span_id": self.span_id}
-
-    @classmethod
-    def from_dict(cls, d):
-        try:
-            return cls(str(d["trace_id"]), str(d["span_id"]))
-        except (TypeError, KeyError):
-            return None
 
 
 class Span:
@@ -92,12 +75,6 @@ class Span:
         concurrent end() calls record exactly one span)."""
         self._tracer._finish(self, self._tracer._now())
 
-    def as_dict(self):
-        return {"name": self.name, "trace_id": self.trace_id,
-                "span_id": self.span_id, "parent_id": self.parent_id,
-                "ts": self.t0, "dur": (self.t1 or self.t0) - self.t0,
-                "thread": self.thread, "attrs": self.attrs}
-
 
 class _SpanScope:
     """Context manager pairing a span with the thread-local stack."""
@@ -119,7 +96,7 @@ class _SpanScope:
 
 
 class Tracer:
-    """Collects spans; thread-safe; exports Chrome trace-event JSON + JSONL.
+    """Collects spans; thread-safe; exports Chrome trace-event JSON.
 
     Args:
       max_spans: retention bound -- the oldest spans are dropped beyond it
@@ -165,12 +142,6 @@ class Tracer:
         stack = self._stack()
         return stack[-1] if stack else None
 
-    def remote_context(self, ctx):
-        """Adopt a foreign :class:`SpanContext` (extracted from a message)
-        as this thread's current parent for the ``with`` block -- the
-        receive-side half of cross-rank stitching."""
-        return _RemoteScope(self, ctx)
-
     # -- span creation -----------------------------------------------------
     def start_span(self, name, parent=None, root=False, **attrs):
         """Detached span: NOT pushed on the thread-local stack, so it can
@@ -204,21 +175,6 @@ class Tracer:
                 self._dropped += self._max - len(self._spans)
             self._spans.append(span)
 
-    # -- wire propagation --------------------------------------------------
-    def inject(self, msg, ctx=None):
-        """Attach ``ctx`` (default: this thread's current context) to a
-        message (anything with ``add(key, value)``) under
-        ``__trace__``."""
-        ctx = ctx if ctx is not None else self.current()
-        if ctx is not None:
-            msg.add(TRACE_KEY, ctx.as_dict())
-
-    @staticmethod
-    def extract(msg):
-        """The receive-side inverse: a :class:`SpanContext` or None."""
-        d = msg.get(TRACE_KEY)
-        return SpanContext.from_dict(d) if isinstance(d, dict) else None
-
     # -- introspection / export --------------------------------------------
     def finished_spans(self):
         with self._lock:
@@ -232,13 +188,6 @@ class Tracer:
             out.setdefault(s.name, []).append(
                 ((s.t1 or s.t0) - s.t0) / 1e6)
         return out
-
-    def export_jsonl(self, path):
-        """One JSON line per span (trace/span/parent ids, ts/dur in us)."""
-        with open(path, "w") as f:
-            for s in self.finished_spans():
-                f.write(json.dumps(s.as_dict()) + "\n")
-        return path
 
     def export_chrome(self, path):
         """Chrome trace-event JSON (load in Perfetto / chrome://tracing).
@@ -266,22 +215,6 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(doc, f)
         return path
-
-
-class _RemoteScope:
-    __slots__ = ("_tracer", "_ctx")
-
-    def __init__(self, tracer, ctx):
-        self._tracer = tracer
-        self._ctx = ctx
-
-    def __enter__(self):
-        self._tracer._push(self._ctx)
-        return self._ctx
-
-    def __exit__(self, *exc):
-        self._tracer._pop()
-        return False
 
 
 def _jsonable(v):
@@ -319,8 +252,7 @@ _NoopScope.span = _NOOP_SCOPE  # `with t.span(..) as s:` yields the noop
 
 class NoopTracer:
     """Zero-cost stand-in when tracing is off: every method returns a
-    shared inert object; ``inject`` leaves the message untouched, so
-    disabled runs put bit-identical frames on the wire."""
+    shared inert object."""
 
     enabled = False
 
@@ -330,17 +262,7 @@ class NoopTracer:
     def start_span(self, name, parent=None, root=False, **attrs):
         return _NOOP_SCOPE
 
-    def remote_context(self, ctx):
-        return _NOOP_SCOPE
-
     def current(self):
-        return None
-
-    def inject(self, msg, ctx=None):
-        return None
-
-    @staticmethod
-    def extract(msg):
         return None
 
     def finished_spans(self):
@@ -368,5 +290,5 @@ def set_tracer(tracer):
     return prev
 
 
-__all__ = ["TRACE_KEY", "SpanContext", "Span", "Tracer", "NoopTracer",
+__all__ = ["SpanContext", "Span", "Tracer", "NoopTracer",
            "NOOP_TRACER", "get_tracer", "set_tracer"]

@@ -203,6 +203,8 @@ def test_cpu_smoke_prints_one_record_with_the_reference_keys(
     assert [k for k in keys if k not in record] == []
     assert record["mfu"] is None and record["achieved_tflops"] is None
     assert record["device"] == "cpu" and record["power_limit_w"] is None
+    assert record["host_cpus"] >= 1
+    assert "device_busy_s" not in record  # no --profile_dir
     assert record["metric"].endswith("[SMOKE -- not baseline-comparable]")
     assert record["flops_source"] == "torch-flop-counter"
     assert record["value"] > 0
@@ -245,6 +247,19 @@ def test_unported_flag_fails_naming_its_queue_item(capsys, argv, item):
     assert tbench._exit_code(record) == 1
 
 
+@pytest.mark.parametrize("name,want", [
+    ("Intel(R) Xeon(R) Platinum 8480+", "Intel(R) Xeon(R) Platinum 8480+"),
+    ("unknown", "GenuineIntel family 6 model 207"),
+])
+def test_host_fields_name_the_cpu(tmp_path, name, want):
+    path = tmp_path / "cpuinfo"
+    block = ("processor\t: {}\nvendor_id\t: GenuineIntel\ncpu family\t: 6\n"
+             "model\t\t: 207\nmodel name\t: " + name + "\n\n")
+    path.write_text(block.format(0) + block.format(1))
+    fields = tbench._host_fields(str(path))
+    assert fields["host_cpu"] == want and fields["host_cpus"] >= 1
+
+
 @pytest.mark.parametrize("recipe", [[], ["--lm"]])
 def test_zero_measured_rounds_is_refused(capsys, recipe):
     record = tbench.main(recipe + ["--rounds", "0", "--platform", "cpu"])
@@ -265,7 +280,10 @@ def test_without_a_card_the_bench_fails(monkeypatch, capsys, recipe):
 
 
 def test_module_exits_non_zero_without_a_card():
+    # the card, if the machine has one, is hidden: with it the command
+    # would run the uncut flagship
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
     proc = subprocess.run(
         [sys.executable, "-m", "fedml_tpu_torch.bench", "--rounds", "1",
          "--ledger", ""], cwd=ROOT, env=env, capture_output=True, text=True,

@@ -191,3 +191,33 @@ def test_masked_step_leaves_lane_untouched():
         torch.testing.assert_close(pay["params"][k][1], v, rtol=0, atol=0)
     assert any(not torch.equal(pay["params"][k][0] / 4.0, v)
                for k, v in state["params"].items())
+
+
+@pytest.mark.parametrize("trip", [1, 2])
+def test_packed_update_returns_no_autograd_graph(trip):
+    """The summed metrics, payloads and weights come back detached, so no
+    step's autograd graph outlives the round (a one-step trip once
+    returned step 0's metrics with their graph)."""
+    from fedml_tpu_torch.parallel.engine import (ClientUpdateConfig,
+                                                 make_packed_lane_update)
+
+    model = CifarResNet(depth=DEPTH)
+    spec = make_classification_spec(model, lane_lowering="bgc")
+    state = spec.init_fn(0, "cpu")
+    upd = make_packed_lane_update(
+        spec, ClientUpdateConfig(lr=0.1), lambda s, g, a: s)
+    data_x = torch.randn(2 * 4, H, H, 3)
+    data_y = torch.randint(0, 10, (2 * 4,))
+    flush = torch.zeros(2, trip)
+    flush[:, -1] = 1.0
+    lanes = {"idx": torch.arange(4).repeat(2, trip, 1),
+             "mask": torch.ones(2, trip, 4),
+             "slot": torch.tensor([[0], [1]]).repeat(1, trip),
+             "flush": flush, "flush_n": 4.0 * flush,
+             "flush_steps": trip * flush}
+    pay, w, msum = upd(state, data_x, data_y, 4, torch.tensor([0, 1]),
+                       lanes, np.zeros((2, trip), np.int64), trip)
+    leaves = list(msum.values()) + list(pay["params"].values()) + [w]
+    assert msum and all(t.grad_fn is None and not t.requires_grad
+                        for t in leaves)
+    assert all(float(c) == 4.0 * trip for c in msum["count"])

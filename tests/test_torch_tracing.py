@@ -30,6 +30,7 @@ from fedml_tpu.data.synthetic import load_synthetic_images
 from fedml_tpu.models.resnet import CifarResNet as JaxResNet
 from fedml_tpu.models.transformer import TransformerLM as JaxLM
 from fedml_tpu.observability import tracing as jtracing
+from fedml_tpu_torch import bench as bench_port
 from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
 from fedml_tpu_torch.algorithms.specs import (make_classification_spec,
                                               make_seq_classification_spec)
@@ -196,8 +197,13 @@ def _nested_scenario(module):
 
 
 def test_tracing_module_matches_the_reference(tmp_path):
-    assert tracing.__all__ == jtracing.__all__
-    assert tracing.TRACE_KEY == jtracing.TRACE_KEY
+    # the port keeps the reference's API less its cross-process context
+    # propagation and JSONL export, which nothing in the port calls
+    assert tracing.__all__ == [n for n in jtracing.__all__
+                               if n != "TRACE_KEY"]
+    for name in ("inject", "extract", "remote_context", "export_jsonl"):
+        assert hasattr(jtracing.Tracer, name)
+        assert not hasattr(tracing.Tracer, name)
     got, want = _nested_scenario(tracing), _nested_scenario(jtracing)
     assert _tree(got.finished_spans()) == _tree(want.finished_spans())
     assert (sorted(got.durations_by_name())
@@ -224,13 +230,22 @@ def test_noop_tracer_matches_the_reference():
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
-    with profile_trace(None):
+    off = {"device_busy_s": None, "wall_s": None}
+    with profile_trace(None) as out:
         pass
-    with profile_trace(str(tmp_path), enabled=False):
+    assert out == off
+    with profile_trace(str(tmp_path), enabled=False) as out:
         pass
+    assert out == off
     assert not (tmp_path / "trace.json").exists()
-    with profile_trace(str(tmp_path)):
+    with profile_trace(str(tmp_path)) as out:
         torch.ones(64, 64) @ torch.ones(64, 64)
+    # on the CPU there is no card to be busy
+    assert out["device_busy_s"] is None and out["wall_s"] > 0
+    assert bench_port._profile_fields(out, 1) == {}
+    fields = bench_port._profile_fields(
+        {"device_busy_s": 3.0, "wall_s": 12.0}, 2)
+    assert fields == {"device_busy_s": 1.5, "device_busy_share": 0.25}
     with open(tmp_path / "trace.json") as f:
         doc = json.load(f)
     assert any("mm" in e.get("name", "") for e in doc["traceEvents"])
