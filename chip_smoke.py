@@ -18,8 +18,9 @@ Phases (any failure exits non-zero):
    the grouped-conv dW (B1) at ResNet-56's four shapes in bf16 (each
    line names the kernel's route, tensor cores or CUDA cores); the
    flash-attention forward, dq and dk/dv (B2-B4) at the LM flagship's
-   launch ([32, 80, 4, 128] bf16 causal), a ragged T and a non-causal
-   case, and the whole ``FlashAttention`` backward (delta, B3, B4)
+   launch ([32, 80, 4, 128] bf16 causal), a ragged T, a non-causal case
+   and the experiment main's LM launch ([32, 20, 4, 64] causal), and the
+   whole ``FlashAttention`` backward (delta, B3, B4)
    against SDPA's backward;
 3. drive the ResNet main path -- lane-packed FedAvg on full-width
    ResNet-56 (bf16, 8 lanes, batch 64, synthetic LDA alpha=0.5
@@ -41,7 +42,19 @@ Phases (any failure exits non-zero):
    ``phase_timings_s`` and counted FLOPs within ``FLOPS_XCHECK_TOL`` of
    the analytic count, and show from the counters that the ResNet run
    went through B1's tensor-core kernel and the LM run through B2-B4;
-6. print the ``kernels`` JSON line and, last, the ``ok`` line.
+6. run the experiment entry point
+   (``fedml_tpu_torch.experiments.main_fedavg.main``) on the card: LR
+   with the reference's defaults for 2 rounds, full-width ResNet-56
+   (fp32, 8 clients, 4,096 samples, batch 64, 1 round) under
+   ``--wave_mode`` 0, 1 and 2 under deterministic kernels, with the
+   three global states held within ``EXP_MODE_TOL`` of one another (and
+   the spread of two runs of one mode under cuDNN's default kernels
+   printed), and the full-width TransformerLM
+   (bf16, ``synthetic_sequences`` at T 20, 16 clients, batch 4) through
+   the waves for 2 rounds with the attention counters showing B2-B4 ran;
+   each run prints its seconds a round with the card's name and power
+   limit;
+7. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -70,8 +83,12 @@ L, B = 8, 64
 # the LM flagship (bench.py --lm defaults): one attention launch is the
 # 8 clients x batch 4 of a chunk at T=80, 4 heads of 128
 LM_D, LM_LAYERS, LM_CLIENTS, LM_BATCH, LM_CHUNK = 512, 4, 32, 4, 8
-ATTN_CASES = [("flagship", 32, 80, True), ("ragged_T", 32, 100, True),
-              ("non_causal", 32, 80, False)]
+# (label, batch, T, causal, head dim); experiment_T20 is the launch of
+# the experiment main's LM (8 clients x batch 4 a wave, T 20, heads of 64)
+ATTN_CASES = [("flagship", 32, 80, True, 128),
+              ("ragged_T", 32, 100, True, 128),
+              ("non_causal", 32, 80, False, 128),
+              ("experiment_T20", 32, 20, True, 64)]
 ATTN_H, ATTN_D = 4, 128
 # (label, Ci, Co, H, stride-1 convs of this shape in one ResNet-56 step)
 DW_SHAPES = [("stem", 3, 16, 32, 1), ("stage1", 16, 16, 32, 18),
@@ -241,16 +258,16 @@ def phase_attention(torch, fa):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     timing = None
-    C = ATTN_H * ATTN_D
-    for label, Bq, T, causal in ATTN_CASES:
+    for label, Bq, T, causal, D in ATTN_CASES:
+        C = ATTN_H * D
         # q, k, v as the model hands them over: column slices of one fused
         # qkv product [B, T, 3C], each viewed as [B, T, H, D] (rows of
         # D elements 3C apart), with no copy
         qkv = torch.randn(Bq, T, 3 * C, generator=gen, device=dev
                           ).to(torch.bfloat16)
-        q, k, v = (qkv[..., j * C:(j + 1) * C].reshape(Bq, T, ATTN_H, ATTN_D)
+        q, k, v = (qkv[..., j * C:(j + 1) * C].reshape(Bq, T, ATTN_H, D)
                    for j in range(3))
-        do = torch.randn(Bq, T, ATTN_H, ATTN_D, generator=gen, device=dev
+        do = torch.randn(Bq, T, ATTN_H, D, generator=gen, device=dev
                          ).to(torch.bfloat16)
         o, lse = fa.flash_attention_fwd(q, k, v, causal)
         o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal)
@@ -260,7 +277,7 @@ def phase_attention(torch, fa):
         dk, dv = fa.flash_attention_dkv(*args)
         dq_ref, dk_ref, dv_ref = fa.flash_attention_bwd_reference(*args)
         torch.cuda.synchronize()
-        row = {"case": label, "shape": [Bq, T, ATTN_H, ATTN_D],
+        row = {"case": label, "shape": [Bq, T, ATTN_H, D],
                "causal": causal, "max_abs_ref": {
                    n: float(r.float().abs().max()) for n, r in (
                        ("o", o_ref), ("dq", dq_ref), ("dk", dk_ref),
@@ -532,6 +549,100 @@ def phase_bench(grouped_conv, fa):
               f"{ratio_key}={rec[ratio_key]}", flush=True)
 
 
+def _experiment(argv):
+    """One run of the port's experiment main on the card: the api, the
+    seconds a round and the line that reports them."""
+    from fedml_tpu_torch.experiments import main_fedavg
+
+    api, _ = main_fedavg.main(argv)
+    if api.device.type != "cuda":
+        fail(f"experiment main {argv} ran on {api.device}")
+    for r in api.history:
+        if not (math.isfinite(r["Train/Loss"])
+                and math.isfinite(r.get("Test/Loss", 0.0))):
+            fail(f"experiment main {argv}: non-finite loss in {r}")
+    return api, [r["round_time_s"] for r in api.history]
+
+
+#: ResNet-56 at full width through the experiment main, fp32
+EXP_RESNET = ["--model", "resnet56", "--dataset", "synthetic_images",
+              "--image_size", "32", "--client_num_in_total", "8",
+              "--client_num_per_round", "8", "--n_train", "4096",
+              "--batch_size", "64", "--epochs", "1", "--comm_round", "1"]
+#: the three modes' global states agree within this under deterministic
+#: kernels (fp32 sums in another order: waves against lanes, the flat
+#: round's padded steps)
+EXP_MODE_TOL = 1e-3
+#: the full-width TransformerLM (factory default: d_model 256, 4 layers,
+#: 4 heads of 64) through the waves in bf16
+EXP_LM = ["--model", "transformer", "--dataset", "synthetic_sequences",
+          "--model_dtype", "bf16", "--client_num_in_total", "16",
+          "--client_num_per_round", "16", "--batch_size", "4",
+          "--comm_round", "2", "--wave_mode", "1"]
+
+
+def phase_experiment_main(torch, fa, grouped_conv, smi):
+    """``python -m fedml_tpu_torch.experiments.main_fedavg`` in-process on
+    the card: the reference's defaults (LR on ``synthetic``) for 2
+    rounds; full-width ResNet-56 (fp32) under ``--wave_mode`` 0, 1 and 2
+    with deterministic kernels, whose global states must agree within
+    ``EXP_MODE_TOL`` (two runs of mode 1 under cuDNN's default kernels
+    print their spread); the
+    full-width TransformerLM (bf16) through the waves for 2 rounds, with
+    the attention launch counters set to 0 just before and read just
+    after (B3 and B4 once per layer of each local step, B2 at least as
+    often: the evaluation runs it too). Each run prints its seconds a
+    round beside the card's name and power limit."""
+    api, times = _experiment(["--comm_round", "2"])
+    print(f"experiment_main run=lr_defaults rounds={len(times)} "
+          f"s_per_round={times} card={smi}", flush=True)
+    diff = lambda a, b: max(float((a[part][k] - b[part][k]).abs().max())
+                            for part in a for k in a[part])
+    # cuDNN's default convolution kernels are not deterministic, and 11
+    # SGD steps of ResNet-56 amplify their last-bit differences: two
+    # runs of one mode differ (the spread below); the modes are compared
+    # under deterministic kernels
+    spread = [_experiment(EXP_RESNET + ["--wave_mode", "1"])[0].global_state
+              for _ in range(2)]
+    print(f"experiment_main run=resnet56_wave_mode_1_twice "
+          f"nondeterministic_spread={diff(*spread)} card={smi}", flush=True)
+    states = {}
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("0", "1", "2"):
+            grouped_conv.launches = 0
+            api, times = _experiment(EXP_RESNET + ["--wave_mode", mode])
+            states[mode] = api.global_state
+            print(f"experiment_main run=resnet56_wave_mode_{mode} "
+                  f"deterministic=1 s_per_round={times} "
+                  f"steps={api._last_trip} "
+                  f"train_loss={api.history[-1]['Train/Loss']} "
+                  f"dw_launches={grouped_conv.launches} card={smi}",
+                  flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    diffs = {mode: diff(states[mode], states["1"]) for mode in ("0", "2")}
+    if not all(d <= EXP_MODE_TOL for d in diffs.values()):
+        fail(f"experiment main: wave_mode 0/2 states differ from 1 by "
+             f"{diffs} > {EXP_MODE_TOL}")
+    for name in fa.launches:
+        fa.launches[name] = 0
+    api, times = _experiment(EXP_LM)
+    launches = dict(fa.launches)
+    layers = sum(1 for k in api.global_state["params"]
+                 if k.endswith(".qkv.weight"))
+    if not (launches["dq"] == launches["dkv"] > 0
+            and launches["dq"] % layers == 0
+            and launches["fwd"] >= launches["dq"]):
+        fail(f"experiment main LM: attention launches {launches}")
+    print(f"experiment_main run=transformer_waves s_per_round={times} "
+          f"train_loss={[r['Train/Loss'] for r in api.history]} "
+          f"launches={json.dumps(launches)} mode_diffs={json.dumps(diffs)} "
+          f"card={smi}", flush=True)
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -663,6 +774,10 @@ def phase_profile(torch, fa, grouped_conv):
 
 
 def main():
+    # deterministic cuBLAS, which torch.use_deterministic_algorithms
+    # needs for the experiment phase's comparison of round modes; it must
+    # be set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -692,6 +807,7 @@ def main():
     launches = phase_main_path(torch, grouped_conv)
     attn_launches = phase_lm_main_path(torch, fa)
     phase_bench(grouped_conv, fa)
+    phase_experiment_main(torch, fa, grouped_conv, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

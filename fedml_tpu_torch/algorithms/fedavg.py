@@ -1,17 +1,21 @@
 """FedAvg round loop (counterpart of ``fedml_tpu/algorithms/fedavg.py``)
-on one device, along two of the reference's paths:
+on one device, along every single-device path of the reference:
 
-- ``--bucket_edges`` (the LM flagship): the cohort's raw shards stream
-  through ``BucketedStreamRunner`` chunk by chunk, folded on the host in
-  fp64 (the synchronous fold; ``--async_agg`` waits for ROADMAP A10);
-- otherwise the device-resident packed-lane path (``wave_mode=3``):
-  every client's padded shard is uploaded once, and a round is a seeded
-  cohort draw, an index schedule and one ``LaneRunner(packed=True)``
-  pass.
+- ``--bucket_edges``: the cohort's raw shards stream through
+  ``BucketedStreamRunner`` chunk by chunk, folded on the host in fp64
+  (the synchronous fold; ``--async_agg`` waits for ROADMAP A10);
+- shards resident on the device (when they fit ``device_data_cap_gb``
+  and ``device_resident`` is not off): a round is a seeded cohort draw,
+  an index schedule and one of ``--wave_mode`` 1 (size-sorted waves,
+  ``WaveRunner``), 0 (the flat round), 2 (vmap lanes) or 3 (packed
+  lanes, falling back to 2 for model families without a packed
+  lowering);
+- otherwise the host-packed round: the cohort's batches are packed on
+  the host and uploaded each round (``RoundProgram.compile_sim``).
 
-The other round paths (waves, vmap lanes, flat, compression,
-resilience, meshes) and the ``RoundProgram`` object wait for ROADMAP A6,
-A8, A11, A12 and A15.
+The API builds its one ``RoundProgram`` from the arguments, as the
+reference does. Compression, resilience, steering and meshes wait for
+ROADMAP A11, A12 and A15.
 """
 
 from __future__ import annotations
@@ -24,14 +28,16 @@ import torch
 
 from fedml_tpu_torch.core.trainer import TrainSpec
 from fedml_tpu_torch.observability.tracing import get_tracer
-from fedml_tpu_torch.parallel.engine import (BucketedStreamRunner,
-                                             ClientUpdateConfig, LaneRunner,
-                                             fold_seed)
-from fedml_tpu_torch.parallel.packing import (_steps_for, pack_eval,
-                                              pack_schedule,
+from fedml_tpu_torch.parallel.engine import (ClientUpdateConfig, LaneRunner,
+                                             WaveRunner, fold_seed,
+                                             make_eval_fn,
+                                             make_indexed_sim_round)
+from fedml_tpu_torch.parallel.packing import (_steps_for, pack_cohort,
+                                              pack_eval, pack_schedule,
                                               parse_bucket_edges,
                                               stack_clients)
 from fedml_tpu_torch.program.cohort import client_sampling
+from fedml_tpu_torch.program.round import RoundProgram
 from fedml_tpu_torch.utils.device import resolve_device
 
 # reference args whose non-default values select a path not ported yet
@@ -43,6 +49,9 @@ _UNPORTED = {
     "pace_steering": "ROADMAP A11 (pace steering)",
 }
 
+#: ``local-train`` span mode of each resident ``wave_mode``
+_MODES = {0: "flat", 1: "waves", 2: "lanes", 3: "mxu-lanes"}
+
 
 class FedAvgAPI:
     """Round-loop orchestrator.
@@ -50,17 +59,18 @@ class FedAvgAPI:
     Args:
       dataset: the 8-tuple contract ``[train_num, test_num, train_global,
         test_global, train_local_num_dict, train_local_dict,
-        test_local_dict, class_num]`` with numpy shards (NHWC images or
-        ``[n, T]`` token ids).
-      spec: a :class:`TrainSpec`: with a ``stacked_loss_fn`` for the
-        bucketed path, a ``lane_loss_builder`` for packed lanes.
+        test_local_dict, class_num]`` with numpy shards (NHWC images, flat
+        features or ``[n, T]`` token ids).
+      spec: a :class:`TrainSpec` (``stacked_loss_fn`` for every path, a
+        ``lane_loss_builder`` for packed lanes).
       args: the reference's hyperparameter namespace (``lr``, ``wd``,
-        ``batch_size``, ``epochs``, ``client_chunk``, ``bucket_edges``,
-        ``wave_mode=3``, ``device_data_cap_gb``, ``device_dtype``, ...).
+        ``batch_size``, ``epochs``, ``client_chunk``, ``wave_mode``,
+        ``device_resident``, ``device_data_cap_gb``, ``device_dtype``,
+        ``bucket_edges``, ``ci``, ...).
       device: ``None`` runs on the GPU and raises without one; pass
         ``"cpu"`` to run on the CPU.
       payload_fn / server_fn / server_state: aggregator hooks; payload_fn
-        takes lane-stacked local state.
+        takes client- or lane-stacked local state.
     """
 
     def __init__(self, dataset, spec: TrainSpec, args, mesh=None,
@@ -82,22 +92,50 @@ class FedAvgAPI:
                                                  "none"):
                 raise NotImplementedError(f"--{name} waits for {item}")
 
-        self.cfg = ClientUpdateConfig(
+        self.cfg = cfg = ClientUpdateConfig(
             optimizer=getattr(args, "client_optimizer", "sgd"),
             lr=args.lr,
             weight_decay=getattr(args, "wd", 0.0),
             momentum=getattr(args, "momentum", 0.0),
             grad_clip=getattr(args, "grad_clip", None))
+        # the one RoundProgram this API executes
+        self.program = RoundProgram.from_args(args, codec="none",
+                                              client_update=(spec, cfg))
+        self.round_fn = self.program.compile_sim(spec, cfg, payload_fn,
+                                                 server_fn)
+        self.eval_fn = make_eval_fn(spec)
+        self.bucket_runner = None
+        if getattr(args, "bucket_edges", None) is not None:
+            self._init_bucketed(spec, args, payload_fn, server_fn)
+
+        self.device_data = None
+        self.packed_lane_runner = None
+        resident = str(getattr(args, "device_resident", "auto")).lower()
+        stacked = (self._stack_if_fits(args)
+                   if resident not in ("0", "false", "none", "")
+                   and self.bucket_runner is None else None)
+        if stacked is not None:
+            self.device_data = {"x": stacked["x"], "y": stacked["y"]}
+            self._client_ns = stacked["n"]
+            chunk = getattr(args, "client_chunk", 8) or 8
+            self.wave_runner = WaveRunner(spec, cfg, payload_fn, server_fn,
+                                          client_chunk=chunk)
+            self.lane_runner = LaneRunner(spec, cfg, payload_fn, server_fn,
+                                          n_lanes=chunk)
+            if (int(getattr(args, "wave_mode", 1)) == 3
+                    and spec.lane_loss_builder is not None):
+                self.packed_lane_runner = LaneRunner(
+                    spec, cfg, payload_fn, server_fn, n_lanes=chunk,
+                    packed=True)
+            self.indexed_round_fn = make_indexed_sim_round(
+                spec, cfg, payload_fn, server_fn,
+                client_chunk=getattr(args, "client_chunk", None))
         self.server_state = server_state if server_state is not None else ()
         self.seed = int(getattr(args, "seed", 0))
         self._data_rng = np.random.default_rng(self.seed)
         self.round_idx = 0
         self.history = []
-        self.bucket_runner = None
-        if getattr(args, "bucket_edges", None) is not None:
-            self._init_bucketed(spec, args, payload_fn, server_fn)
-        else:
-            self._init_packed_lanes(spec, args, payload_fn, server_fn)
+        self._last_trip = None
         self.global_state = spec.init_fn(self.seed, self.device)
 
     def _init_bucketed(self, spec, args, payload_fn, server_fn):
@@ -106,8 +144,7 @@ class FedAvgAPI:
         if spec.stacked_loss_fn is None:
             raise NotImplementedError(
                 f"spec '{spec.name}' has no stacked_loss_fn: the bucketed "
-                "path is ported for the TransformerLM "
-                "(make_seq_classification_spec)")
+                "path trains a chunk's clients at once")
         pop_ns = [int(v) for v in self.train_data_local_num_dict.values()]
         eff_bs = (args.batch_size if args.batch_size not in (-1, 0)
                   else max(1, max(pop_ns)))
@@ -115,35 +152,10 @@ class FedAvgAPI:
                     for n in pop_ns)
         edges = parse_bucket_edges(getattr(args, "bucket_edges", None),
                                    s_max)
-        self.bucket_runner = BucketedStreamRunner(
+        self.bucket_runner = self.program.compile_bucketed(
             spec, self.cfg, payload_fn, server_fn,
             client_chunk=getattr(args, "client_chunk", 8) or 8,
             batch_size=eff_bs, epochs=args.epochs, edges=edges)
-
-    def _init_packed_lanes(self, spec, args, payload_fn, server_fn):
-        if int(getattr(args, "wave_mode", 1)) != 3:
-            raise NotImplementedError(
-                "only wave_mode=3 (packed lanes) is ported; the other "
-                "round paths wait for ROADMAP A6")
-        if spec.lane_loss_builder is None:
-            raise NotImplementedError(
-                "wave_mode=3 needs a model family with a lane-packed "
-                "lowering; the vmap fallback waits for ROADMAP A6")
-        if str(getattr(args, "device_resident", "auto")).lower() in (
-                "0", "false", "none", ""):
-            raise NotImplementedError(
-                "host-packed rounds wait for ROADMAP A6")
-
-        stacked = self._stack_if_fits(args)
-        if stacked is None:
-            raise NotImplementedError(
-                "the client shards exceed device_data_cap_gb; host-packed "
-                "rounds wait for ROADMAP A6")
-        self.device_data = {"x": stacked["x"], "y": stacked["y"]}
-        self._client_ns = stacked["n"]
-        self.packed_lane_runner = LaneRunner(
-            spec, self.cfg, payload_fn, server_fn,
-            n_lanes=getattr(args, "client_chunk", 8) or 8, packed=True)
 
     def _stack_if_fits(self, args):
         """Stack every client's padded shard onto the device when it fits
@@ -179,6 +191,23 @@ class FedAvgAPI:
                                    len(self.train_data_local_dict),
                                    self.args.client_num_per_round)
 
+    def _cohort(self, round_idx):
+        """The host-packed round's cohort: its draw and its batches,
+        packed on the host and uploaded (the ``broadcast``)."""
+        client_indexes = self._sample_cohort(round_idx)
+        logging.info("client_indexes = %s", client_indexes)
+        datasets = [self.train_data_local_dict[i] for i in client_indexes]
+        if all(len(d["y"]) == 0 for d in datasets):
+            raise ValueError(
+                f"round {round_idx}: every sampled client has an empty shard")
+        with get_tracer().span("broadcast", clients=len(client_indexes)):
+            packed = pack_cohort(datasets, self.args.batch_size,
+                                 self.args.epochs, rng=self._data_rng)
+            packed = {k: torch.as_tensor(v, device=self.device)
+                      for k, v in packed.items()}
+            packed["y"] = packed["y"].long()
+        return client_indexes, packed
+
     def train_one_round(self):
         # span model (the reference's): the host enqueues the round's
         # device work asynchronously, so "local-train" measures the
@@ -192,10 +221,11 @@ class FedAvgAPI:
         return metrics
 
     def _traced_round_body(self, tracer, t0):
-        client_indexes = self._sample_cohort(self.round_idx)
-        logging.info("client_indexes = %s", client_indexes)
         round_seed = int(fold_seed(self.seed, self.round_idx))
         if self.bucket_runner is not None:
+            client_indexes = self._sample_cohort(self.round_idx)
+            logging.info("bucketed round over %d clients",
+                         len(client_indexes))
             datasets = [self.train_data_local_dict[i]
                         for i in client_indexes]
             if all(len(d["y"]) == 0 for d in datasets):
@@ -208,21 +238,15 @@ class FedAvgAPI:
                     self.global_state, self.server_state, datasets,
                     round_seed, data_rng=self._data_rng)
             self._last_bucket_info = info
+        elif self.device_data is not None:
+            info = self._resident_round(tracer, round_seed)
         else:
-            ns = [self._client_ns[i] for i in client_indexes]
-            if sum(ns) == 0:
-                raise ValueError(f"round {self.round_idx}: every sampled "
-                                 f"client has an empty shard")
-            with tracer.span("broadcast", clients=len(client_indexes)):
-                sched = pack_schedule(ns, self.args.batch_size,
-                                      self.args.epochs, rng=self._data_rng,
-                                      native=False)
-            with tracer.span("local-train", mode="mxu-lanes"):
+            _, packed = self._cohort(self.round_idx)
+            with tracer.span("local-train", mode="packed"):
                 (self.global_state, self.server_state,
-                 info) = self.packed_lane_runner.run_round(
-                    self.global_state, self.server_state, self.device_data,
-                    client_indexes, sched, round_seed)
-            self._last_trip = info["trip"]
+                 info) = self.round_fn(self.global_state, self.server_state,
+                                       packed, round_seed)
+        self._last_trip = info.get("trip")
         with tracer.span("aggregate"):
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -246,31 +270,109 @@ class FedAvgAPI:
                 "bucket/waste_frac": b["waste_frac"]})
         return train_metrics
 
+    def _resident_round(self, tracer, round_seed):
+        """One round over the device-resident shards by ``wave_mode``."""
+        client_indexes = self._sample_cohort(self.round_idx)
+        logging.info("client_indexes = %s", client_indexes)
+        ns = [self._client_ns[i] for i in client_indexes]
+        if sum(ns) == 0:
+            raise ValueError(f"round {self.round_idx}: every sampled "
+                             f"client has an empty shard")
+        with tracer.span("broadcast", clients=len(client_indexes)):
+            sched = pack_schedule(ns, self.args.batch_size,
+                                  self.args.epochs, rng=self._data_rng,
+                                  native=False)
+        mode = int(getattr(self.args, "wave_mode", 1))
+        state = (self.global_state, self.server_state)
+        if mode in (2, 3):
+            runner = (self.packed_lane_runner
+                      if mode == 3 and self.packed_lane_runner is not None
+                      else self.lane_runner)
+            with tracer.span("local-train",
+                             mode=_MODES[3 if runner.packed else 2]):
+                *state, info = runner.run_round(
+                    *state, self.device_data, client_indexes, sched,
+                    round_seed)
+        elif mode == 1:
+            with tracer.span("local-train", mode=_MODES[1]):
+                *state, info = self.wave_runner.run_round(
+                    *state, self.device_data, client_indexes, sched,
+                    round_seed)
+        else:
+            with tracer.span("local-train", mode=_MODES[0]):
+                sel = torch.as_tensor(np.asarray(client_indexes, np.int64),
+                                      device=self.device)
+                dd = {"x": self.device_data["x"][sel],
+                      "y": self.device_data["y"][sel]}
+                sched_t = {k: torch.as_tensor(v, device=self.device)
+                           for k, v in sched.items()}
+                sched_t["idx"] = sched_t["idx"].long()
+                *state, info = self.indexed_round_fn(*state, dd, sched_t,
+                                                     round_seed)
+        self.global_state, self.server_state = state
+        return info
+
+    def _packed_global_eval(self):
+        """The global test set packed once. A pack of at most 25% of
+        ``device_data_cap_gb`` stays on the device; a larger one stays on
+        the host (uploaded batch by batch at each evaluation)."""
+        if not hasattr(self, "_eval_packed"):
+            packed = pack_eval(self.test_data_global, self.args.batch_size)
+            nbytes = sum(v.nbytes for v in packed.values())
+            cap = 0.25 * float(
+                getattr(self.args, "device_data_cap_gb", 2.0)) * 1e9
+            if nbytes <= cap:
+                packed = {k: torch.as_tensor(v, device=self.device)
+                          for k, v in packed.items()}
+                packed["y"] = packed["y"].long()
+            self._eval_packed = packed
+        return self._eval_packed
+
+    @staticmethod
+    def _test_metrics(totals):
+        m = {k: float(v) for k, v in totals.items()}
+        count = max(m["count"], 1)
+        return {"Test/Loss": m["loss_sum"] / count,
+                "Test/Acc": m["correct"] / count}
+
     def evaluate_global(self):
         """Test loss and accuracy of the global model on the global test
-        set (images or ``[n, T]`` tokens), in batches of ``batch_size``."""
-        packed = pack_eval(self.test_data_global, self.args.batch_size)
-        totals = {}
-        for s in range(packed["mask"].shape[0]):
-            batch = {k: torch.as_tensor(v[s], device=self.device)
-                     for k, v in packed.items()}
-            m = self.spec.metrics_fn(self.global_state, batch)
-            for k, v in m.items():
-                totals[k] = totals.get(k, 0.0) + float(v)
-        count = max(totals["count"], 1)
-        return {"Test/Loss": totals["loss_sum"] / count,
-                "Test/Acc": totals["correct"] / count}
+        set: the metrics are summed on the device and read once."""
+        return self._test_metrics(self.eval_fn(self.global_state,
+                                               self._packed_global_eval()))
+
+    def evaluate_local(self, max_clients=None):
+        """Test loss and accuracy over the clients' local test shards
+        (``--ci`` evaluates one client); ``{}`` when every shard is
+        empty."""
+        if getattr(self.args, "ci", 0):
+            max_clients = 1
+        totals = None
+        for i, d in self.test_data_local_dict.items():
+            if max_clients is not None and i >= max_clients:
+                break
+            if d is None or len(d["y"]) == 0:
+                continue
+            m = self.eval_fn(self.global_state,
+                             pack_eval(d, self.args.batch_size))
+            totals = m if totals is None else {k: totals[k] + m[k]
+                                               for k in totals}
+        return {} if totals is None else self._test_metrics(totals)
 
     def train(self, on_round=None):
         """Round loop until ``comm_round``; evaluates every
-        ``frequency_of_the_test`` rounds and on the last. ``on_round(api,
+        ``frequency_of_the_test`` rounds and on the last, inside an
+        ``eval`` span carrying the trained round. ``on_round(api,
         metrics)`` runs after each round."""
         freq = getattr(self.args, "frequency_of_the_test", 5)
         while self.round_idx < self.args.comm_round:
             metrics = self.train_one_round()
             last = self.round_idx == self.args.comm_round
             if self.round_idx % freq == 0 or last:
-                metrics.update(self.evaluate_global())
+                with get_tracer().span(
+                        "eval", round=int(metrics.get("round",
+                                                      self.round_idx - 1))):
+                    metrics.update(self.evaluate_global())
             self.metrics_logger(metrics)
             self.history.append(metrics)
             if on_round is not None:

@@ -3,22 +3,31 @@
 
 Softmax cross-entropy over logits; metrics are sums (``loss_sum``,
 ``correct``, ``count``) that the host divides.
+
+Every spec has a ``stacked_loss_fn`` that trains K clients at once over a
+leading client axis: the round runners (waves, flat, vmap lanes, the
+host-packed round and the bucketed stream) all train through it. The
+classification spec maps one client's loss over the axis with
+``torch.func.vmap`` over ``functional_call`` (each client's BatchNorm
+statistics and dropout masks batched with it); the TransformerLM writes
+the axis out in its own forward (its attention is a custom autograd
+Function with no vmap rule).
 """
 
 from __future__ import annotations
 
 import torch
-from torch.func import functional_call
+from torch.func import functional_call, vmap
 
 from fedml_tpu_torch.core.trainer import TrainSpec
 from fedml_tpu_torch.models.lane_packed import LOWERINGS, builder_for
-from fedml_tpu_torch.models.resnet import init_resnet_
+from fedml_tpu_torch.models.layers import lecun_init_
 from fedml_tpu_torch.utils.torch_import import module_state
 
 
 def _loss_and_metrics(logits, y, mask):
     logp = torch.log_softmax(logits.float(), dim=-1)
-    per_sample = -logp.gather(1, y.long()[:, None])[:, 0]
+    per_sample = -logp.gather(-1, y.long()[..., None])[..., 0]
     count = mask.sum()
     loss = (per_sample * mask).sum() / torch.clamp(count, min=1.0)
     correct = ((logits.argmax(dim=-1) == y).float() * mask).sum()
@@ -26,55 +35,112 @@ def _loss_and_metrics(logits, y, mask):
                   "count": count}
 
 
+def _dropout_masks(model, n, seeds, device):
+    """Per-client dropout masks for models that take them: each client's
+    drawn from a generator seeded with its step seed, stacked on a
+    leading client axis; None for models without dropout."""
+    if not hasattr(model, "draw_dropout_masks"):
+        return None
+    gen = torch.Generator(device=device)
+    draws = [model.draw_dropout_masks(n, gen.manual_seed(int(s)))
+             for s in seeds]
+    return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+
+
 def make_classification_spec(model, example_x=None, num_classes=None,
                              name="classification", augment_fn=None,
                              lane_lowering=None):
-    """Spec for a classification ``nn.Module`` taking NHWC batches.
+    """Spec for a classification ``nn.Module`` taking NHWC (or flat)
+    batches.
 
     ``init_fn(seed, device)`` draws the reference initialisers from a
-    generator seeded with ``seed``; ``loss_fn``/``metrics_fn`` apply the
-    model functionally on a state; ``lane_loss_builder`` is the packed
-    lowering (``models/lane_packed.py``) picked by ``lane_lowering``.
-    ``example_x`` and ``num_classes`` are accepted for signature parity
-    with the reference and unused: a torch module knows its shapes."""
+    generator seeded with ``seed``; the state is ``{"params"}`` plus
+    ``{"batch_stats"}`` for models with BatchNorm. ``loss_fn`` and
+    ``metrics_fn`` apply the model functionally on one client's state;
+    ``stacked_loss_fn(state, batch, train, seeds=None)`` on K clients'
+    (``seeds [K]`` seed the dropout masks of models that have dropout);
+    ``lane_loss_builder`` is the packed lowering
+    (``models/lane_packed.py``) picked by ``lane_lowering``, or None for
+    families without one. ``example_x`` and ``num_classes`` are accepted
+    for signature parity with the reference and unused: a torch module
+    knows its shapes."""
     del example_x, num_classes
     if lane_lowering not in (None,) + LOWERINGS:
         raise ValueError(f"unknown lane_lowering {lane_lowering!r}; "
                          "choose blockdiag, bgc, auto or pallas")
 
     def init_fn(seed, device):
-        gen = torch.Generator().manual_seed(int(seed))
-        init_resnet_(model, gen)
-        return {k: {n: t.to(device) for n, t in v.items()}
-                for k, v in module_state(model).items()}
+        lecun_init_(model, torch.Generator().manual_seed(int(seed)))
+        state = {k: {n: t.to(device) for n, t in v.items()}
+                 for k, v in module_state(model).items()}
+        if not state["batch_stats"]:
+            del state["batch_stats"]
+        return state
 
-    def _apply(state, x, train):
-        tensors = {**state["params"], **state["batch_stats"]}
-        # the module writes updated running stats into the buffers it is
-        # given: hand it copies so the caller's state stays untouched
-        if train:
-            tensors.update({k: v.clone()
-                            for k, v in state["batch_stats"].items()})
-        logits = functional_call(model, tensors, (x,), {"train": train})
-        new_state = {"params": state["params"],
-                     "batch_stats": {k: tensors[k].detach()
-                                     for k in state["batch_stats"]}}
-        return logits, new_state
+    def _apply(params, stats, x, train, masks=None):
+        """Logits and the new running statistics of one client. The
+        module writes updated statistics into the buffers it is given:
+        hand it copies so the caller's state stays untouched."""
+        tensors = dict(params)
+        stats = {k: v.clone() for k, v in stats.items()}
+        tensors.update(stats)
+        kwargs = {"train": train}
+        if masks is not None:
+            kwargs["dropout_masks"] = masks
+        logits = functional_call(model, tensors, (x,), kwargs)
+        return logits, stats
 
-    def loss_fn(state, batch, train):
-        logits, new_state = _apply(state, batch["x"], train)
+    def _state(params, state, stats):
+        new_state = {"params": params}
+        if "batch_stats" in state:
+            new_state["batch_stats"] = {k: v.detach()
+                                        for k, v in stats.items()}
+        return new_state
+
+    def loss_fn(state, batch, train, seed=0):
+        x = batch["x"]
+        masks = (_dropout_masks(model, x.shape[0], [seed], x.device)
+                 if train else None)
+        masks = None if masks is None else {k: v[0]
+                                            for k, v in masks.items()}
+        logits, stats = _apply(state["params"], state.get("batch_stats", {}),
+                               x, train, masks)
         loss, metrics = _loss_and_metrics(logits, batch["y"], batch["mask"])
-        return loss, (new_state, metrics)
+        return loss, (_state(state["params"], state, stats), metrics)
+
+    def stacked_loss_fn(state, batch, train, seeds=None):
+        x = batch["x"]
+        K = x.shape[0]
+        masks = None
+        if train and hasattr(model, "draw_dropout_masks"):
+            if seeds is None:
+                raise ValueError(f"{type(model).__name__} trains with "
+                                 "per-client seeds for its dropout masks")
+            masks = _dropout_masks(model, x.shape[1], seeds[:K], x.device)
+
+        def one(params, stats, x, y, mask, masks):
+            logits, new_stats = _apply(params, stats, x, train, masks)
+            loss, metrics = _loss_and_metrics(logits, y, mask)
+            return loss, new_stats, metrics
+
+        in_dims = (0, 0, 0, 0, 0, None if masks is None else 0)
+        losses, stats, metrics = vmap(one, in_dims=in_dims)(
+            state["params"], state.get("batch_stats", {}), x, batch["y"],
+            batch["mask"], masks)
+        return losses.sum(), (_state(state["params"], state, stats),
+                              metrics)
 
     def metrics_fn(state, batch):
         with torch.no_grad():
-            logits, _ = _apply(state, batch["x"], False)
+            logits, _ = _apply(state["params"], state.get("batch_stats", {}),
+                               batch["x"], False)
             return _loss_and_metrics(logits, batch["y"], batch["mask"])[1]
 
     return TrainSpec(init_fn=init_fn, loss_fn=loss_fn, metrics_fn=metrics_fn,
                      name=name, augment_fn=augment_fn,
                      lane_loss_builder=builder_for(model,
-                                                   lowering=lane_lowering))
+                                                   lowering=lane_lowering),
+                     stacked_loss_fn=stacked_loss_fn)
 
 
 def _seq_loss_and_metrics(logits, y, mask, ignore_index, dims):
@@ -90,29 +156,33 @@ def _seq_loss_and_metrics(logits, y, mask, ignore_index, dims):
             {"loss_sum": loss_sum, "correct": correct, "count": count})
 
 
-def make_seq_classification_spec(model, ignore_index=0, name="nwp"):
+def make_seq_classification_spec(model, example_x=None, ignore_index=0,
+                                 name="nwp"):
     """Per-token cross-entropy over ``[B, T, V]`` logits with padding-id
     masking (the reference NWP trainer's ``ignore_index=0``), for a
     :class:`~fedml_tpu_torch.models.transformer.TransformerLM`.
 
     ``init_fn(seed, device)`` draws the reference initialisers from a
     generator seeded with ``seed``. ``stacked_loss_fn`` trains K clients
-    at once (the streamed client update). The dense model sows no
-    auxiliary loss; the reference's ``aux_loss_weight`` comes with the
-    MoE model (ROADMAP A10)."""
+    at once over the client axis the model writes out; ``seeds`` is
+    accepted and unused (the model draws nothing). The dense model sows
+    no auxiliary loss; the reference's ``aux_loss_weight`` comes with the
+    MoE model (ROADMAP A10). ``example_x`` is accepted for signature
+    parity with the reference and unused."""
+    del example_x
 
     def init_fn(seed, device):
         model.reset_parameters_(torch.Generator().manual_seed(int(seed)))
         return {"params": {k: v.detach().clone().to(device)
                            for k, v in model.named_parameters()}}
 
-    def loss_fn(state, batch, train):
+    def loss_fn(state, batch, train, seed=0):
         logits = model.apply_params(state["params"], batch["x"])
         loss, metrics = _seq_loss_and_metrics(
             logits, batch["y"], batch["mask"], ignore_index, (0, 1))
         return loss, (state, metrics)
 
-    def stacked_loss_fn(state, batch, train):
+    def stacked_loss_fn(state, batch, train, seeds=None):
         logits = model.apply_params(state["params"], batch["x"],
                                     stacked=True)
         loss, metrics = _seq_loss_and_metrics(

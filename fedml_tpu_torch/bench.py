@@ -10,7 +10,9 @@ synthetic data (50,000 samples, 32x32, LDA alpha=0.5, seed 0), 32
 clients all sampled, batch 64, SGD lr 0.001 wd 0.001, 20 local epochs,
 crop/flip/Cutout on, shards resident on the device, eight clients at a
 time as packed lanes (``--mode 3``), ResNet-56 in bf16. One warmup round,
-then ``--rounds`` measured rounds.
+then ``--rounds`` measured rounds. ``--mode`` 2 (vmap lanes), 1 (waves)
+and 0 (flat; also ``--flat``) run the same recipe through the other
+round runners.
 
 **LM flagship** (``--lm``): TransformerLM d_model 512, 4 layers, heads of
 128, T 80, vocab 90, bf16, on 32 LEAF-Shakespeare-shaped synthetic
@@ -36,7 +38,8 @@ Where the port differs from ``bench.py`` on purpose:
   builds of the port's kernels (``ops/_build.py``), not XLA compiles.
 - ``phase_timings_s`` is the median seconds of each round span over the
   measured rounds (``round``, ``cohort-select``, ``broadcast``,
-  ``local-train``, ``lanes`` or ``bucket-chunk``, ``aggregate``,
+  ``local-train``, ``lanes``, ``wave`` and ``server-update`` or
+  ``bucket-chunk``, ``aggregate``,
   ``report``), and ``phase_totals_s`` each span's seconds a round, its
   spans summed. ``local-train`` is the host's enqueue; the device wait
   lands in ``aggregate``.
@@ -108,7 +111,6 @@ _SMOKE_TAG = " [SMOKE -- not baseline-comparable]"
 #: flags of bench.py whose paths are not ported, by name or by name
 #: prefix (``--soak`` also covers ``--soak_*``), with the queue item
 _UNPORTED_FLAGS = (
-    ("--flat", "ROADMAP A6 (the flat round path)"),
     ("--warmup", "ROADMAP A16 (round-program warmup)"),
     ("--compile_cache_dir", "ROADMAP A16 (compile caches)"),
     ("--lm_data_dir", "ROADMAP A10 (the Shakespeare file loaders)"),
@@ -271,6 +273,14 @@ def _peak_memory_gb(device):
 # ---------------------------------------------------------------------------
 # the ResNet-56 flagship
 # ---------------------------------------------------------------------------
+#: the record's ``exec_mode`` of each ``--mode`` (bench.py's names)
+_EXEC_MODES = {3: "mxu-lanes", 2: "lanes", 1: "waves", 0: "flat"}
+
+
+def _wave_mode(args):
+    return 0 if args.flat else args.mode
+
+
 def build_api(args, device):
     """The flagship's ``FedAvgAPI`` (``bench.py:build_api``): the smoke
     shrinks the data to 16 samples a client at 16x16 and one epoch."""
@@ -301,7 +311,7 @@ def build_api(args, device):
         comm_round=10 ** 9, epochs=epochs, batch_size=args.batch_size,
         lr=0.001, wd=0.001, client_optimizer="sgd",
         frequency_of_the_test=10 ** 9, seed=0,
-        client_chunk=args.client_chunk, wave_mode=args.mode,
+        client_chunk=args.client_chunk, wave_mode=_wave_mode(args),
         device_resident="auto", device_data_cap_gb=4.0,
         device_dtype=args.device_dtype)
     return FedAvgAPI(dataset, spec, run_args, device=device), image
@@ -338,6 +348,9 @@ def run_resnet_bench(args, device):
     flagship = (not smoke and epochs_run == FLAGSHIP_EPOCHS
                 and args.clients == 32 and args.batch_size == 64)
     steps_round = samples_per_round / bs
+    mode = _wave_mode(args)
+    steps_key = {1: "wave_steps_per_round", 2: "lane_steps_per_round",
+                 3: "lane_steps_per_round"}.get(mode)
     return {
         "metric": ("FedAvg rounds/hour (CIFAR-10-scale ResNet-56, "
                    f"{args.clients} clients, bs{bs}, {epochs_run} local "
@@ -355,7 +368,7 @@ def run_resnet_bench(args, device):
         "compile_count": warm["builds"],
         "compile_seconds": round(warm["seconds"], 4),
         "samples_per_round": samples_per_round,
-        "lane_steps_per_round": int(api._last_trip),
+        **({} if steps_key is None else {steps_key: int(api._last_trip)}),
         "ms_per_step_batch": round(1e3 * round_s / max(steps_round, 1), 3),
         "model_train_flops_per_sample": flops_per_sample,
         "flops_source": FLOPS_SOURCE,
@@ -370,7 +383,7 @@ def run_resnet_bench(args, device):
         "peak_memory_gb": peak_mem,
         **_phase_fields(tracer, rounds),
         **prof,
-        "exec_mode": "mxu-lanes",
+        "exec_mode": _EXEC_MODES[mode],
     }
 
 
@@ -503,8 +516,10 @@ def _parser():
                    help="clients trained at once (packed lanes)")
     p.add_argument("--mode", type=int, default=3, choices=(0, 1, 2, 3),
                    help="3 = packed lanes (the lane axis folded into "
-                        "channels, models/lane_packed.py); the other "
-                        "round paths are not ported")
+                        "channels, models/lane_packed.py), 2 = vmap "
+                        "lanes, 1 = size-sorted waves, 0 = flat")
+    p.add_argument("--flat", action="store_true",
+                   help="the flat round (--mode 0)")
     p.add_argument("--no_augment", action="store_true",
                    help="drop the recipe's crop/flip/Cutout augmentation")
     p.add_argument("--lane_lowering", default=None,
@@ -574,9 +589,6 @@ def _refusal(args, unknown):
     if args.algo != "fedavg":
         return ("--algo fedopt is not ported: it waits for ROADMAP A11 "
                 "(fedopt)")
-    if args.mode != 3:
-        return (f"--mode {args.mode} is not ported: it waits for ROADMAP "
-                "A6 (the other round paths)")
     if args.rounds < 1:
         return f"--rounds {args.rounds}: measure at least 1 round"
     return None

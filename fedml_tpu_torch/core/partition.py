@@ -76,5 +76,20 @@ def homo_partition(n_samples, client_num, seed=None):
             for i, part in enumerate(np.array_split(idxs, client_num))}
 
 
+def hetero_fix_partition(label_list, client_num, seed=None):
+    """Shard-by-class partition ("hetero-fix"): sort by label, cut into
+    ``2 * client_num`` shards, deal each client two at random."""
+    label_list = np.asarray(label_list)
+    order = np.argsort(label_list, kind="stable")
+    shards = np.array_split(order, client_num * 2)
+    rng = np.random.default_rng(seed)
+    shard_ids = rng.permutation(len(shards))
+    out = {}
+    for j in range(client_num):
+        picked = [shards[s] for s in shard_ids[2 * j:2 * j + 2]]
+        out[j] = np.sort(np.concatenate(picked)).astype(np.int64)
+    return out
+
+
 __all__ = ["non_iid_partition_with_dirichlet_distribution",
-           "homo_partition"]
+           "homo_partition", "hetero_fix_partition"]

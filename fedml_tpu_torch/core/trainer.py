@@ -3,7 +3,8 @@
 ``TrainSpec`` bundles the model-specific functions an FL engine calls.
 The port's state is ``{"params": {name: tensor}, "batch_stats": {name:
 tensor}}`` with the torch ``state_dict`` names of the model
-(``models/resnet.py``; ``{"params": ...}`` alone for the TransformerLM);
+(``models/resnet.py``; ``{"params": ...}`` alone for the models without
+BatchNorm: LR, the CNNs, the TransformerLM);
 lane- or client-stacked state carries a leading axis on every leaf.
 """
 
@@ -18,8 +19,9 @@ class TrainSpec:
     """Model-specific functions of one task.
 
     init_fn(seed, device) -> state
-    loss_fn(state, batch, train) -> (loss, (new_state, metrics))
-        ``batch`` is ``{"x","y","mask"}``; masked samples contribute zero.
+    loss_fn(state, batch, train, seed=0) -> (loss, (new_state, metrics))
+        ``batch`` is ``{"x","y","mask"}``; masked samples contribute zero;
+        ``seed`` seeds the dropout masks of models that have dropout.
     metrics_fn(state, batch) -> dict of summed metrics
     augment_fn
         optional train-time augmentation with explicit draws:
@@ -29,13 +31,14 @@ class TrainSpec:
         ``lane_loss_fn(stacked_state, batch, rng, train) -> (loss_sum,
         (new_stacked_state, per_lane_metrics))`` over all lanes at once
         with the lane axis folded into channels (``models/lane_packed.py``).
-    stacked_loss_fn(stacked_state, batch, train) -> (loss_sum,
+    stacked_loss_fn(stacked_state, batch, train, seeds=None) -> (loss_sum,
         (new_stacked_state, per_client_metrics))
-        K clients at once over a client axis written out: every leaf of
-        the state and of ``batch`` (``x``/``y`` ``[K, B, ...]``, ``mask``
-        ``[K, B]``) leads with K; ``loss_sum`` is the sum of the K
-        per-client losses, so one backward gives each client its own
-        gradient (the streamed client update, ``parallel/engine.py``).
+        K clients at once over a client axis: every leaf of the state and
+        of ``batch`` (``x``/``y`` ``[K, B, ...]``, ``mask`` ``[K, B]``)
+        leads with K, ``seeds [K]`` are the clients' step seeds (dropout
+        masks); ``loss_sum`` is the sum of the K per-client losses, so one
+        backward gives each client its own gradient (every client update
+        of ``parallel/engine.py`` trains through it).
     """
     init_fn: Callable[..., Any]
     loss_fn: Callable[..., Any]

@@ -1,0 +1,265 @@
+"""Shared plumbing of the port's experiment mains (counterpart of
+``fedml_tpu/experiments/common.py``): the reference's flags with their
+names and defaults, setup, the dataset and model switch, the spec choice
+and the run loop.
+
+Every flag of the reference parses, so its command lines run here. A
+flag whose path is not ported refuses a non-default value with
+``NotImplementedError`` naming its ROADMAP item (:func:`refuse_unported`).
+The run goes to the card; ``--platform cpu`` asks for the CPU, and
+without a card and without it the main raises (:func:`device_for`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import random
+
+import numpy as np
+import torch
+
+from fedml_tpu_torch.program.codec import CodecSpec
+
+_A16_OBS = "ROADMAP A16 (the observability switchboard)"
+#: flag -> (value that runs, the ROADMAP item a change waits for)
+_UNPORTED = {
+    "mesh": (0, "ROADMAP A15 (multi-device)"),
+    "checkpoint_dir": (None, "ROADMAP A16 (checkpoint and resume through "
+                             "torch.save)"),
+    "resume": (0, "ROADMAP A16 (checkpoint and resume through torch.save)"),
+    "warmup": (0, "ROADMAP A16 (round-program warmup)"),
+    "compile_cache_dir": (None, "ROADMAP A16 (compile caches)"),
+    "audit": (0, "ROADMAP A16 (the runtime audit)"),
+    "race_audit": (0, "ROADMAP A16 (the runtime audit)"),
+    "trace": (0, _A16_OBS), "trace_dir": (None, _A16_OBS),
+    "flightrec": (0, _A16_OBS), "perfmon": (0, _A16_OBS),
+    "status_path": (None, _A16_OBS), "xprof_round": (None, _A16_OBS),
+    "xprof_dir": (None, _A16_OBS), "costmodel": (0, _A16_OBS),
+    "enable_wandb": (0, "ROADMAP A16 (the port carries no wandb mirror)"),
+    "deadline": (0.0, "ROADMAP A11 (SimResilience)"),
+    "overselect": (0.0, "ROADMAP A11 (SimResilience)"),
+    "quorum": (0.5, "ROADMAP A11 (SimResilience)"),
+    "straggler_p": (0.0, "ROADMAP A11 (SimResilience)"),
+    "transport": ("tcp", "ROADMAP A13 (the distributed control plane)"),
+    "async_agg": (0, "ROADMAP A10 (async aggregation)"),
+    "buffer_k": (64, "ROADMAP A10 (async aggregation)"),
+    "staleness_decay": (0.5, "ROADMAP A10 (async aggregation)"),
+    "flush_deadline": (0.0, "ROADMAP A10 (async aggregation)"),
+    "async_window": (4, "ROADMAP A10 (async aggregation)"),
+    "pace_steering": (0, "ROADMAP A11 (pace steering)"),
+    "pace_k_bounds": ("1,4096", "ROADMAP A11 (pace steering)"),
+    "pace_flush_bounds": ("0.05,120", "ROADMAP A11 (pace steering)"),
+    "pace_deadline_bounds": ("0.05,120", "ROADMAP A11 (pace steering)"),
+    "pace_overselect_bounds": ("0,1", "ROADMAP A11 (pace steering)"),
+    "moe_experts": (8, "ROADMAP A10 (the MoE TransformerLM)"),
+}
+
+
+def add_base_args(parser: argparse.ArgumentParser):
+    """The reference's flags (``fedml_tpu/experiments/common.py
+    add_base_args`` with the resilience, async, steering and
+    observability groups), same names and defaults."""
+    p = parser
+    p.add_argument("--model", type=str, default="lr",
+                   help="model name (models/factory.py)")
+    p.add_argument("--dataset", type=str, default="synthetic",
+                   help="dataset name (data/registry.py)")
+    p.add_argument("--data_dir", type=str, default=None)
+    p.add_argument("--partition_method", type=str, default="hetero",
+                   help="homo | hetero (LDA) | hetero-fix")
+    p.add_argument("--partition_alpha", type=float, default=0.5)
+    p.add_argument("--client_num_in_total", type=int, default=10)
+    p.add_argument("--client_num_per_round", type=int, default=10)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--client_optimizer", type=str, default="sgd")
+    p.add_argument("--lr", type=float, default=0.03)
+    p.add_argument("--wd", type=float, default=0.0)
+    p.add_argument("--momentum", type=float, default=0.0)
+    p.add_argument("--epochs", type=int, default=1,
+                   help="local epochs per round")
+    p.add_argument("--comm_round", type=int, default=10)
+    p.add_argument("--is_mobile", type=int, default=0,
+                   help="accepted for parity; ignored")
+    p.add_argument("--frequency_of_the_test", type=int, default=5)
+    p.add_argument("--gpu_server_num", type=int, default=1,
+                   help="accepted for parity; ignored")
+    p.add_argument("--gpu_num_per_server", type=int, default=1,
+                   help="accepted for parity; ignored")
+    p.add_argument("--ci", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data_augmentation", type=int, default=1,
+                   help="train-time crop/flip/Cutout for the CIFAR family "
+                        "on the device; 0 disables")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="multi-device rounds: not ported (ROADMAP A15)")
+    p.add_argument("--wave_mode", type=int, default=1, choices=(0, 1, 2, 3),
+                   help="device-resident rounds: 3 = packed lanes (falls "
+                        "back to 2 without a packed lowering), 2 = vmap "
+                        "lanes, 1 = size-sorted waves (default), 0 = flat")
+    p.add_argument("--client_chunk", type=int, default=8,
+                   help="clients trained at once on the device-resident "
+                        "path (activation-memory knob)")
+    p.add_argument("--device_resident", type=str, default="auto",
+                   help="auto | 0: keep client shards on the device when "
+                        "they fit --device_data_cap_gb")
+    p.add_argument("--device_data_cap_gb", type=float, default=2.0)
+    p.add_argument("--device_dtype", type=str, default=None,
+                   choices=("bf16", "bfloat16"),
+                   help="keep resident floating image data in bfloat16")
+    p.add_argument("--compressor", type=str, default=None,
+                   help="client-update compression: only none is ported "
+                        "(ROADMAP A12)")
+    p.add_argument("--moe_experts", type=int, default=8,
+                   help="expert count of the MoE model (ROADMAP A10)")
+    p.add_argument("--model_dtype", type=str, default=None,
+                   choices=("bf16", "bfloat16"),
+                   help="bf16 compute with fp32 master parameters")
+    p.add_argument("--platform", type=str, default=None,
+                   help="cpu runs on the CPU; default the card")
+    p.add_argument("--run_dir", type=str, default=None,
+                   help="metrics.jsonl / summary.json / config.json dir")
+    p.add_argument("--enable_wandb", type=int, default=0)
+    p.add_argument("--checkpoint_dir", type=str, default=None)
+    p.add_argument("--save_frequency", type=int, default=10,
+                   help="checkpoint every N rounds")
+    p.add_argument("--resume", type=int, default=0)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the round loop")
+    p.add_argument("--audit", type=int, default=0)
+    p.add_argument("--compile_cache_dir", type=str, default=None)
+    p.add_argument("--warmup", type=int, default=0)
+    # resilience (the reference's resilience/integration.py)
+    p.add_argument("--deadline", type=float, default=0.0)
+    p.add_argument("--overselect", type=float, default=0.0)
+    p.add_argument("--quorum", type=float, default=0.5)
+    p.add_argument("--straggler_p", type=float, default=0.0)
+    p.add_argument("--transport", type=str, default="tcp",
+                   choices=("tcp", "eventloop"))
+    p.add_argument("--race_audit", type=int, default=0)
+    # buffered async aggregation and bucketed streaming
+    p.add_argument("--async_agg", type=int, default=0)
+    p.add_argument("--buffer_k", type=int, default=64)
+    p.add_argument("--staleness_decay", type=float, default=0.5)
+    p.add_argument("--flush_deadline", type=float, default=0.0)
+    p.add_argument("--async_window", type=int, default=4)
+    p.add_argument("--bucket_edges", type=str, default=None,
+                   help="bucketed ragged streaming: 'geometric' or a comma "
+                        "list of local-step edges")
+    # pace steering
+    p.add_argument("--pace_steering", type=int, default=0)
+    p.add_argument("--pace_k_bounds", type=str, default="1,4096")
+    p.add_argument("--pace_flush_bounds", type=str, default="0.05,120")
+    p.add_argument("--pace_deadline_bounds", type=str, default="0.05,120")
+    p.add_argument("--pace_overselect_bounds", type=str, default="0,1")
+    # observability
+    p.add_argument("--trace", type=int, default=0)
+    p.add_argument("--trace_dir", type=str, default=None)
+    p.add_argument("--flightrec", type=int, default=0)
+    p.add_argument("--perfmon", type=int, default=0)
+    p.add_argument("--status_path", type=str, default=None)
+    p.add_argument("--xprof_round", type=int, default=None)
+    p.add_argument("--xprof_dir", type=str, default=None)
+    p.add_argument("--costmodel", type=int, default=0)
+    # synthetic-dataset size overrides
+    p.add_argument("--n_train", type=int, default=None)
+    p.add_argument("--n_test", type=int, default=None)
+    p.add_argument("--image_size", type=int, default=None)
+    return p
+
+
+def refuse_unported(args):
+    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
+    flag set to a value whose path the port does not run."""
+    for name, (runs, item) in _UNPORTED.items():
+        if getattr(args, name, runs) != runs:
+            raise NotImplementedError(f"--{name} waits for {item}")
+    # a compressor spec other than the disabled ones raises (A12)
+    CodecSpec.coerce(getattr(args, "compressor", None))
+    if getattr(args, "platform", None) not in (None, "cpu"):
+        raise ValueError(f"--platform {args.platform!r}: the port runs on "
+                         "the card (default) or, asked, on the cpu")
+
+
+def device_for(args) -> torch.device:
+    """The card unless ``--platform cpu``; raises without a card."""
+    from fedml_tpu_torch.utils.device import resolve_device
+
+    return resolve_device("cpu" if getattr(args, "platform", None) == "cpu"
+                          else None)
+
+
+def setup(args, run_name=None):
+    """Logging, seeds and the metrics sink (``--run_dir``)."""
+    from fedml_tpu_torch.utils.metrics import MetricsLogger, init_logging
+
+    init_logging(proctitle=run_name)
+    logging.info("args = %s", vars(args))
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+    return MetricsLogger(run_dir=args.run_dir, config=args)
+
+
+def example_train_data(dataset):
+    """The pooled train set, or a non-empty client shard when the loader
+    keeps none."""
+    global_train = dataset[2]
+    if global_train is None or "x" not in global_train:
+        global_train = next(d for d in dataset[5].values()
+                            if d is not None and len(d["y"]))
+    return global_train
+
+
+def load_dataset_and_model(args):
+    """Dataset switch and model factory; the model is sized from one
+    sample of the data (a torch module fixes its input width)."""
+    from fedml_tpu_torch.data.registry import load_dataset
+    from fedml_tpu_torch.models.factory import create_model
+
+    dataset = load_dataset(args, args.dataset)
+    x = np.asarray(example_train_data(dataset)["x"])
+    model = create_model(args, args.model, output_dim=dataset[7],
+                         input_shape=x.shape[1:])
+    return dataset, model
+
+
+def make_spec(args, model, dataset):
+    """Task spec by dataset, as the reference chooses it: per-token
+    cross-entropy for the sequence sets, classification otherwise, with
+    the CIFAR family's on-device augmentation under
+    ``--data_augmentation``."""
+    from fedml_tpu_torch.algorithms import specs
+
+    name = args.dataset
+    if name in ("stackoverflow_nwp", "shakespeare", "fed_shakespeare",
+                "synthetic_sequences"):
+        return specs.make_seq_classification_spec(model)
+    if name == "stackoverflow_lr":
+        raise NotImplementedError(
+            "the multilabel spec waits for ROADMAP A10 (stackoverflow)")
+    augment_fn = None
+    if (getattr(args, "data_augmentation", 0)
+            and name in ("cifar10", "cifar100", "cinic10")):
+        from fedml_tpu_torch.data.augment import make_cifar_augment
+        from fedml_tpu_torch.data.cifar import normalized_black
+        augment_fn = make_cifar_augment(pad=4, cutout_length=16,
+                                        pad_fill=normalized_black(name))
+    return specs.make_classification_spec(model, augment_fn=augment_fn)
+
+
+def run_fedavg_family(api, args, logger):
+    """``FedAvgAPI.train`` under ``--profile_dir``'s profiler trace.
+    Checkpoint and resume wait for ROADMAP A16 (:func:`refuse_unported`
+    refuses their flags)."""
+    from fedml_tpu_torch.utils.profiling import profile_trace
+
+    with profile_trace(args.profile_dir,
+                       enabled=args.profile_dir is not None):
+        api.train()
+    return api.global_state
+
+
+__all__ = ["add_base_args", "refuse_unported", "device_for", "setup",
+           "example_train_data", "load_dataset_and_model", "make_spec",
+           "run_fedavg_family"]

@@ -1,6 +1,7 @@
-"""Lane-packed CIFAR ResNet: L per-lane model replicas in one program
-with the lane axis folded into channels (counterpart of
-``fedml_tpu/models/lane_packed.py``, ResNet part).
+"""Lane-packed models: L per-lane model replicas in one program with the
+lane axis folded into channels (counterpart of
+``fedml_tpu/models/lane_packed.py``), for the CIFAR ResNet and the
+FedAvg-paper CNN (``CNNOriginalFedAvg``).
 
 Activations live lane-merged as ``[B, L*C, H, W]`` (lane-major
 channels). A per-lane conv over merged activations is a grouped conv:
@@ -15,8 +16,9 @@ channels). A per-lane conv over merged activations is a grouped conv:
   the backward (``ops/grouped_conv.py``).
 
 BatchNorm over merged channels is per-lane BatchNorm; the head is a
-per-lane einsum. The packed CNN (``_make_cnn_apply``) is not ported yet
-(ROADMAP A7).
+per-lane einsum. The CNN (:func:`_make_cnn_apply`) merges lanes the
+``blockdiag`` way on both convs, pools the merged channels and runs its
+dense layers as per-lane einsums.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
 from fedml_tpu_torch.models.resnet import CifarResNet, flax_batch_norm
 from fedml_tpu_torch.ops.grouped_conv import lane_conv_pallas
 
@@ -105,16 +108,20 @@ def lane_bn(x, scale, bias, mean, var, train, dtype):
 
 
 def make_lane_packed_apply(model, L: int, lowering: str = "blockdiag"):
-    """Packed apply for ``L`` lanes of a :class:`CifarResNet`.
+    """Packed apply for ``L`` lanes of a :data:`PACKED_FAMILIES` model.
 
     Returns ``apply_fn(stacked_state, x, train) -> (logits, new_stats)``
     where ``stacked_state`` is the port state with every leaf lane-stacked,
-    ``x`` is ``[L, B, H, W, 3]`` (NHWC, as the reference), ``logits``
+    ``x`` is ``[L, B, H, W, C]`` (NHWC, as the reference), ``logits``
     ``[L, B, classes]`` fp32 and ``new_stats`` the lane-stacked running
-    statistics (passed through when ``train`` is false)."""
+    statistics (passed through when ``train`` is false; ``{}`` for the
+    CNN). ``lowering`` picks the ResNet's conv strategy; the CNN always
+    runs ``blockdiag``."""
+    if isinstance(model, CNNOriginalFedAvg):
+        return _make_cnn_apply(model, L)
     if not isinstance(model, CifarResNet):
-        raise TypeError(f"lane-packed apply supports CifarResNet, got "
-                        f"{type(model).__name__}")
+        raise TypeError(f"lane-packed apply supports CifarResNet and "
+                        f"CNNOriginalFedAvg, got {type(model).__name__}")
     if lowering not in LOWERINGS:
         raise ValueError(f"unknown lane lowering {lowering!r}")
     n = (model.depth - 2) // 6
@@ -164,6 +171,39 @@ def make_lane_packed_apply(model, L: int, lowering: str = "blockdiag"):
     return apply_fn
 
 
+def _make_cnn_apply(model, L):
+    """Packed apply for :class:`CNNOriginalFedAvg`: the one-channel stem
+    merges all lanes into one group (per-group K 25 -> 25L), conv2 merges
+    ``MERGE_K // 32 = 4`` lanes; pooling acts per merged channel; the
+    dense layers are per-lane einsums over the reference's (H, W, C)
+    flatten."""
+    dtype = model.dtype
+
+    def apply_fn(stacked_state, x, train=False):
+        del train  # no dropout and no batch statistics in this family
+        p = stacked_state["params"]
+        if x.dim() == 4:  # [L, B, H, W] -> one channel
+            x = x[..., None]
+        x = lane_merge(x.to(dtype).permute(0, 1, 4, 2, 3))
+
+        def biased_conv(name, xin):
+            y = lane_conv(xin, p[f"{name}.weight"].to(dtype), L, (1, 1),
+                          (2, 2))
+            return y + p[f"{name}.bias"].to(dtype).reshape(1, -1, 1, 1)
+
+        x = F.max_pool2d(biased_conv("conv1", x), 2, 2)
+        x = F.max_pool2d(biased_conv("conv2", x), 2, 2)
+        x = lane_unmerge(x, L).permute(0, 1, 3, 4, 2)  # [L, B, H, W, C]
+        x = x.reshape(x.shape[0], x.shape[1], -1)
+        h = torch.einsum("lbi,loi->lbo", x, p["fc1.weight"].to(dtype))
+        h = F.relu(h + p["fc1.bias"][:, None, :].to(dtype))
+        return (torch.einsum("lbi,loi->lbo", h.float(),
+                             p["fc2.weight"].float())
+                + p["fc2.bias"][:, None, :].float()), {}
+
+    return apply_fn
+
+
 def lane_metrics(logits, y, mask):
     """Per-lane masked cross-entropy and sums over ``[L, B]``: returns
     ``(per-lane mean loss [L], {"loss_sum", "correct", "count"} [L])``."""
@@ -178,8 +218,9 @@ def lane_metrics(logits, y, mask):
 
 def make_lane_loss_builder(model, lowering="blockdiag"):
     """``lane_loss_builder`` for classification with a packed
-    :class:`CifarResNet`: ``builder(L) -> lane_loss_fn(stacked_state,
-    batch, rng, train) -> (loss_sum, (new_stacked_state, metrics))``.
+    :data:`PACKED_FAMILIES` model: ``builder(L) ->
+    lane_loss_fn(stacked_state, batch, rng, train) -> (loss_sum,
+    (new_stacked_state, metrics))``.
     ``loss_sum`` is the sum of the per-lane mean losses, whose gradient
     w.r.t. the stacked params is the per-lane gradients. Augmentation
     runs in the engine, before the loss."""
@@ -188,12 +229,13 @@ def make_lane_loss_builder(model, lowering="blockdiag"):
         packed_apply = make_lane_packed_apply(model, L, lowering)
 
         def lane_loss_fn(stacked_state, batch, rng, train):
-            del rng  # the ResNet draws no randomness in its forward
+            del rng  # no packed family draws randomness in its forward
             logits, new_bs = packed_apply(stacked_state, batch["x"], train)
             loss_l, metrics = lane_metrics(logits, batch["y"],
                                            batch["mask"])
             new_state = dict(stacked_state)
-            new_state["batch_stats"] = new_bs
+            if new_bs:  # the CNN keeps no batch statistics
+                new_state["batch_stats"] = new_bs
             return loss_l.sum(), (new_state, metrics)
 
         return lane_loss_fn
@@ -201,11 +243,16 @@ def make_lane_loss_builder(model, lowering="blockdiag"):
     return builder
 
 
+#: model families with a lane-packed lowering
+PACKED_FAMILIES = (CifarResNet, CNNOriginalFedAvg)
+
+
 def builder_for(model, lowering=None):
     """The packed ``lane_loss_builder`` for a model, or None when its
-    family has no packed lowering in the port. ``lowering`` defaults to
-    ``"blockdiag"``, as in the reference."""
-    if isinstance(model, CifarResNet):
+    family has no packed lowering. ``lowering`` defaults to
+    ``"blockdiag"``, as in the reference; only the ResNet dispatches on
+    it."""
+    if isinstance(model, PACKED_FAMILIES):
         return make_lane_loss_builder(model, lowering or "blockdiag")
     return None
 
@@ -213,4 +260,4 @@ def builder_for(model, lowering=None):
 __all__ = ["lane_merge", "lane_unmerge", "merged_to_stacked", "lane_conv",
            "lane_conv_bgc", "lane_bn", "make_lane_packed_apply",
            "make_lane_loss_builder", "builder_for", "lane_metrics",
-           "MERGE_K", "BGC_MAX_CI", "LOWERINGS"]
+           "MERGE_K", "BGC_MAX_CI", "LOWERINGS", "PACKED_FAMILIES"]

@@ -15,8 +15,6 @@ inside.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -137,26 +135,13 @@ class CifarResNet(nn.Module):
         return F.linear(x.float(), self.fc.weight, self.fc.bias)
 
 
-def init_resnet_(model, generator):
-    """Reference initialisers, drawn from ``generator``: lecun-normal
-    (fan-in variance, truncated at two standard deviations) for conv and
-    dense kernels, zero dense bias, BatchNorm scale 1 / bias 0, running
-    mean 0 / var 1."""
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                w = m.weight
-                std = math.sqrt(1.0 / (w[0].numel())) / .87962566103423978
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                if getattr(m, "bias", None) is not None:
-                    m.bias.zero_()
-    return model
-
-
 def resnet56(class_num=10, dtype=torch.float32):
     return CifarResNet(depth=56, num_classes=class_num, dtype=dtype)
 
 
+def resnet110(class_num=10, dtype=torch.float32):
+    return CifarResNet(depth=110, num_classes=class_num, dtype=dtype)
+
+
 __all__ = ["CifarResNet", "BasicBlock", "FlaxBatchNorm2d", "flax_batch_norm",
-           "init_resnet_", "resnet56"]
+           "resnet56", "resnet110"]

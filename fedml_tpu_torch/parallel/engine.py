@@ -1,27 +1,31 @@
 """The federated round engine (counterpart of
-``fedml_tpu/parallel/engine.py``; the packed-lane path and the bucketed
-streaming path).
+``fedml_tpu/parallel/engine.py``): every single-device round path.
 
-``LaneRunner(packed=True)`` runs a round's cohort as ``L`` packed lanes:
-:func:`~fedml_tpu_torch.parallel.packing.pack_lanes` lays the clients'
-step schedules end to end into LPT-balanced lanes, and every step trains
-all lanes at once through the spec's lane-packed loss (lane axis folded
-into channels). Per lane the semantics are those of one client at a
-time: a fully masked step leaves params, BN stats and optimizer state
-untouched; a client's last step flushes its weighted payload into an
-fp32 accumulator and resets the lane to the global model. Updates are
-made on fresh tensors each step (nothing is modified in place), so the
-caller's global state is never written.
+Each client update trains K clients at once over a leading client axis
+(the spec's ``stacked_loss_fn``; :func:`_make_trip_loop_core`), where the
+reference vmaps one client's update: a fully masked step leaves a
+client's params, state and optimizer state untouched, and updates are
+made on fresh tensors (nothing is modified in place), so the caller's
+global state is never written. The runners:
 
-Random draws (augmentation) come from a ``torch.Generator`` seeded per
-(client, local step) by :func:`fold_step_seeds`, the counterpart of the
-reference's ``fold_step_keys``.
+- ``WaveRunner`` (``wave_mode=1``): size-sorted waves over
+  device-resident shards, each running its own maximum of steps;
+- :func:`make_indexed_sim_round` (``wave_mode=0``): the flat round, every
+  client over the whole padded schedule, in chunks;
+- ``LaneRunner`` (``wave_mode=2`` and ``3``): the cohort's step schedules
+  laid end to end into LPT-balanced lanes (``pack_lanes``); a client's
+  last step flushes its weighted payload and resets its lane. Vmap lanes
+  train over a lane axis, packed lanes fold it into channels;
+- :func:`make_sim_round`: the host-packed round over a ``pack_cohort``
+  upload;
+- ``BucketedStreamRunner``: a cohort of any size streamed in chunks
+  sorted by step count, folded on the host in fp64.
 
-``BucketedStreamRunner`` streams a cohort of any size through chunks of
-``client_chunk`` clients sorted by step count; a chunk's clients train
-at once over a client axis written out (the spec's
-``stacked_loss_fn``), where the reference vmaps them. Other runners
-(vmap lanes, waves, flat, sharded) wait for ROADMAP A6/A15.
+Random draws (augmentation, dropout) come from ``torch.Generator``s
+seeded per (client, local step): a client's seed is derived from its
+cohort slot the same way in every runner (:func:`client_seeds_for`), so
+the paths agree to float reassociation. Sharded rounds wait for ROADMAP
+A15.
 """
 
 from __future__ import annotations
@@ -206,80 +210,334 @@ def payload_dtype_template(payload_fn, global_state):
                      payload_fn(global_state, global_state, aux))
 
 
-def make_packed_lane_update(spec: TrainSpec, cfg: ClientUpdateConfig,
-                            payload_fn):
-    """All lanes advance in one packed program per step.
+def client_seeds_for(round_seed, C):
+    """The ``C`` client seeds of a round, by cohort slot:
+    ``fold_seed(fold_seed(round_seed, 1), slot)``. Every runner derives
+    them so, and a client's step ``i`` draws from ``fold_seed(client_seed,
+    i)``, so waves, flat, lanes and the host-packed round see the same
+    draws (the reference's ``split(fold_in(rng, 1), C)``)."""
+    return fold_seed(fold_seed(round_seed, 1), np.arange(C))
 
-    Returns ``packed_update(global_state, data_x, data_y, n_max, rows,
-    lanes, step_seeds, trip) -> (payload_sum [L, ...] fp32, weight [L],
-    metrics [L])``: ``data_x/data_y`` are the device-resident stacks
-    flattened on their first two axes, ``rows`` maps a cohort slot to a
-    device row, ``lanes`` the ``pack_lanes`` arrays as device tensors
-    ``[L, T, ...]`` and ``step_seeds [L, T]`` host int64 seeds.
-    ``payload_fn`` takes lane-stacked local state and per-lane aux; the
-    lane count comes from the arrays."""
+
+def _stack(tree, K):
+    """Every leaf repeated on a new leading axis of ``K``."""
+    return _tree_map(lambda a: a.unsqueeze(0).expand((K,) + a.shape).clone(),
+                     tree)
+
+
+def _augment(spec, x, seeds):
+    """``spec.augment_fn`` on ``x [K, B, H, W, C]``: client ``k``'s draws
+    from a generator on ``x``'s device seeded with ``seeds[k]``."""
+    K, B, H, W = x.shape[:4]
+    gen = torch.Generator(device=x.device)
+    draws = [spec.augment_fn.draw(B, H, W, gen.manual_seed(int(s)))
+             for s in seeds]
+    cat = {k: torch.cat([d[k] for d in draws]) for k in draws[0]}
+    return spec.augment_fn(x.reshape((K * B,) + x.shape[2:]),
+                           cat).reshape(x.shape)
+
+
+def _step(optimizer, loss_fn, params, rest, opt, batch):
+    """One optimizer step of K stacked clients (or lanes) through
+    ``loss_fn(state, batch) -> (loss_sum, (new_state, metrics))``; a
+    client whose batch is fully masked keeps its params, state and
+    optimizer state. Returns ``(params, rest, opt, metrics)``, detached."""
+    p_req = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    state = dict(rest)
+    state["params"] = p_req
+    loss, (new_state, metrics) = loss_fn(state, batch)
+    grads = dict(zip(p_req, torch.autograd.grad(loss,
+                                                list(p_req.values()))))
+    with torch.no_grad():
+        new_params, new_opt = optimizer.update(grads, opt, params)
+        new_rest = {k: _tree_map(torch.Tensor.detach, new_state[k])
+                    for k in rest}
+        valid = batch["mask"].sum(dim=1) > 0
+        params, rest, opt = _select(valid, (new_params, new_rest, new_opt),
+                                    (params, rest, opt))
+    return params, rest, opt, _tree_map(torch.Tensor.detach, metrics)
+
+
+def _make_trip_loop_core(spec: TrainSpec, cfg: ClientUpdateConfig):
+    """The training loop of K clients at once, shared by every client
+    update: ``run(global_state, K, batch_at, trip, seeds_at=None) ->
+    (params, rest, metrics_sum)`` runs exactly ``trip`` steps of the
+    spec's ``stacked_loss_fn``; ``batch_at(i)`` gives step ``i``'s
+    ``{"x", "y", "mask"}`` (leading K) and ``seeds_at(i)`` the clients'
+    host seeds for that step (augmentation and dropout draws)."""
     optimizer = make_optimizer(cfg)
-    if spec.lane_loss_builder is None:
+    if spec.stacked_loss_fn is None:
+        raise ValueError(
+            f"spec '{spec.name}' has no stacked_loss_fn: the client "
+            "updates train K clients at once over a client axis "
+            "(algorithms/specs.py)")
+
+    def run(global_state, K, batch_at, trip, seeds_at=None):
+        if int(trip) < 1:
+            raise ValueError(f"trip={trip}: a client update runs at least "
+                             "one step")
+        params = _stack(global_state["params"], K)
+        rest = _stack({k: v for k, v in global_state.items()
+                       if k != "params"}, K)
+        opt = optimizer.init(params, (K,))
+        msum = None
+        for i in range(int(trip)):
+            batch = batch_at(i)
+            seeds = None if seeds_at is None else seeds_at(i)
+            if spec.augment_fn is not None:
+                if seeds is None:
+                    raise ValueError("augmentation needs the clients' "
+                                     "step seeds")
+                batch = dict(batch)
+                batch["x"] = _augment(spec, batch["x"], seeds)
+            loss_fn = lambda st, b: spec.stacked_loss_fn(st, b, True,
+                                                         seeds=seeds)
+            params, rest, opt, metrics = _step(optimizer, loss_fn, params,
+                                               rest, opt, batch)
+            msum = (metrics if msum is None
+                    else _tree_map(torch.add, msum, metrics))
+        return params, rest, msum
+
+    return run
+
+
+def _local(params, rest):
+    local_state = dict(rest)
+    local_state["params"] = params
+    return local_state
+
+
+def make_client_update(spec: TrainSpec, cfg: ClientUpdateConfig):
+    """Local training of K clients over their packed batches (the
+    host-packed round).
+
+    Returns ``fn(global_state, client_data, client_seeds) ->
+    (local_states, aux, metrics_sum)``: ``client_data`` is ``{"x": [K, S,
+    B, ...], "y": [K, S, B, ...], "mask": [K, S, B], "n": [K]}``, all S
+    steps run (fully masked ones leave a client untouched), and ``aux`` is
+    ``{"n", "steps"}`` per client. Every leaf leads with K."""
+    run = _make_trip_loop_core(spec, cfg)
+
+    def client_update(global_state, client_data, client_seeds):
+        K, S = client_data["mask"].shape[:2]
+        params, rest, msum = run(
+            global_state, K,
+            lambda i: {k: client_data[k][:, i] for k in ("x", "y", "mask")},
+            S, lambda i: fold_seed(client_seeds, i))
+        steps = (client_data["mask"] > 0).any(dim=-1).sum(dim=1)
+        return _local(params, rest), {"n": client_data["n"],
+                                      "steps": steps}, msum
+
+    return client_update
+
+
+def make_loop_client_update(spec: TrainSpec, cfg: ClientUpdateConfig):
+    """Local training of K clients over device-resident data for exactly
+    ``steps`` steps (the wave unit).
+
+    Returns ``fn(global_state, data, sched, steps, client_seeds) ->
+    (local_states, aux, metrics_sum)``: ``data`` is the resident stacks
+    flattened on their first two axes, ``{"x": [R * n_max, ...], "y",
+    "n_max", "rows": [K] device rows}``; ``sched`` the clients' index
+    schedule ``{"idx": [K, S, B], "mask": [K, S, B], "n": [K]}`` on the
+    device. Each step gathers its batch on the device."""
+    run = _make_trip_loop_core(spec, cfg)
+
+    def client_update(global_state, data, sched, steps, client_seeds):
+        K = sched["mask"].shape[0]
+        base = data["rows"][:, None] * data["n_max"]
+
+        def batch_at(i):
+            flat = base + sched["idx"][:, i]
+            return {"x": data["x"][flat], "y": data["y"][flat],
+                    "mask": sched["mask"][:, i]}
+
+        params, rest, msum = run(global_state, K, batch_at, steps,
+                                 lambda i: fold_seed(client_seeds, i))
+        stepped = (sched["mask"] > 0).any(dim=-1).sum(dim=1)
+        return _local(params, rest), {"n": sched["n"],
+                                      "steps": stepped}, msum
+
+    return client_update
+
+
+def make_indexed_client_update(spec: TrainSpec, cfg: ClientUpdateConfig):
+    """:func:`make_loop_client_update` over the whole schedule: all S
+    steps run (the flat round's fixed-length client update).
+    ``fn(global_state, data, sched, client_seeds)``."""
+    loop = make_loop_client_update(spec, cfg)
+
+    def client_update(global_state, data, sched, client_seeds):
+        return loop(global_state, data, sched, sched["mask"].shape[1],
+                    client_seeds)
+
+    return client_update
+
+
+def _weighted_sum(payloads, w):
+    """``sum_k w[k] * payload[k]`` in fp32 over the leading axis."""
+    return _tree_map(lambda x: torch.tensordot(w, x.float(),
+                                               dims=([0], [0])), payloads)
+
+
+def _flat_data(device_data):
+    """Resident stacks ``[R, n_max, ...]`` flattened to ``[R * n_max,
+    ...]``, as the loop update reads them."""
+    dx, dy = device_data["x"], device_data["y"]
+    R, n_max = dx.shape[0], dx.shape[1]
+    return {"x": dx.reshape((R * n_max,) + dx.shape[2:]),
+            "y": dy.reshape((R * n_max,) + dy.shape[2:]), "n_max": n_max}
+
+
+def _sched_tensors(sched, dev):
+    return {"idx": torch.as_tensor(np.asarray(sched["idx"]),
+                                   device=dev).long(),
+            "mask": torch.as_tensor(np.asarray(sched["mask"]), device=dev),
+            "n": torch.as_tensor(np.asarray(sched["n"], np.float32),
+                                 device=dev)}
+
+
+def _mean_payload(pay_sum, plain_sum, w_sum, count, dtypes):
+    """The weighted mean ``pay_sum / w_sum`` cast to the payload's dtypes;
+    with no weight at all (every client empty) the plain mean, as the
+    reference's ``tree_weighted_mean`` falls back."""
+    if float(w_sum) > 0:
+        return _tree_map(lambda s, d: (s / w_sum).to(d), pay_sum, dtypes)
+    return _tree_map(lambda s, d: (s / count).to(d), plain_sum, dtypes)
+
+
+class WaveRunner:
+    """Size-sorted waves over device-resident data (``wave_mode=1``).
+
+    The cohort is sorted by true step count (descending, stable) and
+    trained ``client_chunk`` clients at a time; each wave runs exactly its
+    own maximum of steps, so steps past it never run. A ragged last wave
+    trains only its real clients. Weighted payload sums accumulate in fp32
+    on the device; one ``server-update`` divides and applies
+    ``server_fn``. Consumes the same ``pack_schedule`` draw as every other
+    runner, with the same per-slot seeds, so waves, flat and lanes agree
+    to float reassociation."""
+
+    def __init__(self, spec: TrainSpec, cfg: ClientUpdateConfig,
+                 payload_fn=None, server_fn=None, client_chunk=8):
+        self.payload_fn = payload_fn or _default_payload
+        self.server_fn = server_fn or _default_server
+        self.client_chunk = int(client_chunk or 8)
+        self._update = make_loop_client_update(spec, cfg)
+        self._dtypes = None
+
+    def run_round(self, global_state, server_state, device_data, ids, sched,
+                  round_seed):
+        """One round: ``device_data`` the resident ``{"x": [R, n_max,
+        ...], "y"}``, ``ids`` the cohort's rows (cohort order), ``sched``
+        the full ``pack_schedule`` output (numpy, cohort order) and the
+        round's seed. Returns ``(new_global, new_server_state, {"aux",
+        "metrics", "trip"})``; ``trip`` is the waves' steps summed."""
+        mask = np.asarray(sched["mask"])
+        C = mask.shape[0]
+        steps_pc = (mask.sum(axis=2) > 0).sum(axis=1).astype(np.int64)
+        order = np.argsort(-steps_pc, kind="stable")
+        chunk = min(self.client_chunk, C)
+        seeds = client_seeds_for(round_seed, C)
+        dev = device_data["x"].device
+        data = _flat_data(device_data)
+        ids_t = torch.as_tensor(np.asarray(ids, np.int64), device=dev)
+        sched_t = _sched_tensors(sched, dev)
+        if self._dtypes is None:
+            self._dtypes = payload_dtype_template(self.payload_fn,
+                                                  global_state)
+        acc, trips = None, 0
+        for w0 in range(0, C, chunk):
+            pos = order[w0:w0 + chunk]
+            k, trip = len(pos), int(steps_pc[pos].max())
+            pos_t = torch.as_tensor(pos, device=dev)
+            ws = {key: v[pos_t] for key, v in sched_t.items()}
+            # the span measures the enqueue: the device work lands in the
+            # caller's end-of-round synchronize
+            with get_tracer().span("wave", clients=int(k), trip=trip):
+                local, aux, msum = self._update(
+                    global_state, dict(data, rows=ids_t[pos_t]), ws,
+                    max(trip, 1), seeds[pos])
+                with torch.no_grad():
+                    payloads = self.payload_fn(local, global_state, aux)
+                    w = aux["n"].float()
+                    part = (_weighted_sum(payloads, w), w.sum(),
+                            _tree_map(lambda m: m.sum(dim=0), msum))
+            acc = part if acc is None else _tree_map(torch.add, acc, part)
+            trips += max(trip, 1)
+        pay_sum, w_sum, metrics = acc
+        with get_tracer().span("server-update"):
+            with torch.no_grad():
+                avg = _tree_map(
+                    lambda s, d: (s / torch.clamp(w_sum, min=1e-12)).to(d),
+                    pay_sum, self._dtypes)
+                new_global, new_server = self.server_fn(
+                    global_state, avg, server_state,
+                    int(fold_seed(round_seed, 2)))
+        aux = {"n": np.asarray(sched["n"], np.float32), "steps": steps_pc}
+        return new_global, new_server, {"aux": aux, "metrics": metrics,
+                                        "trip": trips}
+
+
+def _make_lane_update(spec, cfg, payload_fn, packed):
+    """All lanes advance at once, each training its clients back to back:
+    a fully masked step leaves a lane untouched; a client's last step
+    flushes its weighted payload into an fp32 accumulator and resets the
+    lane to the global model. ``packed`` trains through the spec's
+    lane-packed loss (lane axis folded into channels), otherwise through
+    its ``stacked_loss_fn`` over the lane axis.
+
+    Returns ``update(global_state, data_x, data_y, n_max, rows, lanes,
+    step_seeds, trip) -> (payload_sum [L, ...] fp32, weight [L], metrics
+    [L])``: ``data_x/data_y`` are the resident stacks flattened on their
+    first two axes, ``rows`` maps a cohort slot to a device row, ``lanes``
+    the ``pack_lanes`` arrays as device tensors ``[L, T, ...]`` and
+    ``step_seeds [L, T]`` host int64 seeds. ``payload_fn`` takes
+    lane-stacked local state and per-lane aux; the lane count comes from
+    the arrays."""
+    optimizer = make_optimizer(cfg)
+    if packed and spec.lane_loss_builder is None:
         raise ValueError(
             f"spec '{spec.name}' has no lane_loss_builder: the packed lane "
             "path (wave_mode=3) needs a model family with a lane-packed "
-            "lowering (models/lane_packed.py)")
+            "lowering (models/lane_packed.py); wave_mode=2 runs vmap lanes")
+    if not packed and spec.stacked_loss_fn is None:
+        raise ValueError(f"spec '{spec.name}' has no stacked_loss_fn: vmap "
+                         "lanes train over a lane axis")
 
-    def packed_update(global_state, data_x, data_y, n_max, rows, lanes,
-                      step_seeds, trip):
+    def update(global_state, data_x, data_y, n_max, rows, lanes,
+               step_seeds, trip):
         L = lanes["idx"].shape[0]
-        lane_loss_fn = spec.lane_loss_builder(L)
-        dev = data_x.device
-
-        stack = lambda t: _tree_map(
-            lambda a: a.unsqueeze(0).expand((L,) + a.shape).clone(), t)
-        g_params = stack(global_state["params"])
-        g_rest = stack({k: v for k, v in global_state.items()
-                        if k != "params"})
+        if packed:
+            lane_loss_fn = spec.lane_loss_builder(L)
+            loss_for = lambda seeds: (
+                lambda st, b: lane_loss_fn(st, b, None, True))
+        else:
+            loss_for = lambda seeds: (
+                lambda st, b: spec.stacked_loss_fn(st, b, True, seeds=seeds))
+        g_params = _stack(global_state["params"], L)
+        g_rest = _stack({k: v for k, v in global_state.items()
+                         if k != "params"}, L)
         g_opt = optimizer.init(g_params, (L,))
         params, rest, opt = g_params, g_rest, g_opt
         pay = w = msum = None
-        gens = ([torch.Generator(device=dev) for _ in range(L)]
-                if spec.augment_fn is not None else None)
 
         for i in range(int(trip)):
             idx_b, mask_b = lanes["idx"][:, i], lanes["mask"][:, i]
             flat = rows[lanes["slot"][:, i]][:, None] * n_max + idx_b
             x, y = data_x[flat], data_y[flat]  # [L, B, ...]
             if spec.augment_fn is not None:
-                B, H, W = x.shape[1], x.shape[2], x.shape[3]
-                draws = [spec.augment_fn.draw(
-                    B, H, W, gens[l].manual_seed(int(step_seeds[l, i])))
-                    for l in range(L)]
-                cat = {k: torch.cat([d[k] for d in draws]) for k in draws[0]}
-                x = spec.augment_fn(x.reshape((L * B,) + x.shape[2:]),
-                                    cat).reshape(x.shape)
-            p_req = {k: v.detach().requires_grad_(True)
-                     for k, v in params.items()}
-            state = dict(rest)
-            state["params"] = p_req
-            loss, (new_state, metrics) = lane_loss_fn(
-                state, {"x": x, "y": y, "mask": mask_b}, None, True)
-            grads = dict(zip(p_req, torch.autograd.grad(
-                loss, list(p_req.values()))))
+                x = _augment(spec, x, step_seeds[:, i])
+            params, rest, opt, metrics = _step(
+                optimizer, loss_for(step_seeds[:, i]), params, rest, opt,
+                {"x": x, "y": y, "mask": mask_b})
             with torch.no_grad():
-                new_params, new_opt = optimizer.update(grads, opt, params)
-                new_rest = {k: _tree_map(torch.Tensor.detach, new_state[k])
-                            for k in rest}
-                valid = mask_b.sum(dim=1) > 0
-                params, rest, opt = _select(valid, (new_params, new_rest,
-                                                   new_opt),
-                                           (params, rest, opt))
-                metrics = _tree_map(torch.Tensor.detach, metrics)
                 msum = (metrics if msum is None
                         else _tree_map(torch.add, msum, metrics))
-
                 f = lanes["flush"][:, i]
                 f_n = lanes["flush_n"][:, i]
                 f_steps = lanes["flush_steps"][:, i]
-                local_state = dict(rest)
-                local_state["params"] = params
-                payload = payload_fn(local_state, global_state,
+                payload = payload_fn(_local(params, rest), global_state,
                                      {"n": f_n, "steps": f_steps.int()})
                 scale = f * f_n
                 contrib = _tree_map(lambda p: scale.reshape(
@@ -288,71 +546,49 @@ def make_packed_lane_update(spec: TrainSpec, cfg: ClientUpdateConfig,
                        else _tree_map(torch.add, pay, contrib))
                 w = scale if w is None else w + scale
                 params, rest, opt = _select(f > 0, (g_params, g_rest, g_opt),
-                                           (params, rest, opt))
+                                            (params, rest, opt))
         return pay, w, msum
 
-    return packed_update
+    return update
+
+
+def make_lane_update(spec: TrainSpec, cfg: ClientUpdateConfig, payload_fn):
+    """vmap lanes (``wave_mode=2``): see :func:`_make_lane_update`; the
+    lanes train through the spec's ``stacked_loss_fn``."""
+    return _make_lane_update(spec, cfg, payload_fn, packed=False)
+
+
+def make_packed_lane_update(spec: TrainSpec, cfg: ClientUpdateConfig,
+                            payload_fn):
+    """Packed lanes (``wave_mode=3``): see :func:`_make_lane_update`; the
+    lanes train through the spec's lane-packed loss, lane axis folded
+    into channels."""
+    return _make_lane_update(spec, cfg, payload_fn, packed=True)
 
 
 def make_streamed_client_update(spec: TrainSpec, cfg: ClientUpdateConfig):
     """Local training of K clients at once over pre-gathered batches with
-    a dynamic trip count: grad of the spec's ``stacked_loss_fn``,
-    optimizer step, per-client valid-select (a fully masked step leaves a
-    client's params, state and optimizer state, its count included,
-    untouched) and running metric sums.
+    a dynamic trip count (the bucketed chunk).
 
     Returns ``fn(global_state, batches, n, trip) -> (local_states, aux,
     metrics_sum)``, every leaf leading with the client axis: ``batches``
     is ``{"x": [K, S, B, ...], "y": [K, S, B, ...], "mask": [K, S, B]}``
     padded to a bucket edge S, exactly ``trip`` steps run, and ``aux`` is
     ``{"n": n, "steps": [K]}``."""
-    optimizer = make_optimizer(cfg)
-    if spec.stacked_loss_fn is None:
-        raise ValueError(
-            f"spec '{spec.name}' has no stacked_loss_fn: the streamed "
-            "client update trains a chunk's clients at once over a client "
-            "axis (algorithms/specs.py make_seq_classification_spec)")
     if spec.augment_fn is not None:
         raise NotImplementedError(
             "augmentation on the streamed client update waits for ROADMAP "
             "A10 (only the LM flagship, which has none, is ported)")
+    run = _make_trip_loop_core(spec, cfg)
 
     def client_update(global_state, batches, n, trip):
-        if int(trip) < 1:
-            raise ValueError(f"trip={trip}: a chunk runs at least one step")
         K = batches["mask"].shape[0]
-        stack = lambda t: _tree_map(
-            lambda a: a.unsqueeze(0).expand((K,) + a.shape).clone(), t)
-        params = stack(global_state["params"])
-        rest = stack({k: v for k, v in global_state.items()
-                      if k != "params"})
-        opt = optimizer.init(params, (K,))
-        msum = None
-        for i in range(int(trip)):
-            batch = {k: batches[k][:, i] for k in ("x", "y", "mask")}
-            p_req = {k: v.detach().requires_grad_(True)
-                     for k, v in params.items()}
-            state = dict(rest)
-            state["params"] = p_req
-            loss, (new_state, metrics) = spec.stacked_loss_fn(state, batch,
-                                                              True)
-            grads = dict(zip(p_req, torch.autograd.grad(
-                loss, list(p_req.values()))))
-            with torch.no_grad():
-                new_params, new_opt = optimizer.update(grads, opt, params)
-                new_rest = {k: _tree_map(torch.Tensor.detach, new_state[k])
-                            for k in rest}
-                valid = batch["mask"].sum(dim=1) > 0
-                params, rest, opt = _select(valid, (new_params, new_rest,
-                                                    new_opt),
-                                            (params, rest, opt))
-                metrics = _tree_map(torch.Tensor.detach, metrics)
-                msum = (metrics if msum is None
-                        else _tree_map(torch.add, msum, metrics))
-        local_state = dict(rest)
-        local_state["params"] = params
+        params, rest, msum = run(
+            global_state, K,
+            lambda i: {k: batches[k][:, i] for k in ("x", "y", "mask")},
+            trip)
         steps_done = (batches["mask"] > 0).any(dim=-1).sum(dim=1)
-        return local_state, {"n": n, "steps": steps_done}, msum
+        return _local(params, rest), {"n": n, "steps": steps_done}, msum
 
     return client_update
 
@@ -513,23 +749,24 @@ class BucketedStreamRunner:
 
 
 class LaneRunner:
-    """Packed-lane execution of one round (``packed=True``; the vmap lane
-    path, ``packed=False``, waits for ROADMAP A6).
+    """Lane execution of one round: ``packed=True`` folds the lane axis
+    into channels (``wave_mode=3``), ``packed=False`` trains the lanes
+    over a lane axis through the spec's ``stacked_loss_fn`` (vmap lanes,
+    ``wave_mode=2``).
 
-    ``run_round`` packs the cohort into ``n_lanes`` lanes, trains them
-    for the max lane load of steps, and finishes with the weighted
-    average ``sum_c n_c * payload_c / sum_c n_c`` and ``server_fn``."""
+    ``run_round`` packs the cohort into ``n_lanes`` LPT-balanced lanes,
+    trains them for the max lane load of steps, and finishes with the
+    weighted average ``sum_c n_c * payload_c / sum_c n_c`` and
+    ``server_fn``."""
 
     def __init__(self, spec: TrainSpec, cfg: ClientUpdateConfig,
                  payload_fn=None, server_fn=None, n_lanes=8, packed=False):
-        if not packed:
-            raise NotImplementedError(
-                "vmap lanes (wave_mode=2) wait for ROADMAP A6")
         self.payload_fn = payload_fn or _default_payload
         self.server_fn = server_fn or _default_server
         self.n_lanes = int(n_lanes or 8)
-        self.packed = True
-        self._update = make_packed_lane_update(spec, cfg, self.payload_fn)
+        self.packed = bool(packed)
+        self._update = _make_lane_update(spec, cfg, self.payload_fn,
+                                         self.packed)
         self._dtypes = None
 
     def run_round(self, global_state, server_state, device_data, ids, sched,
@@ -537,20 +774,18 @@ class LaneRunner:
         """Cohort ``ids`` (rows of ``device_data``), the full
         ``pack_schedule`` output and the round's seed. Returns
         ``(new_global, new_server_state, {"aux", "metrics", "trip"})``."""
-        dx, dy = device_data["x"], device_data["y"]
-        dev = dx.device
+        dev = device_data["x"].device
         C = len(np.asarray(sched["n"]))
         lanes = pack_lanes(sched, self.n_lanes)
         trip = max(lanes.pop("trip"), 1)
-        client_seeds = fold_seed(fold_seed(round_seed, 1), np.arange(C))
-        step_seeds = fold_step_seeds(client_seeds, lanes["slot"],
-                                     lanes["local_step"])
+        step_seeds = fold_step_seeds(client_seeds_for(round_seed, C),
+                                     lanes["slot"], lanes["local_step"])
         lane_t = {k: torch.as_tensor(lanes[k], device=dev)
                   for k in _LANE_KEYS}
         lane_t["idx"] = lane_t["idx"].long()
         lane_t["slot"] = lane_t["slot"].long()
         rows = torch.as_tensor(np.asarray(ids, np.int64), device=dev)
-        R, n_max = dx.shape[0], dx.shape[1]
+        data = _flat_data(device_data)
         if self._dtypes is None:
             self._dtypes = payload_dtype_template(self.payload_fn,
                                                   global_state)
@@ -559,16 +794,16 @@ class LaneRunner:
         with get_tracer().span("lanes", clients=int(C),
                                n_lanes=int(self.n_lanes), trip=int(trip)):
             pay, w, msum = self._update(
-                global_state, dx.reshape((R * n_max,) + dx.shape[2:]),
-                dy.reshape((R * n_max,) + dy.shape[2:]), n_max, rows, lane_t,
-                step_seeds, trip)
-            w_sum = torch.clamp(w.sum(), min=1e-12)
-            avg = _tree_map(lambda s, d: (s.sum(dim=0) / w_sum).to(d), pay,
-                            self._dtypes)
-            new_global, new_server = self.server_fn(
-                global_state, avg, server_state,
-                int(fold_seed(round_seed, 2)))
-            metrics = _tree_map(lambda m: m.sum(dim=0), msum)
+                global_state, data["x"], data["y"], data["n_max"], rows,
+                lane_t, step_seeds, trip)
+            with torch.no_grad():
+                w_sum = torch.clamp(w.sum(), min=1e-12)
+                avg = _tree_map(lambda s, d: (s.sum(dim=0) / w_sum).to(d),
+                                pay, self._dtypes)
+                new_global, new_server = self.server_fn(
+                    global_state, avg, server_state,
+                    int(fold_seed(round_seed, 2)))
+                metrics = _tree_map(lambda m: m.sum(dim=0), msum)
         steps_pc = (np.asarray(sched["mask"]).sum(axis=2) > 0).sum(axis=1)
         aux = {"n": np.asarray(sched["n"], np.float32),
                "steps": steps_pc.astype(np.int64)}
@@ -576,7 +811,121 @@ class LaneRunner:
                                         "trip": trip}
 
 
+def _finish_round(payload_fn, server_fn, global_state, server_state, parts,
+                  count, round_seed):
+    """Weighted mean of the accumulated ``(pay_sum, plain_sum, w_sum)``
+    parts and the server step."""
+    pay_sum, plain_sum, w_sum = parts
+    dtypes = payload_dtype_template(payload_fn, global_state)
+    avg = _mean_payload(pay_sum, plain_sum, w_sum, count, dtypes)
+    return server_fn(global_state, avg, server_state,
+                     int(fold_seed(round_seed, 2)))
+
+
+def make_indexed_sim_round(spec: TrainSpec, cfg: ClientUpdateConfig,
+                           payload_fn=None, server_fn=None,
+                           client_chunk=None):
+    """The flat round over device-resident data (``wave_mode=0``):
+    ``round_fn(global_state, server_state, device_data, sched,
+    round_seed)`` with ``device_data`` the cohort's stacks ``{"x": [C,
+    n_max, ...], "y"}`` and ``sched`` its ``pack_schedule`` output as
+    device tensors. Every client runs all S steps of the padded schedule;
+    ``client_chunk`` clients train at a time (the activation-memory knob).
+    Returns ``(new_global, new_server_state, {"aux", "metrics"})`` with
+    per-client aux and metrics."""
+    update = make_indexed_client_update(spec, cfg)
+    payload_fn = payload_fn or _default_payload
+    server_fn = server_fn or _default_server
+
+    def round_fn(global_state, server_state, device_data, sched, round_seed):
+        C = sched["mask"].shape[0]
+        seeds = client_seeds_for(round_seed, C)
+        dev = device_data["x"].device
+        data = _flat_data(device_data)
+        chunk = (int(client_chunk) if client_chunk and client_chunk < C
+                 else C)
+        parts, auxes, metrics = None, [], []
+        for c0 in range(0, C, chunk):
+            sl = slice(c0, min(c0 + chunk, C))
+            rows = torch.arange(sl.start, sl.stop, device=dev)
+            local, aux, msum = update(
+                global_state, dict(data, rows=rows),
+                {k: v[sl] for k, v in sched.items()}, seeds[sl])
+            with torch.no_grad():
+                payloads = payload_fn(local, global_state, aux)
+                w = aux["n"].float()
+                part = (_weighted_sum(payloads, w),
+                        _tree_map(lambda x: x.float().sum(dim=0), payloads),
+                        w.sum())
+            parts = part if parts is None else _tree_map(torch.add, parts,
+                                                         part)
+            auxes.append(aux)
+            metrics.append(msum)
+        cat = lambda *xs: torch.cat(xs)
+        with torch.no_grad():
+            new_global, new_server = _finish_round(
+                payload_fn, server_fn, global_state, server_state, parts, C,
+                round_seed)
+        return new_global, new_server, {"aux": _tree_map(cat, *auxes),
+                                        "metrics": _tree_map(cat, *metrics)}
+
+    return round_fn
+
+
+def make_sim_round(spec: TrainSpec, cfg: ClientUpdateConfig,
+                   payload_fn=None, server_fn=None):
+    """The host-packed round: ``round_fn(global_state, server_state,
+    cohort_data, round_seed) -> (new_global, new_server_state, {"aux",
+    "metrics"})`` with ``cohort_data`` the ``pack_cohort`` output on the
+    device; the cohort's clients train at once over a client axis."""
+    update = make_client_update(spec, cfg)
+    payload_fn = payload_fn or _default_payload
+    server_fn = server_fn or _default_server
+
+    def round_fn(global_state, server_state, cohort_data, round_seed):
+        C = cohort_data["mask"].shape[0]
+        local, aux, metrics = update(global_state, cohort_data,
+                                     client_seeds_for(round_seed, C))
+        with torch.no_grad():
+            payloads = payload_fn(local, global_state, aux)
+            w = aux["n"].float()
+            parts = (_weighted_sum(payloads, w),
+                     _tree_map(lambda x: x.float().sum(dim=0), payloads),
+                     w.sum())
+            new_global, new_server = _finish_round(
+                payload_fn, server_fn, global_state, server_state, parts, C,
+                round_seed)
+        return new_global, new_server, {"aux": aux, "metrics": metrics}
+
+    return round_fn
+
+
+def make_eval_fn(spec: TrainSpec):
+    """Evaluation over packed masked batches (``pack_eval`` output, numpy
+    or device tensors): ``eval_fn(state, data) -> {metric: 0-d tensor}``,
+    each summed over the batches on the state's device; the host divides
+    once it reads them."""
+
+    def eval_fn(state, data):
+        dev = next(iter(state["params"].values())).device
+        totals = None
+        with torch.no_grad():
+            for s in range(data["mask"].shape[0]):
+                batch = {k: torch.as_tensor(data[k][s], device=dev)
+                         for k in ("x", "y", "mask")}
+                m = spec.metrics_fn(state, batch)
+                totals = m if totals is None else _tree_map(torch.add,
+                                                            totals, m)
+        return totals
+
+    return eval_fn
+
+
 __all__ = ["ClientUpdateConfig", "SGD", "AMSGrad", "make_optimizer",
-           "fold_seed", "fold_step_seeds", "make_packed_lane_update",
-           "LaneRunner", "make_streamed_client_update",
-           "BucketedStreamRunner", "payload_dtype_template"]
+           "fold_seed", "fold_step_seeds", "client_seeds_for",
+           "make_client_update", "make_indexed_client_update",
+           "make_loop_client_update", "make_lane_update",
+           "make_packed_lane_update", "make_streamed_client_update",
+           "WaveRunner", "LaneRunner", "BucketedStreamRunner",
+           "make_indexed_sim_round", "make_sim_round", "make_eval_fn",
+           "payload_dtype_template"]

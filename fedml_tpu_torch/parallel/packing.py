@@ -1,8 +1,9 @@
 """Host-side cohort packing (counterpart of
 ``fedml_tpu/parallel/packing.py``, numpy backend; byte-equal outputs).
 
-Ragged client shards become device-resident padded stacks once
-(:func:`stack_clients`); each round then needs only an index schedule
+The host-packed path gathers a round's cohort into dense ``[C, S, B]``
+batches (:func:`pack_cohort`). Ragged client shards become
+device-resident padded stacks once (:func:`stack_clients`); each round then needs only an index schedule
 (:func:`pack_schedule`) re-laid into LPT-balanced lanes
 (:func:`pack_lanes`). The bucketed streaming path instead pads each
 chunk's schedule to a bucket edge (:func:`parse_bucket_edges`,
@@ -31,6 +32,55 @@ def _numpy_only(native):
     if native is True:
         raise NotImplementedError(
             "the native packing backend waits for ROADMAP A2")
+
+
+def pack_cohort(client_datasets, batch_size, epochs, rng=None,
+                drop_last=False, step_bucket=8, return_indices=False,
+                native="auto"):
+    """A cohort's shards as dense arrays for one round: ``x [C, S, B,
+    ...]``, ``y [C, S, B, ...]``, ``mask [C, S, B]`` (float32 0/1) and
+    ``n [C]``; with ``return_indices`` also ``idx [C, S, B]`` int32.
+    ``S`` is the cohort's most steps rounded up to ``step_bucket``. Draws
+    exactly one seed from ``rng`` and shuffles each epoch from a
+    generator seeded with it; a tiny client reuses its epoch's data."""
+    _numpy_only(native)
+    rng = rng or np.random.default_rng(0)
+    C = len(client_datasets)
+    if batch_size in (-1, 0):
+        batch_size = max(1, max(len(d["y"]) for d in client_datasets))
+    steps = [_steps_for(len(d["y"]), batch_size, epochs, drop_last)
+             for d in client_datasets]
+    S = int(math.ceil(max(steps) / step_bucket) * step_bucket)
+    seed = int(rng.integers(0, 2 ** 63 - 1))
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(client_datasets[0]["x"])
+    y0 = np.asarray(client_datasets[0]["y"])
+    xs = np.zeros((C, S, batch_size) + x0.shape[1:], x0.dtype)
+    ys = np.zeros((C, S, batch_size) + y0.shape[1:], y0.dtype)
+    mask = np.zeros((C, S, batch_size), np.float32)
+    slot_idx = np.zeros((C, S, batch_size), np.int32)
+    n = np.zeros((C,), np.float32)
+    for c, d in enumerate(client_datasets):
+        x, y = np.asarray(d["x"]), np.asarray(d["y"])
+        n_c = len(y)
+        n[c] = n_c
+        s = 0
+        for _ in range(epochs):
+            order = rng.permutation(n_c)
+            for b in range(_per_epoch_steps(n_c, batch_size, drop_last)):
+                idx = order[b * batch_size:(b + 1) * batch_size]
+                if len(idx) == 0:
+                    idx = order[:min(n_c, batch_size)]
+                k = len(idx)
+                xs[c, s, :k] = x[idx]
+                ys[c, s, :k] = y[idx]
+                mask[c, s, :k] = 1.0
+                slot_idx[c, s, :k] = idx
+                s += 1
+    out = {"x": xs, "y": ys, "mask": mask, "n": n}
+    if return_indices:
+        out["idx"] = slot_idx
+    return out
 
 
 def stack_clients(client_datasets, n_max=None):
@@ -224,6 +274,6 @@ def pack_eval(data, batch_size):
     return {"x": xs, "y": ys, "mask": mask}
 
 
-__all__ = ["stack_clients", "pack_schedule", "pack_lanes", "pack_eval",
+__all__ = ["pack_cohort", "stack_clients", "pack_schedule", "pack_lanes", "pack_eval",
            "parse_bucket_edges", "bucket_edge_for", "gather_batches",
            "zero_pad_leading"]

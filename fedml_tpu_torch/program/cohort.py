@@ -1,7 +1,14 @@
 """Cohort selection (counterpart of ``fedml_tpu/program/cohort.py``;
-byte-equal draws). Host numpy."""
+byte-equal draws): the seeded client-index draw of the simulation, the
+seeded transport-rank draw of a distributed server, and the
+``CohortPolicy`` knobs (over-selection, quorum, deadline) of a
+``RoundProgram``. Host numpy."""
 
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -24,4 +31,39 @@ def client_sampling(round_idx, client_num_in_total, client_num_per_round,
                                  num_clients, replace=False))
 
 
-__all__ = ["attempt_seed", "client_sampling"]
+def sample_ranks(round_idx, attempt, ranks, k):
+    """``k`` transport ranks from ``ranks`` with the stream of
+    :func:`client_sampling`, sorted; the candidates are sorted first, so
+    the draw does not depend on their order. ``k >= len(ranks)`` selects
+    every rank."""
+    ranks = sorted(int(r) for r in ranks)
+    if k >= len(ranks):
+        return list(ranks)
+    np.random.seed(attempt_seed(round_idx, attempt))
+    return sorted(int(r) for r in np.random.choice(ranks, int(k),
+                                                   replace=False))
+
+
+@dataclass(frozen=True)
+class CohortPolicy:
+    """Server-side round knobs of a ``RoundProgram``: ``deadline_s``
+    (report deadline per attempt, 0 = none), ``overselect`` (select
+    ``ceil((1 + eps) * C)``), ``quorum`` (least reporting fraction of C
+    for a deadline round to complete) and ``max_round_retries``."""
+
+    deadline_s: float = 0.0
+    overselect: float = 0.0
+    quorum: float = 0.5
+    max_round_retries: int = 3
+
+    def select_count(self, target: int,
+                     available: Optional[int] = None) -> int:
+        n = int(math.ceil((1.0 + self.overselect) * target))
+        return n if available is None else min(n, available)
+
+    def quorum_count(self, target: int) -> int:
+        return max(1, int(math.ceil(self.quorum * target)))
+
+
+__all__ = ["attempt_seed", "client_sampling", "sample_ranks",
+           "CohortPolicy"]

@@ -17,6 +17,11 @@ bias}`` -> ``blocks.{i}.{ln1,ln2}.{weight,bias}``; the ``qkv``/``proj``
 kernels (no bias) and ``mlp_up``/``mlp_down`` kernel and bias ->
 ``blocks.{i}.<name>.weight`` ``[out, in]`` (and ``.bias``); ``ln_f`` and
 ``head`` alike. The port's state is ``{"params": {...}}``.
+
+LR and the CNNs (:func:`zoo_variables_to_state`): every layer sits at
+the top of ``params`` (``linear``; ``conv1``, ``conv2``, ``fc1``,
+``fc2``) and maps to ``<name>.weight`` / ``<name>.bias``. The port's CNNs
+flatten in flax's (H, W, C) order, so ``fc1`` needs no permutation.
 """
 
 from __future__ import annotations
@@ -178,6 +183,39 @@ def lm_state_to_variables(state):
     return {"params": params}
 
 
+def zoo_variables_to_state(variables, convs=(), device="cpu"):
+    """JAX variables of a model whose layers sit at the top of ``params``
+    (LR, the CNNs; single or lane-stacked) -> fp32 port state
+    ``{"params": ...}``: kernels of the layers named in ``convs`` HWIO ->
+    OIHW, the other kernels ``[in, out] -> [out, in]``, biases as they
+    are."""
+    p = {}
+    for name, leaf in variables["params"].items():
+        k = leaf["kernel"]
+        p[f"{name}.weight"] = (_hwio_to_oihw(k) if name in convs
+                               else _swap_last2(k))
+        if "bias" in leaf:
+            p[f"{name}.bias"] = np.asarray(leaf["bias"])
+    return {"params": {k: torch.as_tensor(np.array(v, np.float32, order="C"),
+                                          device=device)
+                       for k, v in p.items()}}
+
+
+def zoo_state_to_variables(state, convs=()):
+    """Inverse of :func:`zoo_variables_to_state`."""
+    params = {}
+    for key, v in state["params"].items():
+        name, kind = key.rsplit(".", 1)
+        v = v.detach().cpu().numpy()
+        leaf = params.setdefault(name, {})
+        if kind == "bias":
+            leaf["bias"] = v
+        else:
+            leaf["kernel"] = (_oihw_to_hwio(v) if name in convs
+                              else _swap_last2(v))
+    return {"params": params}
+
+
 def module_state(model):
     """The port state of an ``nn.Module`` (its parameters and its
     running BatchNorm statistics), detached."""
@@ -189,4 +227,6 @@ def module_state(model):
 
 
 __all__ = ["variables_to_state", "state_to_variables",
-           "lm_variables_to_state", "lm_state_to_variables", "module_state"]
+           "lm_variables_to_state", "lm_state_to_variables",
+           "zoo_variables_to_state", "zoo_state_to_variables",
+           "module_state"]

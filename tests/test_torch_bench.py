@@ -226,10 +226,34 @@ def test_cpu_smoke_prints_one_record_with_the_reference_keys(
     assert perfmon.ledger_records(ledger)[-1]["value"] == record["value"]
 
 
+@pytest.mark.parametrize("argv,mode,inner", [
+    (["--mode", "0"], "flat", None), (["--flat"], "flat", None),
+    (["--mode", "1"], "waves", "wave"), (["--mode", "2"], "lanes", "lanes")])
+def test_cpu_smoke_of_each_round_mode(capsys, argv, mode, inner):
+    """The ResNet recipe's CPU smoke through the flat, wave and vmap-lane
+    runners: one record, the mode named, the runner's spans timed. Batch
+    16, the smoke's shard size: the flat round runs its whole padded
+    schedule, eight steps of full batches."""
+    record = tbench.main(argv + ["--smoke", "--platform", "cpu", "--clients",
+                                 "8", "--batch_size", "16", "--ledger", ""])
+    assert _last_json(capsys) == record and "error" not in record
+    assert record["exec_mode"] == mode and record["value"] > 0
+    assert record["samples_per_round"] == 128.0
+    phases = record["phase_timings_s"]
+    assert {"round", "cohort-select", "broadcast", "local-train",
+            "aggregate", "report"} <= set(phases)
+    if inner is not None:
+        assert inner in phases
+    if mode == "waves":
+        assert "server-update" in phases and record["wave_steps_per_round"]
+    if mode == "lanes":
+        assert record["lane_steps_per_round"] > 0
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--algo", "fedopt"], "A11"),
-    (["--mode", "1"], "A6"),
-    (["--flat"], "A6"),
+    (["--compressor", "topk:0.1"], "A12"),
+    (["--lm_leaf", "1"], "A10"),
     (["--warmup", "1"], "A16"),
     (["--compile_cache_dir", "/nonexistent"], "A16"),
     (["--lm", "--lm_data_dir", "/nonexistent"], "A10"),

@@ -156,9 +156,11 @@ def test_entry_point_refuses_unported_paths():
     dataset = load_synthetic_images(client_num=4, n_train=80, n_test=16,
                                     image_size=8, seed=0)
     spec = make_classification_spec(CifarResNet(depth=DEPTH))
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        FedAvgAPI(dataset, spec, _args(), mesh=object(), device="cpu")
     args = _args()
-    args.wave_mode = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    args.overselect = 0.2
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         FedAvgAPI(dataset, spec, args, device="cpu")
     args = _args()
     args.compressor = "topk:0.1"

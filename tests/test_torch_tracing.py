@@ -249,3 +249,86 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
     with open(tmp_path / "trace.json") as f:
         doc = json.load(f)
     assert any("mm" in e.get("name", "") for e in doc["traceEvents"])
+
+
+# ---------------------------------------------------------------------------
+# every resident wave_mode and the host-packed path (LR: the spans do not
+# depend on the model), and a round that evaluates (its "eval" span)
+# ---------------------------------------------------------------------------
+MODE_PATHS = [(0, "auto"), (1, "auto"), (2, "auto"), (1, "0")]
+
+
+def _lr_args(mode, resident, comm_round=1, freq=10 ** 9):
+    return types.SimpleNamespace(
+        client_num_in_total=4, client_num_per_round=4, comm_round=comm_round,
+        epochs=1, batch_size=16, lr=0.05, wd=0.0, client_optimizer="sgd",
+        frequency_of_the_test=freq, seed=0, client_chunk=3, wave_mode=mode,
+        device_resident=resident, device_data_cap_gb=1.0, device_dtype=None)
+
+
+def _lr_apis(args):
+    from fedml_tpu.data.synthetic import load_synthetic_federated
+    from fedml_tpu.models.linear import LogisticRegression as JaxLR
+    from fedml_tpu_torch.models.linear import LogisticRegression
+
+    dataset = load_synthetic_federated(client_num=4, n_train=120, n_test=20,
+                                       seed=0)
+    japi = JaxFedAvgAPI(dataset, jax_spec(JaxLR(num_classes=10),
+                                          jnp.zeros((1, 60))), args)
+    api = FedAvgAPI(dataset, make_classification_spec(
+        LogisticRegression(60, 10)), args, device="cpu")
+    return japi, api
+
+
+def _traced_train(api, module):
+    tracer = module.Tracer()
+    prev = module.set_tracer(tracer)
+    try:
+        api.train()
+    finally:
+        module.set_tracer(prev)
+    return _tree(tracer.finished_spans())
+
+
+@pytest.fixture(scope="module")
+def mode_trees():
+    mp = pytest.MonkeyPatch()
+    mp.setenv("FEDML_TPU_PACKING", "python")
+    try:
+        out = {}
+        for mode, res in MODE_PATHS:
+            japi, api = _lr_apis(_lr_args(mode, res))
+            out[(mode, res)] = (_traced_round(japi, jtracing),
+                                _traced_round(api, tracing))
+        japi, api = _lr_apis(_lr_args(1, "auto", comm_round=2, freq=2))
+        out["eval"] = (_traced_train(japi, jtracing),
+                       _traced_train(api, tracing))
+        return out
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize("mode,resident", MODE_PATHS)
+def test_mode_round_span_tree_matches_jax_fedavg(mode_trees, mode,
+                                                 resident):
+    want, got = mode_trees[(mode, resident)]
+    assert got == want
+    modes = [a["mode"] for _, n, a in got if n == "local-train"]
+    assert modes == [{0: "flat", 1: "waves", 2: "lanes"}[mode]
+                     if resident == "auto" else "packed"]
+
+
+def test_wave_round_opens_one_span_per_wave(mode_trees):
+    _, got = mode_trees[(1, "auto")]
+    waves = [a for _, n, a in got if n == "wave"]
+    assert [w["clients"] for w in waves] == [3, 1]
+    assert [n for _, n, _ in got].count("server-update") == 1
+
+
+def test_evaluating_round_opens_the_reference_eval_span(mode_trees):
+    """Two rounds of ``train()``, evaluating after the second: the same
+    span trees, the ``eval`` span a root carrying the trained round."""
+    want, got = mode_trees["eval"]
+    assert got == want
+    evals = [(d, a) for d, n, a in got if n == "eval"]
+    assert evals == [(0, {"round": 1})]
