@@ -54,7 +54,15 @@ Phases (any failure exits non-zero):
    the waves for 2 rounds with the attention counters showing B2-B4 ran;
    each run prints its seconds a round with the card's name and power
    limit;
-7. print the ``kernels`` JSON line and, last, the ``ok`` line.
+7. run the rest of the FedAvg family through its experiment mains
+   (``phase_fedavg_family``): FedAdam (``main_fedopt``) on the
+   full-width TransformerLM for 2 rounds with the attention counters
+   checked, the same run cut after round 1 and resumed from its
+   checkpoint (bit-equal to the uninterrupted run under deterministic
+   kernels), the README's Quick-start under each server optimizer, and
+   FedNova, hierarchical FL, centralized training and robust FedAvg
+   (with its backdoor accuracy) on full-width ResNet-56 for 1 round;
+8. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -549,12 +557,13 @@ def phase_bench(grouped_conv, fa):
               f"{ratio_key}={rec[ratio_key]}", flush=True)
 
 
-def _experiment(argv):
-    """One run of the port's experiment main on the card: the api, the
-    seconds a round and the line that reports them."""
-    from fedml_tpu_torch.experiments import main_fedavg
+def _experiment(argv, main="main_fedavg"):
+    """One run of the port's experiment main ``main`` on the card: the
+    api and the seconds a round."""
+    import importlib
+    module = importlib.import_module(f"fedml_tpu_torch.experiments.{main}")
 
-    api, _ = main_fedavg.main(argv)
+    api, _ = module.main(argv)
     if api.device.type != "cuda":
         fail(f"experiment main {argv} ran on {api.device}")
     for r in api.history:
@@ -641,6 +650,94 @@ def phase_experiment_main(torch, fa, grouped_conv, smi):
           f"train_loss={[r['Train/Loss'] for r in api.history]} "
           f"launches={json.dumps(launches)} mode_diffs={json.dumps(diffs)} "
           f"card={smi}", flush=True)
+
+
+def _states_diff(torch, a, b):
+    """Largest absolute difference over two same-structured trees of
+    tensors (global or server states)."""
+    if isinstance(a, dict):
+        return max((_states_diff(torch, a[k], b[k]) for k in a),
+                   default=0.0)
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def phase_fedavg_family(torch, fa, smi):
+    """The rest of the FedAvg family through its experiment mains on the
+    card: ``main_fedopt`` (FedAdam) on the full-width TransformerLM (bf16)
+    for 2 rounds, with the attention launch counters set to 0 just before
+    and read just after (B3 and B4 a multiple of the layer count); the
+    same run cut after round 1 with ``--checkpoint_dir`` and resumed for
+    round 2, under deterministic kernels, equal to the uninterrupted run
+    bit for bit (the difference printed); the README's Quick-start (LR on
+    ``synthetic``) under each server optimizer; ``main_fednova``,
+    ``main_hierarchical``, ``main_centralized`` and ``main_fedavg_robust``
+    on full-width ResNet-56, 1 round each (the last printing
+    ``Backdoor/Acc``). Every run is on the card with finite losses and
+    prints its seconds a round beside the card's name and power limit."""
+    import shutil
+
+    t0 = time.time()
+    lm = EXP_LM + ["--server_optimizer", "adam"]
+    ckpt = os.path.join(HERE, "build", "chip_smoke_checkpoints")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in fa.launches:
+            fa.launches[name] = 0
+        full, times = _experiment(lm, "main_fedopt")
+        launches = dict(fa.launches)
+        layers = sum(1 for k in full.global_state["params"]
+                     if k.endswith(".qkv.weight"))
+        if not (launches["dq"] == launches["dkv"] > 0
+                and launches["dq"] % layers == 0
+                and launches["fwd"] >= launches["dq"]):
+            fail(f"fedavg_family FedAdam LM: attention launches {launches}")
+        print(f"fedavg_family run=fedopt_adam_lm deterministic=1 "
+              f"s_per_round={times} "
+              f"train_loss={[r['Train/Loss'] for r in full.history]} "
+              f"launches={json.dumps(launches)} card={smi}", flush=True)
+        # the last --comm_round given wins: the cut run stops after 1
+        part, _ = _experiment(lm + ["--comm_round", "1", "--checkpoint_dir",
+                                    ckpt], "main_fedopt")
+        resumed, times = _experiment(
+            lm + ["--checkpoint_dir", ckpt, "--resume", "1"], "main_fedopt")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    if part.round_idx != 1 or [r["round"] for r in resumed.history] != [1]:
+        fail(f"fedavg_family resume: rounds {part.round_idx}, "
+             f"{[r['round'] for r in resumed.history]}")
+    diff = max(_states_diff(torch, resumed.global_state, full.global_state),
+               _states_diff(torch, resumed.server_state, full.server_state))
+    print(f"fedavg_family run=fedopt_adam_lm_resumed deterministic=1 "
+          f"resume_diff={diff} s_per_round={times} card={smi}", flush=True)
+    if diff != 0.0:
+        fail(f"fedavg_family: the resumed FedAdam LM run differs from the "
+             f"uninterrupted one by {diff}")
+    for opt in ("sgd", "adam", "adagrad", "yogi"):
+        api, times = _experiment(["--dataset", "synthetic", "--model", "lr",
+                                  "--server_optimizer", opt], "main_fedopt")
+        print(f"fedavg_family run=quick_start_{opt} rounds={len(times)} "
+              f"s_per_round={times} "
+              f"train_loss={api.history[-1]['Train/Loss']} "
+              f"test_acc={api.history[-1]['Test/Acc']} card={smi}",
+              flush=True)
+    for main in ("main_fednova", "main_hierarchical", "main_centralized",
+                 "main_fedavg_robust"):
+        api, times = _experiment(EXP_RESNET, main)
+        extra = ""
+        if main == "main_fedavg_robust":
+            backdoor = api.evaluate_backdoor()["Backdoor/Acc"]
+            if not 0.0 <= backdoor <= 1.0:
+                fail(f"fedavg_family robust: Backdoor/Acc {backdoor}")
+            extra = f" Backdoor/Acc={backdoor}"
+        print(f"fedavg_family run={main[5:]}_resnet56 s_per_round={times} "
+              f"train_loss={api.history[-1]['Train/Loss']}{extra} "
+              f"card={smi}", flush=True)
+    print(f"fedavg_family phase_s={time.time() - t0:.1f} card={smi}",
+          flush=True)
 
 
 def _device_us(torch, prof):
@@ -808,6 +905,7 @@ def main():
     attn_launches = phase_lm_main_path(torch, fa)
     phase_bench(grouped_conv, fa)
     phase_experiment_main(torch, fa, grouped_conv, smi)
+    phase_fedavg_family(torch, fa, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

@@ -25,9 +25,6 @@ _A16_OBS = "ROADMAP A16 (the observability switchboard)"
 #: flag -> (value that runs, the ROADMAP item a change waits for)
 _UNPORTED = {
     "mesh": (0, "ROADMAP A15 (multi-device)"),
-    "checkpoint_dir": (None, "ROADMAP A16 (checkpoint and resume through "
-                             "torch.save)"),
-    "resume": (0, "ROADMAP A16 (checkpoint and resume through torch.save)"),
     "warmup": (0, "ROADMAP A16 (round-program warmup)"),
     "compile_cache_dir": (None, "ROADMAP A16 (compile caches)"),
     "audit": (0, "ROADMAP A16 (the runtime audit)"),
@@ -248,18 +245,66 @@ def make_spec(args, model, dataset):
     return specs.make_classification_spec(model, augment_fn=augment_fn)
 
 
+def prepare(parser, argv, run_name):
+    """A main's common start: parse ``argv``, refuse unported flags,
+    resolve the device, set up logging, seeds and the metrics sink, load
+    the dataset and build the model and spec. ``run_name(args)`` names
+    the run. Returns ``(args, device, logger, dataset, spec)``."""
+    args = parser.parse_args(argv)
+    refuse_unported(args)
+    device = device_for(args)
+    logger = setup(args, run_name=run_name(args))
+    dataset, model = load_dataset_and_model(args)
+    spec = make_spec(args, model, dataset)
+    return args, device, logger, dataset, spec
+
+
 def run_fedavg_family(api, args, logger):
-    """``FedAvgAPI.train`` under ``--profile_dir``'s profiler trace.
-    Checkpoint and resume wait for ROADMAP A16 (:func:`refuse_unported`
-    refuses their flags)."""
+    """``api.train`` with the reference's checkpoint wiring, under
+    ``--profile_dir``'s profiler trace: with ``--checkpoint_dir`` the
+    config is snapshot, ``--resume`` restores the global state, the
+    server state, the run's seed, the batch-shuffle generator and the
+    round index from the latest checkpoint (logging ``res/resumes``), and
+    a checkpoint is saved every ``--save_frequency`` rounds and at the
+    last one. Works for any API with those attributes and a
+    ``train(on_round=)`` (every FedAvg-family main and the centralized
+    trainer)."""
+    from fedml_tpu_torch.utils.checkpoint import Checkpointer
     from fedml_tpu_torch.utils.profiling import profile_trace
+
+    ckpt = None
+    if args.checkpoint_dir:
+        ckpt = Checkpointer(args.checkpoint_dir)
+        ckpt.save_config(args)
+        if args.resume:
+            saved = ckpt.restore(server_state_template=api.server_state,
+                                 device=api.device)
+            if saved is not None:
+                api.global_state = saved["global_state"]
+                api.server_state = saved["server_state"]
+                if saved["rng"] is not None:
+                    api.seed = int(saved["rng"])
+                if saved["data_rng"] is not None:
+                    api._data_rng = saved["data_rng"]
+                api.round_idx = saved["round_idx"]
+                logging.info("resumed from round %d", api.round_idx)
+                logger({"round": api.round_idx, "res/resumes": 1})
+
+    def on_round(api_, metrics):
+        last = api_.round_idx == args.comm_round
+        if (ckpt is not None
+                and (api_.round_idx % args.save_frequency == 0 or last)):
+            ckpt.save(api_.round_idx, api_.global_state,
+                      server_state=api_.server_state, rng=api_.seed,
+                      metric=metrics.get("Test/Acc"),
+                      data_rng=api_._data_rng)
 
     with profile_trace(args.profile_dir,
                        enabled=args.profile_dir is not None):
-        api.train()
+        api.train(on_round=on_round)
     return api.global_state
 
 
 __all__ = ["add_base_args", "refuse_unported", "device_for", "setup",
            "example_train_data", "load_dataset_and_model", "make_spec",
-           "run_fedavg_family"]
+           "prepare", "run_fedavg_family"]

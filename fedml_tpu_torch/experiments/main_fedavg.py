@@ -15,17 +15,16 @@ import argparse
 from fedml_tpu_torch.experiments import common
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser("FedAvg-torch")
-    common.add_base_args(parser)
-    args = parser.parse_args(argv)
-    common.refuse_unported(args)
-    device = common.device_for(args)
+def parser():
+    p = argparse.ArgumentParser("FedAvg-torch")
+    common.add_base_args(p)
+    return p
 
-    logger = common.setup(args, run_name=f"FedAVG-r{args.comm_round}"
-                                         f"-e{args.epochs}-lr{args.lr}")
-    dataset, model = common.load_dataset_and_model(args)
-    spec = common.make_spec(args, model, dataset)
+
+def main(argv=None):
+    args, device, logger, dataset, spec = common.prepare(
+        parser(), argv,
+        lambda a: f"FedAVG-r{a.comm_round}-e{a.epochs}-lr{a.lr}")
 
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
     api = FedAvgAPI(dataset, spec, args, device=device,

@@ -1,0 +1,35 @@
+"""FedNova experiment main (counterpart of
+``fedml_tpu/experiments/main_fednova.py``), on the card:
+
+    python -m fedml_tpu_torch.experiments.main_fednova --platform cpu ...
+
+``main(argv)`` returns ``(api, global_state)``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from fedml_tpu_torch.experiments import common
+
+
+def parser():
+    p = argparse.ArgumentParser("FedNova-torch")
+    common.add_base_args(p)
+    return p
+
+
+def main(argv=None):
+    args, device, logger, dataset, spec = common.prepare(
+        parser(), argv, lambda a: "FedNova")
+
+    from fedml_tpu_torch.algorithms.fednova import FedNovaAPI
+    api = FedNovaAPI(dataset, spec, args, device=device,
+                     metrics_logger=logger)
+    state = common.run_fedavg_family(api, args, logger)
+    logger.close()
+    return api, state
+
+
+if __name__ == "__main__":
+    main()

@@ -204,8 +204,11 @@ def _default_server(global_state, avg_payload, server_state, rng):
 
 def payload_dtype_template(payload_fn, global_state):
     """The payload's dtypes (accumulators run in fp32; the average is
-    cast back through this template)."""
-    aux = {"n": torch.zeros(()), "steps": torch.zeros((), dtype=torch.int32)}
+    cast back through this template). The probe's aux lies on the global
+    state's device, as the runners' aux does."""
+    dev = next(iter(global_state["params"].values())).device
+    aux = {"n": torch.zeros((), device=dev),
+           "steps": torch.zeros((), dtype=torch.int32, device=dev)}
     return _tree_map(lambda t: t.dtype,
                      payload_fn(global_state, global_state, aux))
 

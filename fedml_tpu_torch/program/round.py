@@ -4,12 +4,12 @@ arguments).
 
 A program bundles the cohort leg (:class:`CohortPolicy`), the
 aggregation leg (:class:`AggregationPolicy`) and the codec leg
-(:class:`CodecSpec`), plus an opaque ``client_update``. The simulation
-lowers it to the round runners of ``parallel/engine.py``
-(:meth:`RoundProgram.compile_sim`, :meth:`RoundProgram.compile_bucketed`);
-a host-side consumer reads it through :meth:`RoundProgram.host_view`.
-The privacy legs (``dp``, ``robust``) wait for ROADMAP A11: setting one
-raises.
+(:class:`CodecSpec`), plus an opaque ``client_update``. The privacy legs
+(``dp``: :class:`DPPolicy`, ``robust``: :class:`RobustPolicy`) are None
+when off. The simulation lowers the program to the round runners of
+``parallel/engine.py`` (:meth:`RoundProgram.compile_sim`,
+:meth:`RoundProgram.compile_bucketed`); a host-side consumer reads it
+through :meth:`RoundProgram.host_view`.
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ from fedml_tpu_torch.program.aggregation import (AggregationPolicy,
 from fedml_tpu_torch.program.codec import CodecSpec
 from fedml_tpu_torch.program.cohort import (CohortPolicy, client_sampling,
                                             sample_ranks)
-
-_PRIVACY = "ROADMAP A11 (program/privacy.py DPPolicy and RobustPolicy)"
+from fedml_tpu_torch.program.privacy import DPPolicy, RobustPolicy
 
 
 @dataclass(frozen=True)
@@ -39,16 +38,12 @@ class RoundProgram:
     aggregation: AggregationPolicy = field(
         default_factory=AggregationPolicy.sync)
     codec: CodecSpec = field(default_factory=CodecSpec)
-    dp: Optional[Any] = None
-    robust: Optional[Any] = None
+    dp: Optional[DPPolicy] = None
+    robust: Optional[RobustPolicy] = None
     client_update: Any = field(default=None, compare=False)
 
     def __post_init__(self):
         object.__setattr__(self, "codec", CodecSpec.coerce(self.codec))
-        for leg in ("dp", "robust"):
-            if getattr(self, leg) is not None:
-                raise NotImplementedError(
-                    f"the {leg} leg waits for {_PRIVACY}")
 
     @classmethod
     def from_args(cls, args, codec=None,
@@ -80,23 +75,24 @@ class RoundProgram:
             "aggregation": dataclasses.asdict(self.aggregation),
             "codec": {"spec": self.codec.spec,
                       "enabled": self.codec.enabled},
-            "dp": None,
-            "robust": None,
+            "dp": (dataclasses.asdict(self.dp)
+                   if self.dp is not None else None),
+            "robust": (dataclasses.asdict(self.robust)
+                       if self.robust is not None else None),
         }
 
     @classmethod
     def from_manifest(cls, data: dict) -> "RoundProgram":
         """Inverse of :meth:`manifest`; unknown keys are rejected by the
         leg constructors."""
-        for leg in ("dp", "robust"):
-            if data.get(leg):
-                raise NotImplementedError(
-                    f"the {leg} leg waits for {_PRIVACY}")
+        dp, robust = data.get("dp"), data.get("robust")
         return cls(
             cohort=CohortPolicy(**data.get("cohort", {})),
             aggregation=AggregationPolicy(**data.get("aggregation", {})),
             codec=CodecSpec(spec=data.get("codec", {}).get("spec",
-                                                           "none")))
+                                                           "none")),
+            dp=DPPolicy(**dp) if dp else None,
+            robust=RobustPolicy(**robust) if robust else None)
 
     def replace(self, **changes) -> "RoundProgram":
         return dataclasses.replace(self, **changes)
@@ -125,9 +121,9 @@ class RoundProgram:
 
 
 class HostProgram:
-    """Host view of one :class:`RoundProgram`: cohort draws, counts and
-    the canonical folds, each a delegation into a leg (the reference's
-    codec and privacy accessors wait for ROADMAP A11 and A12)."""
+    """Host view of one :class:`RoundProgram`: cohort draws, counts, the
+    folds and the privacy legs, each a delegation into a leg (the
+    reference's codec accessors wait for ROADMAP A12)."""
 
     def __init__(self, program: RoundProgram):
         self.program = program
@@ -155,7 +151,11 @@ class HostProgram:
         return self.program.aggregation
 
     def fold_reports(self, reports, base=None) -> tuple:
-        """Sync partial aggregation over the reporting subset."""
+        """Sync partial aggregation over the reporting subset; with the
+        robust leg armed, the leg's fold (``norm_clip`` needs ``base``,
+        the round's broadcast params)."""
+        if self.program.robust is not None:
+            return self.program.robust.fold_reports(reports, base=base)
         return aggregate_reports(reports)
 
     def fold_entries(self, entries) -> tuple:
@@ -166,7 +166,29 @@ class HostProgram:
                                 self.program.aggregation.staleness_decay)
 
     def make_aggregator(self, policy=None) -> BufferedAggregator:
-        return BufferedAggregator(policy or self.program.aggregation)
+        """The program's buffered aggregator, its flush fold the robust
+        leg's when armed."""
+        robust = self.program.robust
+        return BufferedAggregator(
+            policy or self.program.aggregation,
+            fold_fn=robust.fold_entries if robust is not None else None)
+
+    @property
+    def dp(self) -> Optional[DPPolicy]:
+        return self.program.dp
+
+    @property
+    def robust(self) -> Optional[RobustPolicy]:
+        return self.program.robust
+
+    def privatize_update(self, base, params, rank, round_idx, attempt=0):
+        """Client-side DP: ``base + noise(clip(params - base))`` under the
+        per-(rank, round, attempt) stream; the identity when the DP leg
+        is off."""
+        if self.program.dp is None:
+            return params
+        return self.program.dp.privatize_params(base, params, rank,
+                                                round_idx, attempt)
 
 
 __all__ = ["RoundProgram", "HostProgram"]

@@ -22,6 +22,12 @@ LR and the CNNs (:func:`zoo_variables_to_state`): every layer sits at
 the top of ``params`` (``linear``; ``conv1``, ``conv2``, ``fc1``,
 ``fc2``) and maps to ``<name>.weight`` / ``<name>.bias``. The port's CNNs
 flatten in flax's (H, W, C) order, so ``fc1`` needs no permutation.
+
+Server optimizer state (:func:`server_state_from_optax`): the JAX
+package's optax chain state (``TraceState``, ``ScaleByAdamState`` or
+``ScaleByRssState`` first) -> the port's ``{"trace"}``, ``{"count",
+"mu", "nu"}`` or ``{"sum_of_squares"}`` (``algorithms/fedopt.py``),
+each moment carried by the model's carrier above; and back.
 """
 
 from __future__ import annotations
@@ -226,7 +232,46 @@ def module_state(model):
                             if k.endswith(("running_mean", "running_var"))}}
 
 
+#: the port's server-state fields of each optax state in a server
+#: optimizer's chain (``algorithms/fedopt.py``): param-shaped trees and
+#: the step count
+_TREE_FIELDS = ("trace", "mu", "nu", "sum_of_squares")
+
+
+def server_state_from_optax(opt_state, params_to_state):
+    """The JAX package's server optimizer state -> the port's server
+    state. ``opt_state`` is the ``optax.chain`` state with numpy leaves
+    (its first element a ``TraceState``, ``ScaleByAdamState`` or
+    ``ScaleByRssState``); ``params_to_state`` maps JAX variables ``{"params":
+    tree}`` to port state ``{"params": {name: tensor}}`` (one of the
+    carriers above, with its model's arguments bound)."""
+    out = {}
+    for name, value in opt_state[0]._asdict().items():
+        if name == "count":
+            out["count"] = torch.as_tensor(np.asarray(value, np.int32))
+        elif name in _TREE_FIELDS:
+            out[name] = params_to_state({"params": value})["params"]
+        else:
+            raise ValueError(f"unknown optimizer state field {name!r}")
+    return out
+
+
+def server_state_to_optax(state, state_to_params, template):
+    """Inverse of :func:`server_state_from_optax`: the port's server
+    state in the form of ``template`` (a reference state of the same
+    optimizer, whose types are reused); ``state_to_params`` maps port
+    state to JAX variables."""
+    fields = {}
+    for name in template[0]._fields:
+        if name == "count":
+            fields[name] = state["count"].detach().cpu().numpy()
+        else:
+            fields[name] = state_to_params({"params": state[name]})["params"]
+    return (type(template[0])(**fields),) + tuple(template[1:])
+
+
 __all__ = ["variables_to_state", "state_to_variables",
            "lm_variables_to_state", "lm_state_to_variables",
            "zoo_variables_to_state", "zoo_state_to_variables",
-           "module_state"]
+           "module_state", "server_state_from_optax",
+           "server_state_to_optax"]

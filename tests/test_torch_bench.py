@@ -250,8 +250,20 @@ def test_cpu_smoke_of_each_round_mode(capsys, argv, mode, inner):
         assert record["lane_steps_per_round"] > 0
 
 
+def test_algo_fedopt_builds_the_server_adam_line():
+    """``--algo fedopt``: the reference bench's second line, the same
+    recipe with server Adam (lr 0.001) on the pseudo-gradient."""
+    from fedml_tpu_torch.algorithms.fedopt import FedOptAPI, ServerAdam
+    args = tbench._parser().parse_args(["--algo", "fedopt", "--smoke",
+                                        "--clients", "8"])
+    api, _ = tbench.build_api(args, torch.device("cpu"))
+    assert isinstance(api, FedOptAPI)
+    assert isinstance(api.server_tx, ServerAdam) and api.server_tx.lr == 0.001
+    assert api.server_state["count"] == 0
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--algo", "fedopt"], "A11"),
+    (["--buffer_k", "8"], "A10"),
     (["--compressor", "topk:0.1"], "A12"),
     (["--lm_leaf", "1"], "A10"),
     (["--warmup", "1"], "A16"),

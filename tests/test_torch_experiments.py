@@ -127,8 +127,8 @@ def test_flags_and_defaults_are_the_reference_ones():
 @pytest.mark.parametrize("argv,item", [
     (["--mesh", "2"], "A15"),
     (["--compressor", "topk:0.1"], "A12"),
-    (["--checkpoint_dir", "/nonexistent"], "A16"),
-    (["--resume", "1"], "A16"),
+    (["--quorum", "0.8"], "A11"),
+    (["--pace_k_bounds", "1,8"], "A11"),
     (["--warmup", "1"], "A16"),
     (["--compile_cache_dir", "/nonexistent"], "A16"),
     (["--trace", "1"], "A16"),
