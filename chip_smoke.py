@@ -62,7 +62,21 @@ Phases (any failure exits non-zero):
    kernels), the README's Quick-start under each server optimizer, and
    FedNova, hierarchical FL, centralized training and robust FedAvg
    (with its backdoor accuracy) on full-width ResNet-56 for 1 round;
-8. print the ``kernels`` JSON line and, last, the ``ok`` line.
+8. train the MoE TransformerLM through the steered resilient rounds
+   (``phase_resilience_moe``): ``main_fedavg --model moe_transformer``
+   at the factory's full width (d_model 256, 4 layers, 4 heads of 64, 8
+   experts, bf16) on ``synthetic_sequences`` (32 clients, 8 a round,
+   batch 4, T 20) under ``--overselect 0.3 --straggler_p 0.25 --quorum
+   0.34 --pace_steering 1`` for 4 rounds through the waves, with the
+   attention counters set to 0 just before and read just after (B2, B3
+   and B4 each launched), every round's ``res/*`` and ``pace/*`` fields
+   equal to ``SimResilience`` and ``PaceController`` replayed alone on
+   the host; then one MoE training step at the same width in fp32 on the
+   card (kernels) against the same step on the CPU (plain versions) from
+   the same weights, at T 20 and at T 80 on LEAF-shaped synthetic
+   Shakespeare clients: no token routed to another expert, and loss, aux
+   loss, logits and gradients within ``MOE_TOL``;
+9. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -740,6 +754,175 @@ def phase_fedavg_family(torch, fa, smi):
           flush=True)
 
 
+#: the MoE TransformerLM at the factory's full width through the steered
+#: resilient rounds of the experiment main
+EXP_MOE = ["--model", "moe_transformer", "--model_dtype", "bf16",
+           "--dataset", "synthetic_sequences", "--client_num_in_total", "32",
+           "--client_num_per_round", "8", "--batch_size", "4",
+           "--overselect", "0.3", "--straggler_p", "0.25", "--quorum",
+           "0.34", "--pace_steering", "1", "--comm_round", "4",
+           "--wave_mode", "1"]
+#: card (kernels, fp32) against CPU (plain versions, fp32) for one MoE
+#: step: logits as the LM phase holds them (1e-3 * max|logit| + 1e-4);
+#: loss and aux loss 1e-4 absolute (two clients' summed loss is about 10
+#: and each client's aux, summed over 4 layers, about 7: fp32 sums of a
+#: few thousand terms in another order move them by about 1e-6);
+#: gradients 1e-3 * max|grad| + 1e-6. A route that flips (the argmax of
+#: the router's gates) fails by itself: the share must be 0.
+MOE_TOL = {"logits": (1e-3, 1e-4), "loss": 1e-4, "aux": 1e-4,
+           "grad": (1e-3, 1e-6)}
+
+
+def _replay_res_pace(args, rounds, total, per_round):
+    """The ``res/*`` and ``pace/*`` records of ``rounds`` rounds from
+    ``SimResilience`` and ``PaceController`` alone on the host, steered
+    as ``FedAvgAPI._sample_cohort`` steers them (device-independent)."""
+    import dataclasses
+
+    from fedml_tpu_torch.resilience.integration import SimResilience
+    from fedml_tpu_torch.resilience.steering import PaceController
+
+    res, pace = SimResilience.from_args(args), PaceController.from_args(args)
+    target, prev, out = min(per_round, total), None, []
+    for rnd in range(rounds):
+        if prev is not None:
+            dec = pace.decide(
+                outcome="degraded" if prev["res/degraded"] else "complete",
+                selected=target,
+                reporting=min(prev["res/reporting"], target))
+            res.policy = dataclasses.replace(res.policy,
+                                             overselect=dec.overselect)
+        _, prev = res.sample(rnd, total, per_round)
+        prev.update(pace.record())
+        out.append(prev)
+    return out
+
+
+def _moe_step(torch, model, params, batch, device):
+    """One training step of the stacked MoE LM on ``device``: loss (with
+    0.01 * aux), per-client aux, logits, each layer's routes (expert and
+    kept) and the gradients, all back on the CPU."""
+    from fedml_tpu_torch.algorithms.specs import make_seq_classification_spec
+    from fedml_tpu_torch.models import moe
+
+    P = {k: v.to(device).requires_grad_() for k, v in params.items()}
+    b = {k: v.to(device) for k, v in batch.items()}
+    spec = make_seq_classification_spec(model)
+    loss, _ = spec.stacked_loss_fn({"params": P}, b, True)
+    loss.backward()
+    routes, inner = [], moe.moe_mlp
+
+    def recording(*a, **kw):
+        out = inner(*a, **kw)
+        routes.append((out[2].cpu(), out[3].cpu()))
+        return out
+
+    moe.moe_mlp = recording
+    try:
+        with torch.no_grad():
+            logits, aux = model.apply_params(P, b["x"], stacked=True,
+                                             with_sown=True)
+    finally:
+        moe.moe_mlp = inner
+    return {"loss": float(loss.detach()), "aux": aux.cpu(),
+            "logits": logits.cpu(),
+            "routes": routes,
+            "grads": {k: v.grad.cpu() for k, v in P.items()}}
+
+
+def _moe_step_check(torch, label, model, params, batch):
+    """The card's MoE step against the CPU's: fails on a flipped route or
+    a difference past ``MOE_TOL``; returns the printed differences."""
+    card = _moe_step(torch, model, params, batch, torch.device("cuda"))
+    cpu = _moe_step(torch, model, params, batch, torch.device("cpu"))
+    tokens = sum(e.numel() for e, _ in cpu["routes"])
+    flips = sum(int((a[0] != b[0]).sum())
+                for a, b in zip(card["routes"], cpu["routes"]))
+    kept = sum(int((a[1] != b[1]).sum())
+               for a, b in zip(card["routes"], cpu["routes"]))
+    rel, abs_ = MOE_TOL["logits"]
+    logit_err = _check(f"MoE {label} logits card vs CPU", card["logits"],
+                       cpu["logits"], rel, abs_)
+    loss_err = abs(card["loss"] - cpu["loss"])
+    aux_err = float((card["aux"] - cpu["aux"]).abs().max())
+    grel, gabs = MOE_TOL["grad"]
+    grad_err = max(float((card["grads"][k] - g).abs().max())
+                   - grel * float(g.abs().max()) - gabs
+                   for k, g in cpu["grads"].items())
+    out = {"tokens_routed": tokens, "route_flip_share": flips / tokens,
+           "capacity_flip_share": kept / tokens, "loss": cpu["loss"],
+           "loss_err": loss_err, "aux": [float(a) for a in cpu["aux"]],
+           "aux_err": aux_err, "logit_err": logit_err,
+           "grad_err_over_tol": grad_err}
+    if flips or kept:
+        fail(f"MoE {label}: {flips} of {tokens} tokens routed to another "
+             f"expert and {kept} kept otherwise on the card")
+    if (loss_err > MOE_TOL["loss"] or aux_err > MOE_TOL["aux"]
+            or grad_err > 0.0):
+        fail(f"MoE {label} card vs CPU past MOE_TOL: {out}")
+    return out
+
+
+def phase_resilience_moe(torch, fa, smi):
+    """The MoE TransformerLM through the steered resilient rounds of
+    ``main_fedavg`` on the card (``EXP_MOE``), with the attention launch
+    counters set to 0 just before and read just after (each of B2, B3 and
+    B4 launched; B3 and B4 a multiple of the layer count), every round's
+    ``res/*`` and ``pace/*`` fields equal to the host-only replay, and
+    the seconds a round and peak memory printed beside the card's name
+    and power limit; then the MoE step check at T 20 and T 80
+    (:func:`_moe_step_check`). Returns the main run's launches."""
+    from fedml_tpu_torch.algorithms.specs import make_seq_classification_spec
+    from fedml_tpu_torch.data.shakespeare import synthetic_shakespeare_clients
+    from fedml_tpu_torch.data.synthetic import load_synthetic_sequences
+    from fedml_tpu_torch.models.moe import MoETransformerLM
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    for name in fa.launches:
+        fa.launches[name] = 0
+    api, times = _experiment(EXP_MOE)
+    launches = dict(fa.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers = sum(1 for k in api.global_state["params"]
+                 if k.endswith(".moe.wi"))
+    if layers != 4 or not all(n > 0 for n in launches.values()) or not (
+            launches["dq"] == launches["dkv"]
+            and launches["dq"] % layers == 0):
+        fail(f"resilience_moe: {layers} MoE layers, attention launches "
+             f"{launches}")
+    records = [{k: v for k, v in r.items()
+                if k.startswith(("res/", "pace/"))} for r in api.history]
+    want = _replay_res_pace(api.args, len(records), 32, 8)
+    for r in api.history:
+        print("resilience_moe_round " + json.dumps(r), flush=True)
+    if records != want:
+        fail(f"resilience_moe: round records {records} differ from the "
+             f"host-only replay {want}")
+    print(f"resilience_moe run=moe_transformer_steered rounds={len(times)} "
+          f"s_per_round={times} "
+          f"train_loss={[r['Train/Loss'] for r in api.history]} "
+          f"launches={json.dumps(launches)} peak_memory_gb={peak_gb:.3f} "
+          f"card={smi}", flush=True)
+
+    model = MoETransformerLM(90, n_layers=4, n_heads=4, d_model=256,
+                             n_experts=8, max_len=80)
+    params = make_seq_classification_spec(model).init_fn(0, "cpu")["params"]
+    seq = load_synthetic_sequences(client_num=2, seed=0)
+    leaf = synthetic_shakespeare_clients(2, 80, 90, seed=0)
+    for label, ds in (("T20", seq), ("T80", leaf)):
+        batch = {k: torch.stack([torch.as_tensor(ds[5][c][k][:4])
+                                 for c in range(2)]) for k in ("x", "y")}
+        batch["mask"] = torch.ones(2, 4)
+        stacked = {k: torch.stack([v, v]) for k, v in params.items()}
+        out = _moe_step_check(torch, label, model, stacked, batch)
+        print(f"resilience_moe step={label} shape={list(batch['x'].shape)} "
+              f"{json.dumps(out)} card={smi}", flush=True)
+    print(f"resilience_moe phase_s={time.time() - t0:.1f} card={smi}",
+          flush=True)
+    return launches
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -906,6 +1089,7 @@ def main():
     phase_bench(grouped_conv, fa)
     phase_experiment_main(torch, fa, grouped_conv, smi)
     phase_fedavg_family(torch, fa, smi)
+    phase_resilience_moe(torch, fa, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

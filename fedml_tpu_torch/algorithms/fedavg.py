@@ -14,12 +14,17 @@ on one device, along every single-device path of the reference:
   the host and uploaded each round (``RoundProgram.compile_sim``).
 
 The API builds its one ``RoundProgram`` from the arguments, as the
-reference does. Compression, resilience, steering and meshes wait for
-ROADMAP A11, A12 and A15.
+reference does. Every path draws its cohort through
+:meth:`FedAvgAPI._sample_cohort`: the seeded draw, or under
+``--overselect``/``--straggler_p`` the reporting subset of
+``SimResilience`` (steered by ``--pace_steering``), whose ``res/*`` and
+``pace/*`` fields ride the round's record. Compression and meshes wait
+for ROADMAP A12 and A15.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 
@@ -38,15 +43,14 @@ from fedml_tpu_torch.parallel.packing import (_steps_for, pack_cohort,
                                               stack_clients)
 from fedml_tpu_torch.program.cohort import client_sampling
 from fedml_tpu_torch.program.round import RoundProgram
+from fedml_tpu_torch.resilience.integration import SimResilience
+from fedml_tpu_torch.resilience.steering import PaceController
 from fedml_tpu_torch.utils.device import resolve_device
 
 # reference args whose non-default values select a path not ported yet
 _UNPORTED = {
     "compressor": "ROADMAP A12 (compression)",
     "async_agg": "ROADMAP A10 (the bucketed path's async aggregator)",
-    "overselect": "ROADMAP A11 (SimResilience)",
-    "straggler_p": "ROADMAP A11 (SimResilience)",
-    "pace_steering": "ROADMAP A11 (pace steering)",
 }
 
 #: ``local-train`` span mode of each resident ``wave_mode``
@@ -131,6 +135,21 @@ class FedAvgAPI:
                 spec, cfg, payload_fn, server_fn,
                 client_chunk=getattr(args, "client_chunk", None))
         self.server_state = server_state if server_state is not None else ()
+        # over-selection and simulated deadline misses: restricting the
+        # cohort to the reporting subset is the renormalised partial
+        # aggregate (the rounds weight by per-client sample counts)
+        self.resilience = SimResilience.from_args(args)
+        self._last_res_record = None
+        # pace steering adapts the over-selection eps from the previous
+        # round's record; the simulation has no wall clock, so the
+        # deadline knobs stay put
+        self.pace = PaceController.from_args(args)
+        if self.pace is not None and self.resilience is None:
+            logging.warning(
+                "--pace_steering without --overselect/--straggler_p: the "
+                "simulation rounds have no sampling loop to steer; "
+                "ignoring the flag")
+            self.pace = None
         self.seed = int(getattr(args, "seed", 0))
         self._data_rng = np.random.default_rng(self.seed)
         self.round_idx = 0
@@ -186,10 +205,39 @@ class FedAvgAPI:
         return {"x": x, "y": y, "n": host["n"]}
 
     def _sample_cohort(self, round_idx):
-        with get_tracer().span("cohort-select", round=int(round_idx)):
-            return client_sampling(round_idx,
-                                   len(self.train_data_local_dict),
-                                   self.args.client_num_per_round)
+        """Cohort for one round: the seeded draw, or with resilience on
+        the over-selected cohort trimmed to its reporting subset."""
+        if self.resilience is None:
+            self._last_res_record = None
+            with get_tracer().span("cohort-select", round=int(round_idx)):
+                return client_sampling(round_idx,
+                                       len(self.train_data_local_dict),
+                                       self.args.client_num_per_round)
+        if self.pace is not None and self._last_res_record is not None:
+            # steer before sampling. The loss is the shortfall against
+            # the target C: surplus trimmed by "first C win" must not read
+            # as loss, or eps ratchets up on its own success
+            prev = self._last_res_record
+            target = min(self.args.client_num_per_round,
+                         len(self.train_data_local_dict))
+            dec = self.pace.decide(
+                outcome=("degraded" if prev["res/degraded"]
+                         else "complete"),
+                selected=target,
+                reporting=min(prev["res/reporting"], target))
+            self.resilience.policy = dataclasses.replace(
+                self.resilience.policy, overselect=dec.overselect)
+            self.program = self.program.replace(
+                cohort=dataclasses.replace(self.program.cohort,
+                                           overselect=dec.overselect))
+        # SimResilience.sample opens its own cohort-select span
+        client_indexes, record = self.resilience.sample(
+            round_idx, len(self.train_data_local_dict),
+            self.args.client_num_per_round)
+        if self.pace is not None:
+            record.update(self.pace.record())
+        self._last_res_record = record
+        return client_indexes
 
     def _cohort(self, round_idx):
         """The host-packed round's cohort: its draw and its batches,
@@ -259,6 +307,8 @@ class FedAvgAPI:
             "Train/Loss": m["loss_sum"] / max(m["count"], 1),
             "Train/Acc": m["correct"] / max(m["count"], 1),
             "round_time_s": dt}
+        if self._last_res_record is not None:
+            train_metrics.update(self._last_res_record)
         if self.bucket_runner is not None:
             b = info["bucket"]
             train_metrics.update({

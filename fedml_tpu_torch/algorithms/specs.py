@@ -49,7 +49,7 @@ def _dropout_masks(model, n, seeds, device):
 
 def make_classification_spec(model, example_x=None, num_classes=None,
                              name="classification", augment_fn=None,
-                             lane_lowering=None):
+                             aux_loss_weight=0.01, lane_lowering=None):
     """Spec for a classification ``nn.Module`` taking NHWC (or flat)
     batches.
 
@@ -61,10 +61,14 @@ def make_classification_spec(model, example_x=None, num_classes=None,
     (``seeds [K]`` seed the dropout masks of models that have dropout);
     ``lane_loss_builder`` is the packed lowering
     (``models/lane_packed.py``) picked by ``lane_lowering``, or None for
-    families without one. ``example_x`` and ``num_classes`` are accepted
-    for signature parity with the reference and unused: a torch module
-    knows its shapes."""
+    families without one. A model whose ``sows_losses`` is true takes
+    ``with_sown=True`` and returns ``(logits, aux)``; the training loss
+    then adds ``aux_loss_weight * aux`` (a model that sows nothing adds
+    nothing). ``example_x`` and ``num_classes`` are accepted for
+    signature parity with the reference and unused: a torch module knows
+    its shapes."""
     del example_x, num_classes
+    sows = getattr(model, "sows_losses", False)
     if lane_lowering not in (None,) + LOWERINGS:
         raise ValueError(f"unknown lane_lowering {lane_lowering!r}; "
                          "choose blockdiag, bgc, auto or pallas")
@@ -77,8 +81,9 @@ def make_classification_spec(model, example_x=None, num_classes=None,
             del state["batch_stats"]
         return state
 
-    def _apply(params, stats, x, train, masks=None):
-        """Logits and the new running statistics of one client. The
+    def _apply(params, stats, x, train, masks=None, with_sown=False):
+        """Logits, the new running statistics and (``with_sown``, for a
+        model that sows) the sown aux loss, else None, of one client. The
         module writes updated statistics into the buffers it is given:
         hand it copies so the caller's state stays untouched."""
         tensors = dict(params)
@@ -87,8 +92,11 @@ def make_classification_spec(model, example_x=None, num_classes=None,
         kwargs = {"train": train}
         if masks is not None:
             kwargs["dropout_masks"] = masks
-        logits = functional_call(model, tensors, (x,), kwargs)
-        return logits, stats
+        if with_sown and sows:
+            kwargs["with_sown"] = True
+            logits, aux = functional_call(model, tensors, (x,), kwargs)
+            return logits, stats, aux
+        return functional_call(model, tensors, (x,), kwargs), stats, None
 
     def _state(params, state, stats):
         new_state = {"params": params}
@@ -103,9 +111,12 @@ def make_classification_spec(model, example_x=None, num_classes=None,
                  if train else None)
         masks = None if masks is None else {k: v[0]
                                             for k, v in masks.items()}
-        logits, stats = _apply(state["params"], state.get("batch_stats", {}),
-                               x, train, masks)
+        logits, stats, aux = _apply(state["params"],
+                                    state.get("batch_stats", {}), x, train,
+                                    masks, with_sown=True)
         loss, metrics = _loss_and_metrics(logits, batch["y"], batch["mask"])
+        if aux is not None:
+            loss = loss + aux_loss_weight * aux
         return loss, (_state(state["params"], state, stats), metrics)
 
     def stacked_loss_fn(state, batch, train, seeds=None):
@@ -119,8 +130,11 @@ def make_classification_spec(model, example_x=None, num_classes=None,
             masks = _dropout_masks(model, x.shape[1], seeds[:K], x.device)
 
         def one(params, stats, x, y, mask, masks):
-            logits, new_stats = _apply(params, stats, x, train, masks)
+            logits, new_stats, aux = _apply(params, stats, x, train, masks,
+                                            with_sown=True)
             loss, metrics = _loss_and_metrics(logits, y, mask)
+            if aux is not None:
+                loss = loss + aux_loss_weight * aux
             return loss, new_stats, metrics
 
         in_dims = (0, 0, 0, 0, 0, None if masks is None else 0)
@@ -132,8 +146,9 @@ def make_classification_spec(model, example_x=None, num_classes=None,
 
     def metrics_fn(state, batch):
         with torch.no_grad():
-            logits, _ = _apply(state["params"], state.get("batch_stats", {}),
-                               batch["x"], False)
+            logits, _, _ = _apply(state["params"],
+                                  state.get("batch_stats", {}), batch["x"],
+                                  False)
             return _loss_and_metrics(logits, batch["y"], batch["mask"])[1]
 
     return TrainSpec(init_fn=init_fn, loss_fn=loss_fn, metrics_fn=metrics_fn,
@@ -157,7 +172,7 @@ def _seq_loss_and_metrics(logits, y, mask, ignore_index, dims):
 
 
 def make_seq_classification_spec(model, example_x=None, ignore_index=0,
-                                 name="nwp"):
+                                 name="nwp", aux_loss_weight=0.01):
     """Per-token cross-entropy over ``[B, T, V]`` logits with padding-id
     masking (the reference NWP trainer's ``ignore_index=0``), for a
     :class:`~fedml_tpu_torch.models.transformer.TransformerLM`.
@@ -165,33 +180,53 @@ def make_seq_classification_spec(model, example_x=None, ignore_index=0,
     ``init_fn(seed, device)`` draws the reference initialisers from a
     generator seeded with ``seed``. ``stacked_loss_fn`` trains K clients
     at once over the client axis the model writes out; ``seeds`` is
-    accepted and unused (the model draws nothing). The dense model sows
-    no auxiliary loss; the reference's ``aux_loss_weight`` comes with the
-    MoE model (ROADMAP A10). ``example_x`` is accepted for signature
-    parity with the reference and unused."""
+    accepted and unused (the model draws nothing). The training loss adds
+    ``aux_loss_weight`` times the load-balancing loss the MoE model sows,
+    per client (a model that sows nothing adds nothing); the metrics
+    leave it out, as the reference's do. Labels are ``[n, T]`` next-token
+    sequences: rank-1 labels (one next token a sample, the LEAF
+    Shakespeare flavor) raise ``ValueError``, as they do in the
+    reference. ``example_x`` is accepted for signature parity with the
+    reference and unused."""
     del example_x
+    sows = getattr(model, "sows_losses", False)
 
     def init_fn(seed, device):
         model.reset_parameters_(torch.Generator().manual_seed(int(seed)))
         return {"params": {k: v.detach().clone().to(device)
                            for k, v in model.named_parameters()}}
 
-    def loss_fn(state, batch, train, seed=0):
-        logits = model.apply_params(state["params"], batch["x"])
+    def _loss(state, batch, stacked, with_sown):
+        y = batch["y"]
+        if y.dim() != batch["x"].dim():
+            raise ValueError(
+                f"sequence labels must be [..., n, T] like the tokens: got "
+                f"labels {tuple(y.shape)} for tokens "
+                f"{tuple(batch['x'].shape)} (one next token a sample, the "
+                "LEAF Shakespeare flavor, does not train through the "
+                "sequence spec, in the reference either)")
+        out = model.apply_params(state["params"], batch["x"],
+                                 stacked=stacked,
+                                 with_sown=with_sown and sows)
+        logits, aux = out if with_sown and sows else (out, None)
         loss, metrics = _seq_loss_and_metrics(
-            logits, batch["y"], batch["mask"], ignore_index, (0, 1))
+            logits, y, batch["mask"], ignore_index,
+            (1, 2) if stacked else (0, 1))
+        if aux is not None:
+            loss = loss + aux_loss_weight * aux
+        return loss, metrics
+
+    def loss_fn(state, batch, train, seed=0):
+        loss, metrics = _loss(state, batch, False, True)
         return loss, (state, metrics)
 
     def stacked_loss_fn(state, batch, train, seeds=None):
-        logits = model.apply_params(state["params"], batch["x"],
-                                    stacked=True)
-        loss, metrics = _seq_loss_and_metrics(
-            logits, batch["y"], batch["mask"], ignore_index, (1, 2))
+        loss, metrics = _loss(state, batch, True, True)
         return loss.sum(), (state, metrics)
 
     def metrics_fn(state, batch):
         with torch.no_grad():
-            return loss_fn(state, batch, False)[1][1]
+            return _loss(state, batch, False, False)[1]
 
     return TrainSpec(init_fn=init_fn, loss_fn=loss_fn, metrics_fn=metrics_fn,
                      name=name, stacked_loss_fn=stacked_loss_fn)

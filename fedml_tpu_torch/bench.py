@@ -113,14 +113,13 @@ _SMOKE_TAG = " [SMOKE -- not baseline-comparable]"
 _UNPORTED_FLAGS = (
     ("--warmup", "ROADMAP A16 (round-program warmup)"),
     ("--compile_cache_dir", "ROADMAP A16 (compile caches)"),
-    ("--lm_data_dir", "ROADMAP A10 (the Shakespeare file loaders)"),
-    ("--lm_leaf", "ROADMAP A10 (the Shakespeare file loaders)"),
     ("--massive", "ROADMAP A10 (the massive-cohort bench)"),
     ("--buffer_k", "ROADMAP A10 (the massive-cohort bench)"),
     ("--staleness_decay", "ROADMAP A10 (the massive-cohort bench)"),
     ("--soak", "ROADMAP A13 (the control-plane soak)"),
     ("--tree", "ROADMAP A13 (the process-tree soak)"),
-    ("--steering", "ROADMAP A11 (pace steering)"),
+    ("--steering", "ROADMAP A13 (the TCP control plane) and A16 (the perf "
+     "monitor)"),
     ("--compressor", "ROADMAP A12 (compression)"),
     ("--compressors", "ROADMAP A12 (compression)"),
     ("--compression_sweep", "ROADMAP A12 (compression)"),
@@ -421,8 +420,16 @@ def run_lm_bench(args, device):
         T = SEQUENCE_LENGTH
     if args.smoke:
         d, L_layers, T, C = min(d, 64), min(L_layers, 2), min(T, 32), min(C, 8)
-    V = VOCAB_SIZE
-    dataset = _synthetic_shakespeare_clients(C, T, V)
+    if args.lm_data_dir:
+        # V and T come from the file (the smoke's cut of T does not apply)
+        from fedml_tpu_torch.data.shakespeare import load_shakespeare
+        dataset = load_shakespeare(args.lm_data_dir, client_num=C,
+                                   leaf=bool(args.lm_leaf))
+        V = dataset[7]
+        T = dataset[2]["x"].shape[1]
+    else:
+        V = VOCAB_SIZE
+        dataset = _synthetic_shakespeare_clients(C, T, V)
     model = TransformerLM(vocab_size=V, n_layers=L_layers,
                           n_heads=max(1, d // 128), d_model=d, max_len=T,
                           dtype=torch.bfloat16)
@@ -565,6 +572,11 @@ def _parser():
                         "Shakespeare 80-char window)")
     p.add_argument("--lm_chunk", type=int, default=8,
                    help="LM bench: clients per streamed chunk")
+    p.add_argument("--lm_data_dir", type=str, default=None,
+                   help="LM bench: real Shakespeare data (TFF h5 layout; "
+                        "--lm_leaf 1 for LEAF JSON). Default: synthetic "
+                        "LEAF-shaped shards")
+    p.add_argument("--lm_leaf", type=int, default=0)
     p.add_argument("--ledger", type=str,
                    default="bench_results/torch_ledger.jsonl",
                    help="perf-regression ledger of the port: every run "

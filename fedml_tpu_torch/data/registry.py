@@ -1,5 +1,6 @@
 """Dataset registry (counterpart of ``fedml_tpu/data/registry.py``): the
-synthetic sets and the CIFAR family from local files. Every other name of
+synthetic sets, the CIFAR family and Shakespeare (TFF h5 and LEAF JSON)
+from local files. Every other name of
 the reference's registry raises, naming the ROADMAP item it waits for."""
 
 from __future__ import annotations
@@ -11,8 +12,6 @@ _UNPORTED = {
     "femnist": "A14 (the TFF h5 loaders)",
     "fed_emnist": "A14 (the TFF h5 loaders)",
     "fed_cifar100": "A14 (the TFF h5 loaders)",
-    "shakespeare": "A10 (the Shakespeare file loaders)",
-    "fed_shakespeare": "A10 (the Shakespeare file loaders)",
     "stackoverflow_nwp": "A10 (data/stackoverflow.py)",
     "stackoverflow_lr": "A10 (data/stackoverflow.py)",
     "imagenet": "A14 (the image-folder loaders)",
@@ -59,6 +58,10 @@ def load_dataset(args, dataset_name):
         return load_cifar_federated(
             dataset_name, data_dir, client_num=client_num,
             partition=partition, partition_alpha=alpha, seed=seed)
+    if dataset_name in ("shakespeare", "fed_shakespeare"):
+        from fedml_tpu_torch.data.shakespeare import load_shakespeare
+        return load_shakespeare(data_dir, client_num=client_num,
+                                leaf=(dataset_name == "shakespeare"))
     if dataset_name in _UNPORTED:
         raise NotImplementedError(
             f"dataset {dataset_name!r} waits for ROADMAP "

@@ -3,14 +3,18 @@
 
 The TFF vocabulary of 86 characters with pad 0, then bos/eos and oov:
 90 ids. Sequences are padded to ``SEQUENCE_LENGTH + 1`` and split into
-(input, shifted target) pairs. :func:`synthetic_shakespeare_clients` is
-the LEAF-shaped synthetic population the LM flagship trains on when no
-data files are given (``bench.py``'s ``_synthetic_shakespeare_clients``).
-The file loaders (TFF h5, LEAF JSON) wait for data files in the repo
-(ROADMAP A10).
+(input, shifted target) pairs. :func:`load_shakespeare` reads the two
+file flavors into the 8-tuple: the TFF h5 export (``fed_shakespeare``:
+sequence labels ``y [n, T]``) and LEAF JSON (``shakespeare``: one next
+character a sample, ``y [n]``).
+:func:`synthetic_shakespeare_clients` is the LEAF-shaped synthetic
+population the LM flagship trains on when no data files are given
+(``bench.py``'s ``_synthetic_shakespeare_clients``).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -44,6 +48,101 @@ def preprocess_snippets(snippets, max_seq_len=SEQUENCE_LENGTH):
     return seqs[:, :-1], seqs[:, 1:].astype(np.int64)
 
 
+def _eight_tuple(train_local, test_local, train_num, xs_tr, ys_tr, xs_te,
+                 ys_te):
+    x_train, y_train = np.concatenate(xs_tr), np.concatenate(ys_tr)
+    x_test, y_test = np.concatenate(xs_te), np.concatenate(ys_te)
+    return [len(y_train), len(y_test),
+            {"x": x_train, "y": y_train}, {"x": x_test, "y": y_test},
+            train_num, train_local, test_local, VOCAB_SIZE]
+
+
+def load_shakespeare(data_dir, client_num=None, leaf=False):
+    """The 8-tuple of a Shakespeare split under ``data_dir``.
+    ``leaf=False`` reads the TFF h5 export (``shakespeare_{train,test}.h5``
+    with ``examples/<cid>/snippets``; clients in sorted id order, a
+    client absent from the test file gets an empty test shard);
+    ``leaf=True`` reads LEAF JSON (``train/``, ``test/``), where x holds
+    raw 80-character strings and y the next character. ``client_num``
+    keeps the first N clients."""
+    if leaf:
+        return _load_leaf_shakespeare(data_dir, client_num)
+
+    import h5py
+    train_path = os.path.join(data_dir, "shakespeare_train.h5")
+    test_path = os.path.join(data_dir, "shakespeare_test.h5")
+    for p in (train_path, test_path):
+        if not os.path.isfile(p):
+            raise FileNotFoundError(
+                f"shakespeare h5 not found: {p}. Use "
+                "dataset='synthetic_sequences' when the files are absent.")
+    train_h5 = h5py.File(train_path, "r")
+    test_h5 = h5py.File(test_path, "r")
+    try:
+        train_ids = sorted(train_h5["examples"].keys())
+        test_ids = set(test_h5["examples"].keys())
+        if client_num is not None:
+            train_ids = train_ids[:client_num]
+        train_local, test_local, train_num = {}, {}, {}
+        xs_tr, ys_tr, xs_te, ys_te = [], [], [], []
+        for i, cid in enumerate(train_ids):
+            snips = [s.decode("utf8")
+                     for s in train_h5["examples"][cid]["snippets"][()]]
+            xt, yt = preprocess_snippets(snips)
+            if cid in test_ids:
+                snips_te = [s.decode("utf8")
+                            for s in test_h5["examples"][cid]["snippets"][()]]
+                xe, ye = preprocess_snippets(snips_te)
+            else:
+                xe, ye = xt[:0], yt[:0]
+            train_local[i] = {"x": xt, "y": yt}
+            test_local[i] = {"x": xe, "y": ye}
+            train_num[i] = len(yt)
+            for acc, a in zip((xs_tr, ys_tr, xs_te, ys_te),
+                              (xt, yt, xe, ye)):
+                acc.append(a)
+    finally:
+        train_h5.close()
+        test_h5.close()
+    return _eight_tuple(train_local, test_local, train_num, xs_tr, ys_tr,
+                        xs_te, ys_te)
+
+
+def _load_leaf_shakespeare(data_dir, client_num=None):
+    """LEAF JSON Shakespeare: per user, x a list of 80-character strings
+    and y the next character of each (ids by the TFF vocabulary, oov for
+    anything else)."""
+    from fedml_tpu_torch.data.leaf import read_leaf_dir
+
+    train_users, train_data = read_leaf_dir(os.path.join(data_dir, "train"))
+    _, test_data = read_leaf_dir(os.path.join(data_dir, "test"))
+    users = train_users if client_num is None else train_users[:client_num]
+
+    def encode(xs, ys):
+        x = np.asarray([[_CHAR_TO_ID.get(c, OOV_ID) for c in s] for s in xs],
+                       np.int32)
+        y = np.asarray([_CHAR_TO_ID.get(c[0] if c else "", OOV_ID)
+                        for c in ys], np.int64)
+        return x, y
+
+    train_local, test_local, train_num = {}, {}, {}
+    xs_tr, ys_tr, xs_te, ys_te = [], [], [], []
+    for i, u in enumerate(users):
+        xt, yt = encode(train_data[u]["x"], train_data[u]["y"])
+        if u in test_data:
+            xe, ye = encode(test_data[u]["x"], test_data[u]["y"])
+        else:
+            xe, ye = xt[:0], yt[:0]
+        train_local[i] = {"x": xt, "y": yt}
+        test_local[i] = {"x": xe, "y": ye}
+        train_num[i] = len(yt)
+        for acc, a in zip((xs_tr, ys_tr, xs_te, ys_te),
+                          (xt, yt, xe, ye)):
+            acc.append(a)
+    return _eight_tuple(train_local, test_local, train_num, xs_tr, ys_tr,
+                        xs_te, ys_te)
+
+
 def synthetic_shakespeare_clients(clients, seq_len=SEQUENCE_LENGTH,
                                   vocab=VOCAB_SIZE, seed=0):
     """LEAF-Shakespeare-shaped synthetic population as the 8-tuple:
@@ -73,4 +172,4 @@ def synthetic_shakespeare_clients(clients, seq_len=SEQUENCE_LENGTH,
 
 __all__ = ["SEQUENCE_LENGTH", "CHAR_VOCAB", "VOCAB_SIZE", "PAD_ID", "BOS_ID",
            "EOS_ID", "OOV_ID", "to_ids", "preprocess_snippets",
-           "synthetic_shakespeare_clients"]
+           "load_shakespeare", "synthetic_shakespeare_clients"]

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.program.codec import CodecSpec
+from fedml_tpu_torch.resilience.integration import add_resilience_args
+from fedml_tpu_torch.resilience.steering import add_steering_args
 
 _A16_OBS = "ROADMAP A16 (the observability switchboard)"
 #: flag -> (value that runs, the ROADMAP item a change waits for)
@@ -34,22 +36,12 @@ _UNPORTED = {
     "status_path": (None, _A16_OBS), "xprof_round": (None, _A16_OBS),
     "xprof_dir": (None, _A16_OBS), "costmodel": (0, _A16_OBS),
     "enable_wandb": (0, "ROADMAP A16 (the port carries no wandb mirror)"),
-    "deadline": (0.0, "ROADMAP A11 (SimResilience)"),
-    "overselect": (0.0, "ROADMAP A11 (SimResilience)"),
-    "quorum": (0.5, "ROADMAP A11 (SimResilience)"),
-    "straggler_p": (0.0, "ROADMAP A11 (SimResilience)"),
     "transport": ("tcp", "ROADMAP A13 (the distributed control plane)"),
     "async_agg": (0, "ROADMAP A10 (async aggregation)"),
     "buffer_k": (64, "ROADMAP A10 (async aggregation)"),
     "staleness_decay": (0.5, "ROADMAP A10 (async aggregation)"),
     "flush_deadline": (0.0, "ROADMAP A10 (async aggregation)"),
     "async_window": (4, "ROADMAP A10 (async aggregation)"),
-    "pace_steering": (0, "ROADMAP A11 (pace steering)"),
-    "pace_k_bounds": ("1,4096", "ROADMAP A11 (pace steering)"),
-    "pace_flush_bounds": ("0.05,120", "ROADMAP A11 (pace steering)"),
-    "pace_deadline_bounds": ("0.05,120", "ROADMAP A11 (pace steering)"),
-    "pace_overselect_bounds": ("0,1", "ROADMAP A11 (pace steering)"),
-    "moe_experts": (8, "ROADMAP A10 (the MoE TransformerLM)"),
 }
 
 
@@ -108,7 +100,7 @@ def add_base_args(parser: argparse.ArgumentParser):
                    help="client-update compression: only none is ported "
                         "(ROADMAP A12)")
     p.add_argument("--moe_experts", type=int, default=8,
-                   help="expert count of the MoE model (ROADMAP A10)")
+                   help="expert count of --model moe_transformer")
     p.add_argument("--model_dtype", type=str, default=None,
                    choices=("bf16", "bfloat16"),
                    help="bf16 compute with fp32 master parameters")
@@ -126,14 +118,7 @@ def add_base_args(parser: argparse.ArgumentParser):
     p.add_argument("--audit", type=int, default=0)
     p.add_argument("--compile_cache_dir", type=str, default=None)
     p.add_argument("--warmup", type=int, default=0)
-    # resilience (the reference's resilience/integration.py)
-    p.add_argument("--deadline", type=float, default=0.0)
-    p.add_argument("--overselect", type=float, default=0.0)
-    p.add_argument("--quorum", type=float, default=0.5)
-    p.add_argument("--straggler_p", type=float, default=0.0)
-    p.add_argument("--transport", type=str, default="tcp",
-                   choices=("tcp", "eventloop"))
-    p.add_argument("--race_audit", type=int, default=0)
+    add_resilience_args(p)
     # buffered async aggregation and bucketed streaming
     p.add_argument("--async_agg", type=int, default=0)
     p.add_argument("--buffer_k", type=int, default=64)
@@ -143,12 +128,7 @@ def add_base_args(parser: argparse.ArgumentParser):
     p.add_argument("--bucket_edges", type=str, default=None,
                    help="bucketed ragged streaming: 'geometric' or a comma "
                         "list of local-step edges")
-    # pace steering
-    p.add_argument("--pace_steering", type=int, default=0)
-    p.add_argument("--pace_k_bounds", type=str, default="1,4096")
-    p.add_argument("--pace_flush_bounds", type=str, default="0.05,120")
-    p.add_argument("--pace_deadline_bounds", type=str, default="0.05,120")
-    p.add_argument("--pace_overselect_bounds", type=str, default="0,1")
+    add_steering_args(p)
     # observability
     p.add_argument("--trace", type=int, default=0)
     p.add_argument("--trace_dir", type=str, default=None)

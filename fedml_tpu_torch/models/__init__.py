@@ -3,6 +3,8 @@ public forward, like the reference)."""
 
 from fedml_tpu_torch.models.cnn import CNNDropOut, CNNOriginalFedAvg  # noqa: F401
 from fedml_tpu_torch.models.linear import LogisticRegression  # noqa: F401
+from fedml_tpu_torch.models.moe import (  # noqa: F401
+    MoEBlock, MoEMLP, MoETransformerLM)
 from fedml_tpu_torch.models.resnet import (  # noqa: F401
     CifarResNet, resnet56, resnet110)
 from fedml_tpu_torch.models.transformer import (  # noqa: F401

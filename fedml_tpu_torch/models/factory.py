@@ -1,6 +1,6 @@
 """Model factory (counterpart of ``fedml_tpu/models/factory.py``): the
 names ``lr``, ``cnn``, ``cnn_dropout``, ``resnet56``, ``resnet110``,
-``transformer`` and ``transformer_nwp``. Every other name of the
+``transformer``, ``transformer_nwp`` and ``moe_transformer``. Every other name of the
 reference's zoo raises, naming the ROADMAP item it waits for."""
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import torch
 
 from fedml_tpu_torch.models.cnn import CNNDropOut, CNNOriginalFedAvg
 from fedml_tpu_torch.models.linear import LogisticRegression
+from fedml_tpu_torch.models.moe import MoETransformerLM
 from fedml_tpu_torch.models.resnet import resnet56, resnet110
 from fedml_tpu_torch.models.transformer import transformer_nwp
 
@@ -20,7 +21,6 @@ _UNPORTED = {
     "mobilenet": "A14", "mobilenet_v3": "A14", "vgg11": "A14",
     "vgg13": "A14", "vgg16": "A14", "vgg19": "A14", "rnn": "A14",
     "rnn_fed_shakespeare": "A14", "rnn_stackoverflow": "A10",
-    "moe_transformer": "A10",
 }
 
 
@@ -53,6 +53,10 @@ def create_model(args, model_name, output_dim, input_shape=None):
         return resnet110(class_num=output_dim, dtype=dtype)
     if model_name in ("transformer", "transformer_nwp"):
         return transformer_nwp(vocab_size=output_dim, dtype=dtype)
+    if model_name == "moe_transformer":
+        experts = getattr(args, "moe_experts", 8) if args else 8
+        return MoETransformerLM(vocab_size=output_dim, n_experts=experts,
+                                dtype=dtype)
     item = _UNPORTED.get(model_name)
     if item is None and model_name.startswith("efficientnet"):
         item = "A14"

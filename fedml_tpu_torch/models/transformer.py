@@ -13,6 +13,13 @@ Attention is the hand-written flash attention
 (:func:`fedml_tpu_torch.ops.flash_attention.flash_attention`, causal)
 unless ``attention_fn(q, k, v)`` (all ``[B, T, H, D]``) is given.
 
+``mlp_factory`` swaps each block's dense MLP for an alternative over
+one client's flattened ``[B*T, C]`` tokens (the reference's ``_Block``
+seam, taken by :mod:`fedml_tpu_torch.models.moe`): the block adds its
+output to the residual, and ``apply_params(with_sown=True)`` also
+returns the auxiliary losses such MLPs sow, summed over the blocks per
+client (0 for the dense model).
+
 The module holds its parameters under torch names (``tok_embed.weight``,
 ``blocks.{i}.qkv.weight`` ``[3C, C]``, ...; ``utils/torch_import.py``
 carries the reference's variables across) and applies them
@@ -77,17 +84,23 @@ def embed(table, idx, dtype):
 
 class _Block(nn.Module):
     """Parameter holder of one pre-LN block (applied by
-    :meth:`TransformerLM.apply_params`)."""
+    :meth:`TransformerLM.apply_params`). ``mlp_factory()`` builds the
+    module that replaces the dense MLP (held as ``moe``); it applies as
+    ``moe.apply_params(params, h [K, N, C], dtype) -> (y, aux [K])``."""
 
-    def __init__(self, d_model, mlp_ratio):
+    def __init__(self, d_model, mlp_ratio, mlp_factory=None):
         super().__init__()
         C = d_model
         self.ln1 = nn.LayerNorm(C, eps=LN_EPS)
         self.qkv = nn.Linear(C, 3 * C, bias=False)
         self.proj = nn.Linear(C, C, bias=False)
         self.ln2 = nn.LayerNorm(C, eps=LN_EPS)
-        self.mlp_up = nn.Linear(C, mlp_ratio * C)
-        self.mlp_down = nn.Linear(mlp_ratio * C, C)
+        if mlp_factory is not None:
+            self.moe = mlp_factory()
+        else:
+            self.moe = None
+            self.mlp_up = nn.Linear(C, mlp_ratio * C)
+            self.mlp_down = nn.Linear(mlp_ratio * C, C)
 
 
 class TransformerLM(nn.Module):
@@ -95,11 +108,15 @@ class TransformerLM(nn.Module):
 
     ``dtype`` is the compute dtype (parameters stay fp32).
     ``attention_fn(q, k, v) -> out`` (all ``[B, T, H, D]``) overrides the
-    flash-attention kernels."""
+    flash-attention kernels; ``mlp_factory`` swaps the blocks' MLP."""
+
+    #: whether ``apply_params(with_sown=True)`` can return a nonzero aux
+    sows_losses = False
 
     def __init__(self, vocab_size, n_layers=4, n_heads=4, d_model=256,
                  max_len=2048, mlp_ratio=4, dtype: Any = torch.float32,
-                 attention_fn: Optional[Callable] = None):
+                 attention_fn: Optional[Callable] = None,
+                 mlp_factory: Optional[Callable] = None):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model={d_model} is not a multiple of "
@@ -111,7 +128,7 @@ class TransformerLM(nn.Module):
         self.dtype, self.attention_fn = dtype, attention_fn
         self.tok_embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Embedding(max_len, d_model)
-        self.blocks = nn.ModuleList(_Block(d_model, mlp_ratio)
+        self.blocks = nn.ModuleList(_Block(d_model, mlp_ratio, mlp_factory)
                                     for _ in range(n_layers))
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
         self.head = nn.Linear(d_model, vocab_size)
@@ -120,10 +137,13 @@ class TransformerLM(nn.Module):
         """The reference's initialisers, drawn from ``generator``:
         embeddings normal with variance 1/d_model, Dense kernels
         lecun-normal (fan-in variance, truncated at two standard
-        deviations), Dense biases 0, LayerNorm scale 1 and bias 0."""
+        deviations), Dense biases 0, LayerNorm scale 1 and bias 0; a
+        block MLP with its own ``reset_parameters_`` draws the rest."""
         with torch.no_grad():
             for m in self.modules():
-                if isinstance(m, nn.Embedding):
+                if hasattr(m, "reset_parameters_") and m is not self:
+                    m.reset_parameters_(generator)
+                elif isinstance(m, nn.Embedding):
                     nn.init.normal_(m.weight, 0.0,
                                     1.0 / math.sqrt(m.weight.shape[1]),
                                     generator=generator)
@@ -144,10 +164,12 @@ class TransformerLM(nn.Module):
             return self.attention_fn(q, k, v)
         return flash_attention(q, k, v, True)
 
-    def apply_params(self, params, idx, stacked=False):
+    def apply_params(self, params, idx, stacked=False, with_sown=False):
         """Logits of ``idx`` under ``params`` (``{name: tensor}``). With
         ``stacked=True`` every parameter has a leading client axis K and
-        ``idx`` is ``[K, B, T]``; the logits are then ``[K, B, T, V]``."""
+        ``idx`` is ``[K, B, T]``; the logits are then ``[K, B, T, V]``.
+        ``with_sown=True`` returns ``(logits, aux)``: the blocks' sown
+        auxiliary losses summed per client (``[K]``, or a scalar)."""
         if not stacked:
             params = {k: v.unsqueeze(0) for k, v in params.items()}
             idx = idx.unsqueeze(0)
@@ -157,6 +179,7 @@ class TransformerLM(nn.Module):
         D = C // H
         x = (embed(P["tok_embed.weight"], idx, dt)
              + P["pos_embed.weight"][:, None, :T].to(dt))
+        aux = torch.zeros(K, device=idx.device)
         for i in range(self.n_layers):
             p = lambda n: P[f"blocks.{i}.{n}"]
             h = layer_norm(x, p("ln1.weight"), p("ln1.bias"), dt)
@@ -166,13 +189,25 @@ class TransformerLM(nn.Module):
             att = self._attend(q, k, v).reshape(K, B, T, C)
             x = x + dense(att, p("proj.weight"), None, dt)
             h = layer_norm(x, p("ln2.weight"), p("ln2.bias"), dt)
+            moe = self.blocks[i].moe
+            if moe is not None:
+                # one client's [B*T, C] tokens route together
+                prefix = f"blocks.{i}.moe."
+                y, a = moe.apply_params(
+                    {k[len(prefix):]: v for k, v in P.items()
+                     if k.startswith(prefix)}, h.reshape(K, B * T, C), dt)
+                x = x + y.reshape(K, B, T, C)
+                aux = aux + a
+                continue
             h = F.gelu(dense(h, p("mlp_up.weight"), p("mlp_up.bias"), dt),
                        approximate="tanh")
             x = x + dense(h, p("mlp_down.weight"), p("mlp_down.bias"), dt)
         x = layer_norm(x, P["ln_f.weight"], P["ln_f.bias"], dt)
         logits = dense(x.float(), P["head.weight"], P["head.bias"],
                        torch.float32)
-        return logits if stacked else logits[0]
+        if not stacked:
+            logits, aux = logits[0], aux[0]
+        return (logits, aux) if with_sown else logits
 
     def forward(self, idx):
         return self.apply_params(dict(self.named_parameters()), idx)

@@ -16,7 +16,11 @@ TransformerLM (:func:`lm_variables_to_state`): ``tok_embed``/``pos_embed``
 bias}`` -> ``blocks.{i}.{ln1,ln2}.{weight,bias}``; the ``qkv``/``proj``
 kernels (no bias) and ``mlp_up``/``mlp_down`` kernel and bias ->
 ``blocks.{i}.<name>.weight`` ``[out, in]`` (and ``.bias``); ``ln_f`` and
-``head`` alike. The port's state is ``{"params": {...}}``.
+``head`` alike. The port's state is ``{"params": {...}}``. The MoE
+TransformerLM's blocks hold ``block{i}/moe`` in place of the MLP: its
+``router`` is a Dense (kernel transposed, with bias) ->
+``blocks.{i}.moe.router.{weight,bias}``, and ``wi [E, C, H]`` / ``wo [E,
+H, C]`` are einsum parameters -> ``blocks.{i}.moe.{wi,wo}`` untransposed.
 
 LR and the CNNs (:func:`zoo_variables_to_state`): every layer sits at
 the top of ``params`` (``linear``; ``conv1``, ``conv2``, ``fc1``,
@@ -132,8 +136,9 @@ def state_to_variables(state, depth):
     return {"params": params, "batch_stats": stats}
 
 
-def _lm_modules(n_layers):
-    """``(flax path, torch prefix, kind)`` for every TransformerLM layer."""
+def _lm_modules(n_layers, moe=False):
+    """``(flax path, torch name or prefix, kind)`` for every layer of a
+    TransformerLM (``moe``: of an MoE TransformerLM)."""
     out = [(("tok_embed",), "tok_embed", "embed"),
            (("pos_embed",), "pos_embed", "embed")]
     for i in range(n_layers):
@@ -141,9 +146,14 @@ def _lm_modules(n_layers):
         out += [((blk, "ln1"), f"{tp}.ln1", "ln"),
                 ((blk, "qkv"), f"{tp}.qkv", "dense"),
                 ((blk, "proj"), f"{tp}.proj", "dense"),
-                ((blk, "ln2"), f"{tp}.ln2", "ln"),
-                ((blk, "mlp_up"), f"{tp}.mlp_up", "dense"),
-                ((blk, "mlp_down"), f"{tp}.mlp_down", "dense")]
+                ((blk, "ln2"), f"{tp}.ln2", "ln")]
+        if moe:
+            out += [((blk, "moe", "router"), f"{tp}.moe.router", "dense"),
+                    ((blk, "moe", "wi"), f"{tp}.moe.wi", "raw"),
+                    ((blk, "moe", "wo"), f"{tp}.moe.wo", "raw")]
+        else:
+            out += [((blk, "mlp_up"), f"{tp}.mlp_up", "dense"),
+                    ((blk, "mlp_down"), f"{tp}.mlp_down", "dense")]
     return out + [(("ln_f",), "ln_f", "ln"), (("head",), "head", "dense")]
 
 
@@ -152,10 +162,13 @@ def lm_variables_to_state(variables, device="cpu"):
     client-stacked) -> fp32 port state ``{"params": ...}`` on ``device``."""
     params = variables["params"]
     n_layers = sum(1 for k in params if k.startswith("block"))
+    moe = n_layers > 0 and "moe" in params["block0"]
     p = {}
-    for path, tp, kind in _lm_modules(n_layers):
+    for path, tp, kind in _lm_modules(n_layers, moe):
         mp = _get(params, path)
-        if kind == "embed":
+        if kind == "raw":
+            p[tp] = np.asarray(mp)
+        elif kind == "embed":
             p[f"{tp}.weight"] = np.asarray(mp["embedding"])
         elif kind == "ln":
             p[f"{tp}.weight"] = np.asarray(mp["scale"])
@@ -174,9 +187,12 @@ def lm_state_to_variables(state):
     TransformerLM variables as nested numpy dicts."""
     p = {k: v.detach().cpu().numpy() for k, v in state["params"].items()}
     n_layers = len({k.split(".")[1] for k in p if k.startswith("blocks.")})
+    moe = "blocks.0.moe.wi" in p
     params = {}
-    for path, tp, kind in _lm_modules(n_layers):
-        if kind == "embed":
+    for path, tp, kind in _lm_modules(n_layers, moe):
+        if kind == "raw":
+            _put(params, path, p[tp])
+        elif kind == "embed":
             _put(params, path, {"embedding": p[f"{tp}.weight"]})
         elif kind == "ln":
             _put(params, path, {"scale": p[f"{tp}.weight"],

@@ -265,14 +265,14 @@ def test_algo_fedopt_builds_the_server_adam_line():
 @pytest.mark.parametrize("argv,item", [
     (["--buffer_k", "8"], "A10"),
     (["--compressor", "topk:0.1"], "A12"),
-    (["--lm_leaf", "1"], "A10"),
+    (["--staleness_decay", "0.1"], "A10"),
     (["--warmup", "1"], "A16"),
     (["--compile_cache_dir", "/nonexistent"], "A16"),
-    (["--lm", "--lm_data_dir", "/nonexistent"], "A10"),
+    (["--lm", "--massive"], "A10"),
     (["--massive_cohort"], "A10"),
     (["--soak", "100"], "A13"),
     (["--tree_soak"], "A13"),
-    (["--steering"], "A11"),
+    (["--steering"], "A13"),
     (["--compression_sweep"], "A12"),
     (["--check"], "A12"),
 ])

@@ -140,7 +140,7 @@ def test_load_dataset_is_byte_equal(name, kw):
 @pytest.mark.parametrize("name,item", [
     ("synthetic_segmentation", "A14"), ("pascal_voc", "A14"),
     ("mnist", "A14"), ("femnist", "A14"), ("fed_cifar100", "A14"),
-    ("shakespeare", "A10"), ("fed_shakespeare", "A10"),
+    ("fed_emnist", "A14"), ("coco_seg", "A14"),
     ("stackoverflow_nwp", "A10"), ("stackoverflow_lr", "A10"),
     ("imagenet", "A14"), ("gld23k", "A14")])
 def test_registry_refuses_unported_names(name, item):
