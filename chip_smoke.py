@@ -76,7 +76,24 @@ Phases (any failure exits non-zero):
    the same weights, at T 20 and at T 80 on LEAF-shaped synthetic
    Shakespeare clients: no token routed to another expert, and loss, aux
    loss, logits and gradients within ``MOE_TOL``;
-9. print the ``kernels`` JSON line and, last, the ``ok`` line.
+9. run the massive-cohort path (``phase_massive_async``): the bench's
+   ``--massive_cohort`` at its uncut N of 50,000 ragged LR clients
+   (chunks of 128) synchronously and with ``--massive_async 1``
+   (``buffer_k`` 2048, decay 0.5, window 4), a warmup and 2 measured
+   rounds each, on the ``native`` packing backend: about ceil(N /
+   buffer_k) flushes a round, a staleness above 0 and the same true
+   steps in both; ``main_fedavg --async_agg 1`` and ``main_fedopt
+   --async_agg 1 --bucket_edges geometric`` (LR defaults), their
+   ``async/*`` and ``bucket/*`` counters equal to the CPU's; the full-width StackOverflow next-word LSTM
+   (``RNNStackOverflow`` at vocabulary 10,000: 4.05 M fp32 parameters)
+   on a population of 500 in-memory clients tokenized by the port's
+   ``tokens_to_ids``, 50 a round, batch 16, through the async bucketed
+   path (chunks of 8, ``buffer_k`` 16) for 2 rounds; one fp32 step of 2
+   clients x batch 16 on the card against the CPU from the same weights
+   within ``LSTM_TOL``; and a bucketed round of ResNet-56 (fp32) with
+   the CIFAR augmentation on the streamed client update, against the
+   same round without it;
+10. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -923,6 +940,271 @@ def phase_resilience_moe(torch, fa, smi):
     return launches
 
 
+#: the StackOverflow next-word task (Reddi et al., Adaptive Federated
+#: Optimization): 50 clients a round, batch 16, 1 local epoch; a
+#: population of 500 in-memory clients over a 10,000-word vocabulary
+SO_VOCAB, SO_CLIENTS, SO_PER_ROUND, SO_BATCH = 10_000, 500, 50, 16
+#: card (fp32) against CPU (fp32) for one LSTM step of 2 clients x batch
+#: 16, bounded as ``MOE_TOL`` bounds the MoE step: logits 1e-3 *
+#: max|logit| + 1e-4, loss 1e-4 absolute (the
+#: summed loss of two clients is about 18; fp32 sums of a few thousand
+#: terms in another order move it by about 1e-6), gradients 1e-3 *
+#: max|grad| + 1e-6
+LSTM_TOL = {"logits": (1e-3, 1e-4), "loss": 1e-4, "grad": (1e-3, 1e-6)}
+
+
+def stackoverflow_population(clients, vocab_size, seed=0):
+    """A StackOverflow-shaped population in memory: each client's
+    sentence count lognormal(3, 1) clipped to 1-256, each sentence 4-30
+    words drawn from a synthetic vocabulary of ``vocab_size`` words,
+    tokenized by the port's ``tokens_to_ids`` (T 20, no word outside the
+    vocabulary) and checked on the host; the 8-tuple, with a test set of
+    the first 256 sequences."""
+    import numpy as np
+
+    from fedml_tpu_torch.data.stackoverflow import check_nwp_ids, tokens_to_ids
+
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(vocab_size)]
+    vocab = {w: i for i, w in enumerate(words)}
+    counts = np.clip(rng.lognormal(3.0, 1.0, clients), 1, 256).astype(int)
+    local, num, xs, ys = {}, {}, [], []
+    for c, n in enumerate(counts):
+        lens = rng.integers(4, 31, n)
+        ids = rng.integers(0, vocab_size, int(lens.sum()))
+        sents, off = [], 0
+        for k in lens:
+            sents.append(" ".join(words[i] for i in ids[off:off + k]))
+            off += k
+        seqs = np.asarray([tokens_to_ids(s, vocab) for s in sents], np.int32)
+        local[c] = {"x": seqs[:, :-1], "y": seqs[:, 1:].astype(np.int64)}
+        num[c] = int(n)
+        xs.append(local[c]["x"])
+        ys.append(local[c]["y"])
+    x, y = np.concatenate(xs), np.concatenate(ys)
+    check_nwp_ids(x, y, vocab_size)
+    test = {"x": x[:256], "y": y[:256]}
+    return [len(y), len(test["y"]), {"x": x, "y": y}, test, num, local,
+            {0: test}, vocab_size + 4]
+
+
+def build_stackoverflow_api(torch, dataset, device=None):
+    """``FedAvgAPI`` of the full-width next-word LSTM through the async
+    bucketed path, as ``bench.py`` builds its APIs."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.specs import make_seq_classification_spec
+    from fedml_tpu_torch.models.rnn import RNNStackOverflow
+
+    model = RNNStackOverflow(vocab_size=dataset[7] - 4)
+    args = types.SimpleNamespace(
+        client_num_in_total=len(dataset[5]), client_num_per_round=SO_PER_ROUND,
+        comm_round=10 ** 9, epochs=1, batch_size=SO_BATCH, lr=0.3, wd=0.0,
+        client_optimizer="sgd", frequency_of_the_test=10 ** 9, seed=0,
+        client_chunk=8, bucket_edges="geometric", device_resident="0",
+        async_agg=1, buffer_k=16, staleness_decay=0.5, async_window=4)
+    return FedAvgAPI(dataset, make_seq_classification_spec(model), args,
+                     device=device), model
+
+
+def lstm_step(torch, model, params, batch, device):
+    """One fp32 training step of the stacked next-word LSTM on ``device``:
+    the loss, the logits and the gradients, back on the CPU."""
+    from fedml_tpu_torch.algorithms.specs import make_seq_classification_spec
+
+    P = {k: v.to(device).requires_grad_() for k, v in params.items()}
+    b = {k: v.to(device) for k, v in batch.items()}
+    loss, _ = make_seq_classification_spec(model).stacked_loss_fn(
+        {"params": P}, b, True)
+    loss.backward()
+    with torch.no_grad():
+        logits = model.apply_params(P, b["x"], stacked=True)
+    return {"loss": float(loss.detach()), "logits": logits.cpu(),
+            "grads": {k: v.grad.cpu() for k, v in P.items()}}
+
+
+def _massive_runs(bench, smi):
+    """The bench's massive cohort at its uncut N, synchronous and async:
+    both records, each held to its checks."""
+    recs = {}
+    for label, extra in (("sync", []), ("async", ["--massive_async", "1"])):
+        rec = bench.main(["--massive_cohort", "--rounds", "2",
+                          "--ledger", ""] + extra)
+        if "error" in rec:
+            fail(f"massive {label}: {rec['error']}")
+        if rec["packing_backend"] != "native":
+            fail(f"massive {label}: packing backend "
+                 f"{rec['packing_backend']}, the card machine builds the "
+                 "native shim")
+        if not (rec["value"] > 0 and math.isfinite(rec["train_loss"])):
+            fail(f"massive {label}: value {rec['value']}, loss "
+                 f"{rec['train_loss']}")
+        keys = ("value", "round_s", "round_times_s", "compile_s", "chunks",
+                "executed_steps", "true_steps", "bucket_waste_frac",
+                "train_loss", "packing_backend", "peak_memory_gb",
+                "phase_totals_s")
+        print(f"massive_async run={label} "
+              + json.dumps({k: rec[k] for k in keys})
+              + f" async={json.dumps(rec.get('async'))} card={smi}",
+              flush=True)
+        recs[label] = rec
+    n = recs["async"]["clients_per_round"]
+    a = recs["async"]["async"]
+    want = math.ceil(n / 2048)
+    if abs(a["flushes_this_round"] - want) > 1 or a["max_staleness"] <= 0:
+        fail(f"massive async: {a['flushes_this_round']} flushes a round "
+             f"(about {want} expected), max staleness {a['max_staleness']}")
+    if recs["sync"]["true_steps"] != recs["async"]["true_steps"]:
+        fail(f"massive: true steps {recs['sync']['true_steps']} (sync) != "
+             f"{recs['async']['true_steps']} (async)")
+    return recs
+
+
+def _stackoverflow_runs(torch, smi):
+    """The full-width next-word LSTM through 2 async bucketed rounds, then
+    the card-vs-CPU fp32 step check."""
+    dataset = stackoverflow_population(SO_CLIENTS, SO_VOCAB)
+    torch.cuda.reset_peak_memory_stats()
+    api, model = build_stackoverflow_api(torch, dataset)
+    n_params = sum(v.numel() for v in api.global_state["params"].values())
+    records = [api.train_one_round() for _ in range(2)]
+    records[-1].update(api.evaluate_global())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in records:
+        if not (math.isfinite(r["Train/Loss"])
+                and r["async/flushes_this_round"] >= 1
+                and r["bucket/clients"] == SO_PER_ROUND):
+            fail(f"stackoverflow round {r}")
+    if records[-1]["async/max_staleness"] <= 0:
+        fail(f"stackoverflow: no stale fold in {records[-1]}")
+    print(f"massive_async run=stackoverflow_nwp params={n_params} "
+          f"s_per_round={[r['round_time_s'] for r in records]} "
+          f"chunks={[r['bucket/chunks'] for r in records]} "
+          f"flushes={[r['async/flushes_this_round'] for r in records]} "
+          f"max_staleness={records[-1]['async/max_staleness']} "
+          f"train_loss={[r['Train/Loss'] for r in records]} "
+          f"test_loss={records[-1]['Test/Loss']} "
+          f"peak_memory_gb={peak_gb:.3f} card={smi}", flush=True)
+
+    params = {k: torch.stack([v, v]).cpu() for k, v in
+              api.global_state["params"].items()}
+    pair = [c for c, n in dataset[4].items() if n >= SO_BATCH][:2]
+    batch = {k: torch.stack([torch.as_tensor(dataset[5][c][k][:SO_BATCH])
+                             for c in pair]) for k in ("x", "y")}
+    batch["mask"] = torch.ones(2, SO_BATCH)
+    card = lstm_step(torch, model, params, batch, torch.device("cuda"))
+    cpu = lstm_step(torch, model, params, batch, torch.device("cpu"))
+    rel, abs_ = LSTM_TOL["logits"]
+    logit_err = _check("LSTM logits card vs CPU", card["logits"],
+                       cpu["logits"], rel, abs_)
+    loss_err = abs(card["loss"] - cpu["loss"])
+    grel, gabs = LSTM_TOL["grad"]
+    grad_err = max(float((card["grads"][k] - g).abs().max())
+                   - grel * float(g.abs().max()) - gabs
+                   for k, g in cpu["grads"].items())
+    out = {"loss": cpu["loss"], "loss_err": loss_err,
+           "logit_err": logit_err, "grad_err_over_tol": grad_err}
+    if loss_err > LSTM_TOL["loss"] or grad_err > 0.0:
+        fail(f"LSTM step card vs CPU past LSTM_TOL: {out}")
+    print(f"massive_async step=lstm_fp32 shape={list(batch['x'].shape)} "
+          f"{json.dumps(out)} card={smi}", flush=True)
+
+
+def _augmented_round(torch, augment):
+    """One bucketed round of ResNet-56 (fp32) on the experiment phase's
+    CIFAR-shaped data (8 clients, 4,096 32x32 samples), batch 64, with or
+    without the CIFAR augmentation on the streamed client update."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.specs import make_classification_spec
+    from fedml_tpu_torch.data.augment import make_cifar_augment
+    from fedml_tpu_torch.data.synthetic import load_synthetic_images
+    from fedml_tpu_torch.models import resnet56
+
+    dataset = load_synthetic_images(
+        client_num=8, n_train=4096, n_test=256, image_size=32,
+        partition="hetero", partition_alpha=0.5, seed=0)
+    spec = make_classification_spec(
+        resnet56(class_num=10),
+        augment_fn=(make_cifar_augment(pad=4, cutout_length=16)
+                    if augment else None))
+    args = types.SimpleNamespace(
+        client_num_in_total=8, client_num_per_round=8, comm_round=1,
+        epochs=1, batch_size=B, lr=0.01, wd=0.001, client_optimizer="sgd",
+        frequency_of_the_test=10 ** 9, seed=0, client_chunk=L,
+        bucket_edges="geometric", device_resident="0")
+    api = FedAvgAPI(dataset, spec, args)
+    rec = api.train_one_round()
+    return api, rec
+
+
+#: the experiment mains' async path on LR at the reference's defaults
+EXP_ASYNC = ["--async_agg", "1", "--buffer_k", "4", "--client_chunk", "2",
+             "--comm_round", "2"]
+
+
+def _async_mains(smi):
+    """``main_fedavg --async_agg 1`` and ``main_fedopt --async_agg 1
+    --bucket_edges geometric`` on the card, each round's ``async/*`` and
+    ``bucket/*`` counters equal to the same command's on the CPU (they
+    are host bookkeeping: the schedule, the folds and the flushes)."""
+    for main, extra in (("main_fedavg", []),
+                        ("main_fedopt", ["--bucket_edges", "geometric"])):
+        api, times = _experiment(EXP_ASYNC + extra, main=main)
+        cpu, _ = _experiment_cpu(EXP_ASYNC + extra + ["--platform", "cpu"],
+                                 main)
+        counters = lambda h: [{k: v for k, v in r.items()
+                               if k.startswith(("async/", "bucket/"))}
+                              for r in h]
+        if counters(api.history) != counters(cpu.history):
+            fail(f"{main} --async_agg 1: card counters "
+                 f"{counters(api.history)} differ from the CPU's "
+                 f"{counters(cpu.history)}")
+        print(f"massive_async run={main}_async_agg s_per_round={times} "
+              f"flushes={[r['async/flushes_this_round'] for r in api.history]} "
+              f"train_loss={[r['Train/Loss'] for r in api.history]} "
+              f"cpu_train_loss={[r['Train/Loss'] for r in cpu.history]} "
+              f"card={smi}", flush=True)
+
+
+def _experiment_cpu(argv, main):
+    import importlib
+    module = importlib.import_module(f"fedml_tpu_torch.experiments.{main}")
+    return module.main(argv)
+
+
+def phase_massive_async(torch, smi):
+    """The massive-cohort path on the card: the bench's uncut massive
+    cohort (sync and async), the experiment mains with ``--async_agg
+    1``, the full-width StackOverflow LSTM through the async bucketed
+    rounds with its card-vs-CPU step, and streamed augmentation on
+    ResNet-56. Prints what each run measured beside the
+    card's name and power limit."""
+    from fedml_tpu_torch import bench
+
+    t0 = time.time()
+    _massive_runs(bench, smi)
+    _async_mains(smi)
+    _stackoverflow_runs(torch, smi)
+    aug, rec = _augmented_round(torch, True)
+    plain, plain_rec = _augmented_round(torch, False)
+    bucket = {k: v for k, v in rec.items() if k.startswith("bucket/")}
+    diff = max(float((aug.global_state["params"][k]
+                      - plain.global_state["params"][k]).abs().max())
+               for k in aug.global_state["params"])
+    if not (math.isfinite(rec["Train/Loss"]) and bucket
+            and aug.bucket_runner is not None and diff > 0.0):
+        fail(f"streamed augmentation: loss {rec['Train/Loss']}, bucket "
+             f"{bucket}, augmented vs plain param diff {diff}")
+    print(f"massive_async run=resnet56_streamed_augment "
+          f"s_per_round={rec['round_time_s']} "
+          f"plain_s_per_round={plain_rec['round_time_s']} "
+          f"train_loss={rec['Train/Loss']} "
+          f"plain_train_loss={plain_rec['Train/Loss']} "
+          f"augment_vs_plain_param_diff={diff} {json.dumps(bucket)} "
+          f"card={smi}", flush=True)
+    print(f"massive_async phase_s={time.time() - t0:.1f} card={smi}",
+          flush=True)
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -1090,6 +1372,7 @@ def main():
     phase_experiment_main(torch, fa, grouped_conv, smi)
     phase_fedavg_family(torch, fa, smi)
     phase_resilience_moe(torch, fa, smi)
+    phase_massive_async(torch, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

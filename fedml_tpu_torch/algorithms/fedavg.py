@@ -1,9 +1,11 @@
 """FedAvg round loop (counterpart of ``fedml_tpu/algorithms/fedavg.py``)
 on one device, along every single-device path of the reference:
 
-- ``--bucket_edges``: the cohort's raw shards stream through
-  ``BucketedStreamRunner`` chunk by chunk, folded on the host in fp64
-  (the synchronous fold; ``--async_agg`` waits for ROADMAP A10);
+- ``--bucket_edges`` or ``--async_agg``: the cohort's raw shards stream
+  through ``BucketedStreamRunner`` chunk by chunk, folded on the host in
+  fp64, synchronously, or under ``--async_agg`` through the program's
+  ``BufferedAggregator`` (built once, its version and counters living
+  across rounds; ``async/*`` rides every round record);
 - shards resident on the device (when they fit ``device_data_cap_gb``
   and ``device_resident`` is not off): a round is a seeded cohort draw,
   an index schedule and one of ``--wave_mode`` 1 (size-sorted waves,
@@ -39,8 +41,10 @@ from fedml_tpu_torch.parallel.engine import (ClientUpdateConfig, LaneRunner,
                                              make_indexed_sim_round)
 from fedml_tpu_torch.parallel.packing import (_steps_for, pack_cohort,
                                               pack_eval, pack_schedule,
+                                              packing_backend,
                                               parse_bucket_edges,
                                               stack_clients)
+from fedml_tpu_torch.program.aggregation import AggregationPolicy
 from fedml_tpu_torch.program.cohort import client_sampling
 from fedml_tpu_torch.program.round import RoundProgram
 from fedml_tpu_torch.resilience.integration import SimResilience
@@ -50,7 +54,6 @@ from fedml_tpu_torch.utils.device import resolve_device
 # reference args whose non-default values select a path not ported yet
 _UNPORTED = {
     "compressor": "ROADMAP A12 (compression)",
-    "async_agg": "ROADMAP A10 (the bucketed path's async aggregator)",
 }
 
 #: ``local-train`` span mode of each resident ``wave_mode``
@@ -109,8 +112,15 @@ class FedAvgAPI:
                                                  server_fn)
         self.eval_fn = make_eval_fn(spec)
         self.bucket_runner = None
-        if getattr(args, "bucket_edges", None) is not None:
+        self.async_agg = None
+        self._async_window = 4
+        async_policy = AggregationPolicy.from_args(args)
+        if (getattr(args, "bucket_edges", None) is not None
+                or async_policy is not None):
             self._init_bucketed(spec, args, payload_fn, server_fn)
+            if async_policy is not None:
+                self.async_agg = self.program.host_view().make_aggregator()
+                self._async_window = async_policy.async_window
 
         self.device_data = None
         self.packed_lane_runner = None
@@ -284,7 +294,9 @@ class FedAvgAPI:
                 (self.global_state, self.server_state,
                  info) = self.bucket_runner.run_round(
                     self.global_state, self.server_state, datasets,
-                    round_seed, data_rng=self._data_rng)
+                    round_seed, data_rng=self._data_rng,
+                    aggregator=self.async_agg,
+                    async_window=self._async_window)
             self._last_bucket_info = info
         elif self.device_data is not None:
             info = self._resident_round(tracer, round_seed)
@@ -318,6 +330,11 @@ class FedAvgAPI:
                 "bucket/executed_steps": b["executed_steps"],
                 "bucket/true_steps": b["true_steps"],
                 "bucket/waste_frac": b["waste_frac"]})
+            # the buffer's counters ride every round record on async runs
+            train_metrics.update(info.get("async") or {})
+            if self.round_idx == 0:
+                # the two backends shuffle from different PRNG families
+                train_metrics["packing_backend"] = packing_backend()
         return train_metrics
 
     def _resident_round(self, tracer, round_seed):
@@ -330,8 +347,7 @@ class FedAvgAPI:
                              f"client has an empty shard")
         with tracer.span("broadcast", clients=len(client_indexes)):
             sched = pack_schedule(ns, self.args.batch_size,
-                                  self.args.epochs, rng=self._data_rng,
-                                  native=False)
+                                  self.args.epochs, rng=self._data_rng)
         mode = int(getattr(self.args, "wave_mode", 1))
         state = (self.global_state, self.server_state)
         if mode in (2, 3):

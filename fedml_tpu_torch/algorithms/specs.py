@@ -1,8 +1,10 @@
 """TrainSpec builders (counterpart of ``fedml_tpu/algorithms/specs.py``:
-``make_classification_spec`` and ``make_seq_classification_spec``).
+``make_classification_spec``, ``make_seq_classification_spec`` and
+``make_multilabel_spec``).
 
-Softmax cross-entropy over logits; metrics are sums (``loss_sum``,
-``correct``, ``count``) that the host divides.
+Softmax cross-entropy over logits (or the sigmoid multilabel loss over
+probabilities); metrics are sums (``loss_sum``, ``correct``, ``count``)
+that the host divides.
 
 Every spec has a ``stacked_loss_fn`` that trains K clients at once over a
 leading client axis: the round runners (waves, flat, vmap lanes, the
@@ -33,6 +35,25 @@ def _loss_and_metrics(logits, y, mask):
     correct = ((logits.argmax(dim=-1) == y).float() * mask).sum()
     return loss, {"loss_sum": (per_sample * mask).sum(), "correct": correct,
                   "count": count}
+
+
+def _multilabel_loss_and_metrics(probs, y, mask):
+    """Binary cross-entropy of the clipped probabilities ``[B, L]``
+    against multi-hot ``y``, summed over labels; ``tp``/``fp``/``fn`` of
+    the 0.5 threshold (``correct`` is ``tp``, as in the reference)."""
+    probs = torch.clamp(probs.float(), 1e-7, 1 - 1e-7)
+    y = y.float()
+    per_sample = -(y * torch.log(probs)
+                   + (1 - y) * torch.log(1 - probs)).sum(dim=-1)
+    count = mask.sum()
+    loss = (per_sample * mask).sum() / torch.clamp(count, min=1.0)
+    pred = (probs > 0.5).float()
+    m = mask[:, None]
+    tp = (pred * y * m).sum()
+    return loss, {"loss_sum": (per_sample * mask).sum(), "tp": tp,
+                  "fp": (pred * (1 - y) * m).sum(),
+                  "fn": ((1 - pred) * y * m).sum(), "count": count,
+                  "correct": tp}
 
 
 def _dropout_masks(model, n, seeds, device):
@@ -68,10 +89,34 @@ def make_classification_spec(model, example_x=None, num_classes=None,
     signature parity with the reference and unused: a torch module knows
     its shapes."""
     del example_x, num_classes
-    sows = getattr(model, "sows_losses", False)
     if lane_lowering not in (None,) + LOWERINGS:
         raise ValueError(f"unknown lane_lowering {lane_lowering!r}; "
                          "choose blockdiag, bgc, auto or pallas")
+    return _module_spec(model, _loss_and_metrics, name, augment_fn,
+                        aux_loss_weight,
+                        builder_for(model, lowering=lane_lowering))
+
+
+def make_multilabel_spec(model, example_x=None, name="tag_prediction",
+                         aux_loss_weight=0.01):
+    """Sigmoid binary cross-entropy multilabel spec (the reference's
+    ``stackoverflow_lr`` tag prediction) for a module that emits
+    probabilities (LR with its sigmoid): clipped to ``[1e-7, 1 - 1e-7]``,
+    metrics ``loss_sum``, ``tp``, ``fp``, ``fn``, ``count`` and
+    ``correct`` (= ``tp``). Built as :func:`make_classification_spec`
+    is, with its ``stacked_loss_fn``; no packed lowering. ``example_x``
+    is accepted for signature parity and unused."""
+    del example_x
+    return _module_spec(model, _multilabel_loss_and_metrics, name, None,
+                        aux_loss_weight, None)
+
+
+def _module_spec(model, loss_and_metrics, name, augment_fn, aux_loss_weight,
+                 lane_loss_builder):
+    """The spec of an ``nn.Module`` applied functionally (one client's
+    state, or K clients' through ``torch.func.vmap``), its loss and
+    metrics from ``loss_and_metrics(out, y, mask)``."""
+    sows = getattr(model, "sows_losses", False)
 
     def init_fn(seed, device):
         lecun_init_(model, torch.Generator().manual_seed(int(seed)))
@@ -114,7 +159,7 @@ def make_classification_spec(model, example_x=None, num_classes=None,
         logits, stats, aux = _apply(state["params"],
                                     state.get("batch_stats", {}), x, train,
                                     masks, with_sown=True)
-        loss, metrics = _loss_and_metrics(logits, batch["y"], batch["mask"])
+        loss, metrics = loss_and_metrics(logits, batch["y"], batch["mask"])
         if aux is not None:
             loss = loss + aux_loss_weight * aux
         return loss, (_state(state["params"], state, stats), metrics)
@@ -132,7 +177,7 @@ def make_classification_spec(model, example_x=None, num_classes=None,
         def one(params, stats, x, y, mask, masks):
             logits, new_stats, aux = _apply(params, stats, x, train, masks,
                                             with_sown=True)
-            loss, metrics = _loss_and_metrics(logits, y, mask)
+            loss, metrics = loss_and_metrics(logits, y, mask)
             if aux is not None:
                 loss = loss + aux_loss_weight * aux
             return loss, new_stats, metrics
@@ -149,12 +194,11 @@ def make_classification_spec(model, example_x=None, num_classes=None,
             logits, _, _ = _apply(state["params"],
                                   state.get("batch_stats", {}), batch["x"],
                                   False)
-            return _loss_and_metrics(logits, batch["y"], batch["mask"])[1]
+            return loss_and_metrics(logits, batch["y"], batch["mask"])[1]
 
     return TrainSpec(init_fn=init_fn, loss_fn=loss_fn, metrics_fn=metrics_fn,
                      name=name, augment_fn=augment_fn,
-                     lane_loss_builder=builder_for(model,
-                                                   lowering=lane_lowering),
+                     lane_loss_builder=lane_loss_builder,
                      stacked_loss_fn=stacked_loss_fn)
 
 
@@ -232,4 +276,5 @@ def make_seq_classification_spec(model, example_x=None, ignore_index=0,
                      name=name, stacked_loss_fn=stacked_loss_fn)
 
 
-__all__ = ["make_classification_spec", "make_seq_classification_spec"]
+__all__ = ["make_classification_spec", "make_seq_classification_spec",
+           "make_multilabel_spec"]

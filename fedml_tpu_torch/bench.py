@@ -4,6 +4,7 @@ on one NVIDIA H100 (counterpart of the repository's ``bench.py``).
     python -m fedml_tpu_torch.bench          # ResNet-56 flagship, uncut
     python -m fedml_tpu_torch.bench --lm     # federated LM flagship, uncut
     python -m fedml_tpu_torch.bench --smoke --platform cpu [--lm]
+    python -m fedml_tpu_torch.bench --massive_cohort [N] [--massive_async 1]
 
 **ResNet-56 flagship** (no flags): cross-silo FedAvg on CIFAR-10-shaped
 synthetic data (50,000 samples, 32x32, LDA alpha=0.5, seed 0), 32
@@ -18,6 +19,16 @@ round runners.
 128, T 80, vocab 90, bf16, on 32 LEAF-Shakespeare-shaped synthetic
 clients, batch 4, 1 epoch, AMSGrad lr 3e-4, streamed through bucketed
 chunks of 8 on geometric edges.
+
+**Massive cohort** (``--massive_cohort [N]``, N 50,000 when bare): one
+card streams rounds of N ragged simulated LR clients (lognormal(2, 1)
+shard sizes clipped to 1-400, 16 features, 4 classes, seed 0; the
+reference's ``_ragged_lr_clients``) through the bucketed path: every
+client each round, batch 8, SGD lr 0.05, 1 epoch, geometric edges,
+``--massive_chunk`` clients a chunk, no resident shards; with
+``--massive_async 1`` through the buffered async aggregator
+(``--buffer_k``, ``--staleness_decay``, window 4). One warmup round,
+then ``--rounds`` measured rounds; the headline is clients/s.
 
 Each run prints one JSON record with the reference's keys, appends it
 to ``--ledger`` (default ``bench_results/torch_ledger.jsonl``, a ledger
@@ -52,7 +63,9 @@ Where the port differs from ``bench.py`` on purpose:
   command exits non-zero.
 - ``device`` is the card's name and ``power_limit_w`` its power limit
   (``nvidia-smi``); ``host_cpu`` and ``host_cpus`` name the host that
-  enqueues the rounds' work.
+  enqueues the rounds' work. The massive cohort's record also names
+  its ``packing_backend`` (the native and numpy schedules shuffle from
+  different PRNG families) and its ``chunks`` a round.
 - With ``--profile_dir`` on the card the record adds ``device_busy_s``
   (the card's kernel and copy seconds a profiled round) and
   ``device_busy_share`` (their share of the profiled rounds' wall time).
@@ -106,6 +119,7 @@ _ASSUMED_PEAK_TFLOPS = 989.4
 
 _FAILURE_METRIC = "FedAvg rounds/hour (CIFAR-10-scale ResNet-56)"
 _LM_FAILURE_METRIC = "federated-LM rounds/hour (TransformerLM)"
+_MASSIVE_FAILURE_METRIC = "massive-cohort clients/sec (bucketed streaming)"
 _SMOKE_TAG = " [SMOKE -- not baseline-comparable]"
 
 #: flags of bench.py whose paths are not ported, by name or by name
@@ -113,9 +127,6 @@ _SMOKE_TAG = " [SMOKE -- not baseline-comparable]"
 _UNPORTED_FLAGS = (
     ("--warmup", "ROADMAP A16 (round-program warmup)"),
     ("--compile_cache_dir", "ROADMAP A16 (compile caches)"),
-    ("--massive", "ROADMAP A10 (the massive-cohort bench)"),
-    ("--buffer_k", "ROADMAP A10 (the massive-cohort bench)"),
-    ("--staleness_decay", "ROADMAP A10 (the massive-cohort bench)"),
     ("--soak", "ROADMAP A13 (the control-plane soak)"),
     ("--tree", "ROADMAP A13 (the process-tree soak)"),
     ("--steering", "ROADMAP A13 (the TCP control plane) and A16 (the perf "
@@ -511,6 +522,128 @@ def run_lm_bench(args, device):
 
 
 # ---------------------------------------------------------------------------
+# the massive cohort
+# ---------------------------------------------------------------------------
+def _ragged_lr_clients(clients, dim=16, classes=4, seed=0):
+    """A ragged population (``bench.py``'s ``_ragged_lr_clients``, byte
+    for byte): lognormal shard sizes clipped to 1-400, one draw of
+    features and labels for the whole population, then per-client
+    views; the 8-tuple with the first 256 samples as the test set."""
+    rng = np.random.default_rng(seed)
+    ns = np.clip(rng.lognormal(mean=2.0, sigma=1.0, size=clients),
+                 1, 400).astype(np.int64)
+    total = int(ns.sum())
+    x = rng.standard_normal((total, dim)).astype(np.float32)
+    y = rng.integers(0, classes, total).astype(np.int32)
+    local, local_num = {}, {}
+    off = 0
+    for c in range(clients):
+        n = int(ns[c])
+        local[c] = {"x": x[off:off + n], "y": y[off:off + n]}
+        local_num[c] = n
+        off += n
+    test = {"x": x[:256], "y": y[:256]}
+    return [total, len(test["y"]), {"x": x, "y": y}, test, local_num,
+            local, {0: test}, classes]
+
+
+def _bucket_flops(api, per_bucket, bs, dim):
+    """FLOPs of the round's used bucket edges: one single-client step,
+    counted once (its shape does not depend on the edge), times each
+    edge's executed and true client-steps."""
+    step = train_step_flops(api.spec, api.cfg, {
+        "x": ((bs, dim), torch.float32), "y": ((bs,), torch.int64),
+        "mask": ((bs,), torch.float32)})
+    rows = [dict(b, flops_per_step=step,
+                 executed_flops=step * b["executed_steps"],
+                 true_flops=step * b["true_steps"]) for b in per_bucket]
+    return (rows, sum(b["executed_flops"] for b in rows),
+            sum(b["true_flops"] for b in rows))
+
+
+def run_massive_cohort(args, device):
+    """``--massive_cohort [N]``: a warmup round and ``--rounds`` measured
+    rounds of N ragged LR clients streamed through the bucketed path
+    (``bench.py``'s ``run_massive_cohort``); buffered async with
+    ``--massive_async 1``. The record's headline is clients/s."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.specs import make_classification_spec
+    from fedml_tpu_torch.models.linear import LogisticRegression
+    from fedml_tpu_torch.parallel.packing import packing_backend
+
+    C, dim, classes, bs = int(args.massive_cohort), 16, 4, 8
+    dataset = _ragged_lr_clients(C, dim=dim, classes=classes)
+    spec = make_classification_spec(
+        LogisticRegression(dim, classes, apply_sigmoid=False))
+    run_args = types.SimpleNamespace(
+        client_num_in_total=C, client_num_per_round=C,
+        comm_round=10 ** 9, epochs=1, batch_size=bs, lr=0.05, wd=0.0,
+        client_optimizer="sgd", frequency_of_the_test=10 ** 9, seed=0,
+        client_chunk=args.massive_chunk, bucket_edges="geometric",
+        async_agg=int(args.massive_async), buffer_k=args.buffer_k,
+        staleness_decay=args.staleness_decay, async_window=4,
+        device_resident="0")
+    api = FedAvgAPI(dataset, spec, run_args, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    builds0 = _build_counts()
+    t0 = time.time()
+    api.train_one_round()
+    compile_s = time.time() - t0
+    warm = _builds_since(builds0)
+    rounds = args.rounds
+    builds1 = _build_counts()
+    times, metrics, _, tracer, prof = _measured_rounds(api, rounds,
+                                                       args.profile_dir)
+    steady = _builds_since(builds1)
+    round_s = float(np.median(times))
+    last = metrics[-1]
+    binfo = api._last_bucket_info["bucket"]
+    per_bucket, exec_f, true_f = _bucket_flops(
+        api, [b for b in binfo["per_bucket"] if not b["skipped"]], bs, dim)
+    fields, _ = _device_fields(device)
+    out = {
+        "metric": (f"massive-cohort clients/sec (bucketed streaming, {C} "
+                   "ragged LR clients"
+                   + (", async buffered" if args.massive_async else "")
+                   + ")" + ("" if device.type == "cuda" else _SMOKE_TAG)),
+        "value": round(C / round_s, 1),
+        "unit": "clients/sec",
+        "compressor": None,
+        "clients_per_round": C,
+        "rounds_measured": rounds,
+        "round_s": round(round_s, 3),
+        "round_times_s": [round(t, 3) for t in times],
+        "compile_s": round(compile_s, 2),
+        "warmup_compiles": warm["builds"],
+        "warmup_compile_s": round(warm["seconds"], 2),
+        "steady_compiles": steady["builds"],
+        "bucket_shapes": binfo["buckets_used"],
+        "chunks": binfo["chunks"],
+        "bucket_waste_frac": last.get("bucket/waste_frac"),
+        "executed_steps": last.get("bucket/executed_steps"),
+        "true_steps": last.get("bucket/true_steps"),
+        "train_loss": round(float(last["Train/Loss"]), 4),
+        "packing_backend": packing_backend(),
+        **fields,
+        **_host_fields(),
+        "peak_memory_gb": _peak_memory_gb(device),
+        "per_bucket": per_bucket,
+        "executed_flops": exec_f,
+        "true_flops": true_f,
+        "flops_waste_frac": round(1.0 - true_f / exec_f, 4) if exec_f else None,
+        "flops_source": FLOPS_SOURCE if exec_f else "unavailable",
+        "achieved_gflops": round(exec_f / round_s / 1e9, 3),
+        **_phase_fields(tracer, rounds),
+        **prof,
+    }
+    if args.massive_async:
+        out["async"] = {k.split("/", 1)[1]: v for k, v in last.items()
+                        if k.startswith("async/")}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the command line
 # ---------------------------------------------------------------------------
 def _parser():
@@ -577,6 +710,20 @@ def _parser():
                         "--lm_leaf 1 for LEAF JSON). Default: synthetic "
                         "LEAF-shaped shards")
     p.add_argument("--lm_leaf", type=int, default=0)
+    p.add_argument("--massive_cohort", nargs="?", const=50_000, type=int,
+                   default=None, metavar="N",
+                   help="bucketed-streaming massive-cohort bench: rounds "
+                        "of N (default 50,000) ragged simulated LR "
+                        "clients on one card; the headline is clients/s")
+    p.add_argument("--massive_async", type=int, default=0,
+                   help="massive-cohort bench: the buffered async "
+                        "aggregation path (--buffer_k/--staleness_decay)")
+    p.add_argument("--massive_chunk", type=int, default=128,
+                   help="massive-cohort bench: clients per streamed chunk")
+    p.add_argument("--buffer_k", type=int, default=2048,
+                   help="massive-cohort bench: async buffer K")
+    p.add_argument("--staleness_decay", type=float, default=0.5,
+                   help="massive-cohort bench: async staleness exponent")
     p.add_argument("--ledger", type=str,
                    default="bench_results/torch_ledger.jsonl",
                    help="perf-regression ledger of the port: every run "
@@ -615,7 +762,8 @@ def main(argv=None):
     """Run the bench for ``argv`` (default ``sys.argv[1:]``); prints and
     returns one record (a failure record carries ``error``)."""
     args, unknown = _parser().parse_known_args(argv)
-    metric = (_LM_FAILURE_METRIC if args.lm
+    metric = (_MASSIVE_FAILURE_METRIC if args.massive_cohort
+              else _LM_FAILURE_METRIC if args.lm
               else _FAILURE_METRIC.replace("FedAvg", "FedOpt")
               if args.algo == "fedopt" else _FAILURE_METRIC)
     refusal = _refusal(args, unknown)
@@ -633,8 +781,9 @@ def main(argv=None):
     try:
         device = (torch.device("cpu") if args.platform == "cpu"
                   else resolve_device(None))
-        record = (run_lm_bench if args.lm else run_resnet_bench)(args,
-                                                                 device)
+        run = (run_massive_cohort if args.massive_cohort
+               else run_lm_bench if args.lm else run_resnet_bench)
+        record = run(args, device)
     except Exception:  # the one-line contract: report, then fail
         traceback.print_exc()
         return emit_failure(traceback.format_exc(limit=3)[-800:], metric)

@@ -1,6 +1,7 @@
 """Dataset registry (counterpart of ``fedml_tpu/data/registry.py``): the
-synthetic sets, the CIFAR family and Shakespeare (TFF h5 and LEAF JSON)
-from local files. Every other name of
+synthetic sets, the CIFAR family, Shakespeare (TFF h5 and LEAF JSON) and
+StackOverflow (``stackoverflow_nwp``, ``stackoverflow_lr``; TFF h5) from
+local files. Every other name of
 the reference's registry raises, naming the ROADMAP item it waits for."""
 
 from __future__ import annotations
@@ -12,8 +13,6 @@ _UNPORTED = {
     "femnist": "A14 (the TFF h5 loaders)",
     "fed_emnist": "A14 (the TFF h5 loaders)",
     "fed_cifar100": "A14 (the TFF h5 loaders)",
-    "stackoverflow_nwp": "A10 (data/stackoverflow.py)",
-    "stackoverflow_lr": "A10 (data/stackoverflow.py)",
     "imagenet": "A14 (the image-folder loaders)",
     "ILSVRC2012": "A14 (the image-folder loaders)",
     "gld23k": "A14 (the image-folder loaders)",
@@ -62,6 +61,10 @@ def load_dataset(args, dataset_name):
         from fedml_tpu_torch.data.shakespeare import load_shakespeare
         return load_shakespeare(data_dir, client_num=client_num,
                                 leaf=(dataset_name == "shakespeare"))
+    if dataset_name in ("stackoverflow_nwp", "stackoverflow_lr"):
+        from fedml_tpu_torch.data.stackoverflow import load_stackoverflow
+        return load_stackoverflow(data_dir, task=dataset_name.split("_")[1],
+                                  client_num=client_num)
     if dataset_name in _UNPORTED:
         raise NotImplementedError(
             f"dataset {dataset_name!r} waits for ROADMAP "

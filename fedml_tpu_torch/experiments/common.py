@@ -37,11 +37,6 @@ _UNPORTED = {
     "xprof_dir": (None, _A16_OBS), "costmodel": (0, _A16_OBS),
     "enable_wandb": (0, "ROADMAP A16 (the port carries no wandb mirror)"),
     "transport": ("tcp", "ROADMAP A13 (the distributed control plane)"),
-    "async_agg": (0, "ROADMAP A10 (async aggregation)"),
-    "buffer_k": (64, "ROADMAP A10 (async aggregation)"),
-    "staleness_decay": (0.5, "ROADMAP A10 (async aggregation)"),
-    "flush_deadline": (0.0, "ROADMAP A10 (async aggregation)"),
-    "async_window": (4, "ROADMAP A10 (async aggregation)"),
 }
 
 
@@ -120,11 +115,19 @@ def add_base_args(parser: argparse.ArgumentParser):
     p.add_argument("--warmup", type=int, default=0)
     add_resilience_args(p)
     # buffered async aggregation and bucketed streaming
-    p.add_argument("--async_agg", type=int, default=0)
-    p.add_argument("--buffer_k", type=int, default=64)
-    p.add_argument("--staleness_decay", type=float, default=0.5)
-    p.add_argument("--flush_deadline", type=float, default=0.0)
-    p.add_argument("--async_window", type=int, default=4)
+    p.add_argument("--async_agg", type=int, default=0,
+                   help="FedBuff buffered async aggregation on the bucketed "
+                        "streaming path (turns it on by itself)")
+    p.add_argument("--buffer_k", type=int, default=64,
+                   help="async: client updates per server update")
+    p.add_argument("--staleness_decay", type=float, default=0.5,
+                   help="async: an update s versions stale weighs "
+                        "(1+s)**-a")
+    p.add_argument("--flush_deadline", type=float, default=0.0,
+                   help="async: parsed into the policy; a simulated round "
+                        "flushes on --buffer_k and at its end only")
+    p.add_argument("--async_window", type=int, default=4,
+                   help="async: chunks in flight before the oldest folds")
     p.add_argument("--bucket_edges", type=str, default=None,
                    help="bucketed ragged streaming: 'geometric' or a comma "
                         "list of local-step edges")
@@ -203,9 +206,9 @@ def load_dataset_and_model(args):
 
 def make_spec(args, model, dataset):
     """Task spec by dataset, as the reference chooses it: per-token
-    cross-entropy for the sequence sets, classification otherwise, with
-    the CIFAR family's on-device augmentation under
-    ``--data_augmentation``."""
+    cross-entropy for the sequence sets, the sigmoid multilabel loss for
+    ``stackoverflow_lr``, classification otherwise, with the CIFAR
+    family's on-device augmentation under ``--data_augmentation``."""
     from fedml_tpu_torch.algorithms import specs
 
     name = args.dataset
@@ -213,8 +216,7 @@ def make_spec(args, model, dataset):
                 "synthetic_sequences"):
         return specs.make_seq_classification_spec(model)
     if name == "stackoverflow_lr":
-        raise NotImplementedError(
-            "the multilabel spec waits for ROADMAP A10 (stackoverflow)")
+        return specs.make_multilabel_spec(model)
     augment_fn = None
     if (getattr(args, "data_augmentation", 0)
             and name in ("cifar10", "cifar100", "cinic10")):

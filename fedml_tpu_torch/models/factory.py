@@ -1,6 +1,7 @@
 """Model factory (counterpart of ``fedml_tpu/models/factory.py``): the
 names ``lr``, ``cnn``, ``cnn_dropout``, ``resnet56``, ``resnet110``,
-``transformer``, ``transformer_nwp`` and ``moe_transformer``. Every other name of the
+``rnn``, ``rnn_fed_shakespeare``, ``rnn_stackoverflow``, ``transformer``,
+``transformer_nwp`` and ``moe_transformer``. Every other name of the
 reference's zoo raises, naming the ROADMAP item it waits for."""
 
 from __future__ import annotations
@@ -13,14 +14,14 @@ from fedml_tpu_torch.models.cnn import CNNDropOut, CNNOriginalFedAvg
 from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.models.moe import MoETransformerLM
 from fedml_tpu_torch.models.resnet import resnet56, resnet110
+from fedml_tpu_torch.models.rnn import RNNOriginalFedAvg, RNNStackOverflow
 from fedml_tpu_torch.models.transformer import transformer_nwp
 
 #: names of the reference's factory not ported yet, with their item
 _UNPORTED = {
     "resnet18_gn": "A14", "resnet34_gn": "A14", "resnet50_gn": "A14",
     "mobilenet": "A14", "mobilenet_v3": "A14", "vgg11": "A14",
-    "vgg13": "A14", "vgg16": "A14", "vgg19": "A14", "rnn": "A14",
-    "rnn_fed_shakespeare": "A14", "rnn_stackoverflow": "A10",
+    "vgg13": "A14", "vgg16": "A14", "vgg19": "A14",
 }
 
 
@@ -51,6 +52,13 @@ def create_model(args, model_name, output_dim, input_shape=None):
         return resnet56(class_num=output_dim, dtype=dtype)
     if model_name == "resnet110":
         return resnet110(class_num=output_dim, dtype=dtype)
+    if model_name == "rnn":
+        return RNNOriginalFedAvg(vocab_size=output_dim)
+    if model_name == "rnn_fed_shakespeare":
+        return RNNOriginalFedAvg(vocab_size=output_dim,
+                                 output_all_timesteps=True)
+    if model_name == "rnn_stackoverflow":
+        return RNNStackOverflow(vocab_size=output_dim - 4)
     if model_name in ("transformer", "transformer_nwp"):
         return transformer_nwp(vocab_size=output_dim, dtype=dtype)
     if model_name == "moe_transformer":

@@ -19,7 +19,9 @@ global state is never written. The runners:
 - :func:`make_sim_round`: the host-packed round over a ``pack_cohort``
   upload;
 - ``BucketedStreamRunner``: a cohort of any size streamed in chunks
-  sorted by step count, folded on the host in fp64.
+  sorted by step count, folded on the host in fp64, synchronously or
+  through a buffered async aggregator that flushes server updates in the
+  middle of the round.
 
 Random draws (augmentation, dropout) come from ``torch.Generator``s
 seeded per (client, local step): a client's seed is derived from its
@@ -44,10 +46,6 @@ from fedml_tpu_torch.parallel.packing import (_steps_for, bucket_edge_for,
                                               pack_schedule, zero_pad_leading)
 
 _LANE_KEYS = ("idx", "mask", "slot", "flush", "flush_n", "flush_steps")
-# chunks of the bucketed path in flight before the host first reads one
-# (the reference's synchronous window; only its async aggregator, not
-# ported, changes it)
-_ASYNC_WINDOW = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -573,23 +571,22 @@ def make_streamed_client_update(spec: TrainSpec, cfg: ClientUpdateConfig):
     """Local training of K clients at once over pre-gathered batches with
     a dynamic trip count (the bucketed chunk).
 
-    Returns ``fn(global_state, batches, n, trip) -> (local_states, aux,
-    metrics_sum)``, every leaf leading with the client axis: ``batches``
-    is ``{"x": [K, S, B, ...], "y": [K, S, B, ...], "mask": [K, S, B]}``
-    padded to a bucket edge S, exactly ``trip`` steps run, and ``aux`` is
-    ``{"n": n, "steps": [K]}``."""
-    if spec.augment_fn is not None:
-        raise NotImplementedError(
-            "augmentation on the streamed client update waits for ROADMAP "
-            "A10 (only the LM flagship, which has none, is ported)")
+    Returns ``fn(global_state, batches, n, trip, client_seeds) ->
+    (local_states, aux, metrics_sum)``, every leaf leading with the
+    client axis: ``batches`` is ``{"x": [K, S, B, ...], "y": [K, S, B,
+    ...], "mask": [K, S, B]}`` padded to a bucket edge S, exactly
+    ``trip`` steps run, ``client_seeds [K]`` are the clients' host seeds
+    (client ``k`` draws its step ``i`` augmentation and dropout from
+    ``fold_seed(client_seeds[k], i)``) and ``aux`` is ``{"n": n,
+    "steps": [K]}``."""
     run = _make_trip_loop_core(spec, cfg)
 
-    def client_update(global_state, batches, n, trip):
+    def client_update(global_state, batches, n, trip, client_seeds):
         K = batches["mask"].shape[0]
         params, rest, msum = run(
             global_state, K,
             lambda i: {k: batches[k][:, i] for k in ("x", "y", "mask")},
-            trip)
+            trip, lambda i: fold_seed(client_seeds, i))
         steps_done = (batches["mask"] > 0).any(dim=-1).sum(dim=1)
         return _local(params, rest), {"n": n, "steps": steps_done}, msum
 
@@ -603,16 +600,22 @@ class BucketedStreamRunner:
     and cut into chunks of ``client_chunk``. Each chunk's schedule pads to
     the smallest bucket edge covering it, while its trip is the chunk's
     true maximum, so steps past it never run. A ragged final chunk is
-    padded with inert clients (``n`` = 0, fully masked). Each chunk
-    trains its clients at once and returns only its weighted payload sum
-    (fp32, on the device); the partials fold on the host in fp64 in chunk
-    order, and ``server_fn`` applies the average. Up to
-    ``_ASYNC_WINDOW`` chunks stay in flight before their first host
-    read.
+    padded with inert clients (``n`` = 0, fully masked; they reuse the
+    chunk's first seed). Each chunk trains its clients at once and
+    returns only its weighted payload sum (fp32, on the device). Up to
+    ``async_window`` chunks stay in flight before their first host read.
 
-    The synchronous fold only: ``aggregator=`` (buffered async, ROADMAP
-    A10) and ``compressor=`` (streaming error feedback, ROADMAP A12)
-    raise."""
+    Synchronously the partials fold on the host in fp64 in chunk order
+    and ``server_fn`` applies the average once. With a
+    :class:`~fedml_tpu_torch.program.aggregation.BufferedAggregator`
+    (FedBuff) each chunk folds at its first host read as a pre-weighted
+    partial whose staleness is the server versions flushed since it was
+    dispatched; every ``buffer_k`` buffered clients flush a server step
+    in the middle of the round, chunks dispatched after it train from
+    the new global state, and what is left drains at the round's end.
+    With ``buffer_k`` the cohort and decay 0 the async round is the
+    synchronous one bit for bit. Streaming error feedback
+    (``compressor=``) waits for ROADMAP A12."""
 
     def __init__(self, spec: TrainSpec, cfg: ClientUpdateConfig,
                  payload_fn=None, server_fn=None, client_chunk=256,
@@ -630,9 +633,9 @@ class BucketedStreamRunner:
         self._update = make_streamed_client_update(spec, cfg)
         self._dtypes = None
 
-    def _chunk(self, global_state, batches, ns, trip):
+    def _chunk(self, global_state, batches, ns, trip, seeds):
         local_states, aux, metrics = self._update(global_state, batches, ns,
-                                                  trip)
+                                                  trip, seeds)
         with torch.no_grad():
             payloads = self.payload_fn(local_states, global_state, aux)
             w = aux["n"].float()
@@ -642,16 +645,19 @@ class BucketedStreamRunner:
                     _tree_map(lambda m: m.sum(dim=0), metrics))
 
     def run_round(self, global_state, server_state, datasets, round_seed,
-                  data_rng=None, aggregator=None):
+                  data_rng=None, aggregator=None, async_window=4):
         """One round over ``datasets`` (the cohort's raw client shards,
-        ``{"x", "y"}`` each), streamed chunk by chunk. Returns
+        ``{"x", "y"}`` each), streamed chunk by chunk; ``aggregator`` (a
+        ``BufferedAggregator``) switches the fold to buffered async, and
+        ``async_window`` is the chunks in flight. Returns
         ``(new_global, new_server_state, info)`` with ``info["bucket"]``
-        (the reference's waste accounting), ``info["aux"]`` and the
-        fp64-summed ``info["metrics"]``."""
-        if aggregator is not None:
-            raise NotImplementedError(
-                "the buffered async aggregator on the bucketed path waits "
-                "for ROADMAP A10 (async aggregation)")
+        (the reference's waste accounting), ``info["aux"]``, the
+        fp64-summed ``info["metrics"]`` and, async, ``info["async"]``
+        (the aggregator's counters and ``async/flushes_this_round``).
+        Flush ``f`` of a round steps the server with the seed
+        ``fold_seed(fold_seed(round_seed, 2), f)``; the synchronous
+        round's one step takes ``fold_seed(round_seed, 2)``, as every
+        other runner's does."""
         data_rng = data_rng or np.random.default_rng(0)
         C = len(datasets)
         if C == 0:
@@ -669,21 +675,42 @@ class BucketedStreamRunner:
             self._dtypes = payload_dtype_template(self.payload_fn,
                                                   global_state)
         dev = next(iter(global_state["params"].values())).device
+        seeds = client_seeds_for(round_seed, C)
+        flush_seed = fold_seed(round_seed, 2)
+        gs, ss = global_state, server_state
         num, w_total, metrics_acc = None, 0.0, None
+        flushes = 0
         inflight = deque()
         tracer = get_tracer()
 
+        def to_device(avg):
+            return _tree_map(lambda x, d: torch.as_tensor(
+                np.asarray(x, np.float32), device=dev).to(d), avg,
+                self._dtypes)
+
         def fold_oldest():
             # the first host read of a chunk's outputs: the sync point
-            nonlocal num, w_total, metrics_acc
-            pay, w, msum = inflight.popleft()
-            contrib = _tree_map(
-                lambda x: x.cpu().numpy().astype(np.float64), pay)
-            num = contrib if num is None else _tree_map(np.add, num, contrib)
-            w_total += float(w)
+            nonlocal num, w_total, metrics_acc, gs, ss, flushes
+            ordinal, born, k_real, (pay, w, msum) = inflight.popleft()
+            pay = _tree_map(lambda x: x.cpu().numpy(), pay)
+            w = float(w)
             m_host = _tree_map(lambda m: np.float64(m.item()), msum)
             metrics_acc = (m_host if metrics_acc is None
                            else _tree_map(np.add, metrics_acc, m_host))
+            if aggregator is None:
+                contrib = _tree_map(lambda x: x.astype(np.float64), pay)
+                num = (contrib if num is None
+                       else _tree_map(np.add, num, contrib))
+                w_total += w
+                return
+            aggregator.fold(ordinal, w, pay,
+                            staleness=aggregator.version - born,
+                            clients=k_real, preweighted=True)
+            if aggregator.ready():
+                res = aggregator.flush("buffer_k")
+                gs, ss = self.server_fn(gs, to_device(res.params), ss,
+                                        int(fold_seed(flush_seed, flushes)))
+                flushes += 1
 
         order = np.argsort(steps_pc, kind="stable")
         b_stats = {e: {"clients": 0, "chunks": 0, "executed_steps": 0,
@@ -698,16 +725,23 @@ class BucketedStreamRunner:
                                   rng=data_rng, s_max=edge)
             xb, yb = gather_batches(datasets, sched, chunk)
             maskb, n_arr = sched["mask"], sched["n"]
+            pad = self.client_chunk - k
             xb, yb, maskb, n_arr = zero_pad_leading(
-                (xb, yb, maskb, n_arr), self.client_chunk - k)
+                (xb, yb, maskb, n_arr), pad)
+            # client i of the sorted chunk draws from its cohort slot's
+            # seed; padded clients reuse the first
+            chunk_seeds = np.concatenate([seeds[chunk],
+                                          np.repeat(seeds[chunk[:1]], pad)])
             batches = {"x": torch.as_tensor(xb, device=dev),
                        "y": torch.as_tensor(yb, device=dev),
                        "mask": torch.as_tensor(maskb, device=dev)}
             n_dev = torch.as_tensor(n_arr, device=dev)
+            born = aggregator.version if aggregator is not None else 0
             with tracer.span("bucket-chunk", edge=edge, clients=int(k),
                              trip=trip):
-                inflight.append(self._chunk(global_state, batches, n_dev,
-                                            trip))
+                inflight.append((chunks, born, k,
+                                 self._chunk(gs, batches, n_dev, trip,
+                                             chunk_seeds)))
             chunks += 1
             st = b_stats[edge]
             st["clients"] += k
@@ -716,18 +750,29 @@ class BucketedStreamRunner:
             st["executed_steps"] += trip * self.client_chunk
             st["true_steps"] += int(steps_pc[chunk].sum())
             exec_steps += trip * self.client_chunk
-            while len(inflight) > _ASYNC_WINDOW:
+            while len(inflight) > max(1, int(async_window)):
                 fold_oldest()
         while inflight:
             fold_oldest()
-        if num is None or w_total <= 0:
-            raise ValueError("bucketed round folded zero weight (every "
-                             "cohort shard empty?)")
-        avg = _tree_map(lambda x, d: torch.as_tensor(
-            (x / w_total).astype(np.float32), device=dev).to(d), num,
-            self._dtypes)
-        new_global, new_server = self.server_fn(
-            global_state, avg, server_state, int(fold_seed(round_seed, 2)))
+        async_info = None
+        if aggregator is not None:
+            if aggregator.depth:
+                # the round's end drains whatever is buffered, even below
+                # buffer_k (held across rounds it would starve the last
+                # window)
+                res = aggregator.flush("drain")
+                gs, ss = self.server_fn(gs, to_device(res.params), ss,
+                                        int(fold_seed(flush_seed, flushes)))
+                flushes += 1
+            async_info = aggregator.record()
+            async_info["async/flushes_this_round"] = flushes
+        else:
+            if num is None or w_total <= 0:
+                raise ValueError("bucketed round folded zero weight (every "
+                                 "cohort shard empty?)")
+            gs, ss = self.server_fn(
+                gs, to_device(_tree_map(lambda x: x / w_total, num)), ss,
+                int(flush_seed))
         per_bucket = [{"edge": int(e), "skipped": int(b_stats[e]["chunks"]
                                                        == 0), **b_stats[e]}
                       for e in self.edges]
@@ -748,7 +793,9 @@ class BucketedStreamRunner:
                 "per_bucket": per_bucket,
             },
         }
-        return new_global, new_server, info
+        if async_info is not None:
+            info["async"] = async_info
+        return gs, ss, info
 
 
 class LaneRunner:

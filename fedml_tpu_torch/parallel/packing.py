@@ -1,5 +1,5 @@
 """Host-side cohort packing (counterpart of
-``fedml_tpu/parallel/packing.py``, numpy backend; byte-equal outputs).
+``fedml_tpu/parallel/packing.py``; byte-equal outputs on either backend).
 
 The host-packed path gathers a round's cohort into dense ``[C, S, B]``
 batches (:func:`pack_cohort`). Ragged client shards become
@@ -8,15 +8,36 @@ device-resident padded stacks once (:func:`stack_clients`); each round then need
 (:func:`pack_lanes`). The bucketed streaming path instead pads each
 chunk's schedule to a bucket edge (:func:`parse_bucket_edges`,
 :func:`bucket_edge_for`, ``pack_schedule(s_max=)``) and stages the
-chunk's batches from the raw shards (:func:`gather_batches`). The
-reference's C++ backend is not ported yet (ROADMAP A2).
+chunk's batches from the raw shards (:func:`gather_batches`).
+
+Schedules come from one of two backends (:func:`packing_backend`): the
+C++ shim (``fedml_tpu_torch/native``) or numpy. They shuffle from
+different PRNG families, so the choice is explicit and recorded.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
+
+
+def packing_backend(native="auto") -> str:
+    """Which schedule generator runs: ``"native"`` (the C++ shim) or
+    ``"python"`` (numpy). ``native=True``/``False`` decide; otherwise
+    ``FEDML_TPU_PACKING`` (``native`` or ``python``); otherwise native
+    iff the shim builds and loads here. The native backend asked for by
+    name raises when the shim is unavailable: it never falls back."""
+    if native is True:
+        return "native"
+    if native is False:
+        return "python"
+    env = os.environ.get("FEDML_TPU_PACKING", "auto").lower()
+    if env in ("native", "python"):
+        return env
+    from fedml_tpu_torch.native import native_available
+    return "native" if native_available() else "python"
 
 
 def _per_epoch_steps(n, batch_size, drop_last=False):
@@ -28,12 +49,6 @@ def _steps_for(n, batch_size, epochs, drop_last=False):
     return _per_epoch_steps(n, batch_size, drop_last) * epochs
 
 
-def _numpy_only(native):
-    if native is True:
-        raise NotImplementedError(
-            "the native packing backend waits for ROADMAP A2")
-
-
 def pack_cohort(client_datasets, batch_size, epochs, rng=None,
                 drop_last=False, step_bucket=8, return_indices=False,
                 native="auto"):
@@ -42,8 +57,8 @@ def pack_cohort(client_datasets, batch_size, epochs, rng=None,
     ``n [C]``; with ``return_indices`` also ``idx [C, S, B]`` int32.
     ``S`` is the cohort's most steps rounded up to ``step_bucket``. Draws
     exactly one seed from ``rng`` and shuffles each epoch from a
-    generator seeded with it; a tiny client reuses its epoch's data."""
-    _numpy_only(native)
+    generator seeded with it (or hands it to the native shim); a tiny
+    client reuses its epoch's data."""
     rng = rng or np.random.default_rng(0)
     C = len(client_datasets)
     if batch_size in (-1, 0):
@@ -52,6 +67,13 @@ def pack_cohort(client_datasets, batch_size, epochs, rng=None,
              for d in client_datasets]
     S = int(math.ceil(max(steps) / step_bucket) * step_bucket)
     seed = int(rng.integers(0, 2 ** 63 - 1))
+    if packing_backend(native) == "native" and not drop_last:
+        from fedml_tpu_torch.native import native_pack_cohort
+        out = native_pack_cohort(client_datasets, batch_size, epochs, S,
+                                 seed)
+        if not return_indices:
+            out.pop("idx")
+        return out
     rng = np.random.default_rng(seed)
     x0 = np.asarray(client_datasets[0]["x"])
     y0 = np.asarray(client_datasets[0]["y"])
@@ -110,7 +132,6 @@ def pack_schedule(ns, batch_size, epochs, rng=None, drop_last=False,
     seed from ``rng`` and shuffles from a generator seeded with it.
     ``s_max`` forces the step axis to a caller-chosen length (a bucket
     edge); it must cover the cohort's true maximum."""
-    _numpy_only(native)
     rng = rng or np.random.default_rng(0)
     ns = [int(v) for v in ns]
     C = len(ns)
@@ -125,6 +146,9 @@ def pack_schedule(ns, batch_size, epochs, rng=None, drop_last=False,
         S = int(s_max)
     B = batch_size
     seed = int(rng.integers(0, 2 ** 63 - 1))
+    if packing_backend(native) == "native" and not drop_last:
+        from fedml_tpu_torch.native import native_pack_schedule
+        return native_pack_schedule(ns, B, epochs, S, seed)
     rng = np.random.default_rng(seed)
     idx = np.zeros((C, S, B), np.int32)
     mask = np.zeros((C, S, B), np.float32)
@@ -150,8 +174,8 @@ def pack_lanes(sched, n_lanes, step_bucket=8, native="auto"):
     clients back to back. Returns lane-major numpy arrays ``idx/mask [K,
     T, B]``, ``slot``, ``local_step``, ``flush``, ``flush_n``,
     ``flush_steps`` ``[K, T]`` and ``trip`` (the max lane load, the
-    steps a round executes)."""
-    _numpy_only(native)
+    steps a round executes). The native backend does the relayout in
+    the C++ shim, byte-equal to the loop here."""
     idx, mask = np.asarray(sched["idx"]), np.asarray(sched["mask"])
     ns = np.asarray(sched["n"], np.float32)
     C, S, B = idx.shape
@@ -166,6 +190,15 @@ def pack_lanes(sched, n_lanes, step_bucket=8, native="auto"):
         loads[k] += int(steps_pc[c])
     L = int(loads.max())
     L = int(math.ceil(max(L, 1) / step_bucket) * step_bucket)
+    if packing_backend(native) == "native":
+        from fedml_tpu_torch.native import native_pack_lanes_fill
+        members = np.asarray([c for ms in lanes for c in ms], np.int64)
+        offsets = np.zeros(K + 1, np.int64)
+        np.cumsum([len(ms) for ms in lanes], out=offsets[1:])
+        out = native_pack_lanes_fill(idx, mask, ns, steps_pc, members,
+                                     offsets, K, L)
+        out["trip"] = int(loads.max())
+        return out
     out_idx = np.zeros((K, L, B), np.int32)
     out_mask = np.zeros((K, L, B), np.float32)
     slot = np.zeros((K, L), np.int32)
@@ -274,6 +307,6 @@ def pack_eval(data, batch_size):
     return {"x": xs, "y": ys, "mask": mask}
 
 
-__all__ = ["pack_cohort", "stack_clients", "pack_schedule", "pack_lanes", "pack_eval",
+__all__ = ["packing_backend", "pack_cohort", "stack_clients", "pack_schedule", "pack_lanes", "pack_eval",
            "parse_bucket_edges", "bucket_edge_for", "gather_batches",
            "zero_pad_leading"]

@@ -5,9 +5,10 @@ quorum re-sampling (:mod:`.integration`), closed-loop pace steering
 (:mod:`.faults`, the simulation half).
 
 The distributed control plane -- transports with fault injection, the
-resilient server and client FSMs, retry and round policies, buffered
-async aggregation and round recovery -- waits for ROADMAP A13 (and the
-async aggregator for A10).
+resilient server and client FSMs, retry and round policies, the
+distributed async server and round recovery -- waits for ROADMAP A13;
+the simulation's buffered async aggregator is
+:class:`fedml_tpu_torch.program.aggregation.BufferedAggregator`.
 """
 
 from fedml_tpu_torch.resilience.faults import (DiurnalTrace, LoadPhase,

@@ -4,7 +4,9 @@
 A checkpoint holds the whole round-loop state: the global model, the
 server optimizer state, the round index, the run's seed and the host's
 batch-shuffle generator (its ``bit_generator.state``, as JSON), so a
-killed run continues bit-exactly. The reference's Saver extras come
+killed run continues bit-exactly. The resolved packing backend rides
+along too: the native and numpy backends shuffle from different PRNG
+families, and a resume on a machine that resolves the other one warns. The reference's Saver extras come
 along: the best metric across checkpoints (``best_pred.txt``) and the
 config snapshot (``parameters.json``).
 
@@ -18,6 +20,7 @@ package's orbax checkpoints cannot read it, nor it theirs.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 from typing import Optional
@@ -89,7 +92,9 @@ class Checkpointer:
         every round's draws from it and the round index), ``data_rng`` the
         host's ``np.random.Generator`` of batch shuffles, whose
         bit-generator state rides along so resume restores the data stream
-        with no cohort replay."""
+        with no cohort replay; the resolved packing backend is saved
+        beside it."""
+        from fedml_tpu_torch.parallel.packing import packing_backend
         payload = {
             "global_state": _to_cpu(global_state),
             "server_state": _to_cpu(server_state),
@@ -99,6 +104,7 @@ class Checkpointer:
             "data_rng_state": json.dumps(
                 data_rng.bit_generator.state if data_rng is not None
                 else None, sort_keys=True),
+            "packing_backend": packing_backend(),
         }
         path = self._path(round_idx)
         torch.save(payload, path + ".tmp")
@@ -127,11 +133,13 @@ class Checkpointer:
                 server_state_template=_NO_TEMPLATE,
                 device="cpu") -> Optional[dict]:
         """Restore a round (the latest if None): ``{"global_state",
-        "server_state", "rng", "round_idx", "data_rng"}`` with the states'
-        tensors on ``device``, or None when the directory holds no
-        checkpoint (a fresh start). ``server_state_template``, when given,
-        must have the saved server state's structure (containers, keys,
-        leaf kinds)."""
+        "server_state", "rng", "round_idx", "data_rng",
+        "packing_backend"}`` with the states' tensors on ``device``, or
+        None when the directory holds no checkpoint (a fresh start).
+        ``server_state_template``, when given, must have the saved server
+        state's structure (containers, keys, leaf kinds). A checkpoint
+        written under another packing backend than this machine resolves
+        logs a warning: the batch shuffles differ after the resume."""
         if round_idx is None:
             round_idx = self.latest_round()
             if round_idx is None:
@@ -148,11 +156,20 @@ class Checkpointer:
         if rng_state is not None:
             data_rng = np.random.default_rng()
             data_rng.bit_generator.state = rng_state
+        from fedml_tpu_torch.parallel.packing import packing_backend
+        saved_backend = payload.get("packing_backend")
+        if saved_backend is not None and saved_backend != packing_backend():
+            logging.warning(
+                "checkpoint was written with packing_backend=%s but this "
+                "machine resolves %s: batch shuffles will differ after "
+                "resume (set FEDML_TPU_PACKING=%s to match)",
+                saved_backend, packing_backend(), saved_backend)
         return {"global_state": payload["global_state"],
                 "server_state": server_state,
                 "rng": payload["rng"],
                 "round_idx": int(payload["round_idx"]),
-                "data_rng": data_rng}
+                "data_rng": data_rng,
+                "packing_backend": saved_backend}
 
     def latest_round(self) -> Optional[int]:
         rounds = self._rounds()

@@ -27,6 +27,14 @@ the top of ``params`` (``linear``; ``conv1``, ``conv2``, ``fc1``,
 ``fc2``) and maps to ``<name>.weight`` / ``<name>.bias``. The port's CNNs
 flatten in flax's (H, W, C) order, so ``fc1`` needs no permutation.
 
+The LSTM LMs (:func:`rnn_variables_to_state`): flax names each LSTM
+``OptimizedLSTMCell_{j}`` (in order), which maps to ``lstm{j+1}``: the
+input kernels ``ii/if/ig/io`` ``[in, H]`` concatenated in that order and
+transposed -> ``weight_ih [4H, in]``, the hidden kernels ``hi/hf/hg/ho``
+-> ``weight_hh [4H, H]`` and their biases -> ``bias_hh [4H]``; an
+``embedding`` -> ``<name>.weight``, a Dense -> ``<name>.weight`` ``[out,
+in]`` and ``.bias``.
+
 Server optimizer state (:func:`server_state_from_optax`): the JAX
 package's optax chain state (``TraceState``, ``ScaleByAdamState`` or
 ``ScaleByRssState`` first) -> the port's ``{"trace"}``, ``{"count",
@@ -235,6 +243,58 @@ def zoo_state_to_variables(state, convs=()):
         else:
             leaf["kernel"] = (_oihw_to_hwio(v) if name in convs
                               else _swap_last2(v))
+    return {"params": params}
+
+
+_GATES = ("i", "f", "g", "o")
+_CELL = "OptimizedLSTMCell_"
+
+
+def rnn_variables_to_state(variables, device="cpu"):
+    """JAX ``RNNOriginalFedAvg``/``RNNStackOverflow`` variables (single
+    or client-stacked) -> fp32 port state ``{"params": ...}``."""
+    p = {}
+    for name, leaf in variables["params"].items():
+        if name.startswith(_CELL):
+            tp = f"lstm{int(name[len(_CELL):]) + 1}"
+            cat = lambda kind, part: np.concatenate(
+                [np.asarray(leaf[f"{kind}{g}"][part]) for g in _GATES],
+                axis=-1)
+            p[f"{tp}.weight_ih"] = _swap_last2(cat("i", "kernel"))
+            p[f"{tp}.weight_hh"] = _swap_last2(cat("h", "kernel"))
+            p[f"{tp}.bias_hh"] = cat("h", "bias")
+        elif "embedding" in leaf:
+            p[f"{name}.weight"] = np.asarray(leaf["embedding"])
+        else:
+            p[f"{name}.weight"] = _swap_last2(leaf["kernel"])
+            p[f"{name}.bias"] = np.asarray(leaf["bias"])
+    return {"params": {k: torch.as_tensor(np.array(v, np.float32, order="C"),
+                                          device=device)
+                       for k, v in p.items()}}
+
+
+def rnn_state_to_variables(state):
+    """Inverse of :func:`rnn_variables_to_state`."""
+    params = {}
+    for key, v in state["params"].items():
+        name, kind = key.rsplit(".", 1)
+        v = v.detach().cpu().numpy()
+        if name.startswith("lstm"):
+            cell = params.setdefault(f"{_CELL}{int(name[4:]) - 1}", {})
+            if kind == "bias_hh":
+                for g, part in zip(_GATES, np.split(v, 4, axis=-1)):
+                    cell.setdefault(f"h{g}", {})["bias"] = part
+            else:
+                src = "i" if kind == "weight_ih" else "h"
+                for g, part in zip(_GATES, np.split(_swap_last2(v), 4,
+                                                    axis=-1)):
+                    cell.setdefault(f"{src}{g}", {})["kernel"] = part
+        elif kind == "weight" and name.endswith("embeddings"):
+            params[name] = {"embedding": v}
+        elif kind == "weight":
+            params.setdefault(name, {})["kernel"] = _swap_last2(v)
+        else:
+            params.setdefault(name, {})["bias"] = v
     return {"params": params}
 
 

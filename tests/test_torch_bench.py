@@ -263,13 +263,13 @@ def test_algo_fedopt_builds_the_server_adam_line():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--buffer_k", "8"], "A10"),
+    (["--compressors", "qsgd"], "A12"),
     (["--compressor", "topk:0.1"], "A12"),
-    (["--staleness_decay", "0.1"], "A10"),
+    (["--sweep_model", "lr"], "A12"),
     (["--warmup", "1"], "A16"),
     (["--compile_cache_dir", "/nonexistent"], "A16"),
-    (["--lm", "--massive"], "A10"),
-    (["--massive_cohort"], "A10"),
+    (["--lm", "--repeats", "3"], "A12"),
+    (["--soak_rounds", "2"], "A13"),
     (["--soak", "100"], "A13"),
     (["--tree_soak"], "A13"),
     (["--steering"], "A13"),
@@ -281,6 +281,113 @@ def test_unported_flag_fails_naming_its_queue_item(capsys, argv, item):
     assert _last_json(capsys) == record
     assert record["value"] == 0.0 and f"ROADMAP {item}" in record["error"]
     assert tbench._exit_code(record) == 1
+
+
+# ---------------------------------------------------------------------------
+# the massive cohort
+# ---------------------------------------------------------------------------
+MASSIVE_N = 300
+#: (port argv, reference flags): sync at the defaults (chunk 128, one
+#: drain-free synchronous fold), async with chunks of 16 and buffer_k 64
+#: so flushes land inside the window
+MASSIVE_CASES = {
+    "sync": ([], dict(massive_async=0, massive_chunk=128, buffer_k=2048)),
+    "async": (["--massive_async", "1", "--massive_chunk", "16",
+               "--buffer_k", "64"],
+              dict(massive_async=1, massive_chunk=16, buffer_k=64)),
+}
+
+
+def test_ragged_lr_clients_is_byte_equal():
+    got = tbench._ragged_lr_clients(500, seed=3)
+    want = bench._ragged_lr_clients(500, seed=3)
+    for i in (0, 1, 4, 7):
+        assert got[i] == want[i]
+    for c in (0, 7, 499):
+        for key in ("x", "y"):
+            assert got[5][c][key].dtype == want[5][c][key].dtype
+            np.testing.assert_array_equal(got[5][c][key], want[5][c][key])
+    np.testing.assert_array_equal(got[3]["x"], want[3]["x"])
+
+
+@pytest.fixture(scope="module", params=sorted(MASSIVE_CASES))
+def massive(request):
+    """The reference's ``run_massive_cohort`` and the port's at N 300 on
+    the CPU, the port from the reference's initial weights, numpy
+    packing in both: (case, reference record, port record)."""
+    import types
+
+    import jax
+
+    import fedml_tpu.algorithms.fedavg as jfedavg
+    import fedml_tpu_torch.algorithms.fedavg as tfedavg
+    from fedml_tpu_torch.utils.torch_import import zoo_variables_to_state
+
+    argv, flags = MASSIVE_CASES[request.param]
+    mp = pytest.MonkeyPatch()
+    inits = []
+
+    class JaxAPI(jfedavg.FedAvgAPI):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            inits.append(jax.tree.map(np.array, self.global_state))
+
+    class PortAPI(tfedavg.FedAvgAPI):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.global_state = zoo_variables_to_state(inits[0])
+
+    mp.setenv("FEDML_TPU_PACKING", "python")
+    mp.setattr(jfedavg, "FedAvgAPI", JaxAPI)
+    mp.setattr(tfedavg, "FedAvgAPI", PortAPI)
+    out = {}
+    mp.setattr(bench, "print", lambda line, **kw: out.setdefault(
+        "ref", json.loads(line)), raising=False)
+    try:
+        assert bench.run_massive_cohort(types.SimpleNamespace(
+            massive_cohort=MASSIVE_N, staleness_decay=0.5, rounds=1,
+            compressor=None, ledger="", **flags)) == 0
+        record = tbench.main(["--massive_cohort", str(MASSIVE_N),
+                              "--platform", "cpu", "--rounds", "1",
+                              "--ledger", ""] + argv)
+    finally:
+        mp.undo()
+    return request.param, out["ref"], record
+
+
+def test_massive_cohort_matches_the_reference_bench(massive):
+    case, ref, got = massive
+    assert "error" not in got
+    for key in ("clients_per_round", "rounds_measured", "bucket_shapes",
+                "true_steps", "executed_steps", "bucket_waste_frac",
+                "flops_waste_frac", "unit", "compressor"):
+        assert got[key] == ref[key], key
+    assert ([{k: b[k] for k in ("edge", "clients", "chunks",
+                                "executed_steps", "true_steps")}
+             for b in got["per_bucket"]]
+            == [{k: b[k] for k in ("edge", "clients", "chunks",
+                                   "executed_steps", "true_steps")}
+                for b in ref["per_bucket"]])
+    assert got["chunks"] == sum(b["chunks"] for b in ref["per_bucket"])
+    np.testing.assert_allclose(got["train_loss"], ref["train_loss"],
+                               atol=1e-4)
+    assert got["metric"].startswith(ref["metric"])
+    if case == "async":
+        assert got["async"] == ref["async"]
+        assert got["async"]["max_staleness"] > 0
+    else:
+        assert "async" not in got and "async" not in ref
+
+
+def test_massive_record_names_device_backend_and_flops(massive):
+    _, _, got = massive
+    assert got["device"] == "cpu" and got["power_limit_w"] is None
+    assert got["packing_backend"] == "python"
+    assert got["flops_source"] == "torch-flop-counter"
+    assert got["executed_flops"] >= got["true_flops"] > 0
+    assert got["value"] > 0 and got["steady_compiles"] == 0
+    assert {"round", "local-train", "bucket-chunk"} <= set(
+        got["phase_timings_s"])
 
 
 @pytest.mark.parametrize("name,want", [

@@ -141,7 +141,7 @@ def test_load_dataset_is_byte_equal(name, kw):
     ("synthetic_segmentation", "A14"), ("pascal_voc", "A14"),
     ("mnist", "A14"), ("femnist", "A14"), ("fed_cifar100", "A14"),
     ("fed_emnist", "A14"), ("coco_seg", "A14"),
-    ("stackoverflow_nwp", "A10"), ("stackoverflow_lr", "A10"),
+    ("ILSVRC2012", "A14"), ("gld160k", "A14"),
     ("imagenet", "A14"), ("gld23k", "A14")])
 def test_registry_refuses_unported_names(name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -127,8 +127,8 @@ def test_flags_and_defaults_are_the_reference_ones():
 @pytest.mark.parametrize("argv,item", [
     (["--mesh", "2"], "A15"),
     (["--compressor", "topk:0.1"], "A12"),
-    (["--staleness_decay", "0.8"], "A10"),
-    (["--flush_deadline", "2"], "A10"),
+    (["--compressor", "qsgd:4"], "A12"),
+    (["--xprof_dir", "/nonexistent"], "A16"),
     (["--warmup", "1"], "A16"),
     (["--compile_cache_dir", "/nonexistent"], "A16"),
     (["--trace", "1"], "A16"),
@@ -138,16 +138,16 @@ def test_flags_and_defaults_are_the_reference_ones():
     (["--audit", "1"], "A16"),
     (["--race_audit", "1"], "A16"),
     (["--enable_wandb", "1"], "A16"),
-    (["--async_window", "2"], "A10"),
+    (["--mesh", "4"], "A15"),
     (["--status_path", "/nonexistent"], "A16"),
     (["--xprof_round", "1"], "A16"),
     (["--trace_dir", "/nonexistent"], "A16"),
-    (["--async_agg", "1"], "A10"),
-    (["--buffer_k", "8"], "A10"),
+    (["--model", "vgg11"], "A14"),
+    (["--model", "resnet18_gn"], "A14"),
     (["--transport", "eventloop"], "A13"),
     (["--model", "mobilenet"], "A14"),
-    (["--model", "rnn_stackoverflow"], "A10"),
-    (["--dataset", "stackoverflow_nwp"], "A10"),
+    (["--dataset", "fed_cifar100"], "A14"),
+    (["--dataset", "pascal_voc"], "A14"),
     (["--dataset", "femnist"], "A14"),
 ])
 def test_unported_flag_refuses_naming_its_item(argv, item):

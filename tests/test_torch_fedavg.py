@@ -159,8 +159,8 @@ def test_entry_point_refuses_unported_paths():
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         FedAvgAPI(dataset, spec, _args(), mesh=object(), device="cpu")
     args = _args()
-    args.async_agg = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    args.grad_clip = 5.0
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         FedAvgAPI(dataset, spec, args, device="cpu")
     args = _args()
     args.compressor = "topk:0.1"

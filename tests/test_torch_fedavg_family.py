@@ -483,12 +483,13 @@ def test_quick_start_runs_each_server_optimizer(opt):
 
 @pytest.mark.parametrize("name", sorted(MAINS))
 @pytest.mark.parametrize("flag,value,item", [
-    ("--async_agg", "1", "A10"), ("--transport", "eventloop", "A13")])
+    ("--race_audit", "1", "A16"), ("--transport", "eventloop", "A13")])
 def test_main_refuses_resilience_flags(name, flag, value, item):
     """The resilience group's flags whose paths are still unported (the
-    async aggregator, the distributed transports) refuse on every main;
+    race audit, the distributed transports) refuse on every main;
     ``--overselect``, ``--straggler_p``, ``--quorum``, ``--deadline`` and
-    ``--pace_*`` run (``test_torch_resilience.py``)."""
+    ``--pace_*`` run (``test_torch_resilience.py``), as does
+    ``--async_agg`` (``test_torch_async_agg.py``)."""
     module, argv = MAINS[name]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         module.main(argv + ["--platform", "cpu", flag, value])

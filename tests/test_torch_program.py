@@ -168,15 +168,18 @@ def test_legs_waiting_for_later_work_raise():
     assert not CodecSpec.coerce(None).enabled
     assert CodecSpec.coerce(" NONE ").spec == "none"
     # the privacy legs are ported: a reference manifest carrying them
-    # builds, and only the buffered aggregator under them still waits
+    # builds, and so does the buffered aggregator under them, its flush
+    # folding through the robust leg
     jman = JaxProgram(dp=DPPolicy(clip_norm=1.0),
                       robust=RobustPolicy(mode="norm_clip",
                                           clip_bound=1.0)).manifest()
     legs = RoundProgram.from_manifest(jman)
     assert legs.manifest() == jman
     for prog in (RoundProgram(), legs):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            prog.host_view().make_aggregator()
+        aggregator = prog.host_view().make_aggregator()
+        assert isinstance(aggregator, agg.BufferedAggregator)
+        assert aggregator._fold_fn == (None if prog.robust is None
+                                       else prog.robust.fold_entries)
     prog = RoundProgram()
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         prog.compile_sim(None, None, mesh=object())

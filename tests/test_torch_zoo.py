@@ -115,8 +115,8 @@ def test_factory_knows_the_ported_names(name, cls):
 @pytest.mark.parametrize("name,item", [
     ("resnet18_gn", "A14"), ("mobilenet", "A14"), ("mobilenet_v3", "A14"),
     ("efficientnet", "A14"), ("efficientnet-b3", "A14"), ("vgg16", "A14"),
-    ("rnn", "A14"), ("rnn_fed_shakespeare", "A14"),
-    ("rnn_stackoverflow", "A10"), ("resnet34_gn", "A14")])
+    ("vgg11", "A14"), ("vgg13", "A14"),
+    ("resnet50_gn", "A14"), ("resnet34_gn", "A14")])
 def test_factory_refuses_unported_names(name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         create_model(None, name, 10)
