@@ -93,7 +93,23 @@ Phases (any failure exits non-zero):
    within ``LSTM_TOL``; and a bucketed round of ResNet-56 (fp32) with
    the CIFAR augmentation on the streamed client update, against the
    same round without it;
-10. print the ``kernels`` JSON line and, last, the ``ok`` line.
+10. compress client updates (``phase_compression``): the full-width
+   TransformerLM of the experiment phase with a compressor through
+   ``main_fedavg --compressor topk:0.01`` and ``main_fedopt --compressor
+   qsgd:8`` (the host-packed compressed round) and through streaming
+   error feedback (``--bucket_edges geometric --compressor signsgd``,
+   synchronous and with ``--async_agg 1``), the attention counters set to
+   0 just before each run and read just after, ``bytes_on_wire`` and
+   ``compression_ratio`` equal to the port's count on the CPU, the
+   residual store dense on the card with a live row for every client;
+   the bench's massive cohort with ``--compressor topk:0.1`` (sync and
+   async); one compressed round of a small fp32 LM card against CPU
+   within ``COMP_ROUND_TOL``, topk's index sets and qsgd's codes (its
+   draws handed in) equal on the same inputs, and the ``none`` round
+   bit-equal to the plain round under deterministic kernels; the bench's
+   ``--compression_sweep`` on ResNet-56 (encoded bytes equal to the
+   CPU's count) and ``--check``;
+11. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -1205,6 +1221,248 @@ def phase_massive_async(torch, smi):
           flush=True)
 
 
+#: the compressed LM runs: the full-width TransformerLM of EXP_LM with a
+#: compressor, host-packed (residency is bypassed) and through streaming
+#: error feedback on the bucketed path, synchronous and async
+EXP_COMP_HOST = [("main_fedavg", ["--compressor", "topk:0.01"]),
+                 ("main_fedopt", ["--compressor", "qsgd:8"])]
+EXP_COMP_STREAM = [("sync", ["--bucket_edges", "geometric",
+                             "--client_chunk", "4",
+                             "--compressor", "signsgd"]),
+                   ("async", ["--async_agg", "1", "--buffer_k", "8",
+                              "--client_chunk", "4",
+                              "--compressor", "signsgd"])]
+#: one compressed round (topk 1%) of a small fp32 LM, card against CPU
+#: from the same weights and data: every global parameter and residual
+#: within this (absolute); fp32 sums in another order move a delta by an
+#: ulp, and a kept coordinate can trade places with its neighbour in
+#: magnitude only where two magnitudes sit within that ulp
+COMP_ROUND_TOL = 1e-4
+#: the sweep's specs on ResNet-56: each family, the sparse ones at 1%
+COMP_SWEEP = "none,topk:0.01,randk:0.01,qsgd:8,signsgd"
+
+
+def _small_lm_api(torch, device, compressor):
+    """A small fp32 TransformerLM (d_model 128, 2 heads of 64, 2 layers,
+    T 20) on 4 synthetic-sequence clients, host-packed, SGD lr 0.1."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.specs import make_seq_classification_spec
+    from fedml_tpu_torch.data.synthetic import load_synthetic_sequences
+    from fedml_tpu_torch.models.transformer import TransformerLM
+
+    dataset = load_synthetic_sequences(client_num=4, n_train=64, n_test=16,
+                                       seq_len=20, vocab_size=90, seed=0)
+    model = TransformerLM(90, n_layers=2, n_heads=2, d_model=128, max_len=20)
+    args = types.SimpleNamespace(
+        client_num_in_total=4, client_num_per_round=4, comm_round=1,
+        epochs=1, batch_size=4, lr=0.1, wd=0.0, client_optimizer="sgd",
+        frequency_of_the_test=10 ** 9, seed=0, device_resident="0",
+        compressor=compressor)
+    return FedAvgAPI(dataset, make_seq_classification_spec(model), args,
+                     device=device)
+
+
+def _wire_check(torch, api, label):
+    """The record's ``bytes_on_wire`` and ``compression_ratio`` against
+    the port's count on the CPU for the same template; the residual store
+    dense on the card with non-zero rows for the cohort."""
+    from fedml_tpu_torch.compression.integration import (
+        compressed_payload_nbytes, raw_payload_nbytes)
+    from fedml_tpu_torch.utils.torch_import import reference_tree
+
+    rec = api.history[-1]
+    tmpl = reference_tree({k: v.cpu() for k, v in
+                           api.global_state["params"].items()})
+    n = rec.get("bucket/clients", api.args.client_num_per_round)
+    wire = compressed_payload_nbytes(api.compressor, tmpl) * n
+    ratio = round(raw_payload_nbytes(tmpl) * n / wire, 3)
+    store = api._ef_store
+    live = sum(1 for c in range(len(api.train_data_local_dict))
+               if any(float(v.abs().max()) > 0
+                      for v in store.peek(c).values()))
+    if (rec["bytes_on_wire"], rec["compression_ratio"]) != (wire, ratio):
+        fail(f"compression {label}: bytes_on_wire/compression_ratio "
+             f"{rec['bytes_on_wire']}/{rec['compression_ratio']}, the CPU "
+             f"count {wire}/{ratio}")
+    if not (store.dense and store.device.type == "cuda" and live == n):
+        fail(f"compression {label}: residual store dense={store.dense} on "
+             f"{store.device}, {live} live rows for {n} clients")
+    return {"bytes_on_wire": wire, "compression_ratio": ratio,
+            "store": f"dense/{store.device.type}", "live_rows": live}
+
+
+def _compressed_lm_runs(torch, fa, smi):
+    """The full-width LM through both lowerings with a compressor, the
+    attention counters set to 0 just before each run and read just
+    after."""
+    out = {}
+    runs = ([(f"host_{main[5:]}", main, argv) for main, argv in EXP_COMP_HOST]
+            + [(f"stream_{label}", "main_fedavg", argv)
+               for label, argv in EXP_COMP_STREAM])
+    for label, main, argv in runs:
+        for name in fa.launches:
+            fa.launches[name] = 0
+        api, times = _experiment(EXP_LM + argv, main)
+        launches = dict(fa.launches)
+        layers = sum(1 for k in api.global_state["params"]
+                     if k.endswith(".qkv.weight"))
+        host = label.startswith("host")
+        if (host != (api.compressed_round_fn is not None)
+                or host == (api.bucket_runner is not None)):
+            fail(f"compression {label}: ran the wrong lowering")
+        if not (launches["dq"] == launches["dkv"] > 0
+                and launches["dq"] % layers == 0
+                and launches["fwd"] >= launches["dq"]):
+            fail(f"compression {label}: attention launches {launches}")
+        wire = _wire_check(torch, api, label)
+        extra = {k: v for k, v in api.history[-1].items()
+                 if k.startswith("async/flushes")}
+        print(f"compression run=lm_{label} s_per_round={times} "
+              f"train_loss={[r['Train/Loss'] for r in api.history]} "
+              f"launches={json.dumps(launches)} {json.dumps(wire)} "
+              f"{json.dumps(extra)} card={smi}", flush=True)
+        out[label] = launches
+    return out
+
+
+def _massive_compressed(bench, smi):
+    for label, extra in (("sync", []), ("async", ["--massive_async", "1"])):
+        rec = bench.main(["--massive_cohort", "--compressor", "topk:0.1",
+                          "--rounds", "2", "--ledger", ""] + extra)
+        if "error" in rec:
+            fail(f"compression massive {label}: {rec['error']}")
+        if not (rec["value"] > 0 and math.isfinite(rec["train_loss"])
+                and rec["compression_ratio"] > 1
+                and rec["residual_store"] == "dense"):
+            fail(f"compression massive {label}: {rec}")
+        keys = ("value", "round_s", "round_times_s", "bytes_on_wire",
+                "compression_ratio", "residual_store", "chunks",
+                "train_loss", "peak_memory_gb", "phase_totals_s")
+        print(f"compression run=massive_{label}_topk "
+              + json.dumps({k: rec[k] for k in keys})
+              + f" card={smi}", flush=True)
+
+
+def _same_tree_compress(torch, spec, tree_cpu, seeds, draws=None):
+    """One compression of the same tree on the card and on the CPU."""
+    from fedml_tpu_torch.compression.compressors import get_compressor
+    comp = get_compressor(spec)
+    cuda = lambda t: {k: v.cuda() for k, v in t.items()}
+    return (comp.compress(cuda(tree_cpu), seeds,
+                          None if draws is None else cuda(draws)),
+            comp.compress(tree_cpu, seeds, draws))
+
+
+def _card_vs_cpu(torch, smi):
+    """One compressed round of the small fp32 LM, card against CPU; topk
+    and qsgd (with the draws handed in) on the same deltas on both; the
+    ``none`` round against the plain round on the card, bit for bit under
+    deterministic kernels."""
+    import numpy as np
+
+    cpu = _small_lm_api(torch, "cpu", "topk:0.01")
+    card = _small_lm_api(torch, "cuda", "topk:0.01")
+    card.global_state = {"params": {k: v.cuda() for k, v in
+                                    cpu.global_state["params"].items()}}
+    cpu.train_one_round()
+    card.train_one_round()
+    diff = max(float((card.global_state["params"][k].cpu() - v).abs().max())
+               for k, v in cpu.global_state["params"].items())
+    rdiff = max(float((card._ef_store.peek(c)[k] - v).abs().max())
+                for c in range(4) for k, v in cpu._ef_store.peek(c).items())
+    rng = np.random.default_rng(0)
+    deltas = {k: torch.from_numpy(rng.standard_normal(
+        (4,) + tuple(v.shape)).astype(np.float32))
+        for k, v in cpu.global_state["params"].items()}
+    seeds = np.arange(4)
+    got, want = _same_tree_compress(torch, "topk:0.01", deltas, seeds)
+    index_sets_equal = all(
+        set(got[k]["indices"][c].tolist())
+        == set(want[k]["indices"][c].tolist())
+        and torch.equal(got[k]["values"][c].cpu().sort().values,
+                        want[k]["values"][c].sort().values)
+        for k in deltas for c in range(4))
+    from fedml_tpu_torch.compression.compressors import get_compressor
+    draws = get_compressor("qsgd:8").draws(deltas, seeds)
+    got, want = _same_tree_compress(torch, "qsgd:8", deltas, seeds, draws)
+    qsgd_equal = all(torch.equal(got[k][f].cpu(), want[k][f])
+                     for k in deltas for f in ("q", "scale"))
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        none = _small_lm_api(torch, "cuda", "none")
+        plain = _small_lm_api(torch, "cuda", None)
+        none.train_one_round()
+        plain.train_one_round()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    none_diff = max(float((none.global_state["params"][k] - v).abs().max())
+                    for k, v in plain.global_state["params"].items())
+    out = {"round_param_diff": diff, "round_residual_diff": rdiff,
+           "tol": COMP_ROUND_TOL, "topk_index_sets_equal": index_sets_equal,
+           "qsgd_codes_equal": qsgd_equal, "none_vs_plain_diff": none_diff}
+    print(f"compression step=card_vs_cpu_lm_fp32 {json.dumps(out)} "
+          f"card={smi}", flush=True)
+    if not (diff <= COMP_ROUND_TOL and rdiff <= COMP_ROUND_TOL
+            and index_sets_equal and qsgd_equal and none_diff == 0.0):
+        fail(f"compression card vs CPU: {out}")
+
+
+def _sweep_and_check(bench, smi):
+    """The bench's sweep on ResNet-56 and its size gate on the card; the
+    encoded bytes against the port's count on the CPU."""
+    from fedml_tpu_torch.compression.compressors import get_compressor
+    from fedml_tpu_torch.compression.integration import (
+        compressed_payload_nbytes)
+    from fedml_tpu_torch.utils.torch_import import reference_tree
+
+    rec = bench.main(["--compression_sweep", "--compressors", COMP_SWEEP,
+                      "--sweep_model", "resnet56", "--ledger", ""])
+    if "error" in rec:
+        fail(f"compression sweep: {rec['error']}")
+    import torch
+    tmpl = reference_tree(bench._sweep_state("resnet56", torch.device(
+        "cpu"))["params"])
+    for row in rec["rows"]:
+        want = compressed_payload_nbytes(get_compressor(row["compressor"]),
+                                         tmpl)
+        if row["encoded_bytes"] != want:
+            fail(f"compression sweep {row['compressor']}: "
+                 f"{row['encoded_bytes']} bytes on the card, {want} on the "
+                 "CPU")
+        print(f"compression sweep=resnet56 {json.dumps(row)} card={smi}",
+              flush=True)
+    check = bench.main(["--check", "--ledger", ""])
+    if check.get("pass") is not True:
+        fail(f"compression --check: {check}")
+    print(f"compression check {json.dumps(check)} card={smi}", flush=True)
+
+
+def phase_compression(torch, fa, smi):
+    """Client-update compression on the card: the full-width LM
+    host-packed (``main_fedavg --compressor topk:0.01``, ``main_fedopt
+    --compressor qsgd:8``) and through streaming error feedback (sync and
+    async, ``signsgd``), each with the attention counters checked, its
+    ``bytes_on_wire`` and ``compression_ratio`` equal to the CPU's count
+    and its residual store dense on the card; the massive cohort with
+    ``topk:0.1`` (sync and async); a small fp32 LM round card against CPU
+    within ``COMP_ROUND_TOL`` with topk's index sets and qsgd's codes
+    equal on the same inputs and the ``none`` round bit-equal to the
+    plain one; the bench's sweep on ResNet-56 and its ``--check``. Every
+    line names the card and its power limit."""
+    from fedml_tpu_torch import bench
+
+    t0 = time.time()
+    launches = _compressed_lm_runs(torch, fa, smi)
+    _massive_compressed(bench, smi)
+    _card_vs_cpu(torch, smi)
+    _sweep_and_check(bench, smi)
+    print(f"compression phase_s={time.time() - t0:.1f} card={smi}",
+          flush=True)
+    return launches
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -1373,6 +1631,7 @@ def main():
     phase_fedavg_family(torch, fa, smi)
     phase_resilience_moe(torch, fa, smi)
     phase_massive_async(torch, smi)
+    phase_compression(torch, fa, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

@@ -20,8 +20,16 @@ reference does. Every path draws its cohort through
 :meth:`FedAvgAPI._sample_cohort`: the seeded draw, or under
 ``--overselect``/``--straggler_p`` the reporting subset of
 ``SimResilience`` (steered by ``--pace_steering``), whose ``res/*`` and
-``pace/*`` fields ride the round's record. Compression and meshes wait
-for ROADMAP A12 and A15.
+``pace/*`` fields ride the round's record.
+
+``--compressor`` (``compressor=``) compresses each client's update with
+error feedback: through the host-packed compressed round (residency is
+bypassed), or on the bucketed path as streaming error feedback, where
+``none`` runs the plain chunk program. One ``ResidualStore`` sized by
+``device_data_cap_gb`` carries the residuals by client id for both
+(they are not checkpointed, as in the reference), and every record
+carries ``bytes_on_wire`` and ``compression_ratio``. Meshes wait for
+ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ import time
 import numpy as np
 import torch
 
+from fedml_tpu_torch.compression.compressors import get_compressor
+from fedml_tpu_torch.compression.integration import (
+    ResidualStore, compressed_payload_nbytes, raw_payload_nbytes)
 from fedml_tpu_torch.core.trainer import TrainSpec
 from fedml_tpu_torch.observability.tracing import get_tracer
 from fedml_tpu_torch.parallel.engine import (ClientUpdateConfig, LaneRunner,
@@ -50,11 +61,7 @@ from fedml_tpu_torch.program.round import RoundProgram
 from fedml_tpu_torch.resilience.integration import SimResilience
 from fedml_tpu_torch.resilience.steering import PaceController
 from fedml_tpu_torch.utils.device import resolve_device
-
-# reference args whose non-default values select a path not ported yet
-_UNPORTED = {
-    "compressor": "ROADMAP A12 (compression)",
-}
+from fedml_tpu_torch.utils.torch_import import reference_tree
 
 #: ``local-train`` span mode of each resident ``wave_mode``
 _MODES = {0: "flat", 1: "waves", 2: "lanes", 3: "mxu-lanes"}
@@ -78,11 +85,13 @@ class FedAvgAPI:
         ``"cpu"`` to run on the CPU.
       payload_fn / server_fn / server_state: aggregator hooks; payload_fn
         takes client- or lane-stacked local state.
+      compressor: a spec string or compressor (default
+        ``args.compressor``).
     """
 
     def __init__(self, dataset, spec: TrainSpec, args, mesh=None,
                  payload_fn=None, server_fn=None, server_state=None,
-                 metrics_logger=None, device=None):
+                 metrics_logger=None, device=None, compressor=None):
         (self.train_data_num, self.test_data_num, self.train_data_global,
          self.test_data_global, self.train_data_local_num_dict,
          self.train_data_local_dict, self.test_data_local_dict,
@@ -93,11 +102,9 @@ class FedAvgAPI:
         self.metrics_logger = metrics_logger or (
             lambda d: logging.info("%s", d))
         if mesh is not None:
+            # a compressor on a mesh is refused too in the reference:
+            # mesh rounds aggregate over collectives, with no wire
             raise NotImplementedError("mesh rounds wait for ROADMAP A15")
-        for name, item in _UNPORTED.items():
-            if getattr(args, name, None) not in (None, 0, 0.0, False,
-                                                 "none"):
-                raise NotImplementedError(f"--{name} waits for {item}")
 
         self.cfg = cfg = ClientUpdateConfig(
             optimizer=getattr(args, "client_optimizer", "sgd"),
@@ -105,18 +112,36 @@ class FedAvgAPI:
             weight_decay=getattr(args, "wd", 0.0),
             momentum=getattr(args, "momentum", 0.0),
             grad_clip=getattr(args, "grad_clip", None))
-        # the one RoundProgram this API executes
-        self.program = RoundProgram.from_args(args, codec="none",
-                                              client_update=(spec, cfg))
+        self.compressor = get_compressor(
+            compressor if compressor is not None
+            else getattr(args, "compressor", None))
+        async_policy = AggregationPolicy.from_args(args)
+        use_buckets = (getattr(args, "bucket_edges", None) is not None
+                       or async_policy is not None)
+        if (use_buckets and self.compressor is not None
+                and self.compressor.name == "none"):
+            # the identity has no wire transform to stream: the plain
+            # chunk program, so --compressor none is no flag at all
+            logging.info("bucketed streaming: --compressor none is the "
+                         "identity -- running the plain chunk program")
+            self.compressor = None
+        # the one RoundProgram this API executes, its codec leg what runs
+        self.program = RoundProgram.from_args(
+            args, codec=(self.compressor if self.compressor is not None
+                         else "none"),
+            client_update=(spec, cfg))
         self.round_fn = self.program.compile_sim(spec, cfg, payload_fn,
-                                                 server_fn)
+                                                 server_fn, compressed=False)
+        self.compressed_round_fn = None
+        if self.compressor is not None and not use_buckets:
+            self.compressed_round_fn = self.program.compile_sim(
+                spec, cfg, payload_fn, server_fn, compressed=True,
+                compressor=self.compressor)
         self.eval_fn = make_eval_fn(spec)
         self.bucket_runner = None
         self.async_agg = None
         self._async_window = 4
-        async_policy = AggregationPolicy.from_args(args)
-        if (getattr(args, "bucket_edges", None) is not None
-                or async_policy is not None):
+        if use_buckets:
             self._init_bucketed(spec, args, payload_fn, server_fn)
             if async_policy is not None:
                 self.async_agg = self.program.host_view().make_aggregator()
@@ -125,9 +150,12 @@ class FedAvgAPI:
         self.device_data = None
         self.packed_lane_runner = None
         resident = str(getattr(args, "device_resident", "auto")).lower()
+        # compressed rounds thread residuals, which only the host-packed
+        # round does: residency is bypassed under a compressor
         stacked = (self._stack_if_fits(args)
                    if resident not in ("0", "false", "none", "")
-                   and self.bucket_runner is None else None)
+                   and self.bucket_runner is None
+                   and self.compressor is None else None)
         if stacked is not None:
             self.device_data = {"x": stacked["x"], "y": stacked["y"]}
             self._client_ns = stacked["n"]
@@ -166,6 +194,24 @@ class FedAvgAPI:
         self.history = []
         self._last_trip = None
         self.global_state = spec.init_fn(self.seed, self.device)
+        if self.compressor is not None:
+            self._init_compression(args)
+
+    def _init_compression(self, args):
+        """The residual store shared by both lowerings (dense rows on the
+        device when the population fits ``device_data_cap_gb``) and the
+        per-client update bytes, from shapes alone. The bytes are framed
+        under the reference's parameter names
+        (:func:`~fedml_tpu_torch.utils.torch_import.reference_tree`), so
+        a port run and a reference run count the same bytes."""
+        params = self.global_state["params"]
+        self._ef_store = ResidualStore(
+            params, num_clients=len(self.train_data_local_dict),
+            dense_cap_gb=float(getattr(args, "device_data_cap_gb", 2.0)))
+        wire = reference_tree(params)
+        self._payload_bytes = compressed_payload_nbytes(self.compressor,
+                                                        wire)
+        self._raw_payload_bytes = raw_payload_nbytes(wire)
 
     def _init_bucketed(self, spec, args, payload_fn, server_fn):
         """The streaming runner, its edges sized from the POPULATION's
@@ -183,6 +229,7 @@ class FedAvgAPI:
                                    s_max)
         self.bucket_runner = self.program.compile_bucketed(
             spec, self.cfg, payload_fn, server_fn,
+            compressor=self.compressor,
             client_chunk=getattr(args, "client_chunk", 8) or 8,
             batch_size=eff_bs, epochs=args.epochs, edges=edges)
 
@@ -296,10 +343,26 @@ class FedAvgAPI:
                     self.global_state, self.server_state, datasets,
                     round_seed, data_rng=self._data_rng,
                     aggregator=self.async_agg,
-                    async_window=self._async_window)
+                    async_window=self._async_window,
+                    client_ids=client_indexes,
+                    residual_store=(self._ef_store
+                                    if self.compressor is not None
+                                    else None))
             self._last_bucket_info = info
+            self._last_cohort_size = len(client_indexes)
         elif self.device_data is not None:
             info = self._resident_round(tracer, round_seed)
+        elif self.compressed_round_fn is not None:
+            client_indexes, packed = self._cohort(self.round_idx)
+            with tracer.span("local-train", mode="compressed"):
+                # rows gathered and scattered by stable client id
+                cohort_res = self._ef_store.gather(client_indexes)
+                (self.global_state, self.server_state, new_res,
+                 info) = self.compressed_round_fn(
+                    self.global_state, self.server_state, packed,
+                    cohort_res, round_seed)
+                self._ef_store.scatter(client_indexes, new_res)
+            self._last_cohort_size = len(client_indexes)
         else:
             _, packed = self._cohort(self.round_idx)
             with tracer.span("local-train", mode="packed"):
@@ -335,6 +398,14 @@ class FedAvgAPI:
             if self.round_idx == 0:
                 # the two backends shuffle from different PRNG families
                 train_metrics["packing_backend"] = packing_backend()
+        if self.compressor is not None:
+            # the round's uplink: encoded bytes a client are static given
+            # the template (the downlink broadcast is not compressed)
+            cohort = self._last_cohort_size
+            wire = self._payload_bytes * cohort
+            train_metrics["bytes_on_wire"] = wire
+            train_metrics["compression_ratio"] = round(
+                self._raw_payload_bytes * cohort / wire, 3)
         return train_metrics
 
     def _resident_round(self, tracer, round_seed):

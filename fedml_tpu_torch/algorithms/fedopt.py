@@ -163,10 +163,11 @@ class FedOptAPI(FedAvgAPI):
     """The FedAvg round loop with a server optimizer. Extra args:
     ``server_optimizer`` (default ``sgd``), ``server_lr`` (default 1.0),
     ``server_momentum`` (default 0.9). The server state starts from the
-    initial global params."""
+    initial global params. ``compressor=`` composes: the server optimizer
+    steps on the pseudo-gradient that survived compression."""
 
     def __init__(self, dataset, spec, args, mesh=None, metrics_logger=None,
-                 device=None):
+                 device=None, compressor=None):
         server_tx = get_server_optimizer(
             getattr(args, "server_optimizer", "sgd"),
             getattr(args, "server_lr", 1.0),
@@ -174,7 +175,8 @@ class FedOptAPI(FedAvgAPI):
         payload_fn, server_fn = make_fedopt_hooks(server_tx)
         super().__init__(dataset, spec, args, mesh=mesh,
                          payload_fn=payload_fn, server_fn=server_fn,
-                         metrics_logger=metrics_logger, device=device)
+                         metrics_logger=metrics_logger, device=device,
+                         compressor=compressor)
         self.server_tx = server_tx
         self.server_state = server_tx.init(self.global_state["params"])
 

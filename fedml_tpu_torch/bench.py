@@ -5,6 +5,9 @@ on one NVIDIA H100 (counterpart of the repository's ``bench.py``).
     python -m fedml_tpu_torch.bench --lm     # federated LM flagship, uncut
     python -m fedml_tpu_torch.bench --smoke --platform cpu [--lm]
     python -m fedml_tpu_torch.bench --massive_cohort [N] [--massive_async 1]
+        [--compressor SPEC]
+    python -m fedml_tpu_torch.bench --compression_sweep [--sweep_model M]
+    python -m fedml_tpu_torch.bench --check
 
 **ResNet-56 flagship** (no flags): cross-silo FedAvg on CIFAR-10-shaped
 synthetic data (50,000 samples, 32x32, LDA alpha=0.5, seed 0), 32
@@ -28,7 +31,21 @@ client each round, batch 8, SGD lr 0.05, 1 epoch, geometric edges,
 ``--massive_chunk`` clients a chunk, no resident shards; with
 ``--massive_async 1`` through the buffered async aggregator
 (``--buffer_k``, ``--staleness_decay``, window 4). One warmup round,
-then ``--rounds`` measured rounds; the headline is clients/s.
+then ``--rounds`` measured rounds; the headline is clients/s. With
+``--compressor SPEC`` every client's update is compressed with error
+feedback inside the chunk (streaming EF), and the record adds
+``bytes_on_wire``, ``compression_ratio`` and ``residual_store`` (dense
+rows on the device or a sparse host dict).
+
+**Compression tools** (``bench.py``'s ``run_compression_tools``):
+``--compression_sweep`` prints one line a ``--compressors`` spec on the
+``--sweep_model`` (``resnet56`` or ``cnn``) parameters: the encoded
+bytes of one update through the codec, the ratios against the raw
+binary frame and the JSON lists, and the median encode and decode ms of
+``--repeats`` calls on the device; ``--check`` is the codec's size gate
+(the ``none`` frame at least 5x smaller than the JSON lists). Bytes are
+counted with the parameters under the reference's names and layouts
+(``utils/torch_import.py``), so they equal the reference's.
 
 Each run prints one JSON record with the reference's keys, appends it
 to ``--ledger`` (default ``bench_results/torch_ledger.jsonl``, a ledger
@@ -131,12 +148,6 @@ _UNPORTED_FLAGS = (
     ("--tree", "ROADMAP A13 (the process-tree soak)"),
     ("--steering", "ROADMAP A13 (the TCP control plane) and A16 (the perf "
      "monitor)"),
-    ("--compressor", "ROADMAP A12 (compression)"),
-    ("--compressors", "ROADMAP A12 (compression)"),
-    ("--compression_sweep", "ROADMAP A12 (compression)"),
-    ("--check", "ROADMAP A12 (the codec size gate)"),
-    ("--sweep_model", "ROADMAP A12 (compression)"),
-    ("--repeats", "ROADMAP A12 (compression)"),
 )
 
 
@@ -582,7 +593,7 @@ def run_massive_cohort(args, device):
         client_chunk=args.massive_chunk, bucket_edges="geometric",
         async_agg=int(args.massive_async), buffer_k=args.buffer_k,
         staleness_decay=args.staleness_decay, async_window=4,
-        device_resident="0")
+        device_resident="0", compressor=args.compressor)
     api = FedAvgAPI(dataset, spec, run_args, device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -602,14 +613,16 @@ def run_massive_cohort(args, device):
     per_bucket, exec_f, true_f = _bucket_flops(
         api, [b for b in binfo["per_bucket"] if not b["skipped"]], bs, dim)
     fields, _ = _device_fields(device)
+    comp = api.compressor is not None
     out = {
         "metric": (f"massive-cohort clients/sec (bucketed streaming, {C} "
                    "ragged LR clients"
                    + (", async buffered" if args.massive_async else "")
+                   + (f", {args.compressor} streaming-EF" if comp else "")
                    + ")" + ("" if device.type == "cuda" else _SMOKE_TAG)),
         "value": round(C / round_s, 1),
         "unit": "clients/sec",
-        "compressor": None,
+        "compressor": args.compressor if comp else None,
         "clients_per_round": C,
         "rounds_measured": rounds,
         "round_s": round(round_s, 3),
@@ -640,7 +653,129 @@ def run_massive_cohort(args, device):
     if args.massive_async:
         out["async"] = {k.split("/", 1)[1]: v for k, v in last.items()
                         if k.startswith("async/")}
+    if comp:
+        # the uplink of the streaming-EF round (static bytes a client
+        # times the cohort)
+        out["bytes_on_wire"] = last["bytes_on_wire"]
+        out["compression_ratio"] = last["compression_ratio"]
+        out["residual_store"] = "dense" if api._ef_store.dense else "sparse"
     return out
+
+
+# ---------------------------------------------------------------------------
+# the compression tools
+# ---------------------------------------------------------------------------
+#: the codec size gate: the none frame against the JSON lists
+CHECK_THRESHOLD = 5.0
+
+
+def params_to_lists(tree):
+    """Tree of arrays -> tree of nested Python lists (the JSON codec the
+    binary frames replace; ``fedml_tpu/core/message.py``'s)."""
+    if isinstance(tree, dict):
+        return {k: params_to_lists(v) for k, v in tree.items()}
+    return np.asarray(tree).tolist()
+
+
+def _json_list_nbytes(params):
+    """Bytes of the JSON nested-list codec for this tree."""
+    return len(json.dumps(params_to_lists(params)).encode())
+
+
+def _sweep_state(model_name, device):
+    """The ``--sweep_model`` state (``resnet56`` at 10 classes or the
+    digits CNN) from the spec's initialisers, seed 0, on ``device``."""
+    from fedml_tpu_torch.algorithms.specs import make_classification_spec
+    from fedml_tpu_torch.models import resnet56
+    from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
+
+    model = (CNNOriginalFedAvg(only_digits=True) if model_name == "cnn"
+             else resnet56(class_num=10))
+    return make_classification_spec(model).init_fn(0, device)
+
+
+def reference_variables(state, model_name):
+    """The sweep state's params as the reference lays them out: nested
+    flax names, conv kernels HWIO, dense kernels ``[in, out]`` (numpy)."""
+    from fedml_tpu_torch.utils import torch_import as ti
+
+    if model_name == "cnn":
+        return ti.zoo_state_to_variables(state, convs=("conv1", "conv2"))[
+            "params"]
+    return ti.state_to_variables(state, 56)["params"]
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_compression_tools(args, device):
+    """``--check``: the size gate's record. ``--compression_sweep``: one
+    line a spec, printed as it is measured, and a record holding them
+    (``rows``). Encoded bytes are one client's update through the codec
+    under the reference's names; times are the median of ``--repeats``
+    calls on ``device`` after one warm call."""
+    from fedml_tpu_torch.compression.codec import (decode_tree, encode_tree,
+                                                   tree_wire_nbytes)
+    from fedml_tpu_torch.compression.compressors import (get_compressor,
+                                                         tree_map)
+    from fedml_tpu_torch.utils.torch_import import reference_tree
+
+    state = _sweep_state(args.sweep_model, device)
+    params = state["params"]
+    ref = reference_variables(state, args.sweep_model)
+    n_params = sum(int(v.numel()) for v in params.values())
+    raw_binary = tree_wire_nbytes(ref)
+    json_bytes = _json_list_nbytes(ref)
+    fields, _ = _device_fields(device)
+    if args.check:
+        ratio = json_bytes / raw_binary
+        return {"metric": "codec size regression (none codec vs JSON "
+                          f"lists, {args.sweep_model}-sized pytree)",
+                "n_params": n_params, "json_list_bytes": json_bytes,
+                "binary_bytes": raw_binary, "ratio": round(ratio, 2),
+                "threshold": CHECK_THRESHOLD,
+                "pass": ratio >= CHECK_THRESHOLD}
+    rows = []
+    for spec_str in args.compressors.split(","):
+        spec_str = spec_str.strip()
+        comp = get_compressor(spec_str)
+        stacked = {k: v.unsqueeze(0) for k, v in params.items()}
+        seeds = np.zeros(1, np.int64)
+
+        def encode():
+            return comp.compress(stacked, seeds)
+
+        enc = encode()  # warm
+        comp.decompress(enc, params)
+        enc_t, dec_t = [], []
+        for _ in range(args.repeats):
+            _sync(device)
+            t0 = time.perf_counter()
+            enc = encode()
+            _sync(device)
+            enc_t.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            comp.decompress(enc, params)
+            _sync(device)
+            dec_t.append(time.perf_counter() - t0)
+        one = tree_map(lambda x: x[0], enc)  # the client's wire form
+        wire = encode_tree(reference_tree(one))
+        decode_tree(wire)  # the host decode path stays exercised
+        row = {"compressor": spec_str, "model": args.sweep_model,
+               "n_params": n_params, "encoded_bytes": len(wire),
+               "raw_binary_bytes": raw_binary, "json_list_bytes": json_bytes,
+               "ratio_vs_binary": round(raw_binary / len(wire), 2),
+               "ratio_vs_json": round(json_bytes / len(wire), 2),
+               "encode_ms": round(1e3 * float(np.median(enc_t)), 2),
+               "decode_ms": round(1e3 * float(np.median(dec_t)), 2),
+               **fields}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return {"metric": f"compression sweep ({args.sweep_model}-sized "
+                      f"pytree, {len(rows)} compressors)",
+            "rows": rows, **fields}
 
 
 # ---------------------------------------------------------------------------
@@ -724,6 +859,26 @@ def _parser():
                    help="massive-cohort bench: async buffer K")
     p.add_argument("--staleness_decay", type=float, default=0.5,
                    help="massive-cohort bench: async staleness exponent")
+    p.add_argument("--compressor", type=str, default=None,
+                   help="massive-cohort bench: client-update compression "
+                        "spec (e.g. 'topk:0.1', 'qsgd:8', 'signsgd'), "
+                        "streamed with error feedback in the chunk")
+    p.add_argument("--compression_sweep", action="store_true",
+                   help="measure each --compressors spec on a "
+                        "--sweep_model pytree (encoded bytes, encode and "
+                        "decode ms on the device)")
+    p.add_argument("--check", action="store_true",
+                   help="size-regression gate: the binary none-codec "
+                        "frame must be >=5x smaller than the JSON-list "
+                        "path (exit 1 on regression)")
+    p.add_argument("--sweep_model", choices=("resnet56", "cnn"),
+                   default="resnet56")
+    p.add_argument("--compressors", type=str,
+                   default="none,topk:0.01,topk:0.1,randk:0.1,qsgd:8,"
+                           "signsgd",
+                   help="comma-separated specs for --compression_sweep")
+    p.add_argument("--repeats", type=int, default=5,
+                   help="timing repeats a spec in --compression_sweep")
     p.add_argument("--ledger", type=str,
                    default="bench_results/torch_ledger.jsonl",
                    help="perf-regression ledger of the port: every run "
@@ -755,6 +910,11 @@ def _refusal(args, unknown):
         return f"{name} is not a flag of the port's bench"
     if args.rounds < 1:
         return f"--rounds {args.rounds}: measure at least 1 round"
+    if args.compressor is not None and not args.massive_cohort:
+        return ("--compressor applies to --massive_cohort here (the "
+                "soak's wire compression waits for ROADMAP A13)")
+    if args.repeats < 1:
+        return f"--repeats {args.repeats}: time at least 1 call"
     return None
 
 
@@ -762,7 +922,9 @@ def main(argv=None):
     """Run the bench for ``argv`` (default ``sys.argv[1:]``); prints and
     returns one record (a failure record carries ``error``)."""
     args, unknown = _parser().parse_known_args(argv)
-    metric = (_MASSIVE_FAILURE_METRIC if args.massive_cohort
+    tools = args.compression_sweep or args.check
+    metric = ("compression tools" if tools
+              else _MASSIVE_FAILURE_METRIC if args.massive_cohort
               else _LM_FAILURE_METRIC if args.lm
               else _FAILURE_METRIC.replace("FedAvg", "FedOpt")
               if args.algo == "fedopt" else _FAILURE_METRIC)
@@ -781,7 +943,8 @@ def main(argv=None):
     try:
         device = (torch.device("cpu") if args.platform == "cpu"
                   else resolve_device(None))
-        run = (run_massive_cohort if args.massive_cohort
+        run = (run_compression_tools if tools
+               else run_massive_cohort if args.massive_cohort
                else run_lm_bench if args.lm else run_resnet_bench)
         record = run(args, device)
     except Exception:  # the one-line contract: report, then fail
@@ -790,7 +953,7 @@ def main(argv=None):
     finally:
         watchdog.cancel()
     print(json.dumps(record), flush=True)
-    if args.ledger:
+    if args.ledger and not tools:
         append_ledger(record, args.ledger)
     return record
 

@@ -19,7 +19,6 @@ import random
 import numpy as np
 import torch
 
-from fedml_tpu_torch.program.codec import CodecSpec
 from fedml_tpu_torch.resilience.integration import add_resilience_args
 from fedml_tpu_torch.resilience.steering import add_steering_args
 
@@ -92,8 +91,10 @@ def add_base_args(parser: argparse.ArgumentParser):
                    choices=("bf16", "bfloat16"),
                    help="keep resident floating image data in bfloat16")
     p.add_argument("--compressor", type=str, default=None,
-                   help="client-update compression: only none is ported "
-                        "(ROADMAP A12)")
+                   help="client-update compression spec: none | topk:R | "
+                        "randk:R | qsgd:BITS | signsgd; error feedback per "
+                        "client, bytes_on_wire / compression_ratio in every "
+                        "round record; default off")
     p.add_argument("--moe_experts", type=int, default=8,
                    help="expert count of --model moe_transformer")
     p.add_argument("--model_dtype", type=str, default=None,
@@ -154,8 +155,6 @@ def refuse_unported(args):
     for name, (runs, item) in _UNPORTED.items():
         if getattr(args, name, runs) != runs:
             raise NotImplementedError(f"--{name} waits for {item}")
-    # a compressor spec other than the disabled ones raises (A12)
-    CodecSpec.coerce(getattr(args, "compressor", None))
     if getattr(args, "platform", None) not in (None, "cpu"):
         raise ValueError(f"--platform {args.platform!r}: the port runs on "
                          "the card (default) or, asked, on the cpu")

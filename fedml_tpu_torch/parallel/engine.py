@@ -26,8 +26,9 @@ global state is never written. The runners:
 Random draws (augmentation, dropout) come from ``torch.Generator``s
 seeded per (client, local step): a client's seed is derived from its
 cohort slot the same way in every runner (:func:`client_seeds_for`), so
-the paths agree to float reassociation. Sharded rounds wait for ROADMAP
-A15.
+the paths agree to float reassociation. The bucketed runner streams
+error feedback under a compressor (``compression/``). Sharded rounds wait
+for ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fedml_tpu_torch.compression.compressors import ErrorFeedback
+from fedml_tpu_torch.compression.integration import ef_reconstruct
 from fedml_tpu_torch.core.trainer import TrainSpec
 from fedml_tpu_torch.observability.tracing import get_tracer
 from fedml_tpu_torch.parallel.packing import (_steps_for, bucket_edge_for,
@@ -614,16 +617,22 @@ class BucketedStreamRunner:
     in the middle of the round, chunks dispatched after it train from
     the new global state, and what is left drains at the round's end.
     With ``buffer_k`` the cohort and decay 0 the async round is the
-    synchronous one bit for bit. Streaming error feedback
-    (``compressor=``) waits for ROADMAP A12."""
+    synchronous one bit for bit.
+
+    Streaming error feedback (``compressor=``): the chunk additionally
+    runs the client->server half of the wire for each lane -- compress
+    its params delta plus its residual, reconstruct the server's view and
+    aggregate the reconstructed states
+    (:func:`~fedml_tpu_torch.compression.integration.ef_reconstruct`).
+    Residual rows are gathered by stable client id from a
+    ``ResidualStore`` at dispatch and written back at the chunk's fold
+    point; padded lanes carry zero rows whose updates are dropped."""
 
     def __init__(self, spec: TrainSpec, cfg: ClientUpdateConfig,
                  payload_fn=None, server_fn=None, client_chunk=256,
                  batch_size=32, epochs=1, edges=(8,), compressor=None):
-        if compressor is not None:
-            raise NotImplementedError(
-                "streaming-EF (compressor=) on the bucketed path waits for "
-                "ROADMAP A12 (compression)")
+        self.compressor = compressor
+        self._ef = None if compressor is None else ErrorFeedback(compressor)
         self.payload_fn = payload_fn or _default_payload
         self.server_fn = server_fn or _default_server
         self.client_chunk = max(1, int(client_chunk))
@@ -633,23 +642,39 @@ class BucketedStreamRunner:
         self._update = make_streamed_client_update(spec, cfg)
         self._dtypes = None
 
-    def _chunk(self, global_state, batches, ns, trip, seeds):
+    def _chunk(self, global_state, batches, ns, trip, seeds, residuals=None,
+               comp_seeds=None):
+        """One chunk's weighted payload sum, weight and metrics (and,
+        under a compressor, the lanes' new residuals), on the device."""
         local_states, aux, metrics = self._update(global_state, batches, ns,
                                                   trip, seeds)
         with torch.no_grad():
+            new_res = None
+            if self._ef is not None:
+                with get_tracer().span("ef-compress",
+                                       clients=len(comp_seeds)):
+                    local_states, new_res = ef_reconstruct(
+                        self._ef, local_states, global_state, residuals,
+                        comp_seeds)
             payloads = self.payload_fn(local_states, global_state, aux)
             w = aux["n"].float()
             pay_sum = _tree_map(lambda x: torch.tensordot(
                 w, x.float(), dims=([0], [0])), payloads)
             return (pay_sum, w.sum(),
-                    _tree_map(lambda m: m.sum(dim=0), metrics))
+                    _tree_map(lambda m: m.sum(dim=0), metrics), new_res)
 
     def run_round(self, global_state, server_state, datasets, round_seed,
-                  data_rng=None, aggregator=None, async_window=4):
+                  data_rng=None, aggregator=None, async_window=4,
+                  client_ids=None, residual_store=None):
         """One round over ``datasets`` (the cohort's raw client shards,
         ``{"x", "y"}`` each), streamed chunk by chunk; ``aggregator`` (a
         ``BufferedAggregator``) switches the fold to buffered async, and
-        ``async_window`` is the chunks in flight. Returns
+        ``async_window`` is the chunks in flight. Under a compressor,
+        ``residual_store`` (a ``ResidualStore``, required) carries each
+        client's residual across rounds keyed by ``client_ids`` (stable
+        ids aligned with ``datasets``; cohort ordinals by default), and
+        the compression seeds are ``client_seeds_for(fold_seed(round_seed,
+        3), C)`` by cohort slot. Returns
         ``(new_global, new_server_state, info)`` with ``info["bucket"]``
         (the reference's waste accounting), ``info["aux"]``, the
         fp64-summed ``info["metrics"]`` and, async, ``info["async"]``
@@ -662,6 +687,11 @@ class BucketedStreamRunner:
         C = len(datasets)
         if C == 0:
             raise ValueError("bucketed round over an empty cohort")
+        if self.compressor is not None and residual_store is None:
+            raise ValueError(
+                "streaming-EF needs a residual_store: the error-feedback "
+                "accumulator is keyed by stable client id across rounds "
+                "(compression.ResidualStore; FedAvgAPI owns one)")
         ns = [len(d["y"]) for d in datasets]
         if sum(ns) == 0:
             raise ValueError("bucketed round: every client shard is empty")
@@ -677,6 +707,11 @@ class BucketedStreamRunner:
         dev = next(iter(global_state["params"].values())).device
         seeds = client_seeds_for(round_seed, C)
         flush_seed = fold_seed(round_seed, 2)
+        comp_seeds = None
+        if self.compressor is not None:
+            comp_seeds = client_seeds_for(fold_seed(round_seed, 3), C)
+            if client_ids is None:
+                client_ids = list(range(C))
         gs, ss = global_state, server_state
         num, w_total, metrics_acc = None, 0.0, None
         flushes = 0
@@ -691,7 +726,13 @@ class BucketedStreamRunner:
         def fold_oldest():
             # the first host read of a chunk's outputs: the sync point
             nonlocal num, w_total, metrics_acc, gs, ss, flushes
-            ordinal, born, k_real, (pay, w, msum) = inflight.popleft()
+            ordinal, born, k_real, ids, (pay, w, msum, new_res) = (
+                inflight.popleft())
+            if ids is not None:
+                # the residuals' write-back at the fold point (the dense
+                # store's is device work; padded lanes are dropped)
+                residual_store.scatter(
+                    ids, _tree_map(lambda x: x[:len(ids)], new_res))
             pay = _tree_map(lambda x: x.cpu().numpy(), pay)
             w = float(w)
             m_host = _tree_map(lambda m: np.float64(m.item()), msum)
@@ -737,11 +778,22 @@ class BucketedStreamRunner:
                        "mask": torch.as_tensor(maskb, device=dev)}
             n_dev = torch.as_tensor(n_arr, device=dev)
             born = aggregator.version if aggregator is not None else 0
+            ids = res = c_seeds = None
+            if self.compressor is not None:
+                # residual rows by stable client id; padded lanes carry
+                # zero rows and the first lane's compression seed
+                ids = [client_ids[i] for i in chunk]
+                res = _tree_map(lambda x: torch.cat(
+                    [x, x.new_zeros((pad,) + x.shape[1:])]),
+                    residual_store.gather(ids))
+                c_seeds = np.concatenate([comp_seeds[chunk],
+                                          np.repeat(comp_seeds[chunk[:1]],
+                                                    pad)])
             with tracer.span("bucket-chunk", edge=edge, clients=int(k),
                              trip=trip):
-                inflight.append((chunks, born, k,
+                inflight.append((chunks, born, k, ids,
                                  self._chunk(gs, batches, n_dev, trip,
-                                             chunk_seeds)))
+                                             chunk_seeds, res, c_seeds)))
             chunks += 1
             st = b_stats[edge]
             st["clients"] += k

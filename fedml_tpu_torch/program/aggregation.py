@@ -91,18 +91,42 @@ def fold_entries_fp64(entries) -> tuple:
     scale)`` entries: each contributes ``float64(payload) * scale`` to the
     numerator and ``weight`` to the denominator, in sorted-key order, so
     the result does not depend on arrival order. Returns ``(params_f32,
-    weight_total)``. Compressed payloads wait for ROADMAP A12."""
+    weight_total)``.
+
+    A payload may be a :class:`~fedml_tpu_torch.compression.wire.
+    CompressedUpdate` (an encoded delta and the base it is relative to):
+    its decoded delta accumulates sparsely (O(k) a topk report) in sorted
+    entry order, and each distinct base is added once, scaled by its
+    entries' scale sum, in sorted ``base_key`` order. The combine order:
+    the dense entries, then the bases, then the delta accumulator."""
+    from fedml_tpu_torch.compression.wire import CompressedUpdate
+
     entries = sorted(entries, key=lambda e: e[0])
     if not entries:
         raise ValueError("weighted fold over an empty entry set "
                          "(abandon/skip instead)")
     total = 0.0
-    acc = None
+    acc = None          # dense contributions (fp64 tree)
+    cacc = None         # compressed-delta contributions ({name: fp64})
+    base_acc = {}       # base_key -> [scale_sum, base params]
     for _key, weight, payload, scale in entries:
         total += float(weight)
+        if isinstance(payload, CompressedUpdate):
+            cacc = payload.fold_delta(cacc, float(scale))
+            slot = base_acc.setdefault(payload.base_key,
+                                       [0.0, payload.base])
+            slot[0] += float(scale)
+            continue
         contrib = _tree_map(
             lambda x: np.asarray(x, np.float64) * float(scale), payload)
         acc = contrib if acc is None else _tree_map(np.add, acc, contrib)
+    for bk in sorted(base_acc):
+        scale_sum, base = base_acc[bk]
+        bcontrib = _tree_map(
+            lambda x: np.asarray(x, np.float64) * float(scale_sum), base)
+        acc = bcontrib if acc is None else _tree_map(np.add, acc, bcontrib)
+    if cacc is not None:
+        acc = cacc if acc is None else _tree_map(np.add, acc, cacc)
     if total <= 0:
         raise ValueError("weighted fold has zero total weight")
     return _tree_map(lambda x: (x / total).astype(np.float32), acc), total

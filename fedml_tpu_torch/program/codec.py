@@ -1,32 +1,44 @@
 """Codec leg of a ``RoundProgram`` (counterpart of
-``fedml_tpu/program/codec.py``): the spec string that names a
-client-update compressor. Only the disabled leg (``"none"``, None, the
-empty string, ``"0"``, ``"off"``, ``"false"``) is ported; a compressor
-spec raises until ROADMAP A12."""
+``fedml_tpu/program/codec.py``): one spec string, two lowerings. The
+torch compressor (:mod:`fedml_tpu_torch.compression.compressors`) runs
+inside the simulated round on the device; the numpy twin
+(:mod:`fedml_tpu_torch.compression.wire`) encodes the same spec for a
+real uplink. :class:`CodecSpec` names both, and ``device()`` is the only
+accessor that loads torch's compressors."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+#: wire-capable codec families: every name the host twin's registry
+#: serves (randk is sim-only; ``wire.host_compressor`` refuses it)
+WIRE_CODEC_NAMES = ("qsgd", "topk", "signsgd")
+
 _DISABLED = ("", "0", "off", "false", "none")
+
+
+def wire_codecs():
+    """The wire-codec spec table the drift gate iterates: every host-twin
+    family at its default argument and the other points held equal
+    across the pair."""
+    return ["qsgd", "qsgd:2", "qsgd:4", "qsgd:8",
+            "topk", "topk:0.01", "topk:0.25",
+            "signsgd"]
 
 
 @dataclass(frozen=True)
 class CodecSpec:
-    """Compressor selection of one program; ``spec`` is the reference's
-    grammar (``"qsgd:4"``, ``"topk:0.01"``, ``"signsgd"``, ``"none"``)."""
+    """Compressor selection of one program; ``spec`` is the grammar both
+    registries parse (``"qsgd:4"``, ``"topk:0.01"``, ``"signsgd"``,
+    ``"none"``). Biased contractions (topk, signsgd) run error feedback
+    on both lowerings; the wire twin runs qsgd without it."""
 
     spec: str = "none"
 
-    def __post_init__(self):
-        if self.enabled:
-            raise NotImplementedError(
-                f"compressor {self.spec!r} waits for ROADMAP A12 "
-                "(compression)")
-
     @classmethod
     def coerce(cls, spec) -> "CodecSpec":
-        """None, a spec string or a CodecSpec -> CodecSpec."""
+        """None, a spec string, a compressor (through its ``spec`` or
+        ``name``) or a CodecSpec -> CodecSpec."""
         if isinstance(spec, cls):
             return spec
         if spec is None:
@@ -42,5 +54,28 @@ class CodecSpec:
     def enabled(self) -> bool:
         return self.spec not in _DISABLED
 
+    @property
+    def name(self) -> str:
+        return self.spec.partition(":")[0]
 
-__all__ = ["CodecSpec"]
+    def device(self):
+        """The torch compressor (None when disabled)."""
+        if not self.enabled:
+            return None
+        from fedml_tpu_torch.compression.compressors import get_compressor
+        return get_compressor(self.spec)
+
+    def host(self):
+        """The numpy wire twin (None when disabled)."""
+        if not self.enabled:
+            return None
+        from fedml_tpu_torch.compression.wire import host_compressor
+        return host_compressor(self.spec)
+
+    def host_ef(self) -> bool:
+        """Whether the wire path runs error feedback under this spec."""
+        c = self.host()
+        return bool(c is not None and c.ef)
+
+
+__all__ = ["CodecSpec", "WIRE_CODEC_NAMES", "wire_codecs"]

@@ -12,8 +12,8 @@ reference's on the same inputs).
   ``coordinate_median`` and ``trimmed_mean``.
 
 Both legs are host numpy; :meth:`DPPolicy.device_privatize` is the torch
-twin (``core/robust.py``). Compressed reports wait for ROADMAP A12: the
-robust folds take plain dict payloads.
+twin (``core/robust.py``). The robust folds take plain dict payloads or
+``CompressedUpdate`` reports, reconstructed densely.
 """
 
 from __future__ import annotations
@@ -134,11 +134,15 @@ class DPPolicy:
 
 
 def _dense_payload(payload):
-    """A report payload as a dense fp64 dict."""
-    if not isinstance(payload, dict):
-        raise NotImplementedError(
-            "robust folds over compressed reports wait for ROADMAP A12 "
-            "(compression)")
+    """A report payload as a dense fp64 dict; a ``CompressedUpdate``
+    reconstructs ``base + decode(enc)`` (order statistics are not linear,
+    so the robust folds densify each report)."""
+    from fedml_tpu_torch.compression.wire import CompressedUpdate
+    if isinstance(payload, CompressedUpdate):
+        dec = payload.compressor().decode(payload.enc)
+        return {k: np.asarray(payload.base[k], np.float64)
+                + np.asarray(dec[k], np.float64)
+                for k in sorted(payload.base)}
     return {k: np.asarray(payload[k], np.float64) for k in sorted(payload)}
 
 

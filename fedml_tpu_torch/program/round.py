@@ -122,8 +122,8 @@ class RoundProgram:
 
 class HostProgram:
     """Host view of one :class:`RoundProgram`: cohort draws, counts, the
-    folds and the privacy legs, each a delegation into a leg (the
-    reference's codec accessors wait for ROADMAP A12)."""
+    folds, the codec and the privacy legs, each a delegation into a
+    leg."""
 
     def __init__(self, program: RoundProgram):
         self.program = program
@@ -172,6 +172,15 @@ class HostProgram:
         return BufferedAggregator(
             policy or self.program.aggregation,
             fold_fn=robust.fold_entries if robust is not None else None)
+
+    @property
+    def codec(self) -> CodecSpec:
+        return self.program.codec
+
+    def host_codec(self):
+        """The numpy wire twin of the program's spec (None when the codec
+        leg is disabled)."""
+        return self.program.codec.host()
 
     @property
     def dp(self) -> Optional[DPPolicy]:

@@ -1,8 +1,8 @@
 """A ``RoundProgram`` lowered onto the port's simulation engine
 (counterpart of ``fedml_tpu/program/sim.py``): the host-packed round
-function and the bucketed streaming runner, with the program's privacy
-legs on the per-client payload hook. Mesh rounds wait for ROADMAP A15,
-the compressed lowering for A12."""
+function (plain or compressed: the one decision the codec leg implies)
+and the bucketed streaming runner, with the program's privacy legs on
+the per-client payload hook. Mesh rounds wait for ROADMAP A15."""
 
 from __future__ import annotations
 
@@ -48,16 +48,31 @@ def _apply_privacy_legs(program, payload_fn):
 
 def compile_sim(program, spec, cfg, payload_fn=None, server_fn=None,
                 mesh=None, compressed=None, compressor=None):
-    """Program -> the host-packed round function
-    (:func:`~fedml_tpu_torch.parallel.engine.make_sim_round`)."""
+    """Program -> the host-packed round function: with the codec leg
+    enabled (or ``compressed=True``) the compressed round with per-client
+    error feedback
+    (:func:`~fedml_tpu_torch.compression.integration.make_compressed_sim_round`),
+    else the plain one
+    (:func:`~fedml_tpu_torch.parallel.engine.make_sim_round`).
+    ``compressed=False`` forces the plain lowering; ``compressor``
+    overrides ``program.codec.device()`` (a resolved instance keeps its
+    configuration)."""
     payload_fn = _apply_privacy_legs(program, payload_fn)
     if mesh is not None:
         raise NotImplementedError("mesh rounds wait for ROADMAP A15")
-    if compressed or compressor is not None or program.codec.enabled:
-        raise NotImplementedError(
-            "the compressed round waits for ROADMAP A12 (compression)")
-    from fedml_tpu_torch.parallel.engine import make_sim_round
-    return make_sim_round(spec, cfg, payload_fn, server_fn)
+    if compressed is None:
+        compressed = program.codec.enabled
+    if not compressed:
+        from fedml_tpu_torch.parallel.engine import make_sim_round
+        return make_sim_round(spec, cfg, payload_fn, server_fn)
+    from fedml_tpu_torch.compression.integration import (
+        make_compressed_sim_round)
+    comp = compressor if compressor is not None else program.codec.device()
+    if comp is None:
+        raise ValueError("compile_sim(compressed=True) on a program whose "
+                         "codec leg is disabled")
+    return make_compressed_sim_round(spec, cfg, comp, payload_fn,
+                                     server_fn)
 
 
 def compile_bucketed(program, spec, cfg, payload_fn=None, server_fn=None,

@@ -346,8 +346,63 @@ def server_state_to_optax(state, state_to_params, template):
     return (type(template[0])(**fields),) + tuple(template[1:])
 
 
+#: (kind, port suffix) -> the reference's leaf name in a layer
+_LEAF = {("conv", "weight"): "kernel", ("dense", "weight"): "kernel",
+         ("dense", "bias"): "bias", ("bn", "weight"): "scale",
+         ("bn", "bias"): "bias", ("ln", "weight"): "scale",
+         ("ln", "bias"): "bias", ("embed", "weight"): "embedding"}
+
+
+def reference_names(names):
+    """Port parameter names -> ``{port name: the reference's key path}``
+    for the ResNets, the (MoE) TransformerLMs, LR and the CNNs, whose
+    leaves map one to one (the layouts differ: conv kernels HWIO against
+    OIHW, dense kernels ``[in, out]`` against ``[out, in]``); None for a
+    tree that does not map so (the LSTMs split and join leaves)."""
+    names = set(names)
+    if "tok_embed.weight" in names:
+        n_layers = len({k.split(".")[1] for k in names
+                        if k.startswith("blocks.")})
+        modules = _lm_modules(n_layers, "blocks.0.moe.wi" in names)
+    elif "conv1.weight" in names and "layer1.0.conv1.weight" in names:
+        n = len({k.split(".")[1] for k in names if k.startswith("layer1.")})
+        modules = _modules(6 * n + 2)
+    elif all(k.count(".") == 1 and k.endswith((".weight", ".bias"))
+             for k in names) and not any(k.startswith("lstm")
+                                         for k in names):
+        modules = [((k.split(".")[0],), k.split(".")[0], "dense")
+                   for k in names]
+    else:
+        return None
+    out = {}
+    for path, tp, kind in modules:
+        if kind == "raw":
+            if tp in names:
+                out[tp] = path
+            continue
+        for suffix in ("weight", "bias"):
+            leaf = _LEAF.get((kind, suffix))
+            if leaf is not None and f"{tp}.{suffix}" in names:
+                out[f"{tp}.{suffix}"] = path + (leaf,)
+    return out if set(out) == names else None
+
+
+def reference_tree(params):
+    """A port ``{name: leaf}`` dict re-keyed under the reference's nested
+    names (:func:`reference_names`), its leaves untouched; the dict
+    itself where the names do not map one to one."""
+    paths = reference_names(params)
+    if paths is None:
+        return params
+    out = {}
+    for name, leaf in params.items():
+        _put(out, paths[name], leaf)
+    return out
+
+
 __all__ = ["variables_to_state", "state_to_variables",
            "lm_variables_to_state", "lm_state_to_variables",
            "zoo_variables_to_state", "zoo_state_to_variables",
+           "rnn_variables_to_state", "rnn_state_to_variables",
            "module_state", "server_state_from_optax",
-           "server_state_to_optax"]
+           "server_state_to_optax", "reference_names", "reference_tree"]

@@ -263,18 +263,18 @@ def test_algo_fedopt_builds_the_server_adam_line():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--compressors", "qsgd"], "A12"),
-    (["--compressor", "topk:0.1"], "A12"),
-    (["--sweep_model", "lr"], "A12"),
+    (["--soak", "10", "--compressor", "qsgd"], "A13"),
+    (["--tree", "--compressor", "topk:0.1"], "A13"),
+    (["--soak_params", "1000"], "A13"),
     (["--warmup", "1"], "A16"),
     (["--compile_cache_dir", "/nonexistent"], "A16"),
-    (["--lm", "--repeats", "3"], "A12"),
+    (["--lm", "--tree_transport", "tcp"], "A13"),
     (["--soak_rounds", "2"], "A13"),
     (["--soak", "100"], "A13"),
     (["--tree_soak"], "A13"),
     (["--steering"], "A13"),
-    (["--compression_sweep"], "A12"),
-    (["--check"], "A12"),
+    (["--steering", "--compressor", "signsgd"], "A13"),
+    (["--compile_cache_dir", "/nonexistent", "--check"], "A16"),
 ])
 def test_unported_flag_fails_naming_its_queue_item(capsys, argv, item):
     record = tbench.main(argv + ["--platform", "cpu", "--smoke"])

@@ -126,8 +126,8 @@ def test_flags_and_defaults_are_the_reference_ones():
 
 @pytest.mark.parametrize("argv,item", [
     (["--mesh", "2"], "A15"),
-    (["--compressor", "topk:0.1"], "A12"),
-    (["--compressor", "qsgd:4"], "A12"),
+    (["--race_audit", "1", "--compressor", "topk:0.1"], "A16"),
+    (["--mesh", "2", "--compressor", "qsgd:4"], "A15"),
     (["--xprof_dir", "/nonexistent"], "A16"),
     (["--warmup", "1"], "A16"),
     (["--compile_cache_dir", "/nonexistent"], "A16"),

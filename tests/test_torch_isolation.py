@@ -69,6 +69,43 @@ def test_no_source_imports_jax_or_the_jax_package():
                                    "fedml_tpu"), f"{f} imports {n}"
 
 
+def test_the_compression_package_needs_no_jax_and_no_ml_dtypes():
+    """``fedml_tpu_torch/compression`` loads neither JAX, the JAX package
+    nor ``ml_dtypes`` (its codec frames bf16 from raw words), and no
+    source of it names ``ml_dtypes`` in an import."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('codec', 'wire', 'compressors', 'integration'):\n"
+        "    importlib.import_module('fedml_tpu_torch.compression.' + m)\n"
+        "import fedml_tpu_torch.compression as c\n"
+        "c.get_compressor('topk:0.1'); c.ResidualStore\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes')\n"
+        "             or m.startswith(('jax.', 'ml_dtypes.', 'fedml_tpu.'))\n"
+        "             or m == 'fedml_tpu')\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    pkg = os.path.join(PKG, "compression")
+    for f in sorted(os.listdir(pkg)):
+        if not f.endswith(".py"):
+            continue
+        with open(os.path.join(pkg, f)) as fh:
+            tree = ast.parse(fh.read(), f)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n.split(".")[0] in ("ml_dtypes", "jax",
+                                               "fedml_tpu")
+                           for n in names), f"{f} imports {names}"
+
+
 def test_entry_points_raise_without_a_gpu(monkeypatch):
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
     from fedml_tpu_torch.algorithms.specs import make_classification_spec

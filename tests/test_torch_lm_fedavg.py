@@ -288,5 +288,7 @@ def test_bucketed_path_refuses_what_is_not_ported():
         _port_api(dataset, args)
     args = _args(4)
     args.compressor = "topk:0.1"
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        _port_api(dataset, args)
+    # the bucketed path streams error feedback now
+    api = _port_api(dataset, args)
+    assert api.bucket_runner.compressor.name == "topk"
+    assert api.compressed_round_fn is None and api._ef_store.dense

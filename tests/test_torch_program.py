@@ -161,10 +161,12 @@ def test_aggregation_policy_is_the_reference_one():
 
 
 def test_legs_waiting_for_later_work_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        CodecSpec("topk:0.01")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        RoundProgram.from_args(types.SimpleNamespace(compressor="qsgd:4"))
+    # the codec leg is ported: a compressor spec builds, and its manifest
+    # is the reference's
+    assert CodecSpec("topk:0.01").enabled
+    qsgd = types.SimpleNamespace(compressor="qsgd:4")
+    assert _dumps(RoundProgram.from_args(qsgd)) == _dumps(
+        JaxProgram.from_args(qsgd))
     assert not CodecSpec.coerce(None).enabled
     assert CodecSpec.coerce(" NONE ").spec == "none"
     # the privacy legs are ported: a reference manifest carrying them
@@ -183,5 +185,5 @@ def test_legs_waiting_for_later_work_raise():
     prog = RoundProgram()
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         prog.compile_sim(None, None, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="codec leg is disabled"):
         prog.compile_sim(None, None, compressed=True)
