@@ -19,7 +19,8 @@ Phases (any failure exits non-zero):
    line names the kernel's route, tensor cores or CUDA cores); the
    flash-attention forward, dq and dk/dv (B2-B4) at the LM flagship's
    launch ([32, 80, 4, 128] bf16 causal), a ragged T, a non-causal case
-   and the experiment main's LM launch ([32, 20, 4, 64] causal), and the
+   the experiment main's LM launch ([32, 20, 4, 64] causal) and one TCP
+   client's LM launch ([4, 80, 4, 128] causal), and the
    whole ``FlashAttention`` backward (delta, B3, B4)
    against SDPA's backward;
 3. drive the ResNet main path -- lane-packed FedAvg on full-width
@@ -109,7 +110,24 @@ Phases (any failure exits non-zero):
    bit-equal to the plain round under deterministic kernels; the bench's
    ``--compression_sweep`` on ResNet-56 (encoded bytes equal to the
    CPU's count) and ``--check``;
-11. print the ``kernels`` JSON line and, last, the ``ok`` line.
+11. drive the threaded control plane (``phase_control_plane``):
+   ``resilience.run_tcp_fedavg`` with the server on this thread and 4
+   client threads over real sockets on localhost for 2 rounds, each
+   client training the LM flagship of phase 4 (one client's update from
+   the numpy weights its SYNC carried, AMSGrad lr 3e-4, batch 4, 1
+   epoch, on its own LEAF-shaped synthetic shard) on the card, under
+   deterministic kernels: the history bit-equal to a socket-free replay
+   (the same trainer on the same ranks in rank order, folded by the
+   program's host view) and the reports' bytes received equal to the
+   codec's count of the same trees; then the same run with
+   ``topk:0.01`` compression, rank 2 killed at its round-0 report and
+   re-dialed (``late_clients``), its ``res`` counters and reporting log
+   equal to what the same plan gives with ``quadratic_trainer`` on the
+   CPU; then ``run_async_tcp_fedavg`` with ``buffer_k`` 4 for 2 flushes
+   of the 4 clients. The attention counters are set to 0 just before
+   each run and read just after: B2, B3 and B4 each launched 4 layers
+   times the clients' steps;
+12. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -139,11 +157,13 @@ L, B = 8, 64
 # 8 clients x batch 4 of a chunk at T=80, 4 heads of 128
 LM_D, LM_LAYERS, LM_CLIENTS, LM_BATCH, LM_CHUNK = 512, 4, 32, 4, 8
 # (label, batch, T, causal, head dim); experiment_T20 is the launch of
-# the experiment main's LM (8 clients x batch 4 a wave, T 20, heads of 64)
+# the experiment main's LM (8 clients x batch 4 a wave, T 20, heads of 64),
+# control_plane that of one TCP client rank's LM (batch 4, no client axis)
 ATTN_CASES = [("flagship", 32, 80, True, 128),
               ("ragged_T", 32, 100, True, 128),
               ("non_causal", 32, 80, False, 128),
-              ("experiment_T20", 32, 20, True, 64)]
+              ("experiment_T20", 32, 20, True, 64),
+              ("control_plane", 4, 80, True, 128)]
 ATTN_H, ATTN_D = 4, 128
 # (label, Ci, Co, H, stride-1 convs of this shape in one ResNet-56 step)
 DW_SHAPES = [("stem", 3, 16, 32, 1), ("stage1", 16, 16, 32, 18),
@@ -1463,6 +1483,230 @@ def phase_compression(torch, fa, smi):
     return launches
 
 
+#: the control-plane phase: a server and 4 client threads over TCP on
+#: localhost, each client training the LM flagship on the card
+CP_WORLD, CP_ROUNDS = 5, 2
+#: run (b)'s fault plan: rank 2 killed at its round-0 report and re-dialed
+#: CP_REJOIN_S into the run; rank 4's round-0 report stalled CP_STALL_S, so
+#: rank 2 is never round 0's last report and round 0 closes at its
+#: CP_DEADLINE_S deadline, after the rejoin: round 1 has rank 2 back
+CP_REJOIN_S, CP_STALL_S, CP_DEADLINE_S = 12.0, 4.0, 24.0
+
+
+def _cp_lm(torch):
+    """The LM flagship's spec (``bench.py --lm``: d_model 512, 4 layers, 4
+    heads of 128, T 80, vocab 90, bf16 compute), its initial weights as
+    fp32 numpy (seed 0), and ranks 1-4's LEAF-shaped synthetic shards."""
+    from fedml_tpu_torch.algorithms.specs import make_seq_classification_spec
+    from fedml_tpu_torch.data.shakespeare import (
+        SEQUENCE_LENGTH, VOCAB_SIZE, synthetic_shakespeare_clients)
+    from fedml_tpu_torch.models.transformer import TransformerLM
+
+    T, V = SEQUENCE_LENGTH, VOCAB_SIZE
+    model = TransformerLM(vocab_size=V, n_layers=LM_LAYERS,
+                          n_heads=LM_D // 128, d_model=LM_D, max_len=T,
+                          dtype=torch.bfloat16)
+    spec = make_seq_classification_spec(model, name="lm")
+    init = {k: v.numpy() for k, v in spec.init_fn(0, "cpu")["params"]
+            .items()}
+    local = synthetic_shakespeare_clients(LM_CLIENTS, T, V)[5]
+    shards = {r: local[r - 1] for r in range(1, CP_WORLD)}
+    return spec, init, shards
+
+
+def _cp_trainer(torch, spec, shards, dev):
+    """``trainer(params, round_idx, rank) -> (params, n)`` for the TCP
+    drivers, built from the port's public pieces: one client's LM update
+    (``make_client_update``, AMSGrad lr 3e-4, batch 4, 1 epoch) on
+    ``dev`` from the numpy params the SYNC carried, its batches shuffled
+    from a generator keyed (round, rank) so a replay is the same work;
+    fp32 numpy back."""
+    import numpy as np
+
+    from fedml_tpu_torch.parallel.engine import (ClientUpdateConfig,
+                                                 make_client_update)
+    from fedml_tpu_torch.parallel.packing import pack_cohort
+
+    update = make_client_update(spec, ClientUpdateConfig(optimizer="adam",
+                                                         lr=3e-4))
+
+    def train(params, round_idx, rank):
+        packed = pack_cohort([shards[rank]], LM_BATCH, 1, step_bucket=1,
+                             native=False,
+                             rng=np.random.default_rng((round_idx, rank)))
+        data = {k: torch.from_numpy(v).to(dev) for k, v in packed.items()}
+        data["y"] = data["y"].long()
+        state = {"params": {k: torch.from_numpy(np.array(v, np.float32))
+                            .to(dev) for k, v in params.items()}}
+        local, aux, _ = update(state, data, np.array([rank], np.int64))
+        return ({k: v[0].float().cpu().numpy()
+                 for k, v in local["params"].items()},
+                float(aux["n"][0]))
+
+    return train
+
+
+def _cp_expected_launches(shards, calls):
+    """Each of B2-B4 once a layer a step: ``calls`` maps a rank to its
+    trainer calls; a call runs ceil(n / batch) steps."""
+    return LM_LAYERS * sum(
+        calls[r] * -(-len(shards[r]["y"]) // LM_BATCH) for r in calls)
+
+
+def _cp_counted(fa, label, run, expect):
+    """``run()`` with the attention counters set to 0 just before and read
+    just after; each must equal ``expect``."""
+    for name in fa.launches:
+        fa.launches[name] = 0
+    t0 = time.time()
+    out = run()
+    secs = time.time() - t0
+    launches = dict(fa.launches)
+    if launches != {"fwd": expect, "dq": expect, "dkv": expect}:
+        fail(f"control_plane {label}: attention launches {launches}, "
+             f"expected {expect} each")
+    return out, secs, launches
+
+
+def _cp_same(label, got, want):
+    import numpy as np
+
+    for a, b in zip(got, want):
+        for k in b:
+            if not np.array_equal(a[k], b[k]):
+                fail(f"control_plane {label}: {k} differs, max "
+                     f"{float(np.abs(a[k] - b[k]).max())}")
+
+
+def phase_control_plane(torch, fa, smi):
+    """The threaded control plane on the card (module docstring, 11):
+    ``run_tcp_fedavg`` with 4 client threads training the LM flagship
+    through B2-B4, its history held against a socket-free replay and its
+    wire bytes against the codec's count; the faulted, compressed run
+    with a rejoin held against the same plan on the CPU; and
+    ``run_async_tcp_fedavg`` for 2 flushes. Launches are counted exactly
+    per run; every line names the card and its power limit."""
+    import threading
+
+    import numpy as np
+
+    from fedml_tpu_torch.compression.codec import tree_wire_nbytes
+    from fedml_tpu_torch.program.cohort import CohortPolicy
+    from fedml_tpu_torch.program.aggregation import AggregationPolicy
+    from fedml_tpu_torch.program.round import RoundProgram
+    from fedml_tpu_torch.resilience import (FaultPlan, FaultRule,
+                                            quadratic_trainer,
+                                            run_async_tcp_fedavg,
+                                            run_tcp_fedavg)
+
+    t0 = time.time()
+    spec, init, shards = _cp_lm(torch)
+    train = _cp_trainer(torch, spec, shards, torch.device("cuda", 0))
+    every = {r: CP_ROUNDS for r in shards}
+    expect = _cp_expected_launches(shards, every)
+    drive = dict(timeout=600.0, join_timeout=900.0)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (a) the plain run and its socket-free replay
+        policy = CohortPolicy(deadline_s=600.0, quorum=0.5)
+        srv, secs, launches = _cp_counted(fa, "tcp", lambda: run_tcp_fedavg(
+            CP_WORLD, CP_ROUNDS, policy, init, trainer=train, **drive),
+            expect)
+        if srv.failed is not None or srv.reporting_log != [
+                list(shards)] * CP_ROUNDS:
+            fail(f"control_plane tcp: failed={srv.failed} reporting "
+                 f"{srv.reporting_log}")
+        host = RoundProgram(cohort=policy).host_view()
+        params, replay, report_bytes = init, [], 0
+        for r in range(CP_ROUNDS):
+            reports = {}
+            for rank in sorted(shards):
+                p, n = train(params, r, rank)
+                reports[rank] = (n, p)
+                report_bytes += tree_wire_nbytes({
+                    "msg_type": "res_report", "sender": rank,
+                    "receiver": 0, "params": p, "num_samples": n,
+                    "round": r, "attempt": 0})
+            params, _ = host.fold_reports(reports, base=params)
+            replay.append(params)
+        _cp_same("tcp vs replay", srv.history, replay)
+        got_bytes = srv.com_manager.bytes_received
+        if got_bytes != report_bytes:
+            fail(f"control_plane tcp: {got_bytes} report bytes received, "
+                 f"the codec counts {report_bytes}")
+        per_report = report_bytes // (CP_ROUNDS * len(shards))
+        print(f"control_plane run=tcp rounds={CP_ROUNDS} clients="
+              f"{len(shards)} s={secs:.3f} s_per_round="
+              f"{secs / CP_ROUNDS:.3f} report_bytes={per_report} "
+              f"bytes_received={got_bytes} bytes_sent="
+              f"{srv.com_manager.bytes_sent} launches={json.dumps(launches)}"
+              f" replay=bit-equal card={smi}", flush=True)
+
+        # (b) topk, rank 2 killed in round 0 and re-dialed; the same plan
+        # with quadratic_trainer on the CPU, alongside, predicts its
+        # counters and reporting log
+        def plan():
+            return FaultPlan(seed=0, rules=(
+                FaultRule("kill", rank=2, msg_type="res_report", nth=1),
+                FaultRule("stall", rank=4, msg_type="res_report", nth=1,
+                          delay_s=CP_STALL_S)))
+        faulted = dict(fault_plan=plan(), late_clients=[(2, CP_REJOIN_S)],
+                       compressor="topk:0.01", **drive)
+        fpolicy = CohortPolicy(deadline_s=CP_DEADLINE_S, quorum=0.5)
+        pred = {}
+        cpu = threading.Thread(target=lambda: pred.update(srv=run_tcp_fedavg(
+            CP_WORLD, CP_ROUNDS, fpolicy,
+            {k: np.zeros(4, np.float32) for k in ("w", "b")},
+            trainer=quadratic_trainer(), **dict(faulted, fault_plan=plan()))))
+        cpu.start()
+        fsrv, secs, launches = _cp_counted(
+            fa, "tcp_faulted", lambda: run_tcp_fedavg(
+                CP_WORLD, CP_ROUNDS, fpolicy, init, trainer=train,
+                **faulted), expect)
+        cpu.join()
+        keys = ("rounds_degraded", "rounds_abandoned", "clients_dropped",
+                "clients_rejoined", "clients_resumed")
+        got = {k: fsrv.counters[k] for k in keys}
+        want = {k: pred["srv"].counters[k] for k in keys}
+        if (fsrv.failed is not None or got != want
+                or fsrv.reporting_log != pred["srv"].reporting_log):
+            fail(f"control_plane tcp_faulted: failed={fsrv.failed} "
+                 f"counters {got} reporting {fsrv.reporting_log}; the CPU "
+                 f"predicts {want} {pred['srv'].reporting_log}")
+        for h in fsrv.history:
+            if not all(np.isfinite(v).all() for v in h.values()):
+                fail("control_plane tcp_faulted: non-finite parameters")
+        print(f"control_plane run=tcp_faulted compressor=topk:0.01 s="
+              f"{secs:.3f} counters={json.dumps(got)} reporting="
+              f"{fsrv.reporting_log} bytes_received="
+              f"{fsrv.com_manager.bytes_received} launches="
+              f"{json.dumps(launches)} cpu_prediction=held card={smi}",
+              flush=True)
+
+        # (c) buffered async: K 4 of 4 clients, 2 flushes (8 reports)
+        asrv, secs, launches = _cp_counted(
+            fa, "async", lambda: run_async_tcp_fedavg(
+                CP_WORLD, 2, AggregationPolicy(buffer_k=4),
+                init, trainer=train, **drive), expect)
+        if (asrv.failed is not None or len(asrv.history) != 2
+                or asrv.agg.counters["flushes"] != 2
+                or asrv.counters["reports"] != 8):
+            fail(f"control_plane async: failed={asrv.failed} flushes "
+                 f"{asrv.agg.counters} reports {asrv.counters}")
+        print(f"control_plane run=async buffer_k=4 flushes="
+              f"{asrv.agg.counters['flushes']} flush_log={asrv.flush_log} "
+              f"{json.dumps(asrv.agg.record())} s={secs:.3f} s_per_flush="
+              f"{secs / 2:.3f} bytes_received="
+              f"{asrv.com_manager.bytes_received} launches="
+              f"{json.dumps(launches)} card={smi}", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    print(f"control_plane phase_s={time.time() - t0:.1f} card={smi}",
+          flush=True)
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -1632,6 +1876,7 @@ def main():
     phase_resilience_moe(torch, fa, smi)
     phase_massive_async(torch, smi)
     phase_compression(torch, fa, smi)
+    phase_control_plane(torch, fa, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

@@ -61,7 +61,7 @@ from fedml_tpu_torch.program.round import RoundProgram
 from fedml_tpu_torch.resilience.integration import SimResilience
 from fedml_tpu_torch.resilience.steering import PaceController
 from fedml_tpu_torch.utils.device import resolve_device
-from fedml_tpu_torch.utils.torch_import import reference_tree
+from fedml_tpu_torch.utils.torch_import import gate_split, reference_tree
 
 #: ``local-train`` span mode of each resident ``wave_mode``
 _MODES = {0: "flat", 1: "waves", 2: "lanes", 3: "mxu-lanes"}
@@ -203,10 +203,12 @@ class FedAvgAPI:
         per-client update bytes, from shapes alone. The bytes are framed
         under the reference's parameter names
         (:func:`~fedml_tpu_torch.utils.torch_import.reference_tree`), so
-        a port run and a reference run count the same bytes."""
+        a port run and a reference run count the same bytes; the
+        residuals live in the layout the compressor sees (an LSTM's gate
+        leaves, :func:`~fedml_tpu_torch.utils.torch_import.gate_split`)."""
         params = self.global_state["params"]
         self._ef_store = ResidualStore(
-            params, num_clients=len(self.train_data_local_dict),
+            gate_split(params), num_clients=len(self.train_data_local_dict),
             dense_cap_gb=float(getattr(args, "device_data_cap_gb", 2.0)))
         wire = reference_tree(params)
         self._payload_bytes = compressed_payload_nbytes(self.compressor,

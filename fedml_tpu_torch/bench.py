@@ -144,10 +144,10 @@ _SMOKE_TAG = " [SMOKE -- not baseline-comparable]"
 _UNPORTED_FLAGS = (
     ("--warmup", "ROADMAP A16 (round-program warmup)"),
     ("--compile_cache_dir", "ROADMAP A16 (compile caches)"),
-    ("--soak", "ROADMAP A13 (the control-plane soak)"),
-    ("--tree", "ROADMAP A13 (the process-tree soak)"),
-    ("--steering", "ROADMAP A13 (the TCP control plane) and A16 (the perf "
-     "monitor)"),
+    ("--soak", "ROADMAP A13b (the event-loop control-plane soak)"),
+    ("--tree", "ROADMAP A13b (the process-tree soak)"),
+    ("--steering", "ROADMAP A16 (the perf monitor whose latency windows "
+     "the pace controller reads)"),
 )
 
 
@@ -912,7 +912,7 @@ def _refusal(args, unknown):
         return f"--rounds {args.rounds}: measure at least 1 round"
     if args.compressor is not None and not args.massive_cohort:
         return ("--compressor applies to --massive_cohort here (the "
-                "soak's wire compression waits for ROADMAP A13)")
+                "soak's wire compression waits for ROADMAP A13b)")
     if args.repeats < 1:
         return f"--repeats {args.repeats}: time at least 1 call"
     return None

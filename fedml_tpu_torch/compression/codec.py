@@ -20,9 +20,13 @@ frame decodes to a ``torch.bfloat16`` tensor through ``torch.frombuffer``
 -- never widened. Every other frame decodes to a numpy array that, for
 a native little-endian dtype, aliases the buffer read-only.
 
-This module imports numpy only (torch lazily, for a bf16 frame). The
-message envelope (``message_to_wire`` and its kin) needs ``core/message``,
-which waits for ROADMAP A13.
+Message frame = a tree frame of the message's ``msg_params``. 0x9E cannot
+start a JSON document, so ``message_from_wire`` dispatches on the first
+byte: legacy peers sending ``Message.to_json()`` frames keep working. No
+pickle anywhere -- the payload is data, never code.
+
+This module imports numpy only (torch lazily, for a bf16 frame; the
+``Message`` class lazily, for the envelope).
 """
 
 from __future__ import annotations
@@ -295,28 +299,112 @@ def tree_wire_nbytes(tree) -> int:
     return n
 
 
-# -- the message envelope ------------------------------------------------------
-_A13 = "ROADMAP A13 (the distributed control plane's Message)"
+# -- Message envelope ---------------------------------------------------------
+
+def message_to_wire(msg) -> bytes:
+    """``Message`` -> binary frame: JSON control header, binary arrays."""
+    return encode_tree(msg.get_params())
 
 
-def _needs_message(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{name} waits for {_A13}")
-    fn.__name__ = name
-    fn.__doc__ = f"The reference's ``{name}``: waits for {_A13}."
-    return fn
+def message_to_wire_views(msg) -> list:
+    """``Message`` -> list of wire buffers (zero-copy array payloads);
+    ``b"".join(...)`` of the list equals :func:`message_to_wire`."""
+    return encode_tree_views(msg.get_params())
 
 
-message_to_wire = _needs_message("message_to_wire")
-message_to_wire_views = _needs_message("message_to_wire_views")
-message_from_wire = _needs_message("message_from_wire")
-message_from_header = _needs_message("message_from_header")
-peek_wire_envelope = _needs_message("peek_wire_envelope")
-decode_frames = _needs_message("decode_frames")
+def _message_from_params(message_cls, params):
+    msg = message_cls()
+    msg.init(params)
+    msg.type = str(params[message_cls.MSG_ARG_KEY_TYPE])
+    msg.sender_id = params[message_cls.MSG_ARG_KEY_SENDER]
+    msg.receiver_id = params[message_cls.MSG_ARG_KEY_RECEIVER]
+    return msg
 
-#: exception types one undecodable frame can raise
+
+def _is_binary(data) -> bool:
+    """First-byte sniff (0x9E cannot start a JSON document), for any
+    bytes-like ``data``; str (legacy JSON text) is never binary."""
+    if isinstance(data, str):
+        return False
+    return len(data) >= 1 and data[0] == MAGIC
+
+
+def message_from_wire(data):
+    """Binary OR legacy-JSON frame -> ``Message`` (first-byte sniff: 0x9E
+    is the binary magic and cannot start a JSON document). Accepts
+    ``bytes`` | ``bytearray`` | ``memoryview`` | ``str``; binary tensor
+    payloads alias ``data`` (see :func:`decode_array`)."""
+    from fedml_tpu_torch.core.message import Message
+    if _is_binary(data):
+        return _message_from_params(Message, decode_tree(data))
+    msg = Message()
+    msg.init_from_json_string(
+        data if isinstance(data, str) else bytes(data).decode())
+    return msg
+
+
+def message_from_header(header, data, offset):
+    """Second half of a split decode: ``parse_wire_header`` gave
+    ``(header, offset)``; this decodes the array frames from ``offset``
+    and builds the ``Message`` -- the header JSON is parsed exactly
+    once per frame even when the caller routed on it first."""
+    from fedml_tpu_torch.core.message import Message
+    arrays = []
+    off = offset
+    while off < len(data):
+        arr, off = decode_array(data, off)
+        arrays.append(arr)
+    return _message_from_params(Message, _restore(header, arrays))
+
+
+def peek_wire_envelope(data):
+    """``(type, sender, receiver)`` of a frame WITHOUT decoding any
+    array payload: binary frames parse only the JSON control header;
+    legacy JSON frames (tiny control messages) parse whole. The hubs'
+    relay path routes on this and re-queues the raw frame -- the
+    destination, not the relay, validates the payload."""
+    from fedml_tpu_torch.core.message import Message
+    if _is_binary(data):
+        header, _ = parse_wire_header(data)
+    else:
+        header = json.loads(
+            data if isinstance(data, str) else bytes(data).decode())
+    return (str(header[Message.MSG_ARG_KEY_TYPE]),
+            header[Message.MSG_ARG_KEY_SENDER],
+            header[Message.MSG_ARG_KEY_RECEIVER])
+
+
+#: Exception types one undecodable frame can raise -- the concrete
+#: failure set the transports catch (a malformed peer must cost one
+#: connection, never the decode stage or a serve thread).
 DECODE_ERRORS = (ValueError, KeyError, IndexError, TypeError,
                  struct.error, UnicodeDecodeError)
+
+
+def decode_frames(frames):
+    """Batch decode: one pass over a chunk of wire frames -> a list
+    aligned with ``frames`` holding ``Message`` objects, with
+    undecodable frames carried as their exception instance (the caller
+    decides the peer's fate; one bad frame must not poison the chunk).
+    Amortizes the per-frame import/dispatch overhead the event-loop
+    dispatcher used to pay once per frame, and every tensor payload
+    aliases its frame buffer (zero-copy decode)."""
+    from fedml_tpu_torch.core.message import Message
+    out = []
+    for data in frames:
+        try:
+            if _is_binary(data):
+                msg = _message_from_params(Message, decode_tree(data))
+            else:
+                msg = Message()
+                msg.init_from_json_string(
+                    data if isinstance(data, str)
+                    else bytes(data).decode())
+        except DECODE_ERRORS as e:
+            out.append(e)
+            continue
+        out.append(msg)
+    return out
 
 
 __all__ = ["MAGIC", "VERSION", "encode_array", "encode_array_views",

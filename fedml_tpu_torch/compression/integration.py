@@ -16,6 +16,12 @@ so FedOpt, robust FedAvg and FedNova compose unchanged. Only ``params``
 is compressed; ``batch_stats`` average at full fidelity. Residuals are
 carried per client across rounds by :class:`ResidualStore`, keyed by
 stable client id.
+
+The LSTMs' fused leaves are compressed as the reference's gate leaves
+(``utils/torch_import.py`` :func:`gate_split`): topk keeps its k per gate
+and the wire counts the reference's bytes; the decoded delta is joined
+back into the fused leaves, and the residuals live in the gate layout
+the compressor sees.
 """
 
 from __future__ import annotations
@@ -28,27 +34,35 @@ from fedml_tpu_torch.compression.compressors import (Compressor,
                                                      ErrorFeedback,
                                                      NoneCompressor,
                                                      tree_map)
+from fedml_tpu_torch.compression.compressors import tree_build, tree_items
 from fedml_tpu_torch.observability.tracing import get_tracer
+from fedml_tpu_torch.utils.torch_import import gate_join, gate_split
 
 
 def ef_reconstruct(ef: ErrorFeedback, local_states, global_state,
                    residuals, seeds):
     """The wire half of K stacked clients: EF-compress each client's
-    params delta plus its residual (``residuals`` leaves ``[K, ...]``,
-    ``seeds [K]`` the clients' compression seeds) and return ``(recon,
-    new_residuals)``, ``recon`` the local states with the server's
-    reconstruction of their params. The identity's reconstruction is the
+    params delta plus its residual (``residuals`` leaves ``[K, ...]`` in
+    the compressor's layout, :func:`gate_split`; ``seeds [K]`` the
+    clients' compression seeds) and return ``(recon, new_residuals)``,
+    ``recon`` the local states with the server's reconstruction of their
+    params. The identity's reconstruction is the
     local params plus the (zero) residual itself, so ``none`` is the
     plain round bit for bit (``g + (l - g)`` may differ from ``l`` in the
     last bit)."""
     gp = global_state["params"]
     lp = local_states["params"]
-    delta = {k: lp[k] - gp[k] for k in gp}
-    _, dec, new_residuals = ef.step(delta, residuals, gp, seeds)
+    delta = gate_split({k: lp[k] - gp[k] for k in gp})
+    # the decoder reads only shapes and dtypes: split meta tensors, not
+    # copies of the global params, on every call
+    template = gate_split(_meta(gp))
+    _, dec, new_residuals = ef.step(delta, residuals, template, seeds)
     recon = dict(local_states)
     if isinstance(ef.compressor, NoneCompressor):
-        recon["params"] = {k: lp[k] + residuals[k] for k in gp}
+        res = gate_join(residuals)
+        recon["params"] = {k: lp[k] + res[k] for k in gp}
     else:
+        dec = gate_join(dec)
         recon["params"] = {k: gp[k] + dec[k] for k in gp}
     return recon, new_residuals
 
@@ -106,22 +120,24 @@ class ResidualStore:
     """Per-client error-feedback residuals keyed by STABLE client id,
     never by cohort slot: ``gather(ids)`` stacks the cohort's rows in
     cohort order, ``scatter(ids, updated)`` writes each row back to its
-    owner (a repeated id: the last row wins).
+    owner (a repeated id: the last row wins). The template is a (nested)
+    dict of tensors in the compressor's layout; ``gather`` and ``peek``
+    return trees of its structure.
 
     Two backings behind one surface: **dense** (when ``num_clients`` is
     known and ``num_clients x bytes a client <= dense_cap_gb``): one
     ``[num_clients, ...]`` tensor a leaf on the template's device, rows
-    are client ids; **sparse**: a host dict ``id -> {name: CPU tensor}``
+    are client ids; **sparse**: a host dict ``id -> {path: CPU tensor}``
     that materialises zeros lazily on first gather, so memory scales with
     the clients touched."""
 
     def __init__(self, params_template, num_clients=None, dense_cap_gb=2.0,
                  dense=None):
-        self._template = {k: (tuple(v.shape), v.dtype)
-                          for k, v in params_template.items()}
-        self.device = next(iter(params_template.values())).device
+        leaves = tree_items(params_template)
+        self._template = {p: (tuple(v.shape), v.dtype) for p, v in leaves}
+        self.device = leaves[0][1].device
         self._bytes_per_client = sum(
-            v.numel() * v.element_size() for v in params_template.values())
+            v.numel() * v.element_size() for _, v in leaves)
         if dense is None:
             dense = (num_clients is not None
                      and num_clients * self._bytes_per_client
@@ -131,15 +147,15 @@ class ResidualStore:
             if num_clients is None:
                 raise ValueError("dense ResidualStore needs num_clients")
             self._stacked = {
-                k: torch.zeros((int(num_clients),) + s, dtype=d,
+                p: torch.zeros((int(num_clients),) + s, dtype=d,
                                device=self.device)
-                for k, (s, d) in self._template.items()}
+                for p, (s, d) in self._template.items()}
         else:
-            self._rows = {}  # client id -> {name: CPU tensor}
+            self._rows = {}  # client id -> {path: CPU tensor}
 
     def _zeros(self, device):
-        return {k: torch.zeros(s, dtype=d, device=device)
-                for k, (s, d) in self._template.items()}
+        return {p: torch.zeros(s, dtype=d, device=device)
+                for p, (s, d) in self._template.items()}
 
     def gather(self, ids):
         """The residual rows of ``ids`` stacked in that order, on the
@@ -147,38 +163,40 @@ class ResidualStore:
         if self.dense:
             sel = torch.as_tensor(np.asarray(ids, np.int64),
                                   device=self.device)
-            return {k: v.index_select(0, sel)
-                    for k, v in self._stacked.items()}
+            return tree_build((p, v.index_select(0, sel))
+                              for p, v in self._stacked.items())
         rows = [self._rows.get(int(i)) or self._zeros("cpu") for i in ids]
-        return {k: torch.stack([r[k] for r in rows]).to(self.device)
-                for k in self._template}
+        return tree_build((p, torch.stack([r[p] for r in rows])
+                           .to(self.device)) for p in self._template)
 
     def scatter(self, ids, updated):
         """Write each row of ``updated`` (leaves ``[len(ids), ...]``) back
         to its owner id."""
         ids = [int(i) for i in ids]
         last = {i: row for row, i in enumerate(ids)}  # the last row wins
+        updated = dict(tree_items(updated))
         if self.dense:
             rows = torch.as_tensor(list(last.values()), dtype=torch.int64,
                                    device=self.device)
             sel = torch.as_tensor(list(last.keys()), dtype=torch.int64,
                                   device=self.device)
-            for k, full in self._stacked.items():
-                full.index_copy_(0, sel, updated[k].index_select(0, rows))
+            for p, full in self._stacked.items():
+                full.index_copy_(0, sel, updated[p].index_select(0, rows))
             return
-        host = {k: v.detach().cpu() for k, v in updated.items()}
+        host = {p: v.detach().cpu() for p, v in updated.items()}
         for i, row in last.items():
-            self._rows[i] = {k: v[row].clone() for k, v in host.items()}
+            self._rows[i] = {p: v[row].clone() for p, v in host.items()}
 
     def peek(self, client_id):
         """One client's residual as CPU tensors (zeros if never
         touched)."""
         if self.dense:
-            return {k: v[int(client_id)].cpu()
-                    for k, v in self._stacked.items()}
+            return tree_build((p, v[int(client_id)].cpu())
+                              for p, v in self._stacked.items())
         r = self._rows.get(int(client_id))
-        return self._zeros("cpu") if r is None else {
-            k: v.clone() for k, v in r.items()}
+        r = self._zeros("cpu") if r is None else {
+            p: v.clone() for p, v in r.items()}
+        return tree_build(r.items())
 
 
 def _meta(tree):

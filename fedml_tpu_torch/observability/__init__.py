@@ -2,6 +2,8 @@
 round tracing (:mod:`.tracing`), the metrics registry the pace
 controller reads and writes (:mod:`.registry`), the perf-regression
 ledger (:mod:`.perfmon`) and the FLOP count of a local step
-(:mod:`.costmodel`). The switchboard that turns the registry on, the
-flight recorder, compile watcher and ``PerfMonitor`` wait for ROADMAP
+(:mod:`.costmodel`), and the control plane's flight recorder
+(:mod:`.flightrec`), which a caller installs with
+``set_flight_recorder``. The switchboard that turns the registry and the
+recorder on, the compile watcher and ``PerfMonitor`` wait for ROADMAP
 A16."""

@@ -1,6 +1,8 @@
 """The perf-regression ledger (counterpart of the ledger part of
 ``fedml_tpu/observability/perfmon.py``; ``PerfMonitor`` and
-``StatusWriter`` wait for ROADMAP A16).
+``StatusWriter`` wait for ROADMAP A16, so :func:`get_perf_monitor` is
+None and the control plane's health reports are no-ops, as in the
+reference with the monitor off).
 
 Every perf run of the port's bench (``python -m fedml_tpu_torch.bench``)
 appends its record to a JSONL ledger of its own,
@@ -25,6 +27,13 @@ import time
 #: of its same-metric predecessors. 15% absorbs normal host jitter while
 #: an injected 2x slowdown lands far outside it.
 DEFAULT_REGRESS_BAND = 0.15
+
+
+def get_perf_monitor():
+    """The process-wide perf monitor: None until ROADMAP A16 ports
+    ``PerfMonitor`` -- instrumentation points guard with ``if mon is not
+    None``."""
+    return None
 
 
 def append_ledger(record, path):
@@ -113,5 +122,5 @@ def check_regression(path, band=DEFAULT_REGRESS_BAND):
     return ok, detail
 
 
-__all__ = ["DEFAULT_REGRESS_BAND", "append_ledger", "ledger_records",
-           "check_regression"]
+__all__ = ["DEFAULT_REGRESS_BAND", "get_perf_monitor", "append_ledger",
+           "ledger_records", "check_regression"]

@@ -8,13 +8,19 @@ round tree and a ``parent_id`` naming the span it hangs under;
 parentage flows through a thread-local context stack. Finished spans
 export as Chrome trace events (Perfetto / ``chrome://tracing``,
 :meth:`Tracer.export_chrome`), and :meth:`Tracer.durations_by_name`
-feeds the bench's per-phase times. The reference's cross-process context
-propagation (``inject``/``extract``/``remote_context``) and JSONL export
-are left out until a transport that carries the context is ported.
+feeds the bench's per-phase times. Across ranks the context rides the
+message envelope: :meth:`Tracer.inject` writes a ``{"trace_id",
+"span_id"}`` dict under the reserved ``__trace__`` control field (JSON
+header of the binary codec, so every transport carries it) and the
+manager dispatch loop re-establishes it around handlers through
+:meth:`Tracer.remote_context`, so a client rank's ``local-train`` span
+stitches under the server's ``round`` span. The reference's JSONL export
+is left out.
 
 Disabled-path contract: the module-level tracer defaults to
 :data:`NOOP_TRACER`, whose spans are a single shared no-op context
-manager -- a run without a tracer executes no tracing code beyond one
+manager and whose ``inject`` leaves messages untouched -- a run without a
+tracer sends bit-identical frames and executes no tracing code beyond one
 global read per instrumentation point.
 
 Stdlib only.
@@ -26,6 +32,9 @@ import json
 import os
 import threading
 import time
+
+#: Reserved message control field carrying the trace context on the wire.
+TRACE_KEY = "__trace__"
 
 
 def _new_id(nbytes=8):
@@ -40,6 +49,16 @@ class SpanContext:
     def __init__(self, trace_id, span_id):
         self.trace_id = trace_id
         self.span_id = span_id
+
+    def as_dict(self):
+        return {"trace_id": self.trace_id, "span_id": self.span_id}
+
+    @classmethod
+    def from_dict(cls, d):
+        try:
+            return cls(str(d["trace_id"]), str(d["span_id"]))
+        except (TypeError, KeyError):
+            return None
 
 
 class Span:
@@ -142,6 +161,12 @@ class Tracer:
         stack = self._stack()
         return stack[-1] if stack else None
 
+    def remote_context(self, ctx):
+        """Adopt a foreign :class:`SpanContext` (extracted from a message)
+        as this thread's current parent for the ``with`` block -- the
+        receive-side half of cross-rank stitching."""
+        return _RemoteScope(self, ctx)
+
     # -- span creation -----------------------------------------------------
     def start_span(self, name, parent=None, root=False, **attrs):
         """Detached span: NOT pushed on the thread-local stack, so it can
@@ -174,6 +199,21 @@ class Tracer:
                 self._spans = self._spans[len(self._spans) // 2:]
                 self._dropped += self._max - len(self._spans)
             self._spans.append(span)
+
+    # -- wire propagation --------------------------------------------------
+    def inject(self, msg, ctx=None):
+        """Attach ``ctx`` (default: this thread's current context) to a
+        :class:`~fedml_tpu_torch.core.message.Message` under ``__trace__``;
+        the binary codec carries it as a JSON control field."""
+        ctx = ctx if ctx is not None else self.current()
+        if ctx is not None:
+            msg.add(TRACE_KEY, ctx.as_dict())
+
+    @staticmethod
+    def extract(msg):
+        """The receive-side inverse: a :class:`SpanContext` or None."""
+        d = msg.get(TRACE_KEY)
+        return SpanContext.from_dict(d) if isinstance(d, dict) else None
 
     # -- introspection / export --------------------------------------------
     def finished_spans(self):
@@ -217,6 +257,22 @@ class Tracer:
         return path
 
 
+class _RemoteScope:
+    __slots__ = ("_tracer", "_ctx")
+
+    def __init__(self, tracer, ctx):
+        self._tracer = tracer
+        self._ctx = ctx
+
+    def __enter__(self):
+        self._tracer._push(self._ctx)
+        return self._ctx
+
+    def __exit__(self, *exc):
+        self._tracer._pop()
+        return False
+
+
 def _jsonable(v):
     if isinstance(v, (int, float, str, bool, type(None))):
         return v
@@ -252,7 +308,8 @@ _NoopScope.span = _NOOP_SCOPE  # `with t.span(..) as s:` yields the noop
 
 class NoopTracer:
     """Zero-cost stand-in when tracing is off: every method returns a
-    shared inert object."""
+    shared inert object; ``inject`` leaves the message untouched, so
+    disabled runs put bit-identical frames on the wire."""
 
     enabled = False
 
@@ -262,7 +319,17 @@ class NoopTracer:
     def start_span(self, name, parent=None, root=False, **attrs):
         return _NOOP_SCOPE
 
+    def remote_context(self, ctx):
+        return _NOOP_SCOPE
+
     def current(self):
+        return None
+
+    def inject(self, msg, ctx=None):
+        return None
+
+    @staticmethod
+    def extract(msg):
         return None
 
     def finished_spans(self):
@@ -290,5 +357,5 @@ def set_tracer(tracer):
     return prev
 
 
-__all__ = ["SpanContext", "Span", "Tracer", "NoopTracer",
+__all__ = ["TRACE_KEY", "SpanContext", "Span", "Tracer", "NoopTracer",
            "NOOP_TRACER", "get_tracer", "set_tracer"]

@@ -29,6 +29,7 @@ their first launch (``ops/_build.py``), never at import.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -39,8 +40,16 @@ from fedml_tpu_torch.ops.attention import NEG_INF
 SUPPORTED_HEAD_DIMS = (64, 128)
 
 #: kernel launches per wrapper (``fwd``: B2, ``dq``: B3, ``dkv``: B4);
-#: the plain versions on CPU tensors do not count
+#: the plain versions on CPU tensors do not count. Exact when several
+#: threads launch at once (the control plane's client threads train on
+#: one card): every increment holds ``_launch_lock``.
 launches = {"fwd": 0, "dq": 0, "dkv": 0}
+_launch_lock = threading.Lock()
+
+
+def _count(name):
+    with _launch_lock:
+        launches[name] += 1
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -241,7 +250,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, k_len=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), is_bf16, B, H, Tq, k.shape[1], k_len, D,
         _strides(q, k, v, o), scale, int(bool(causal)), _stream(q)), "fwd")
-    launches["fwd"] += 1
+    _count("fwd")
     return o, lse
 
 
@@ -263,7 +272,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal=False, scale=None,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), is_bf16, B, H, Tq,
         k.shape[1], k_len, D, _strides(q, k, v, do, dq), scale,
         int(bool(causal)), _stream(q)), "dq")
-    launches["dq"] += 1
+    _count("dq")
     return dq
 
 
@@ -288,7 +297,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None,
         is_bf16, B, H, Tq, k.shape[1], k_len, D,
         _strides(q, k, v, do, dk, dv), scale, int(bool(causal)),
         _stream(q)), "dkv")
-    launches["dkv"] += 1
+    _count("dkv")
     return dk, dv
 
 

@@ -12,6 +12,8 @@ import logging
 import os
 import time
 
+from fedml_tpu_torch.core.locks import audited_lock
+
 
 def init_logging(proctitle=None):
     """Root logging at INFO with the reference's line format;
@@ -28,12 +30,24 @@ def init_logging(proctitle=None):
 
 
 class MetricsLogger:
-    """Callable metrics sink: ``logger(dict)`` or ``logger.log(dict)``."""
+    """Callable metrics sink: ``logger(dict)`` or ``logger.log(dict)``.
+
+    Wire accounting: the compressed simulation rounds set
+    ``bytes_on_wire`` / ``compression_ratio`` directly on their records;
+    the TCP hub feeds its sent and received bytes through
+    :meth:`count_wire`, and the accumulated totals attach to the next
+    record that does not carry a ``bytes_on_wire`` field (then reset);
+    any residual still pending at :meth:`close` is flushed as a final
+    ``wire_flush_at_close`` record.
+    """
 
     def __init__(self, run_dir=None, config=None):
         self.run_dir = run_dir
         self._jsonl = None
         self._summary = {}
+        self._wire_bytes = 0
+        self._wire_raw_bytes = 0
+        self._wire_lock = audited_lock()
         if run_dir is not None:
             os.makedirs(run_dir, exist_ok=True)
             self._jsonl = open(os.path.join(run_dir, "metrics.jsonl"), "a")
@@ -44,8 +58,25 @@ class MetricsLogger:
                                         else dict(config)),
                               f, indent=2, sort_keys=True)
 
+    def count_wire(self, encoded_bytes, raw_bytes=0):
+        """Accumulate on-wire payload bytes (and, optionally, what the same
+        payload would cost uncompressed) toward the next logged record.
+        Several serve threads count at once, so the counters are
+        lock-guarded."""
+        with self._wire_lock:
+            self._wire_bytes += int(encoded_bytes)
+            self._wire_raw_bytes += int(raw_bytes)
+
     def log(self, metrics: dict):
         record = _jsonable(metrics)
+        with self._wire_lock:
+            if self._wire_bytes and "bytes_on_wire" not in record:
+                record["bytes_on_wire"] = self._wire_bytes
+                if self._wire_raw_bytes:
+                    record["compression_ratio"] = round(
+                        self._wire_raw_bytes / self._wire_bytes, 3)
+                self._wire_bytes = 0
+                self._wire_raw_bytes = 0
         logging.info("%s", record)
         if self._jsonl is not None:
             self._jsonl.write(json.dumps({"_ts": time.time(), **record},
@@ -58,6 +89,10 @@ class MetricsLogger:
     __call__ = log
 
     def close(self):
+        with self._wire_lock:
+            residual = self._wire_bytes
+        if residual:
+            self.log({"event": "wire_flush_at_close"})
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None

@@ -61,6 +61,10 @@ def _oihw_to_hwio(w):
 
 
 def _swap_last2(w):
+    """The last two axes swapped: a tensor (on any device) stays one,
+    anything else becomes an array."""
+    if isinstance(w, torch.Tensor):
+        return w.transpose(-1, -2)
     return np.swapaxes(np.asarray(w), -1, -2)
 
 
@@ -252,50 +256,18 @@ _CELL = "OptimizedLSTMCell_"
 
 def rnn_variables_to_state(variables, device="cpu"):
     """JAX ``RNNOriginalFedAvg``/``RNNStackOverflow`` variables (single
-    or client-stacked) -> fp32 port state ``{"params": ...}``."""
-    p = {}
-    for name, leaf in variables["params"].items():
-        if name.startswith(_CELL):
-            tp = f"lstm{int(name[len(_CELL):]) + 1}"
-            cat = lambda kind, part: np.concatenate(
-                [np.asarray(leaf[f"{kind}{g}"][part]) for g in _GATES],
-                axis=-1)
-            p[f"{tp}.weight_ih"] = _swap_last2(cat("i", "kernel"))
-            p[f"{tp}.weight_hh"] = _swap_last2(cat("h", "kernel"))
-            p[f"{tp}.bias_hh"] = cat("h", "bias")
-        elif "embedding" in leaf:
-            p[f"{name}.weight"] = np.asarray(leaf["embedding"])
-        else:
-            p[f"{name}.weight"] = _swap_last2(leaf["kernel"])
-            p[f"{name}.bias"] = np.asarray(leaf["bias"])
+    or client-stacked) -> fp32 port state ``{"params": ...}``, the gate
+    leaves fused by :func:`gate_join`."""
     return {"params": {k: torch.as_tensor(np.array(v, np.float32, order="C"),
                                           device=device)
-                       for k, v in p.items()}}
+                       for k, v in gate_join(variables["params"]).items()}}
 
 
 def rnn_state_to_variables(state):
-    """Inverse of :func:`rnn_variables_to_state`."""
-    params = {}
-    for key, v in state["params"].items():
-        name, kind = key.rsplit(".", 1)
-        v = v.detach().cpu().numpy()
-        if name.startswith("lstm"):
-            cell = params.setdefault(f"{_CELL}{int(name[4:]) - 1}", {})
-            if kind == "bias_hh":
-                for g, part in zip(_GATES, np.split(v, 4, axis=-1)):
-                    cell.setdefault(f"h{g}", {})["bias"] = part
-            else:
-                src = "i" if kind == "weight_ih" else "h"
-                for g, part in zip(_GATES, np.split(_swap_last2(v), 4,
-                                                    axis=-1)):
-                    cell.setdefault(f"{src}{g}", {})["kernel"] = part
-        elif kind == "weight" and name.endswith("embeddings"):
-            params[name] = {"embedding": v}
-        elif kind == "weight":
-            params.setdefault(name, {})["kernel"] = _swap_last2(v)
-        else:
-            params.setdefault(name, {})["bias"] = v
-    return {"params": params}
+    """Inverse of :func:`rnn_variables_to_state`: numpy leaves split by
+    :func:`gate_split`."""
+    return {"params": gate_split({k: v.detach().cpu().numpy()
+                                  for k, v in state["params"].items()})}
 
 
 def module_state(model):
@@ -358,7 +330,8 @@ def reference_names(names):
     for the ResNets, the (MoE) TransformerLMs, LR and the CNNs, whose
     leaves map one to one (the layouts differ: conv kernels HWIO against
     OIHW, dense kernels ``[in, out]`` against ``[out, in]``); None for a
-    tree that does not map so (the LSTMs split and join leaves)."""
+    tree that does not map so (the LSTMs split and join leaves:
+    :func:`gate_split`)."""
     names = set(names)
     if "tok_embed.weight" in names:
         n_layers = len({k.split(".")[1] for k in names
@@ -387,10 +360,81 @@ def reference_names(names):
     return out if set(out) == names else None
 
 
+def _contig(x):
+    return (x.contiguous() if isinstance(x, torch.Tensor)
+            else np.ascontiguousarray(x))
+
+
+def _cat(xs):
+    return torch.cat(xs, dim=-1) if isinstance(xs[0], torch.Tensor) else (
+        np.concatenate(xs, axis=-1))
+
+
+def gate_split(params):
+    """An LSTM model's port ``{name: leaf}`` dict -> the reference's tree:
+    each fused leaf split into flax's gate leaves under
+    ``OptimizedLSTMCell_{j}/{ii..io,hi..ho}/{kernel,bias}`` in flax's
+    layout (kernels ``[in, H]``), embeddings under ``<name>/embedding``
+    and Dense kernels transposed to ``[in, out]`` -- what the reference
+    compresses and frames. Leaves may be tensors (on any device) or
+    arrays and may lead with more axes (a client axis); the gate leaves
+    are contiguous copies. Any tree without LSTM leaves comes back as it
+    is."""
+    if not any(k.startswith("lstm") for k in params):
+        return params
+    out = {}
+    for key, v in params.items():
+        name, kind = key.rsplit(".", 1)
+        if name.startswith("lstm"):
+            cell = out.setdefault(f"{_CELL}{int(name[4:]) - 1}", {})
+            h = v.shape[-1] // 4 if kind == "bias_hh" else v.shape[-2] // 4
+            src = "i" if kind == "weight_ih" else "h"
+            for j, g in enumerate(_GATES):
+                if kind == "bias_hh":
+                    cell.setdefault(f"h{g}", {})["bias"] = _contig(
+                        v[..., j * h:(j + 1) * h])
+                else:
+                    cell.setdefault(f"{src}{g}", {})["kernel"] = _contig(
+                        _swap_last2(v[..., j * h:(j + 1) * h, :]))
+        elif kind == "weight" and name.endswith("embeddings"):
+            out[name] = {"embedding": v}
+        elif kind == "weight":
+            out.setdefault(name, {})["kernel"] = _contig(_swap_last2(v))
+        else:
+            out.setdefault(name, {})["bias"] = v
+    return out
+
+
+def gate_join(tree):
+    """Inverse of :func:`gate_split`: the reference's LSTM tree -> the
+    port's fused ``{name: leaf}`` dict (a flat port dict comes back as it
+    is)."""
+    if not any(k.startswith(_CELL) for k in tree):
+        return tree
+    out = {}
+    for name, leaf in tree.items():
+        if name.startswith(_CELL):
+            tp = f"lstm{int(name[len(_CELL):]) + 1}"
+            cat = lambda src, part: _cat([leaf[f"{src}{g}"][part]
+                                          for g in _GATES])
+            out[f"{tp}.weight_ih"] = _contig(_swap_last2(cat("i", "kernel")))
+            out[f"{tp}.weight_hh"] = _contig(_swap_last2(cat("h", "kernel")))
+            out[f"{tp}.bias_hh"] = cat("h", "bias")
+        elif "embedding" in leaf:
+            out[f"{name}.weight"] = leaf["embedding"]
+        else:
+            out[f"{name}.weight"] = _contig(_swap_last2(leaf["kernel"]))
+            out[f"{name}.bias"] = leaf["bias"]
+    return out
+
+
 def reference_tree(params):
-    """A port ``{name: leaf}`` dict re-keyed under the reference's nested
-    names (:func:`reference_names`), its leaves untouched; the dict
-    itself where the names do not map one to one."""
+    """A port ``{name: leaf}`` dict under the reference's nested names:
+    re-keyed (:func:`reference_names`), its leaves untouched, where the
+    names map one to one; the LSTMs' gate slices (:func:`gate_split`);
+    the dict itself for any other tree."""
+    if any(k.startswith("lstm") for k in params):
+        return gate_split(params)
     paths = reference_names(params)
     if paths is None:
         return params
@@ -405,4 +449,5 @@ __all__ = ["variables_to_state", "state_to_variables",
            "zoo_variables_to_state", "zoo_state_to_variables",
            "rnn_variables_to_state", "rnn_state_to_variables",
            "module_state", "server_state_from_optax",
-           "server_state_to_optax", "reference_names", "reference_tree"]
+           "server_state_to_optax", "reference_names", "reference_tree",
+           "gate_split", "gate_join"]

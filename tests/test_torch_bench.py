@@ -263,17 +263,17 @@ def test_algo_fedopt_builds_the_server_adam_line():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--soak", "10", "--compressor", "qsgd"], "A13"),
-    (["--tree", "--compressor", "topk:0.1"], "A13"),
-    (["--soak_params", "1000"], "A13"),
+    (["--soak", "10", "--compressor", "qsgd"], "A13b"),
+    (["--tree", "--compressor", "topk:0.1"], "A13b"),
+    (["--soak_params", "1000"], "A13b"),
     (["--warmup", "1"], "A16"),
     (["--compile_cache_dir", "/nonexistent"], "A16"),
-    (["--lm", "--tree_transport", "tcp"], "A13"),
-    (["--soak_rounds", "2"], "A13"),
-    (["--soak", "100"], "A13"),
-    (["--tree_soak"], "A13"),
-    (["--steering"], "A13"),
-    (["--steering", "--compressor", "signsgd"], "A13"),
+    (["--lm", "--tree_transport", "tcp"], "A13b"),
+    (["--soak_rounds", "2"], "A13b"),
+    (["--soak", "100"], "A13b"),
+    (["--tree_soak"], "A13b"),
+    (["--steering"], "A16"),
+    (["--steering", "--compressor", "signsgd"], "A16"),
     (["--compile_cache_dir", "/nonexistent", "--check"], "A16"),
 ])
 def test_unported_flag_fails_naming_its_queue_item(capsys, argv, item):

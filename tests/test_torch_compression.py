@@ -385,22 +385,85 @@ def test_codec_leg_and_manifest_are_the_reference_ones(spec):
 
 
 def test_lstm_bytes_are_counted_under_the_port_names():
-    """The LSTMs' leaves do not map one to one (the port fuses flax's
-    eight gate leaves of a cell into ``weight_ih``/``weight_hh``/
-    ``bias_hh``), so their updates are compressed and counted under the
-    port's names: fewer bytes than the reference counts (ROADMAP §C)."""
-    from fedml_tpu_torch.models.rnn import RNNOriginalFedAvg
-    from fedml_tpu_torch.utils.torch_import import (module_state,
+    """The port fuses flax's eight gate leaves of an LSTM cell into
+    ``weight_ih``/``weight_hh``/``bias_hh``; its updates are compressed
+    and counted as the reference's gate leaves (``gate_split``), so the
+    bytes of one client's update equal the reference's exactly on
+    ``RNNOriginalFedAvg``, and the split joins back bit for bit. The
+    reference's tree is the flax model's own, filled from a seed."""
+    from fedml_tpu import models as jmodels
+    from fedml_tpu_torch.utils.torch_import import (gate_join, gate_split,
                                                     reference_names,
-                                                    rnn_state_to_variables)
+                                                    rnn_variables_to_state)
 
-    params = module_state(RNNOriginalFedAvg())["params"]
-    variables = rnn_state_to_variables({"params": params})
+    rng = np.random.default_rng(3)
+    variables = jax.tree.map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32),
+        jax.eval_shape(jmodels.RNNOriginalFedAvg().init,
+                       jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32)))
+    params = rnn_variables_to_state(variables)["params"]
     assert reference_names(params) is None
-    assert reference_tree(params) is params
-    for spec in ("topk:0.01", "signsgd"):
+    split = reference_tree(params)
+    assert jax.tree.structure(split) == jax.tree.structure(
+        variables["params"])
+    for a, b in zip(jax.tree.leaves(split),
+                    jax.tree.leaves(variables["params"])):
+        assert np.array_equal(a.numpy(), b)
+    joined = gate_join(gate_split(params))
+    assert all(torch.equal(joined[k], params[k]) for k in params)
+    want = {"topk:0.01": 68_562, "signsgd": 105_305}
+    for spec, n in want.items():
         got = integ.compressed_payload_nbytes(comps.get_compressor(spec),
-                                              params)
-        want = jinteg.compressed_payload_nbytes(jcomps.get_compressor(spec),
-                                                variables["params"])
-        assert 0 < want - got < 0.05 * want
+                                              split)
+        ref = jinteg.compressed_payload_nbytes(jcomps.get_compressor(spec),
+                                               variables["params"])
+        assert got == ref == n
+
+
+def _enc_leaves(enc):
+    """``{key path: per-leaf encoding}`` of an encoded tree."""
+    return dict(jax.tree_util.tree_flatten_with_path(
+        enc, is_leaf=lambda x: isinstance(x, dict) and "indices" in x)[0])
+
+
+def test_lstm_topk_keeps_the_references_index_sets():
+    """One update of ``RNNOriginalFedAvg`` made in the reference's layout
+    and carried across: the port's error-feedback step keeps, in every
+    gate leaf, the index set JAX's topk keeps (k per gate), its residuals
+    take the gate layout, and the decoded delta joined back into the
+    fused leaves is the reference's decode carried across, bit for
+    bit."""
+    from fedml_tpu_torch.models.rnn import RNNOriginalFedAvg
+    from fedml_tpu_torch.utils.torch_import import (gate_split,
+                                                    module_state,
+                                                    rnn_state_to_variables,
+                                                    rnn_variables_to_state)
+
+    template = rnn_state_to_variables(
+        {"params": module_state(RNNOriginalFedAvg())["params"]})["params"]
+    rng = np.random.default_rng(7)
+    delta = jax.tree.map(
+        lambda t: rng.standard_normal(t.shape).astype(np.float32), template)
+    jcomp = jcomps.get_compressor("topk:0.01")
+    jenc = jax.tree.map(np.asarray,
+                        jcomp.compress(delta, jax.random.PRNGKey(0)))
+    jdec = jax.tree.map(np.asarray, jcomp.decompress(jenc, template))
+    port_delta = rnn_variables_to_state({"params": delta})["params"]
+    comp = comps.get_compressor("topk:0.01")
+    enc = comp.compress(jax.tree.map(lambda x: x.unsqueeze(0),
+                                     gate_split(port_delta)))
+    want_idx, got_idx = _enc_leaves(jenc), _enc_leaves(enc)
+    assert want_idx.keys() == got_idx.keys()
+    for path, leaf in want_idx.items():
+        assert (set(got_idx[path]["indices"][0].tolist())
+                == set(leaf["indices"].tolist())), path
+    zeros = {k: torch.zeros_like(v) for k, v in port_delta.items()}
+    residuals = jax.tree.map(lambda r: r.unsqueeze(0), gate_split(zeros))
+    recon, new_res = integ.ef_reconstruct(
+        comps.ErrorFeedback(comp),
+        {"params": {k: v.unsqueeze(0) for k, v in port_delta.items()}},
+        {"params": zeros}, residuals, np.zeros(1, np.int64))
+    want = rnn_variables_to_state({"params": jdec})["params"]
+    for k in want:
+        assert torch.equal(recon["params"][k][0], want[k]), k
+    assert jax.tree.structure(new_res) == jax.tree.structure(residuals)

@@ -144,7 +144,7 @@ def test_flags_and_defaults_are_the_reference_ones():
     (["--trace_dir", "/nonexistent"], "A16"),
     (["--model", "vgg11"], "A14"),
     (["--model", "resnet18_gn"], "A14"),
-    (["--transport", "eventloop"], "A13"),
+    (["--transport", "eventloop"], "A13b"),
     (["--model", "mobilenet"], "A14"),
     (["--dataset", "fed_cifar100"], "A14"),
     (["--dataset", "pascal_voc"], "A14"),

@@ -483,7 +483,7 @@ def test_quick_start_runs_each_server_optimizer(opt):
 
 @pytest.mark.parametrize("name", sorted(MAINS))
 @pytest.mark.parametrize("flag,value,item", [
-    ("--race_audit", "1", "A16"), ("--transport", "eventloop", "A13")])
+    ("--race_audit", "1", "A16"), ("--transport", "eventloop", "A13b")])
 def test_main_refuses_resilience_flags(name, flag, value, item):
     """The resilience group's flags whose paths are still unported (the
     race audit, the distributed transports) refuse on every main;

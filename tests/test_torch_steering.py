@@ -227,17 +227,64 @@ def test_trace_load_gen_matches_the_reference(population):
                 for i in range(6)])
 
 
+class _Sink:
+    """A transport that records what reaches it."""
+
+    def __init__(self):
+        self.sent = []
+
+    def send_message(self, msg, **kw):
+        self.sent.append((msg.get_type(), msg.get("i")))
+
+
+def _shaped_sends(mod, message_cls):
+    """Twelve sends (reports and syncs) of rank 3 through ``mod``'s trace
+    shaper on a stepped clock, with the delayed ones delivered by a timer
+    stand-in at once: ``(delivered, delays, dropped)``."""
+    clock = iter(np.arange(0.0, 30.0, 0.45))
+    gen = mod.TraceLoadGen(_trace_pair(mod), seed=4,
+                           clock=lambda: next(clock))
+    delays = []
+
+    class Timer:
+        def __init__(self, delay, fn, args):
+            delays.append(round(delay, 12))
+            self.fn, self.args = fn, args
+
+        def start(self):
+            self.fn(*self.args)
+
+    sink = _Sink()
+    shaper = mod.TraceShapedCommManager(sink, gen, 3, timer_factory=Timer)
+    for i in range(12):
+        m = message_cls("res_report" if i % 3 else "res_sync", 3, 0)
+        m.add("i", i)
+        shaper.send_message(m)
+    return sink.sent, delays, shaper.dropped
+
+
 def test_transport_shaping_waits_for_the_control_plane():
+    """The send-side trace shaper the control plane (ROADMAP A13)
+    brought: ``TraceLoadGen.wrap`` shapes a transport's reports with the
+    reference's decisions -- the same sends delivered, delayed by the
+    same seconds and dropped, syncs untouched."""
+    from fedml_tpu.core.message import Message as JMessage
+    from fedml_tpu_torch.core.message import Message
+
     gen = faults.TraceLoadGen(_trace_pair(faults))
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        gen.wrap(object(), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        faults.TraceShapedCommManager(object(), gen, 1)
+    assert isinstance(gen.wrap(_Sink(), 1), faults.TraceShapedCommManager)
+    got = _shaped_sends(faults, Message)
+    want = _shaped_sends(jfaults, JMessage)
+    assert got == want
+    assert got[2] > 0 and got[1]
 
 
 def test_bench_steering_refusal_names_the_control_plane_and_perfmon(capsys):
+    """``--steering`` waits for the perf monitor (ROADMAP A16) alone now
+    that the TCP control plane is ported."""
     record = tbench.main(["--steering", "--platform", "cpu", "--smoke"])
-    assert "ROADMAP A13" in record["error"] and "A16" in record["error"]
+    assert "ROADMAP A16" in record["error"]
+    assert "A13" not in record["error"]
 
 
 # -- the steered simulation (the reference's tests/test_steering.py) --------

@@ -197,13 +197,17 @@ def _nested_scenario(module):
 
 
 def test_tracing_module_matches_the_reference(tmp_path):
-    # the port keeps the reference's API less its cross-process context
-    # propagation and JSONL export, which nothing in the port calls
-    assert tracing.__all__ == [n for n in jtracing.__all__
-                               if n != "TRACE_KEY"]
-    for name in ("inject", "extract", "remote_context", "export_jsonl"):
-        assert hasattr(jtracing.Tracer, name)
-        assert not hasattr(tracing.Tracer, name)
+    # the port keeps the reference's API with its cross-process context
+    # propagation (the control plane carries it), less the JSONL export,
+    # which nothing in the port calls
+    assert tracing.__all__ == jtracing.__all__
+    assert tracing.TRACE_KEY == jtracing.TRACE_KEY
+    for name in ("inject", "extract", "remote_context"):
+        for cls in ("Tracer", "NoopTracer"):
+            assert hasattr(getattr(jtracing, cls), name)
+            assert hasattr(getattr(tracing, cls), name)
+    assert hasattr(jtracing.Tracer, "export_jsonl")
+    assert not hasattr(tracing.Tracer, "export_jsonl")
     got, want = _nested_scenario(tracing), _nested_scenario(jtracing)
     assert _tree(got.finished_spans()) == _tree(want.finished_spans())
     assert (sorted(got.durations_by_name())

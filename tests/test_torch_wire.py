@@ -144,12 +144,65 @@ def test_codec_handles_bf16_with_ml_dtypes_hidden(monkeypatch):
     assert fresh.tree_wire_nbytes({"s": t}) == len(want)
 
 
+def _envelope_pair():
+    """The same message built in each package: an fp32 leaf, a bool mask,
+    a scalar and a string control field."""
+    from fedml_tpu.core.message import Message as JMessage
+    from fedml_tpu_torch.core.message import Message
+
+    out = []
+    for cls in (JMessage, Message):
+        m = cls("res_report", 3, 0)
+        m.add("params", {"w": _np_array("float32"),
+                         "m": _np_array("bool", (3, 5))})
+        m.add("num_samples", 40.0)
+        m.add("round", 2)
+        out.append(m)
+    return out
+
+
 @pytest.mark.parametrize("name", ["message_to_wire", "message_from_wire",
                                   "message_from_header",
                                   "peek_wire_envelope", "decode_frames"])
 def test_message_envelope_waits_for_a13(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        getattr(codec, name)(b"")
+    """The message envelope the control plane (ROADMAP A13) brought:
+    each function of it gives the reference's result on the same frame
+    (the frames themselves byte-equal)."""
+    jmsg, msg = _envelope_pair()
+    frame = codec.message_to_wire(msg)
+    assert frame == jcodec.message_to_wire(jmsg)
+    if name == "message_to_wire":
+        assert b"".join(codec.message_to_wire_views(msg)) == frame
+        return
+    if name == "peek_wire_envelope":
+        assert (codec.peek_wire_envelope(frame)
+                == jcodec.peek_wire_envelope(frame)
+                == ("res_report", 3, 0))
+        legacy = msg.to_json()
+        assert (codec.peek_wire_envelope(legacy)
+                == jcodec.peek_wire_envelope(legacy))
+        return
+    if name == "message_from_wire":
+        got = [codec.message_from_wire(frame)]
+        want = [jcodec.message_from_wire(frame)]
+    elif name == "message_from_header":
+        header, off = codec.parse_wire_header(frame)
+        got = [codec.message_from_header(header, frame, off)]
+        jheader, joff = jcodec.parse_wire_header(frame)
+        want = [jcodec.message_from_header(jheader, frame, joff)]
+    else:
+        frames = [frame, b"\x9e\x01garbage", msg.to_json()]
+        got = codec.decode_frames(frames)
+        want = jcodec.decode_frames(frames)
+        assert type(got[1]) is type(want[1])
+        got, want = [got[0], got[2]], [want[0], want[2]]
+    for g, w in zip(got, want):
+        assert (g.get_type(), g.get_sender_id(), g.get_receiver_id()) == (
+            w.get_type(), w.get_sender_id(), w.get_receiver_id())
+        assert g.get("num_samples") == w.get("num_samples") == 40.0
+        for k in ("w", "m"):
+            assert np.array_equal(np.asarray(g.get("params")[k]),
+                                  np.asarray(w.get("params")[k]))
 
 
 # ---------------------------------------------------------------------------
