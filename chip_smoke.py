@@ -127,7 +127,28 @@ Phases (any failure exits non-zero):
    of the 4 clients. The attention counters are set to 0 just before
    each run and read just after: B2, B3 and B4 each launched 4 layers
    times the clients' steps;
-12. print the ``kernels`` JSON line and, last, the ``ok`` line.
+12. drive the event-loop control plane (``phase_eventloop``) with the
+   same LM trainers, under deterministic kernels: (a)
+   ``run_tcp_fedavg(transport="eventloop", decode_workers=2)`` for 2
+   rounds, its history bit-equal to phase 11's socket-free replay, its
+   ``bytes_received`` equal to the codec's count of the 8 reports and
+   at least 8 frames through the decode stage; (b)
+   ``run_async_tcp_fedavg(transport="eventloop")`` with ``buffer_k`` 4
+   for 2 flushes of ranks 1-4 at staleness 0; (c) ``run_fanin_fedavg``
+   with 2 edge aggregators of 2 leaves each over the event loop (the
+   leaves' global ids round-robin over ranks 1-4, so the same shards),
+   the coordinator's history bit-equal to the two-tier host replay
+   (``aggregate_reports`` over each edge's leaves, then over the edges)
+   and 2 rounds forwarded by each edge. The attention counters are set
+   to 0 just before each run and read just after: B2, B3 and B4 each
+   launched 136 times. (d) the port's bench in-process, on the host
+   alone: ``--soak 1000`` (16,384-float reports, 3 updates) with its
+   ``status.json`` final, and ``--tree_soak 1000 --tree_fanout 2`` (2
+   edge processes with a swarm each) with every tier's status file
+   final and on the coordinator's program core and no zombie; reports/s,
+   bytes a report, the report-latency p50/p99 and the decode seconds a
+   report are the host transport's on this machine;
+13. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -1563,8 +1584,8 @@ def _cp_counted(fa, label, run, expect):
     secs = time.time() - t0
     launches = dict(fa.launches)
     if launches != {"fwd": expect, "dq": expect, "dkv": expect}:
-        fail(f"control_plane {label}: attention launches {launches}, "
-             f"expected {expect} each")
+        fail(f"{label}: attention launches {launches}, expected "
+             f"{expect} each")
     return out, secs, launches
 
 
@@ -1574,7 +1595,7 @@ def _cp_same(label, got, want):
     for a, b in zip(got, want):
         for k in b:
             if not np.array_equal(a[k], b[k]):
-                fail(f"control_plane {label}: {k} differs, max "
+                fail(f"{label}: {k} differs, max "
                      f"{float(np.abs(a[k] - b[k]).max())}")
 
 
@@ -1585,7 +1606,9 @@ def phase_control_plane(torch, fa, smi):
     wire bytes against the codec's count; the faulted, compressed run
     with a rejoin held against the same plan on the CPU; and
     ``run_async_tcp_fedavg`` for 2 flushes. Launches are counted exactly
-    per run; every line names the card and its power limit."""
+    per run; every line names the card and its power limit. Returns the
+    LM's spec, weights, shards and trainer with (a)'s replay and report
+    bytes, which the event-loop phase is held against."""
     import threading
 
     import numpy as np
@@ -1610,8 +1633,9 @@ def phase_control_plane(torch, fa, smi):
     try:
         # (a) the plain run and its socket-free replay
         policy = CohortPolicy(deadline_s=600.0, quorum=0.5)
-        srv, secs, launches = _cp_counted(fa, "tcp", lambda: run_tcp_fedavg(
-            CP_WORLD, CP_ROUNDS, policy, init, trainer=train, **drive),
+        srv, secs, launches = _cp_counted(
+            fa, "control_plane tcp", lambda: run_tcp_fedavg(
+                CP_WORLD, CP_ROUNDS, policy, init, trainer=train, **drive),
             expect)
         if srv.failed is not None or srv.reporting_log != [
                 list(shards)] * CP_ROUNDS:
@@ -1630,7 +1654,7 @@ def phase_control_plane(torch, fa, smi):
                     "round": r, "attempt": 0})
             params, _ = host.fold_reports(reports, base=params)
             replay.append(params)
-        _cp_same("tcp vs replay", srv.history, replay)
+        _cp_same("control_plane tcp vs replay", srv.history, replay)
         got_bytes = srv.com_manager.bytes_received
         if got_bytes != report_bytes:
             fail(f"control_plane tcp: {got_bytes} report bytes received, "
@@ -1661,7 +1685,7 @@ def phase_control_plane(torch, fa, smi):
             trainer=quadratic_trainer(), **dict(faulted, fault_plan=plan()))))
         cpu.start()
         fsrv, secs, launches = _cp_counted(
-            fa, "tcp_faulted", lambda: run_tcp_fedavg(
+            fa, "control_plane tcp_faulted", lambda: run_tcp_fedavg(
                 CP_WORLD, CP_ROUNDS, fpolicy, init, trainer=train,
                 **faulted), expect)
         cpu.join()
@@ -1686,7 +1710,7 @@ def phase_control_plane(torch, fa, smi):
 
         # (c) buffered async: K 4 of 4 clients, 2 flushes (8 reports)
         asrv, secs, launches = _cp_counted(
-            fa, "async", lambda: run_async_tcp_fedavg(
+            fa, "control_plane async", lambda: run_async_tcp_fedavg(
                 CP_WORLD, 2, AggregationPolicy(buffer_k=4),
                 init, trainer=train, **drive), expect)
         if (asrv.failed is not None or len(asrv.history) != 2
@@ -1704,6 +1728,158 @@ def phase_control_plane(torch, fa, smi):
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.deterministic = False
     print(f"control_plane phase_s={time.time() - t0:.1f} card={smi}",
+          flush=True)
+    return types.SimpleNamespace(init=init, shards=shards, train=train,
+                                 replay=replay, report_bytes=report_bytes)
+
+
+#: the event-loop phase: the soak's connections and report floats (the
+#: bench's defaults) and the tree soak's leaves over 2 edge processes
+EL_SOAK, EL_SOAK_PARAMS, EL_TREE, EL_TREE_FANOUT = 1000, 16384, 1000, 2
+
+
+def _el_bench(bench, label, argv):
+    """One in-process run of the port's bench; fails on an error record.
+    Its figures are the host transport's on this machine."""
+    rec = bench.main(argv + ["--ledger", ""])
+    if "error" in rec:
+        fail(f"eventloop {label}: {rec['error']}")
+    return rec
+
+
+def phase_eventloop(torch, fa, smi, cp):
+    """The event-loop control plane on the card (module docstring, 12):
+    (a) ``run_tcp_fedavg`` over the selector transport with 2 decode
+    workers, bit-equal to the control-plane phase's socket-free replay
+    ``cp``; (b) ``run_async_tcp_fedavg`` over it for 2 flushes; (c)
+    ``run_fanin_fedavg`` with 2 edges of 2 leaves each, bit-equal to the
+    two-tier host replay; the 4 LM trainers launch B2-B4 136 times in
+    each, counted exactly. (d) the bench's ``--soak`` and
+    ``--tree_soak`` on the host: status files final and parseable on one
+    program core, no zombie, reports/s, bytes a report, latency and
+    decode seconds a report. Every line names the card and its power
+    limit."""
+    import numpy as np
+
+    from fedml_tpu_torch import bench
+    from fedml_tpu_torch.net.fanin import (round_robin_groups,
+                                           run_fanin_fedavg)
+    from fedml_tpu_torch.program.aggregation import AggregationPolicy
+    from fedml_tpu_torch.program.cohort import CohortPolicy
+    from fedml_tpu_torch.resilience import (aggregate_reports,
+                                            run_async_tcp_fedavg,
+                                            run_tcp_fedavg)
+
+    t0 = time.time()
+    shards, train = cp.shards, cp.train
+    expect = _cp_expected_launches(shards, {r: CP_ROUNDS for r in shards})
+    drive = dict(transport="eventloop", timeout=600.0, join_timeout=900.0)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (a) the sync server over the event loop, 2 decode workers
+        policy = CohortPolicy(deadline_s=600.0, quorum=0.5)
+        srv, secs, launches = _cp_counted(
+            fa, "eventloop sync", lambda: run_tcp_fedavg(
+                CP_WORLD, CP_ROUNDS, policy, cp.init, trainer=train,
+                decode_workers=2, **drive), expect)
+        if srv.failed is not None or srv.reporting_log != [
+                list(shards)] * CP_ROUNDS:
+            fail(f"eventloop sync: failed={srv.failed} reporting "
+                 f"{srv.reporting_log}")
+        _cp_same("eventloop sync vs replay", srv.history, cp.replay)
+        comm = srv.com_manager
+        ingest = comm.ingest_stats()
+        if comm.bytes_received != cp.report_bytes or ingest["frames"] < 8:
+            fail(f"eventloop sync: {comm.bytes_received} report bytes "
+                 f"received (the codec counts {cp.report_bytes}), ingest "
+                 f"{ingest}")
+        print(f"eventloop run=sync rounds={CP_ROUNDS} clients="
+              f"{len(shards)} decode_workers={ingest['workers']} s="
+              f"{secs:.3f} s_per_round={secs / CP_ROUNDS:.3f} "
+              f"bytes_received={comm.bytes_received} bytes_sent="
+              f"{comm.bytes_sent} ingest={json.dumps(ingest)} launches="
+              f"{json.dumps(launches)} replay=bit-equal card={smi}",
+              flush=True)
+
+        # (b) buffered async over the event loop: K 4 of 4, 2 flushes
+        asrv, secs, launches = _cp_counted(
+            fa, "eventloop async", lambda: run_async_tcp_fedavg(
+                CP_WORLD, 2, AggregationPolicy(buffer_k=4), cp.init,
+                trainer=train, **drive), expect)
+        if (asrv.failed is not None or asrv.flush_log != [
+                tuple(shards)] * 2
+                or asrv.agg.counters["max_staleness"] != 0):
+            fail(f"eventloop async: failed={asrv.failed} flush_log "
+                 f"{asrv.flush_log} {asrv.agg.counters}")
+        print(f"eventloop run=async buffer_k=4 flush_log={asrv.flush_log} "
+              f"max_staleness={asrv.agg.counters['max_staleness']} s="
+              f"{secs:.3f} s_per_flush={secs / 2:.3f} bytes_received="
+              f"{asrv.com_manager.bytes_received} launches="
+              f"{json.dumps(launches)} card={smi}", flush=True)
+
+        # (c) fan-in: 2 edges of 2 leaves; the leaves' global ids
+        # round-robin over ranks 1-4, so they train the same shards
+        groups = round_robin_groups(range(1, CP_WORLD), 2)
+        (fsrv, edges), secs, launches = _cp_counted(
+            fa, "eventloop fanin", lambda: run_fanin_fedavg(
+                2, 2, CP_ROUNDS,
+                AggregationPolicy(buffer_k=10 ** 9, staleness_decay=0.0),
+                cp.init, trainer=train, **drive), expect)
+        params, replay = cp.init, []
+        for r in range(CP_ROUNDS):
+            edge_reports = {}
+            for e, gids in enumerate(groups, start=1):
+                leaf = {}
+                for local, gid in enumerate(gids, start=1):
+                    p, n = train(params, r, gid)
+                    leaf[local] = (n, p)
+                ep, et = aggregate_reports(leaf)
+                edge_reports[e] = (et, ep)
+            params, _ = aggregate_reports(edge_reports)
+            replay.append(params)
+        forwarded = [e.rounds_forwarded for e in edges]
+        if fsrv.failed is not None or forwarded != [CP_ROUNDS] * 2:
+            fail(f"eventloop fanin: failed={fsrv.failed} forwarded "
+                 f"{forwarded}")
+        _cp_same("eventloop fanin vs two-tier replay", fsrv.history,
+                 replay)
+        print(f"eventloop run=fanin edges=2 leaves_per_edge=2 groups="
+              f"{groups} rounds_forwarded={forwarded} s={secs:.3f} "
+              f"s_per_round={secs / CP_ROUNDS:.3f} coordinator_bytes="
+              f"{fsrv.com_manager.bytes_received} launches="
+              f"{json.dumps(launches)} replay=bit-equal card={smi}",
+              flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+    # (d) the soaks: host-only; their figures are the transport's on
+    # this machine's CPU, not the card's
+    rec = _el_bench(bench, "soak", [
+        "--soak", str(EL_SOAK), "--soak_params", str(EL_SOAK_PARAMS),
+        "--soak_updates", "3"])
+    if (rec["status_outcome"] != "complete"
+            or rec["reports"] != 3 * EL_SOAK or rec["sheds"]):
+        fail(f"eventloop soak: {rec}")
+    print(f"eventloop run=soak connections={rec['connections']} reports="
+          f"{rec['reports']} reports_per_s={rec['value']} "
+          f"bytes_per_report={rec['measured_bytes_per_report']} "
+          f"latency_p50_s={rec['report_latency_p50_s']} latency_p99_s="
+          f"{rec['report_latency_p99_s']} decode_s_per_report="
+          f"{rec['decode_s_per_report']} wall_s={rec['wall_s']} "
+          f"status_final=true host_transport card={smi}", flush=True)
+    rec = _el_bench(bench, "tree_soak", [
+        "--tree_soak", str(EL_TREE), "--tree_fanout", str(EL_TREE_FANOUT)])
+    if (rec["zombies"] or rec["killed"] or not rec["program_cores_match"]
+            or rec["statuses"] != 1 + EL_TREE_FANOUT):
+        fail(f"eventloop tree_soak: {rec}")
+    print(f"eventloop run=tree_soak leaves={rec['leaves']} fanout="
+          f"{rec['fanout']} reports={rec['reports']} reports_per_s="
+          f"{rec['value']} statuses={rec['statuses']} (final, one program "
+          f"core) zombies={rec['zombies']} killed={rec['killed']} "
+          f"wall_s={rec['wall_s']} host_transport card={smi}", flush=True)
+    print(f"eventloop phase_s={time.time() - t0:.1f} card={smi}",
           flush=True)
 
 
@@ -1876,7 +2052,8 @@ def main():
     phase_resilience_moe(torch, fa, smi)
     phase_massive_async(torch, smi)
     phase_compression(torch, fa, smi)
-    phase_control_plane(torch, fa, smi)
+    cp = phase_control_plane(torch, fa, smi)
+    phase_eventloop(torch, fa, smi, cp)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

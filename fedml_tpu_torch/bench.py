@@ -8,6 +8,8 @@ on one NVIDIA H100 (counterpart of the repository's ``bench.py``).
         [--compressor SPEC]
     python -m fedml_tpu_torch.bench --compression_sweep [--sweep_model M]
     python -m fedml_tpu_torch.bench --check
+    python -m fedml_tpu_torch.bench --soak [N] [--compressor SPEC]
+    python -m fedml_tpu_torch.bench --tree_soak [N] [--tree_fanout 2,2]
 
 **ResNet-56 flagship** (no flags): cross-silo FedAvg on CIFAR-10-shaped
 synthetic data (50,000 samples, 32x32, LDA alpha=0.5, seed 0), 32
@@ -46,6 +48,19 @@ binary frame and the JSON lists, and the median encode and decode ms of
 (the ``none`` frame at least 5x smaller than the JSON lists). Bytes are
 counted with the parameters under the reference's names and layouts
 (``utils/torch_import.py``), so they equal the reference's.
+
+**Control-plane soaks** (``run_soak_bench``, ``run_tree_soak_bench``;
+host only, no device): ``--soak [N]`` (N 1,000 when bare) drives N
+swarm connections from a subprocess through a real buffered-async
+server over the selector event loop (``net/soak.py``) under
+``observability.enable(perfmon=True)``; the headline is reports/s, with
+bytes a report, the ``fed_report_latency_seconds`` tail and the decode
+seconds a report, and the run's ``status.json`` must end final. ``--tree_soak [N]`` shards N leaves over a
+real tree of edge processes (``topology/``, ``--tree_fanout``) and
+audits every tier's ``status.json``. ``--soak_updates``,
+``--soak_jitter``, ``--soak_trace``, ``--soak_params`` and
+``--compressor`` shape both; ``--soak_decode_workers`` the soak's
+server, ``--tree_transport`` and ``--tree_steering`` the tree.
 
 Each run prints one JSON record with the reference's keys, appends it
 to ``--ledger`` (default ``bench_results/torch_ledger.jsonl``, a ledger
@@ -140,14 +155,13 @@ _MASSIVE_FAILURE_METRIC = "massive-cohort clients/sec (bucketed streaming)"
 _SMOKE_TAG = " [SMOKE -- not baseline-comparable]"
 
 #: flags of bench.py whose paths are not ported, by name or by name
-#: prefix (``--soak`` also covers ``--soak_*``), with the queue item
+#: prefix (``--steering`` also covers ``--steering_*``), with the queue
+#: item
 _UNPORTED_FLAGS = (
     ("--warmup", "ROADMAP A16 (round-program warmup)"),
     ("--compile_cache_dir", "ROADMAP A16 (compile caches)"),
-    ("--soak", "ROADMAP A13b (the event-loop control-plane soak)"),
-    ("--tree", "ROADMAP A13b (the process-tree soak)"),
-    ("--steering", "ROADMAP A16 (the perf monitor whose latency windows "
-     "the pace controller reads)"),
+    ("--steering", "ROADMAP A16 (the pace-steering bench, "
+     "run_steering_bench)"),
 )
 
 
@@ -779,6 +793,258 @@ def run_compression_tools(args, device):
 
 
 # ---------------------------------------------------------------------------
+# the control-plane soaks (host only: sockets and numpy, no device)
+# ---------------------------------------------------------------------------
+def _soak_report_frame_nbytes(init_params, compressor=None):
+    """Exact on-wire bytes of one swarm report frame for this model --
+    plain (full params) or compressed (EF delta schema). Static given
+    the template: encoded sizes are shape-only for every wire
+    compressor, so the plain/compressed byte ratio needs no second
+    measurement run."""
+    from fedml_tpu_torch.compression.codec import message_to_wire
+    from fedml_tpu_torch.compression.wire import (ef_step, encode_rng,
+                                                  host_compressor)
+    from fedml_tpu_torch.core.message import Message
+
+    params = {k: np.asarray(v, np.float32) for k, v in init_params.items()}
+    out = Message("res_report", 1, 0)
+    comp = host_compressor(compressor)
+    if comp is None:
+        out.add("params", params)
+    else:
+        enc, _dec, _res = ef_step(
+            comp, {k: np.zeros_like(v) for k, v in params.items()},
+            None, encode_rng((0, 0, 0)))
+        out.add("cdelta", enc)
+        out.add("compressor", comp.spec)
+    out.add("num_samples", 1.0)
+    out.add("round", 0)
+    out.add("attempt", 0)
+    return len(message_to_wire(out))
+
+
+def _soak_trace_file(args, d, name):
+    """The DiurnalTrace JSON the swarms replay: ``--soak_trace diurnal``
+    is the built-in curve, dropout-free (every swarm client replies --
+    the soak counts reports); any other value is a trace file."""
+    if not args.soak_trace:
+        return None
+    if args.soak_trace != "diurnal":
+        return args.soak_trace
+    from fedml_tpu_torch.resilience.faults import DiurnalTrace
+    return DiurnalTrace.example(dropout=0.0).to_file(os.path.join(d, name))
+
+
+def run_soak_bench(args):
+    """``--soak [N]``: the event-loop control-plane bench (bench.py's
+    ``run_soak_bench``, the same record). The headline is reports/s of N
+    swarm connections through a real buffered-async server over the
+    selector transport, with connection count, bytes a report (and the
+    wire reduction under ``--compressor``), the
+    ``fed_report_latency_seconds`` tail and the decode seconds a report.
+    With a ledger it also prints and appends the decode frames/s row
+    and, compressed, the wire-reduction row; the headline record is
+    returned (and printed last by :func:`main`)."""
+    import tempfile
+
+    from fedml_tpu_torch.net.soak import run_soak
+    from fedml_tpu_torch.observability import enable
+
+    n = int(args.soak)
+    soak_params = {"w": np.zeros(int(args.soak_params), np.float32)}
+    d = tempfile.mkdtemp(prefix="bench_soak_")
+    status_path = os.path.join(d, "status.json")
+    trace_file = _soak_trace_file(args, d, "soak_trace.json")
+    t0 = time.time()
+    with enable(perfmon=True, status_path=status_path) as obs:
+        server, summary = run_soak(
+            n, total_updates=int(args.soak_updates),
+            jitter_s=float(args.soak_jitter), trace_path=trace_file,
+            join_timeout=max(300.0, n / 10.0),
+            decode_workers=int(args.soak_decode_workers),
+            init_params=soak_params, compressor=args.compressor)
+    wall_s = time.time() - t0
+    if server.failed is not None:
+        raise RuntimeError(f"eventloop-soak: {server.failed}")
+    with open(status_path) as f:
+        status = json.load(f)
+    if status.get("final") is not True:
+        raise RuntimeError(f"eventloop-soak: status.json not final: "
+                           f"{status}")
+    reports = server.counters["reports"]
+    q = obs.registry.histogram_quantile
+    # decode-seconds-per-report is the quantity the batched and parallel
+    # ingest stage exists to move
+    ingest = server.com_manager.ingest_stats()
+    decode_s_per_report = (ingest["decode_s"] / ingest["frames"]
+                           if ingest["frames"] else None)
+    # measured uplink bytes a report against the static plain frame of
+    # the same model: wire_reduction is what --compressor buys
+    raw_frame = _soak_report_frame_nbytes(soak_params)
+    this_frame = _soak_report_frame_nbytes(soak_params, args.compressor)
+    measured_per_report = (server.com_manager.bytes_received / reports
+                           if reports else None)
+    comp_tag = (f", {summary['compressor']} compressed"
+                if summary.get("compressor") else "")
+    jitter_model = "diurnal-trace" if trace_file else "uniform"
+    # the metric string carries the regime (report size, arrival model,
+    # compressor): ledger lineages never judge each other across regimes
+    out = {
+        "metric": f"eventloop-soak reports/sec ({n} connections, "
+                  f"{int(args.soak_params)}-float reports, "
+                  f"{jitter_model}, async buffered{comp_tag})",
+        "value": round(reports / wall_s, 1),
+        "unit": "reports/sec",
+        "compressor": summary.get("compressor"),
+        "soak_params": int(args.soak_params),
+        "report_frame_bytes": this_frame,
+        "raw_report_frame_bytes": raw_frame,
+        "measured_bytes_per_report": (round(measured_per_report, 1)
+                                      if measured_per_report else None),
+        "wire_reduction": (round(raw_frame / measured_per_report, 2)
+                           if measured_per_report else None),
+        "connections": summary.get("connections"),
+        "connections_per_sec": round(n / wall_s, 1),
+        "updates": server.agg.version,
+        "reports": reports,
+        "wall_s": round(wall_s, 3),
+        "report_latency_p50_s": q("fed_report_latency_seconds", 0.5),
+        "report_latency_p90_s": q("fed_report_latency_seconds", 0.9),
+        "report_latency_p99_s": q("fed_report_latency_seconds", 0.99),
+        "sheds": getattr(server.com_manager, "sheds", 0),
+        "status_outcome": status.get("outcome"),
+        "transport": "eventloop",
+        "jitter_model": jitter_model,
+        "swarm_dropped": summary.get("dropped", 0),
+        "decode_workers": ingest["workers"],
+        "ingest_frames": ingest["frames"],
+        "ingest_decode_s": ingest["decode_s"],
+        "decode_s_per_report": (round(decode_s_per_report, 9)
+                                if decode_s_per_report else None),
+    }
+    rows = []
+    if ingest["frames"] and ingest["decode_s"] > 0:
+        # decode throughput (frames per decode second, higher is
+        # better): --check-regress fires on a decode slowdown even when
+        # reply jitter masks the wall-clock reports/s
+        rows.append({
+            "metric": f"eventloop-soak decode frames/sec "
+                      f"({n} connections, {int(args.soak_params)}"
+                      f"-float reports, {jitter_model}{comp_tag})",
+            "value": round(ingest["frames"] / ingest["decode_s"], 1),
+            "unit": "frames/decode-sec",
+            "decode_workers": ingest["workers"],
+            "ingest_frames": ingest["frames"],
+            "decode_s_per_report": out["decode_s_per_report"]})
+    if out["compressor"] and out["wire_reduction"]:
+        # the measured wire reduction as its own one-sided metric
+        rows.append({
+            "metric": f"eventloop-soak wire reduction "
+                      f"({n} connections, {out['compressor']})",
+            "value": out["wire_reduction"],
+            "unit": "x-vs-plain-frames",
+            "report_frame_bytes": out["report_frame_bytes"],
+            "raw_report_frame_bytes": out["raw_report_frame_bytes"],
+            "measured_bytes_per_report": out["measured_bytes_per_report"]})
+    if args.ledger:
+        for row in rows:
+            print(json.dumps(row), flush=True)
+            append_ledger(row, args.ledger)
+    return out
+
+
+def run_tree_soak_bench(args):
+    """``--tree_soak [N]``: the process-tree federation bench (bench.py's
+    ``run_tree_soak_bench``, the same record). N leaves shard across a
+    real tree of edge processes (``--tree_fanout``), each bottom edge
+    driving its own soak swarm; the coordinator folds the edges'
+    (compressed) upstream reports in this process. The record: leaf
+    reports/s through the whole tree, the supervision counters (a clean
+    run kills nothing and leaves no zombies) and the per-tier
+    ``status.json`` audit -- every tier final, parseable and on the
+    program's invariant core (``topology.tree.manifest_core``).
+    ``run_tree`` itself appends the tree-soak row and one reports/s row
+    per edge to the ledger. Leftover processes fail the bench."""
+    import tempfile
+
+    from fedml_tpu_torch.topology import TreeSpec, manifest_core, run_tree
+
+    fanout = tuple(int(f) for f in str(args.tree_fanout).split(","))
+    n = int(args.tree_soak)
+    leaves_per_edge = max(1, n // int(np.prod(fanout)))
+    d = tempfile.mkdtemp(prefix="bench_tree_")
+    trace_file = _soak_trace_file(args, d, "tree_trace.json")
+    steering = bool(args.tree_steering)
+    spec = TreeSpec(
+        fanout=fanout, leaves_per_edge=leaves_per_edge,
+        total_updates=int(args.soak_updates),
+        transport=args.tree_transport, compressor=args.compressor,
+        trace=trace_file, jitter_s=float(args.soak_jitter),
+        steering=steering,
+        # a real edge deadline so outage-dark leaves cannot wedge a
+        # round, a flush deadline shorter than the outage so the
+        # coordinator's degraded path runs, and a tier envelope the
+        # controllers steer inside (the reference's knobs)
+        edge_deadline_s=8.0, flush_deadline_s=10.0,
+        tier_bounds={"deadline_s": [0.25, 120.0]} if steering else {})
+    init_params = {"w": np.zeros(int(args.soak_params), np.float32)}
+    t0 = time.time()
+    res = run_tree(spec, d, init_params=init_params,
+                   join_timeout=max(300.0, n / 5.0),
+                   ledger_path=args.ledger or None)
+    wall_s = time.time() - t0
+    server = res["server"]
+    if server.failed is not None:
+        raise RuntimeError(f"tree-soak: {server.failed}")
+    # one status.json per process in the tree, all final, all on the
+    # SAME program core (steered knobs aside)
+    expected_statuses = 1 + sum(
+        int(np.prod(fanout[:t + 1])) for t in range(len(fanout)))
+    cores = []
+    for name, st in sorted(res["statuses"].items()):
+        if st.get("final") is not True:
+            raise RuntimeError(f"tree-soak: {name} is not final")
+        cores.append(manifest_core(st["program"]))
+    if len(cores) != expected_statuses:
+        raise RuntimeError(f"tree-soak: {len(cores)} status files, "
+                           f"expected {expected_statuses}")
+    if any(c != cores[0] for c in cores):
+        raise RuntimeError("tree-soak: program cores diverged")
+    if res["zombies"]:
+        raise RuntimeError(f"tree-soak: {res['zombies']} zombie processes")
+    total_reports = sum(s.get("reports", 0)
+                        for ss in res["swarm_summaries"].values()
+                        for s in ss)
+    jitter_model = "diurnal-trace" if trace_file else "uniform"
+    comp_tag = f", {args.compressor} upstream" if args.compressor else ""
+    return {
+        "metric": f"tree-soak leaf reports/sec through bench "
+                  f"({spec.n_leaves} leaves, fanout "
+                  f"{'x'.join(map(str, fanout))}, {spec.transport}, "
+                  f"{jitter_model}, "
+                  f"{'steered' if steering else 'fixed'}{comp_tag})",
+        "value": round(total_reports / max(wall_s, 1e-9), 1),
+        "unit": "reports/sec",
+        "leaves": spec.n_leaves,
+        "fanout": list(fanout),
+        "transport": spec.transport,
+        "compressor": args.compressor,
+        "jitter_model": jitter_model,
+        "steering": steering,
+        "updates": server.agg.version,
+        "reports": total_reports,
+        "statuses": len(cores),
+        "program_cores_match": True,
+        "respawned": res["respawned"],
+        "killed": res["killed"],
+        "zombies": res["zombies"],
+        "clients_dropped": server.counters["clients_dropped"],
+        "clients_rejoined": server.counters["clients_rejoined"],
+        "wall_s": round(wall_s, 3),
+    }
+
+
+# ---------------------------------------------------------------------------
 # the command line
 # ---------------------------------------------------------------------------
 def _parser():
@@ -859,10 +1125,61 @@ def _parser():
                    help="massive-cohort bench: async buffer K")
     p.add_argument("--staleness_decay", type=float, default=0.5,
                    help="massive-cohort bench: async staleness exponent")
+    p.add_argument("--soak", nargs="?", const=1000, type=int,
+                   default=None, metavar="N",
+                   help="event-loop soak bench (net/soak.py): one host "
+                        "drives N (default 1,000) swarm connections "
+                        "through a real buffered-async server over the "
+                        "selector transport; the record has "
+                        "connections/s, reports/s and the "
+                        "fed_report_latency_seconds tail (p50/p90/p99). "
+                        "Host only: no device")
+    p.add_argument("--soak_updates", type=int, default=3,
+                   help="soak bench: async server updates (flush windows)")
+    p.add_argument("--soak_jitter", type=float, default=0.5,
+                   help="soak bench: max seeded per-report reply jitter "
+                        "in seconds (the latency histogram's tail)")
+    p.add_argument("--soak_trace", type=str, default=None,
+                   help="soak bench: replay a DiurnalTrace JSON file as "
+                        "the swarm's reply model instead of uniform "
+                        "--soak_jitter ('diurnal' = the built-in "
+                        "day/outage/night/flash curve, dropout-free)")
+    p.add_argument("--soak_params", type=int, default=16384,
+                   help="soak bench: model floats a report (the payload "
+                        "is about 4x this in bytes uncompressed)")
+    p.add_argument("--soak_decode_workers", type=int, default=1,
+                   help="soak bench: parallel frame-decode workers on "
+                        "the server transport (net/ingest.py DecodeStage; "
+                        "1 = inline dispatcher decode). Trajectories are "
+                        "identical at any setting")
+    p.add_argument("--tree_soak", nargs="?", const=1000, type=int,
+                   default=None, metavar="N",
+                   help="process-tree soak bench (topology/): N (default "
+                        "1,000) leaves sharded across a real tree of edge "
+                        "processes (--tree_fanout), the coordinator "
+                        "folding the edges' upstream reports in this "
+                        "process; audits every tier's status.json. "
+                        "Reuses --soak_updates/--soak_jitter/"
+                        "--soak_trace/--soak_params/--compressor. Host "
+                        "only: no device")
+    p.add_argument("--tree_fanout", type=str, default="2",
+                   help="tree soak: comma-separated edge fan-out per "
+                        "tier, root-first ('2' = 2 edges; '2,2' = "
+                        "edges-of-edges, 4 bottom edges)")
+    p.add_argument("--tree_transport", default="eventloop",
+                   choices=("tcp", "eventloop"),
+                   help="tree soak: transport for every star in the tree")
+    p.add_argument("--tree_steering", action="store_true",
+                   help="tree soak: arm one PaceController per tier "
+                        "(coordinator + every edge), edge bounds "
+                        "clamped inside the coordinator's envelope")
     p.add_argument("--compressor", type=str, default=None,
-                   help="massive-cohort bench: client-update compression "
-                        "spec (e.g. 'topk:0.1', 'qsgd:8', 'signsgd'), "
-                        "streamed with error feedback in the chunk")
+                   help="compression spec (e.g. 'qsgd', 'topk:0.1', "
+                        "'signsgd'). --soak: swarm clients ship "
+                        "EF-compressed report deltas over the event-loop "
+                        "wire; --tree_soak: the coordinator-facing edge "
+                        "hop compresses; --massive_cohort: streamed with "
+                        "error feedback in the chunk")
     p.add_argument("--compression_sweep", action="store_true",
                    help="measure each --compressors spec on a "
                         "--sweep_model pytree (encoded bytes, encode and "
@@ -910,9 +1227,10 @@ def _refusal(args, unknown):
         return f"{name} is not a flag of the port's bench"
     if args.rounds < 1:
         return f"--rounds {args.rounds}: measure at least 1 round"
-    if args.compressor is not None and not args.massive_cohort:
-        return ("--compressor applies to --massive_cohort here (the "
-                "soak's wire compression waits for ROADMAP A13b)")
+    if args.compressor is not None and not (
+            args.massive_cohort or args.soak or args.tree_soak):
+        return ("--compressor applies to --massive_cohort, --soak and "
+                "--tree_soak")
     if args.repeats < 1:
         return f"--repeats {args.repeats}: time at least 1 call"
     return None
@@ -923,7 +1241,12 @@ def main(argv=None):
     returns one record (a failure record carries ``error``)."""
     args, unknown = _parser().parse_known_args(argv)
     tools = args.compression_sweep or args.check
+    # the soaks run on the host alone, before the flagship recipes
+    soak = (None if tools else run_soak_bench if args.soak
+            else run_tree_soak_bench if args.tree_soak else None)
     metric = ("compression tools" if tools
+              else "eventloop-soak" if args.soak
+              else "tree-soak" if args.tree_soak
               else _MASSIVE_FAILURE_METRIC if args.massive_cohort
               else _LM_FAILURE_METRIC if args.lm
               else _FAILURE_METRIC.replace("FedAvg", "FedOpt")
@@ -941,19 +1264,23 @@ def main(argv=None):
     budget_s = max(45 * 60, 5 * 60 + (args.rounds + 1) * 5 * 60)
     watchdog = arm_watchdog(budget_s, f"{args.rounds} rounds", metric)
     try:
-        device = (torch.device("cpu") if args.platform == "cpu"
-                  else resolve_device(None))
-        run = (run_compression_tools if tools
-               else run_massive_cohort if args.massive_cohort
-               else run_lm_bench if args.lm else run_resnet_bench)
-        record = run(args, device)
+        if soak is not None:
+            record = soak(args)
+        else:
+            device = (torch.device("cpu") if args.platform == "cpu"
+                      else resolve_device(None))
+            run = (run_compression_tools if tools
+                   else run_massive_cohort if args.massive_cohort
+                   else run_lm_bench if args.lm else run_resnet_bench)
+            record = run(args, device)
     except Exception:  # the one-line contract: report, then fail
         traceback.print_exc()
         return emit_failure(traceback.format_exc(limit=3)[-800:], metric)
     finally:
         watchdog.cancel()
     print(json.dumps(record), flush=True)
-    if args.ledger and not tools:
+    # run_tree appends the tree soak's own rows
+    if args.ledger and not tools and soak is not run_tree_soak_bench:
         append_ledger(record, args.ledger)
     return record
 

@@ -1,7 +1,8 @@
 """The control plane's transports (counterpart of
 ``fedml_tpu/core/comm``): in-process queues (:mod:`.local`), the TCP star
 hub (:mod:`.tcp`) and the MQTT bridge (:mod:`.mqtt`, paho imported
-lazily). The event-loop transport waits for ROADMAP A13b."""
+lazily). The selector event-loop transport is
+:mod:`fedml_tpu_torch.net.eventloop`."""
 
 from fedml_tpu_torch.core.comm.base import (  # noqa: F401
     BaseCommunicationManager, Observer)

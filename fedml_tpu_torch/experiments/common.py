@@ -35,7 +35,6 @@ _UNPORTED = {
     "status_path": (None, _A16_OBS), "xprof_round": (None, _A16_OBS),
     "xprof_dir": (None, _A16_OBS), "costmodel": (0, _A16_OBS),
     "enable_wandb": (0, "ROADMAP A16 (the port carries no wandb mirror)"),
-    "transport": ("tcp", "ROADMAP A13b (the event-loop transport)"),
 }
 
 

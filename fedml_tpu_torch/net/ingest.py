@@ -1,7 +1,6 @@
 """Parallel frame-decode stage: the wire->aggregator ingest pipeline
-(counterpart of ``fedml_tpu/net/ingest.py``; the event-loop transport that
-builds the stage waits for ROADMAP A13b, the TCP hub uses
-:func:`note_ingest`).
+(counterpart of ``fedml_tpu/net/ingest.py``; the event-loop transport
+builds the stage, the TCP hub uses :func:`note_ingest`).
 
 The event-loop transport splits receive work across two threads: the
 *loop* (sockets, framing) and the *dispatcher* (decode + FSM handlers).

@@ -1,16 +1,24 @@
-"""The perf-regression ledger (counterpart of the ledger part of
-``fedml_tpu/observability/perfmon.py``; ``PerfMonitor`` and
-``StatusWriter`` wait for ROADMAP A16, so :func:`get_perf_monitor` is
-None and the control plane's health reports are no-ops, as in the
-reference with the monitor off).
+"""Runtime performance monitor and the perf-regression ledger
+(counterpart of ``fedml_tpu/observability/perfmon.py``).
 
-Every perf run of the port's bench (``python -m fedml_tpu_torch.bench``)
-appends its record to a JSONL ledger of its own,
-``bench_results/torch_ledger.jsonl`` by default, so a record taken on
-the card never shares a file with the JAX package's records;
-``--check-regress`` compares the newest record of each ``metric``
-against the median of its same-metric predecessors with a noise band and
-exits non-zero on regression.
+- :class:`PerfMonitor` feeds the metrics registry with histograms (per
+  round wall seconds, per step seconds, client update staleness, buffer
+  depth at fold, per report latency whose upper buckets are the
+  straggler tail) and a rolling ``fed_rounds_per_hour`` gauge, and owns
+  the optional status writer. Disabled cost: one module-global read per
+  instrumentation point (``get_perf_monitor() is None``). The
+  reference's ``--xprof_round`` capture (a ``jax.profiler`` window) is
+  ROADMAP A16's ``torch.profiler`` capture: asking for it raises.
+- :class:`StatusWriter` writes a throttled, atomic (tmp file +
+  ``os.replace``) ``status.json`` snapshot, so an operator can read a
+  distributed server's live health without attaching to its logs.
+- The ledger: every perf run of the port's bench (``python -m
+  fedml_tpu_torch.bench``) appends its record to a JSONL ledger of its
+  own, ``bench_results/torch_ledger.jsonl`` by default, so a record
+  taken on the card never shares a file with the JAX package's records;
+  ``--check-regress`` compares the newest record of each ``metric``
+  against the median of its same-metric predecessors with a noise band
+  and exits non-zero on regression.
 
 Stdlib only.
 """
@@ -20,20 +28,219 @@ from __future__ import annotations
 import json
 import logging
 import os
+import threading
 import time
+from collections import deque
+
+from fedml_tpu_torch.observability.registry import get_registry
+
+#: Bucket layouts for the monitor's histograms: latency-flavored seconds
+#: for round/report times, tighter sub-second edges for steps, small
+#: integer edges for staleness/depth counts.
+#:
+#: The sub-1 s region is fine-grained: the pace controller's tail
+#: tracker reads bucket upper edges as its p50/p90, so roughly 1.4-2x
+#: edge ratios below 1 s keep its resolution near its geometric rate
+#: limit.
+ROUND_BUCKETS = (0.01, 0.025, 0.05, 0.075, 0.1, 0.15, 0.25, 0.35, 0.5,
+                 0.75, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0,
+                 300.0, 600.0)
+STEP_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                0.25, 0.5, 1.0)
+COUNT_BUCKETS = (0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 1024, 4096)
+
+
+class StatusWriter:
+    """Merged-field ``status.json`` snapshots, throttled and atomic.
+
+    ``update(**fields)`` merges into the held snapshot and rewrites the
+    file when ``force=True`` or ``min_interval_s`` has elapsed since the
+    last write. The write is tmp-file + ``os.replace`` so a reader never
+    observes a torn JSON document. Thread-safe (handler threads and the
+    turnover thread both report)."""
+
+    def __init__(self, path, min_interval_s=2.0):
+        self.path = str(path)
+        self.min_interval_s = float(min_interval_s)
+        self._lock = threading.Lock()
+        self._fields = {"status_version": 1}
+        self._last_write = 0.0
+        self.writes = 0
+
+    def update(self, force=False, **fields):
+        # the file commit happens UNDER the lock: two racing forced
+        # updates must not os.replace() out of order and leave the file
+        # holding the older snapshot. Writes are decision-rate (or
+        # throttled), and this lock guards nothing else, so holding it
+        # across one small local write is fine.
+        with self._lock:
+            self._fields.update(fields)
+            now = time.time()
+            if not force and now - self._last_write < self.min_interval_s:
+                return None
+            self._fields["updated_at"] = now
+            snapshot = dict(self._fields)
+            tmp = self.path + ".tmp"
+            try:
+                d = os.path.dirname(self.path)
+                if d:
+                    os.makedirs(d, exist_ok=True)
+                with open(tmp, "w") as f:
+                    json.dump(snapshot, f, indent=2, sort_keys=True,
+                              default=str)
+                os.replace(tmp, self.path)
+            except OSError as e:  # health must never kill the run -- and
+                # a failed write must not advance the throttle clock or
+                # the write counter
+                logging.warning("perfmon: status write to %s failed: %s",
+                                self.path, e)
+                return None
+            self._last_write = now
+            self.writes += 1
+        return self.path
+
+
+class PerfMonitor:
+    """Overhead-bounded run-health monitor (see module docstring).
+
+    Every ``observe_*`` is a bounded-deque append plus, when the metrics
+    registry is armed, one histogram observation: O(1) host work, no
+    device touches, no effect on any computed value. ``xprof_dir`` is
+    the reference's argument, unused until the capture is ported."""
+
+    def __init__(self, status_path=None, xprof_dir=None, xprof_round=None,
+                 window=128, status_interval_s=2.0):
+        if xprof_round is not None:
+            raise NotImplementedError(
+                "PerfMonitor(xprof_round=...): the per-round profiler "
+                "capture (torch.profiler in place of the reference's "
+                "jax.profiler window) waits for ROADMAP A16")
+        self.status = (StatusWriter(status_path,
+                                    min_interval_s=status_interval_s)
+                       if status_path else None)
+        self._lock = threading.Lock()
+        self._round_ends = deque(maxlen=max(2, int(window)))
+        self.rounds = 0
+        self.reports = 0
+
+    # -- observations ------------------------------------------------------
+    def observe_round(self, seconds, steps=None):
+        """One federated round (or distributed round attempt) completed
+        in ``seconds``; ``steps`` (true client-steps executed, when the
+        caller knows them host-side) additionally feeds the per-step
+        histogram and never forces a device sync to learn."""
+        now = time.time()
+        with self._lock:
+            self._round_ends.append(now)
+            self.rounds += 1
+            rph = self._rph_locked()
+        reg = get_registry()
+        if reg is not None:
+            reg.observe("fed_round_seconds", float(seconds),
+                        buckets=ROUND_BUCKETS,
+                        help="wall seconds per federated round")
+            if steps:
+                reg.observe("fed_step_seconds",
+                            float(seconds) / max(int(steps), 1),
+                            buckets=STEP_BUCKETS,
+                            help="wall seconds per executed client step "
+                                 "(round time / true steps)")
+            if rph is not None:
+                reg.set_gauge("fed_rounds_per_hour", rph,
+                              help="rolling rounds/hour over the last "
+                                   "window of rounds")
+        return rph
+
+    def _rph_locked(self):
+        """THE rolling rounds/hour formula (callers hold ``_lock``):
+        one definition feeds the gauge, ``rounds_per_hour()`` and
+        ``record()`` so they can never drift apart."""
+        if len(self._round_ends) < 2:
+            return None
+        span = self._round_ends[-1] - self._round_ends[0]
+        if span <= 0:
+            return None
+        return round(3600.0 * (len(self._round_ends) - 1) / span, 2)
+
+    def rounds_per_hour(self):
+        """Current rolling rounds/hour (None until two observations) --
+        the same value the ``fed_rounds_per_hour`` gauge holds, exposed
+        so both distributed servers can put the live pace in their
+        ``status.json`` snapshot on either paradigm (sync rounds and
+        async flushes feed the one gauge)."""
+        with self._lock:
+            return self._rph_locked()
+
+    def observe_report_latency(self, seconds):
+        """Seconds from a round attempt's open to one client report --
+        the distribution whose upper buckets ARE the straggler tail."""
+        with self._lock:
+            self.reports += 1
+        reg = get_registry()
+        if reg is not None:
+            reg.observe("fed_report_latency_seconds", float(seconds),
+                        buckets=ROUND_BUCKETS,
+                        help="round-open to client report; upper buckets "
+                             "are the straggler tail")
+
+    def observe_fold(self, staleness, depth):
+        """One async buffer fold: staleness + post-fold depth
+        distributions (the histogram complement of the point gauges set
+        on every fold)."""
+        reg = get_registry()
+        if reg is not None:
+            reg.observe("fed_staleness_levels", int(staleness),
+                        buckets=COUNT_BUCKETS,
+                        help="staleness (server versions) distribution "
+                             "of folded updates")
+            reg.observe("fed_buffer_depth_levels", int(depth),
+                        buckets=COUNT_BUCKETS,
+                        help="buffer depth observed at each fold")
+
+    # -- status ------------------------------------------------------------
+    def status_update(self, force=False, **fields):
+        if self.status is None:
+            return None
+        return self.status.update(force=force, **fields)
+
+    def record(self, prefix="perf/") -> dict:
+        """Cumulative monitor summary for the metrics sink at scope
+        exit."""
+        with self._lock:
+            out = {prefix + "rounds_observed": self.rounds,
+                   prefix + "reports_observed": self.reports}
+            rph = self._rph_locked()
+            if rph is not None:
+                out[prefix + "rounds_per_hour"] = rph
+        if self.status is not None:
+            out[prefix + "status_path"] = self.status.path
+            out[prefix + "status_writes"] = self.status.writes
+        return out
+
+
+_monitor = None
+
+
+def get_perf_monitor():
+    """The process-wide monitor, or None when perf monitoring is off --
+    instrumentation points guard with ``if mon is not None``."""
+    return _monitor
+
+
+def set_perf_monitor(monitor):
+    global _monitor
+    prev = _monitor
+    _monitor = monitor
+    return prev
+
+
+# -- perf-regression ledger -------------------------------------------------
 
 #: Default noise band for :func:`check_regression`: the newest record
 #: regresses when its headline value drops below ``median * (1 - band)``
 #: of its same-metric predecessors. 15% absorbs normal host jitter while
 #: an injected 2x slowdown lands far outside it.
 DEFAULT_REGRESS_BAND = 0.15
-
-
-def get_perf_monitor():
-    """The process-wide perf monitor: None until ROADMAP A16 ports
-    ``PerfMonitor`` -- instrumentation points guard with ``if mon is not
-    None``."""
-    return None
 
 
 def append_ledger(record, path):
@@ -122,5 +329,7 @@ def check_regression(path, band=DEFAULT_REGRESS_BAND):
     return ok, detail
 
 
-__all__ = ["DEFAULT_REGRESS_BAND", "get_perf_monitor", "append_ledger",
-           "ledger_records", "check_regression"]
+__all__ = ["PerfMonitor", "StatusWriter", "get_perf_monitor",
+           "set_perf_monitor", "append_ledger", "ledger_records",
+           "check_regression", "DEFAULT_REGRESS_BAND", "ROUND_BUCKETS",
+           "STEP_BUCKETS", "COUNT_BUCKETS"]

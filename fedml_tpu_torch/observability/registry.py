@@ -15,8 +15,8 @@ that changed since the previous snapshot into a metrics record (prefix
 
 The pace controller (``resilience/steering.py``) reads its histograms
 and writes its gauges here. :func:`get_registry` is None while
-observability is off (the switchboard that turns it on waits for ROADMAP
-A16), so every instrumentation point costs one module-global read.
+observability is off (``observability.enable`` turns it on for a scope),
+so every instrumentation point costs one module-global read.
 Thread-safe; stdlib-only.
 """
 

@@ -14,8 +14,8 @@ message envelope: :meth:`Tracer.inject` writes a ``{"trace_id",
 header of the binary codec, so every transport carries it) and the
 manager dispatch loop re-establishes it around handlers through
 :meth:`Tracer.remote_context`, so a client rank's ``local-train`` span
-stitches under the server's ``round`` span. The reference's JSONL export
-is left out.
+stitches under the server's ``round`` span. :meth:`Tracer.export_jsonl`
+writes one JSON line a span.
 
 Disabled-path contract: the module-level tracer defaults to
 :data:`NOOP_TRACER`, whose spans are a single shared no-op context
@@ -94,6 +94,12 @@ class Span:
         concurrent end() calls record exactly one span)."""
         self._tracer._finish(self, self._tracer._now())
 
+    def as_dict(self):
+        return {"name": self.name, "trace_id": self.trace_id,
+                "span_id": self.span_id, "parent_id": self.parent_id,
+                "ts": self.t0, "dur": (self.t1 or self.t0) - self.t0,
+                "thread": self.thread, "attrs": self.attrs}
+
 
 class _SpanScope:
     """Context manager pairing a span with the thread-local stack."""
@@ -115,7 +121,7 @@ class _SpanScope:
 
 
 class Tracer:
-    """Collects spans; thread-safe; exports Chrome trace-event JSON.
+    """Collects spans; thread-safe; exports Chrome trace-event JSON + JSONL.
 
     Args:
       max_spans: retention bound -- the oldest spans are dropped beyond it
@@ -254,6 +260,13 @@ class Tracer:
                "otherData": {"dropped_spans": self._dropped}}
         with open(path, "w") as f:
             json.dump(doc, f)
+        return path
+
+    def export_jsonl(self, path):
+        """One JSON line per span (trace/span/parent ids, ts/dur in us)."""
+        with open(path, "w") as f:
+            for s in self.finished_spans():
+                f.write(json.dumps(s.as_dict()) + "\n")
         return path
 
 

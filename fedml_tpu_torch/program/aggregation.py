@@ -20,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 
+from fedml_tpu_torch.observability.perfmon import get_perf_monitor
 from fedml_tpu_torch.observability.registry import get_registry
 from fedml_tpu_torch.observability.tracing import get_tracer
 
@@ -245,6 +246,11 @@ class BufferedAggregator:
             reg.set_gauge("fed_update_staleness", int(staleness),
                           help="staleness (server versions) of the last "
                                "folded update")
+        mon = get_perf_monitor()
+        if mon is not None:
+            # the histogram complement of the point gauges above (pace
+            # steering reads distributions, not last values)
+            mon.observe_fold(staleness, depth)
 
     def _threshold(self, target):
         """``buffer_k`` capped by ``target`` (at least 1)."""

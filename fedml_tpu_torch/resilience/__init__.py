@@ -15,8 +15,9 @@ plane (counterpart of ``fedml_tpu/resilience``):
                      :func:`run_tcp_fedavg`.
 
 Round semantics live in :mod:`fedml_tpu_torch.program`: both servers
-execute a ``RoundProgram`` through its host view. The event-loop
-transport, the fan-in tier and the soak harness wait for ROADMAP A13b.
+execute a ``RoundProgram`` through its host view; their transports are
+the threaded TCP hub and the selector event loop
+(:mod:`fedml_tpu_torch.net`).
 """
 
 from fedml_tpu_torch.resilience.async_agg import (AsyncAggPolicy,

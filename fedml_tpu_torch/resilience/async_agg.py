@@ -58,7 +58,7 @@ from fedml_tpu_torch.resilience.policy import RetryPolicy, send_with_retry
 # the async server speaks the SAME message schema as the synchronous FSM
 # (ResilientFedAvgClient is reused unchanged)
 from fedml_tpu_torch.resilience.integration import (  # noqa: F401
-    _EVENTLOOP, MSG_C2S_REPORT, MSG_S2C_SYNC, ResilientFedAvgClient,
+    MSG_C2S_REPORT, MSG_S2C_SYNC, ResilientFedAvgClient,
     quadratic_trainer)
 
 
@@ -576,11 +576,13 @@ def run_async_tcp_fedavg(world_size, total_updates, async_policy,
                          host="localhost", port=None, timeout=60.0,
                          join_timeout=90.0, transport="tcp",
                          pace_controller=None, late_clients=(),
-                         compressor=None, dp=None, robust=None):
+                         decode_workers=1, compressor=None, dp=None,
+                         robust=None):
     """Drive a multi-rank TCP buffered-async FedAvg scenario in one
     process (the async analog of ``integration.run_tcp_fedavg``; clients
-    are the unchanged :class:`ResilientFedAvgClient`). ``transport`` is
-    "tcp" ("eventloop" waits for ROADMAP A13b and raises).
+    are the unchanged :class:`ResilientFedAvgClient`). ``transport``
+    selects the byte layer ("tcp" | "eventloop") with identical FSMs;
+    ``decode_workers`` is the event loop's parallel frame-decode stage.
     ``pace_controller`` arms closed-loop pace steering on the server;
     ``late_clients`` is a list of ``(rank, delay_s)`` re-dials -- a
     fresh unfaulted client that HELLOs back in after its original
@@ -594,23 +596,26 @@ def run_async_tcp_fedavg(world_size, total_updates, async_policy,
     import socket
 
     from fedml_tpu_torch.core.comm.tcp import TcpCommManager
+    from fedml_tpu_torch.net.eventloop import EventLoopCommManager
 
-    if transport != "tcp":
-        raise NotImplementedError(_EVENTLOOP if transport == "eventloop"
-                                  else f"unknown transport {transport!r}")
     if port is None:
         s = socket.socket()
         s.bind((host, 0))
         port = s.getsockname()[1]
         s.close()
     trainer = trainer or quadratic_trainer()
+    evloop = transport == "eventloop"
 
     def run_client(rank, delay_s=0.0, faulted=True):
         if delay_s:
             time.sleep(delay_s)
         try:
-            comm = TcpCommManager(host, port, rank, world_size,
-                                  timeout=timeout)
+            if evloop:
+                comm = EventLoopCommManager(host, port, rank, world_size,
+                                            timeout=timeout)
+            else:
+                comm = TcpCommManager(host, port, rank, world_size,
+                                      timeout=timeout)
         except OSError:
             # a late re-dial can race the run's teardown: nothing to
             # rejoin anymore, which is a legitimate outcome
@@ -631,8 +636,14 @@ def run_async_tcp_fedavg(world_size, total_updates, async_policy,
                 for r, d in late_clients]
     for t in threads:
         t.start()
-    comm = TcpCommManager(host, port, 0, world_size, timeout=timeout,
-                          metrics_logger=metrics_logger)
+    if evloop:
+        comm = EventLoopCommManager(host, port, 0, world_size,
+                                    timeout=timeout,
+                                    metrics_logger=metrics_logger,
+                                    decode_workers=decode_workers)
+    else:
+        comm = TcpCommManager(host, port, 0, world_size, timeout=timeout,
+                              metrics_logger=metrics_logger)
     server = AsyncBufferedFedAvgServer(
         None, comm, world_size, init_params, total_updates, async_policy,
         retry_policy=retry_policy, metrics_logger=metrics_logger,

@@ -80,6 +80,27 @@ class PaceBounds:
     deadline_s: tuple = (0.05, 120.0)
     overselect: tuple = (0.0, 1.0)
 
+    def intersect(self, outer: "PaceBounds") -> "PaceBounds":
+        """The per-tier clamp of the federation tree: a tier's own
+        bounds intersected with the coordinator's, so an edge
+        controller can never steer a knob outside what the coordinator
+        would allow itself (``topology/``: one controller per edge reads
+        its own tier's histograms, but the decision envelope is the
+        root's). A knob whose ranges do not overlap collapses to the
+        outer bound's nearest edge -- the coordinator wins."""
+        def _meet(mine, theirs):
+            lo = max(mine[0], theirs[0])
+            hi = min(mine[1], theirs[1])
+            if lo > hi:  # disjoint: the outer (coordinator) range wins
+                return (theirs[0], theirs[1])
+            return (lo, hi)
+        return PaceBounds(
+            buffer_k=_meet(self.buffer_k, outer.buffer_k),
+            flush_deadline_s=_meet(self.flush_deadline_s,
+                                   outer.flush_deadline_s),
+            deadline_s=_meet(self.deadline_s, outer.deadline_s),
+            overselect=_meet(self.overselect, outer.overselect))
+
 
 @dataclass(frozen=True)
 class PaceDecision:

@@ -4,9 +4,10 @@ the LM population byte for byte, the perf-regression ledger's verdicts
 on the same files, the FLOP count of a local step against the analytic
 constants within ``FLOPS_XCHECK_TOL`` (as the reference's cost model is
 held), the CPU smoke of both recipes through ``main`` (one JSON line
-with the reference's record keys, null device metrics), the refusal of
-every unported flag naming its ROADMAP item, and the failure without a
-card."""
+with the reference's record keys, null device metrics), the
+control-plane soaks (``--soak``, ``--tree_soak``) with the reference's
+record keys on the host, the refusal of every unported flag naming its
+ROADMAP item, and the failure without a card."""
 
 import json
 import os
@@ -263,15 +264,8 @@ def test_algo_fedopt_builds_the_server_adam_line():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--soak", "10", "--compressor", "qsgd"], "A13b"),
-    (["--tree", "--compressor", "topk:0.1"], "A13b"),
-    (["--soak_params", "1000"], "A13b"),
     (["--warmup", "1"], "A16"),
     (["--compile_cache_dir", "/nonexistent"], "A16"),
-    (["--lm", "--tree_transport", "tcp"], "A13b"),
-    (["--soak_rounds", "2"], "A13b"),
-    (["--soak", "100"], "A13b"),
-    (["--tree_soak"], "A13b"),
     (["--steering"], "A16"),
     (["--steering", "--compressor", "signsgd"], "A16"),
     (["--compile_cache_dir", "/nonexistent", "--check"], "A16"),
@@ -281,6 +275,92 @@ def test_unported_flag_fails_naming_its_queue_item(capsys, argv, item):
     assert _last_json(capsys) == record
     assert record["value"] == 0.0 and f"ROADMAP {item}" in record["error"]
     assert tbench._exit_code(record) == 1
+
+
+@pytest.mark.parametrize("argv", [["--soak_rounds", "2"],
+                                  ["--tree", "--compressor", "topk:0.1"]])
+def test_a_flag_the_reference_bench_lacks_fails(capsys, argv):
+    record = tbench.main(argv + ["--platform", "cpu", "--smoke"])
+    assert _last_json(capsys) == record
+    assert "not a flag of the port's bench" in record["error"]
+    assert tbench._exit_code(record) == 1
+
+
+# ---------------------------------------------------------------------------
+# the control-plane soaks (host only)
+# ---------------------------------------------------------------------------
+#: the record keys of bench.py's run_soak_bench and run_tree_soak_bench
+SOAK_KEYS = (
+    "metric", "value", "unit", "compressor", "soak_params",
+    "report_frame_bytes", "raw_report_frame_bytes",
+    "measured_bytes_per_report", "wire_reduction", "connections",
+    "connections_per_sec", "updates", "reports", "wall_s",
+    "report_latency_p50_s", "report_latency_p90_s", "report_latency_p99_s",
+    "sheds", "status_outcome", "transport", "jitter_model",
+    "swarm_dropped", "decode_workers", "ingest_frames", "ingest_decode_s",
+    "decode_s_per_report")
+TREE_KEYS = (
+    "metric", "value", "unit", "leaves", "fanout", "transport",
+    "compressor", "jitter_model", "steering", "updates", "reports",
+    "statuses", "program_cores_match", "respawned", "killed", "zombies",
+    "clients_dropped", "clients_rejoined", "wall_s")
+QUICK = ["--soak_jitter", "0", "--soak_updates", "2"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--soak", "10", "--compressor", "qsgd"],
+    ["--soak", "20", "--soak_params", "1000", "--soak_decode_workers", "2"],
+    ["--soak", "100"],
+], ids=["qsgd", "params_workers", "n100"])
+def test_soak_runs_with_the_reference_record(tmp_path, capsys, argv):
+    """``--soak N`` drives N swarm connections through the buffered async
+    server over the event loop on the host (``--platform cpu`` is
+    accepted and moves nothing: the soak touches no device)."""
+    ledger = str(tmp_path / "ledger.jsonl")
+    record = tbench.main(argv + QUICK + ["--platform", "cpu",
+                                         "--ledger", ledger])
+    assert _last_json(capsys) == record
+    assert tuple(record) == SOAK_KEYS, record.get("error")
+    n = int(argv[1])
+    assert record["connections"] == n and record["updates"] == 2
+    assert record["reports"] == 2 * n and record["sheds"] == 0
+    assert record["status_outcome"] == "complete"
+    assert record["ingest_frames"] >= 2 * n
+    assert record["decode_workers"] == int(
+        argv[argv.index("--soak_decode_workers") + 1]
+        if "--soak_decode_workers" in argv else 1)
+    comp = "--compressor" in argv
+    assert (record["compressor"] == "qsgd:2") == comp
+    assert (record["wire_reduction"] >= 8.0) == comp
+    rows = [json.loads(line) for line in open(ledger)]
+    assert [r["unit"] for r in rows] == (
+        ["frames/decode-sec"] + ["x-vs-plain-frames"] * comp
+        + ["reports/sec"])
+    assert tbench._exit_code(record) == 0
+
+
+@pytest.mark.parametrize("argv", [
+    ["--tree_soak", "8"],
+    ["--tree_soak", "8", "--tree_transport", "tcp", "--compressor",
+     "topk:0.1"],
+], ids=["eventloop", "tcp_topk"])
+def test_tree_soak_runs_with_the_reference_record(tmp_path, capsys, argv):
+    """``--tree_soak N``: a real tree of 2 edge processes with a swarm
+    each; every tier's status file is final and on one program core,
+    nothing is killed and nothing is left behind."""
+    ledger = str(tmp_path / "ledger.jsonl")
+    record = tbench.main(argv + QUICK + ["--ledger", ledger])
+    assert _last_json(capsys) == record
+    assert tuple(record) == TREE_KEYS, record.get("error")
+    assert record["leaves"] == 8 and record["reports"] == 16
+    assert record["statuses"] == 3 and record["program_cores_match"]
+    assert (record["killed"], record["zombies"], record["respawned"]) == (
+        0, 0, 0)
+    assert record["transport"] == ("tcp" if "--tree_transport" in argv
+                                   else "eventloop")
+    rows = [json.loads(line) for line in open(ledger)]
+    assert sorted(r["bench"] for r in rows) == ["tree-edge", "tree-edge",
+                                                "tree-soak"]
 
 
 # ---------------------------------------------------------------------------

@@ -372,12 +372,18 @@ def test_fault_and_rejoin_plan_equals_the_reference():
 
 
 @pytest.mark.parametrize("driver", ["run_tcp_fedavg", "run_async_tcp_fedavg"])
-def test_eventloop_transport_refuses_naming_a13b(driver):
+def test_eventloop_transport_equals_tcp(driver):
+    """Both drivers over the selector event loop (with its parallel
+    decode stage) and over the threaded hub: the same run, bit for bit."""
     policy = (PORT.res.RoundPolicy() if driver == "run_tcp_fedavg"
-              else PORT.res.AsyncAggPolicy())
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        getattr(PORT.res, driver)(3, 1, policy, dict(W0),
-                                  transport="eventloop")
+              else PORT.res.AsyncAggPolicy(buffer_k=2))
+    got, want = (getattr(PORT.res, driver)(
+        3, 2, policy, dict(W0), trainer=_hetero_trainer(),
+        transport=transport, decode_workers=2, join_timeout=60.0)
+        for transport in ("eventloop", "tcp"))
+    _assert_same_run(got, want)
+    assert type(got.com_manager).__name__ == "EventLoopCommManager"
+    assert got.com_manager.ingest_stats()["workers"] == 2
 
 
 # -- tracing across ranks ----------------------------------------------------

@@ -144,7 +144,6 @@ def test_flags_and_defaults_are_the_reference_ones():
     (["--trace_dir", "/nonexistent"], "A16"),
     (["--model", "vgg11"], "A14"),
     (["--model", "resnet18_gn"], "A14"),
-    (["--transport", "eventloop"], "A13b"),
     (["--model", "mobilenet"], "A14"),
     (["--dataset", "fed_cifar100"], "A14"),
     (["--dataset", "pascal_voc"], "A14"),
@@ -155,6 +154,21 @@ def test_unported_flag_refuses_naming_its_item(argv, item):
         main_fedavg.main(argv + ["--platform", "cpu", "--comm_round", "1",
                                  "--client_num_in_total", "2",
                                  "--client_num_per_round", "2"])
+
+
+def test_transport_eventloop_configures_as_in_the_reference(tmp_path,
+                                                            monkeypatch):
+    """``--transport eventloop`` parses and, as in the reference main, only
+    configures (the rounds are simulated): the history equals the
+    reference main's on the same argv."""
+    argv = ["--comm_round", "1", "--transport", "eventloop"]
+    japi, api, _, _ = _run_both(tmp_path, monkeypatch, argv, ())
+    assert api.args.transport == japi.args.transport == "eventloop"
+    assert len(api.history) == len(japi.history) == 1
+    for key, want in japi.history[0].items():
+        if key not in ("round", "round_time_s"):
+            np.testing.assert_allclose(api.history[0][key], want, atol=1e-4,
+                                       err_msg=key)
 
 
 def test_compressor_none_runs():

@@ -482,17 +482,36 @@ def test_quick_start_runs_each_server_optimizer(opt):
 
 
 @pytest.mark.parametrize("name", sorted(MAINS))
-@pytest.mark.parametrize("flag,value,item", [
-    ("--race_audit", "1", "A16"), ("--transport", "eventloop", "A13b")])
+@pytest.mark.parametrize("flag,value,item", [("--race_audit", "1", "A16")])
 def test_main_refuses_resilience_flags(name, flag, value, item):
-    """The resilience group's flags whose paths are still unported (the
-    race audit, the distributed transports) refuse on every main;
-    ``--overselect``, ``--straggler_p``, ``--quorum``, ``--deadline`` and
-    ``--pace_*`` run (``test_torch_resilience.py``), as does
-    ``--async_agg`` (``test_torch_async_agg.py``)."""
+    """The resilience group's flag whose path is still unported (the
+    race audit) refuses on every main; ``--overselect``,
+    ``--straggler_p``, ``--quorum``, ``--deadline`` and ``--pace_*`` run
+    (``test_torch_resilience.py``), as do ``--async_agg``
+    (``test_torch_async_agg.py``) and ``--transport``
+    (:func:`test_main_transport_flag_only_configures`)."""
     module, argv = MAINS[name]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         module.main(argv + ["--platform", "cpu", flag, value])
+
+
+@pytest.mark.parametrize("name", sorted(MAINS))
+def test_main_transport_flag_only_configures(name):
+    """``--transport eventloop`` parses on every main and, as in the
+    reference, only configures: the mains' rounds are simulated and open
+    no transport, so the run equals the default ``tcp`` run bit for
+    bit."""
+    module, argv = MAINS[name]
+    argv = argv + ["--platform", "cpu", "--comm_round", "1"]
+    runs = [module.main(argv + ["--transport", t]) for t in
+            ("eventloop", "tcp")]
+    (got, got_state), (want, want_state) = runs
+    assert got.args.transport == "eventloop" and want.args.transport == "tcp"
+    got_leaves, want_leaves = (jax.tree.leaves(got_state),
+                               jax.tree.leaves(want_state))
+    assert len(got_leaves) == len(want_leaves) > 0
+    for g, w in zip(got_leaves, want_leaves):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
 
 
 @pytest.mark.parametrize("name", sorted(MAINS))

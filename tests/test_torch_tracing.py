@@ -198,16 +198,14 @@ def _nested_scenario(module):
 
 def test_tracing_module_matches_the_reference(tmp_path):
     # the port keeps the reference's API with its cross-process context
-    # propagation (the control plane carries it), less the JSONL export,
-    # which nothing in the port calls
+    # propagation (the control plane carries it) and the JSONL export
+    # (observability.enable writes spans.jsonl)
     assert tracing.__all__ == jtracing.__all__
     assert tracing.TRACE_KEY == jtracing.TRACE_KEY
     for name in ("inject", "extract", "remote_context"):
         for cls in ("Tracer", "NoopTracer"):
             assert hasattr(getattr(jtracing, cls), name)
             assert hasattr(getattr(tracing, cls), name)
-    assert hasattr(jtracing.Tracer, "export_jsonl")
-    assert not hasattr(tracing.Tracer, "export_jsonl")
     got, want = _nested_scenario(tracing), _nested_scenario(jtracing)
     assert _tree(got.finished_spans()) == _tree(want.finished_spans())
     assert (sorted(got.durations_by_name())
@@ -222,6 +220,13 @@ def test_tracing_module_matches_the_reference(tmp_path):
         docs.append([(e["ph"], e["name"], sorted(e.get("args", {})))
                      for e in doc["traceEvents"]])
     assert docs[0] == docs[1]
+    lines = []
+    for tracer in (got, want):
+        path = tracer.export_jsonl(str(tmp_path / "spans.jsonl"))
+        with open(path) as f:
+            lines.append([(d["name"], sorted(d), sorted(d["attrs"]))
+                          for d in map(json.loads, f)])
+    assert lines[0] == lines[1] and len(lines[0]) == 5
 
 
 def test_noop_tracer_matches_the_reference():
