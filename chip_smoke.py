@@ -148,7 +148,29 @@ Phases (any failure exits non-zero):
    final and on the coordinator's program core and no zombie; reports/s,
    bytes a report, the report-latency p50/p99 and the decode seconds a
    report are the host transport's on this machine;
-13. print the ``kernels`` JSON line and, last, the ``ok`` line.
+13. train the CV zoo on the file-backed loaders (``phase_zoo``), under
+   deterministic kernels: (a) ``fedml_tpu_torch.data.prepare fixture``
+   writes a 1,000-client LEAF MNIST (5 training images a client) and a
+   10-client CIFAR-10 tree (400 training images), and ``main_fedavg``
+   trains the published MNIST + LR recipe on the first (10 clients a
+   round, batch 10, lr 0.03, 2 rounds) and the cross-silo MobileNet
+   recipe at full width on the second (LDA alpha 0.5, batch 64, lr
+   0.001, wd 0.001, cut to 1 epoch and 1 round): smoke timings on
+   fixtures, not the recipes' round times at their datasets' sizes; (b) the fed
+   CIFAR-100 recipe at its published shape: 500 in-memory clients of 100
+   uint8 32x32 images through the port's loader map (24x24 crops, about
+   346 MB in fp32), ResNet-18 with GroupNorm 32 (100 classes) through
+   the waves, 10 clients a round, batch 20, SGD lr 0.1, 2 rounds; (c) one
+   fp32 training step at full width and batch 8 of ResNet-18-GN,
+   ResNet-50-GN and ResNet-18 with BatchNorm (100 classes, 24x24),
+   MobileNet, MobileNetV3 LARGE and SMALL, EfficientNet-b0 and VGG16 with
+   and without BatchNorm (10 classes, 32x32) on the card against the
+   CPU from the same weights (flax's default init from a seed) and
+   dropout masks, the gradients tensor by tensor against float64 taking
+   the same ReLU and max-pool decisions, within ``ZOO_TOL``, each with
+   its parameter count and step milliseconds. None of B1-B4 runs in this
+   phase (their counters read 0 after it);
+14. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -162,6 +184,7 @@ The script imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1883,6 +1906,416 @@ def phase_eventloop(torch, fa, smi, cp):
           flush=True)
 
 
+#: the zoo phase: the published recipes through ``main_fedavg`` on files
+#: the port's ``prepare`` wrote (MNIST + LR: 1,000 LEAF clients, 10 a
+#: round, batch 10, SGD lr 0.03; CIFAR-10 + MobileNet cross-silo: 10
+#: clients, LDA alpha 0.5, batch 64, SGD lr 0.001 wd 0.001, cut to 1
+#: epoch and 1 round)
+ZOO_MNIST = ["--dataset", "mnist", "--model", "lr",
+             "--client_num_in_total", "1000", "--client_num_per_round", "10",
+             "--batch_size", "10", "--lr", "0.03", "--comm_round", "2"]
+ZOO_MOBILENET = ["--dataset", "cifar10", "--model", "mobilenet",
+                 "--client_num_in_total", "10", "--client_num_per_round",
+                 "10", "--partition_method", "hetero", "--partition_alpha",
+                 "0.5", "--batch_size", "64", "--lr", "0.001", "--wd",
+                 "0.001", "--epochs", "1", "--comm_round", "1"]
+#: the fed CIFAR-100 recipe (500 clients of 100 images, 10 a round,
+#: batch 20, SGD lr 0.1, ResNet-18 with GroupNorm 32)
+FC100_CLIENTS, FC100_PER_CLIENT, FC100_PER_ROUND, FC100_BATCH = 500, 100, 10, 20
+#: one fp32 training step a family, card (cuDNN, deterministic, no TF32)
+#: against CPU from the same weights and dropout masks: logits within
+#: 1e-3 * max|logit| + 1e-4, loss 1e-4 absolute, each new BatchNorm
+#: statistic within 1e-3 of the model's largest + 1e-6. Each fp32 step
+#: records the side each ReLU input takes and each max pool's argmax;
+#: card and CPU may differ there (``tie_flips``) only where the float64
+#: input ties: the flipped ReLU input, or the gap between the two argmax
+#: candidates, within ``tie`` of the call's largest |input|, and at most
+#: ``tie_share`` of the recorded elements. A flipped element passes its
+#: whole gradient or none, so the gradients are held against the same
+#: step in float64 taking that side's decisions (``f64_card``,
+#: ``f64_cpu``), tensor by tensor in L2 norms: ``|card_k - f64_card_k| <=
+#: grad_rel * |f64_k| + grad_spread * |cpu_k - f64_cpu_k| + grad_floor *
+#: |f64|``. The middle term is the spread a correct fp32 step shows at
+#: that tensor (BatchNorm's backward over a few elements a channel
+#: cancels); the floor covers tensors whose gradient is 0 but for
+#: rounding (a bias before BatchNorm). A wrong layout or kernel moves a
+#: tensor's gradient by the order of its own norm
+ZOO_TOL = {"logits": (1e-3, 1e-4), "loss": 1e-4, "stats": (1e-3, 1e-6),
+           "tie": 1e-4, "tie_share": 1e-4, "grad_rel": 1e-3,
+           "grad_spread": 4.0, "grad_floor": 1e-6}
+#: (label, factory name, classes, image side, factory knobs)
+ZOO_STEPS = [("resnet18_gn", "resnet18_gn", 100, 24, {}),
+             ("resnet50_gn", "resnet50_gn", 100, 24, {}),
+             ("resnet18_bn", "resnet18_gn", 100, 24,
+              {"group_norm_channels": 0}),
+             ("mobilenet", "mobilenet", 10, 32, {}),
+             ("mobilenet_v3_large", "mobilenet_v3", 10, 32,
+              {"model_mode": "LARGE"}),
+             ("mobilenet_v3_small", "mobilenet_v3", 10, 32,
+              {"model_mode": "SMALL"}),
+             ("efficientnet_b0", "efficientnet-b0", 10, 32, {}),
+             ("vgg16", "vgg16", 10, 32, {}),
+             ("vgg16_bn", "vgg16", 10, 32, {"vgg_bn": True})]
+ZOO_STEP_BATCH = 8
+
+
+def fed_cifar100_population(clients, per_client, seed=0):
+    """A fed CIFAR-100-shaped population in memory: ``clients`` x
+    ``per_client`` uint8 32x32x3 images and labels 0-99 from ``seed``,
+    each client's images through the port's loader map
+    (``tff_h5.fed_cifar100_map``: 1/255, centre crop to 24x24,
+    normalised); the 8-tuple, with the first 20 clients' images as the
+    test set."""
+    import numpy as np
+
+    from fedml_tpu_torch.data.tff_h5 import fed_cifar100_map
+
+    rng = np.random.default_rng(seed)
+    local, num = {}, {}
+    for c in range(clients):
+        x = rng.integers(0, 256, (per_client, 32, 32, 3), np.uint8)
+        local[c] = {"x": fed_cifar100_map(x.astype(np.float32)),
+                    "y": rng.integers(0, 100, per_client).astype(np.int64)}
+        num[c] = per_client
+    test = {k: np.concatenate([local[c][k] for c in range(20)])
+            for k in ("x", "y")}
+    n = clients * per_client
+    return [n, len(test["y"]), None, test, num, local, {0: test}, 100]
+
+
+def _zoo_files(smi):
+    """(a): ``prepare fixture`` writes a 1,000-client LEAF MNIST and a
+    10-client CIFAR-10 tree, and ``main_fedavg`` trains the MNIST + LR
+    and the cross-silo MobileNet recipes on them."""
+    import shutil
+
+    from fedml_tpu_torch.data import prepare
+
+    root = os.path.join(HERE, "build", "chip_smoke_zoo")
+    shutil.rmtree(root, ignore_errors=True)
+    runs = (("mnist_lr", "leaf_mnist", "1000", ZOO_MNIST),
+            ("cifar10_mobilenet", "cifar10", "10", ZOO_MOBILENET))
+    for label, fixture, clients, argv in runs:
+        d = os.path.join(root, fixture)
+        t0 = time.time()
+        if prepare.main(["fixture", fixture, "--data_dir", d,
+                         "--clients", clients]) != 0:
+            fail(f"zoo: prepare fixture {fixture} did not verify")
+        fixture_s = time.time() - t0
+        api, times = _experiment(argv + ["--data_dir", d])
+        n = sum(v.numel() for v in api.global_state["params"].values())
+        print(f"zoo run={label} fixture_s={fixture_s:.1f} params={n} "
+              f"clients={len(api.train_data_local_num_dict)} "
+              f"train_samples={api.train_data_num} "
+              f"s_per_round={times} "
+              f"train_loss={[r['Train/Loss'] for r in api.history]} "
+              f"test_loss={api.history[-1].get('Test/Loss')} card={smi}",
+              flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _zoo_fed_cifar100(torch, smi):
+    """(b): ResNet-18 with GroupNorm 32 through the waves on the fed
+    CIFAR-100 population, 2 rounds."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.specs import make_classification_spec
+    from fedml_tpu_torch.models import resnet18_gn
+
+    t0 = time.time()
+    dataset = fed_cifar100_population(FC100_CLIENTS, FC100_PER_CLIENT)
+    data_s = time.time() - t0
+    nbytes = sum(d["x"].nbytes for d in dataset[5].values())
+    args = types.SimpleNamespace(
+        client_num_in_total=FC100_CLIENTS,
+        client_num_per_round=FC100_PER_ROUND, comm_round=2, epochs=1,
+        batch_size=FC100_BATCH, lr=0.1, wd=0.0, client_optimizer="sgd",
+        frequency_of_the_test=10 ** 9, seed=0, wave_mode=1,
+        client_chunk=FC100_PER_ROUND)
+    api = FedAvgAPI(dataset, make_classification_spec(
+        resnet18_gn(class_num=100, group_norm=32)), args)
+    if api.device.type != "cuda":
+        fail(f"zoo fed_cifar100: FedAvgAPI chose {api.device}")
+    g0 = {k: v.clone() for k, v in api.global_state["params"].items()}
+    records = [api.train_one_round() for _ in range(2)]
+    records[-1].update(api.evaluate_global())
+    moved = max(float((api.global_state["params"][k] - g0[k]).abs().max())
+                for k in g0)
+    for r in records:
+        if not (math.isfinite(r["Train/Loss"])
+                and math.isfinite(r.get("Test/Loss", 0.0))):
+            fail(f"zoo fed_cifar100: non-finite loss in {r}")
+    if not moved > 0.0 or "batch_stats" in api.global_state:
+        fail(f"zoo fed_cifar100: max param change {moved}, state "
+             f"{sorted(api.global_state)}")
+    n = sum(v.numel() for v in g0.values())
+    print(f"zoo run=fed_cifar100_resnet18_gn clients={FC100_CLIENTS} "
+          f"per_round={FC100_PER_ROUND} data_mb={nbytes / 1e6:.1f} "
+          f"data_s={data_s:.1f} params={n} "
+          f"s_per_round={[r['round_time_s'] for r in records]} "
+          f"train_loss={[r['Train/Loss'] for r in records]} "
+          f"test_loss={records[-1]['Test/Loss']} card={smi}", flush=True)
+
+
+def zoo_step(torch, model, state, x, y, masks, device, dtype=None):
+    """One training step of ``model`` (softmax cross-entropy) on
+    ``device`` from ``state`` with the given dropout masks: the loss,
+    the logits, the gradients and the new BatchNorm statistics, on
+    ``device`` (``state`` is left as it was). ``dtype`` casts the
+    parameters, statistics and input (a float64 model's step)."""
+    P = {k: v.to(device, dtype).requires_grad_()
+         for k, v in state["params"].items()}
+    S = {k: v.to(device, dtype).clone()
+         for k, v in state["batch_stats"].items()}
+    kw = {"train": True}
+    if masks is not None:
+        kw["dropout_masks"] = {k: v.to(device) for k, v in masks.items()}
+    logits = torch.func.functional_call(model, {**P, **S},
+                                        (x.to(device, dtype),), kw)
+    loss = torch.nn.functional.cross_entropy(logits, y.to(device))
+    grads = torch.autograd.grad(loss, list(P.values()))
+    return {"loss": loss.detach(), "logits": logits.detach(),
+            "grads": dict(zip(P, grads)), "stats": S}
+
+
+@contextlib.contextmanager
+def _float64_model(torch, model):
+    """``model`` computing in float64: every layer's compute dtype, and
+    the fp32 casts of its heads and norms (``Tensor.float``) kept at
+    float64, for as long as the context lasts."""
+    was = {m: m.dtype for m in model.modules()
+           if getattr(m, "dtype", None) == torch.float32}
+    to_float = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: (
+        t if t.dtype == torch.float64 else to_float(t, *a, **k))
+    for m in was:
+        m.dtype = torch.float64
+    try:
+        yield model
+    finally:
+        del torch.Tensor.float
+        for m, dt in was.items():
+            m.dtype = dt
+
+
+@contextlib.contextmanager
+def _recording_ties(torch, record):
+    """Appends to ``record`` which side each ReLU input takes (``> 0``)
+    and each max pool's argmax, in call order, for as long as the context
+    lasts: the two places where a gradient jumps at a tie."""
+    F = torch.nn.functional
+    relu, pool = F.relu, F.max_pool2d
+
+    def relu_rec(x, *a, **k):
+        record.append((x.detach() > 0).cpu())
+        return relu(x, *a, **k)
+
+    def pool_rec(x, *a, **k):
+        out, idx = pool(x, *a, return_indices=True, **k)
+        record.append(idx.cpu())
+        return out
+
+    F.relu, F.max_pool2d = relu_rec, pool_rec
+    try:
+        yield record
+    finally:
+        F.relu, F.max_pool2d = relu, pool
+
+
+@contextlib.contextmanager
+def _replaying_ties(torch, record, other):
+    """ReLU and max pool taking the decisions of ``record`` (from
+    :func:`_recording_ties`) in call order, for as long as the context
+    lasts; yields the largest gap, relative to its call's largest
+    |input|, at the elements where ``record`` and ``other`` disagree (a
+    flipped ReLU's |input|, or the two argmax candidates' difference)."""
+    F = torch.nn.functional
+    relu, pool = F.relu, F.max_pool2d
+    calls = iter(zip(record, other))
+    gap = [0.0]
+
+    def note(diff, x):
+        if diff.numel():
+            top = float(x.detach().abs().max())
+            gap[0] = max(gap[0], float(diff.abs().max()) / max(top, 1e-30))
+
+    def relu_re(x, *a, **k):
+        side, alt = next(calls)
+        note(x.detach()[side != alt], x)
+        return x * side.to(x.device, x.dtype)
+
+    def pool_re(x, *a, **k):
+        idx, alt = next(calls)
+        flat = x.flatten(2)
+        pick = lambda i: flat.gather(2, i.to(x.device).flatten(2)).view(
+            i.shape)
+        out = pick(idx)
+        moved = idx != alt
+        note((out - pick(alt)).detach()[moved], x)
+        return out
+
+    F.relu, F.max_pool2d = relu_re, pool_re
+    try:
+        yield gap
+    finally:
+        F.relu, F.max_pool2d = relu, pool
+
+
+def _zoo_grad_check(label, card, cpu, f64_card, f64_cpu):
+    """Holds the card's gradients tensor by tensor against float64 taking
+    the card's tie decisions (``ZOO_TOL``): the worst tensor's share of
+    its bound; for the card and the CPU, each against float64 with its
+    own decisions, the tensor furthest off in L2 relative to its norm
+    (plus the floor) and the whole gradient's relative L2 error; and the
+    card's against float64 with the CPU's decisions (what the flips
+    move)."""
+    l2 = lambda t: float(t.double().norm())
+    whole = math.sqrt(sum(l2(g) ** 2 for g in f64_cpu.values()))
+    floor = ZOO_TOL["grad_floor"] * whole
+    rows = []
+    for k, g in f64_card.items():
+        n, e_card, e_cpu = l2(g), l2(card[k] - g), l2(cpu[k] - f64_cpu[k])
+        bound = ZOO_TOL["grad_rel"] * n + ZOO_TOL["grad_spread"] * e_cpu + floor
+        if not math.isfinite(e_card) or e_card > bound:
+            fail(f"zoo step {label}: gradient of {k} card vs float64 "
+                 f"{e_card} > {bound} (|f64| {n}, CPU fp32 vs float64 "
+                 f"{e_cpu})")
+        rows.append((e_card / bound, k, e_card / (n + floor),
+                     e_cpu / (n + floor)))
+    share, name, _, _ = max(rows)
+    worst_card = max(rows, key=lambda r: r[2])
+    worst_cpu = max(rows, key=lambda r: r[3])
+    whole_err = lambda side, ref: math.sqrt(sum(
+        l2(side[k] - g) ** 2 for k, g in ref.items())) / whole
+    return {"grad_bound_share": share, "grad_bound_tensor": name,
+            "grad_worst_card": [worst_card[1], worst_card[2]],
+            "grad_worst_cpu": [worst_cpu[1], worst_cpu[3]],
+            "grad_l2_card": whole_err(card, f64_card),
+            "grad_l2_cpu": whole_err(cpu, f64_cpu),
+            "grad_l2_card_cpu_ties": whole_err(card, f64_cpu)}
+
+
+def _zoo_steps(torch, smi):
+    """(c): one fp32 step a family, card against CPU, gradients against
+    float64 on the CPU."""
+    from fedml_tpu_torch.models.factory import create_model
+    from fedml_tpu_torch.models.layers import lecun_init_
+    from fedml_tpu_torch.utils.torch_import import module_state
+
+    cuda = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    for label, name, classes, side, knobs in ZOO_STEPS:
+        args = types.SimpleNamespace(model_dtype=None, **knobs)
+        model = create_model(args, name, classes,
+                             input_shape=(side, side, 3))
+        lecun_init_(model, torch.Generator().manual_seed(1))
+        state = module_state(model)
+        n = sum(v.numel() for v in state["params"].values())
+        x = torch.randn((ZOO_STEP_BATCH, side, side, 3), generator=gen)
+        y = torch.randint(0, classes, (ZOO_STEP_BATCH,), generator=gen)
+        masks = (model.draw_dropout_masks(ZOO_STEP_BATCH, gen)
+                 if hasattr(model, "draw_dropout_masks") else None)
+        ties_cpu, ties_card = [], []
+        with _recording_ties(torch, ties_cpu):
+            cpu = zoo_step(torch, model, state, x, y, masks,
+                           torch.device("cpu"))
+        with _recording_ties(torch, ties_card):
+            card = {k: ({n: t.cpu() for n, t in v.items()}
+                        if isinstance(v, dict) else v.cpu())
+                    for k, v in zoo_step(torch, model, state, x, y, masks,
+                                         cuda).items()}
+        flips = sum(int((a != b).sum()) for a, b in zip(ties_cpu, ties_card))
+        inputs = sum(t.numel() for t in ties_cpu)
+        f64 = {}
+        with _float64_model(torch, model):
+            for who, ties, alt in (("card", ties_card, ties_cpu),
+                                   ("cpu", ties_cpu, ties_card)):
+                with _replaying_ties(torch, ties, alt) as gap:
+                    f64[who] = zoo_step(torch, model, state, x, y, masks,
+                                         torch.device("cpu"), torch.float64)
+                f64[who]["gap"] = gap[0]
+        tie_gap = max(f64["card"]["gap"], f64["cpu"]["gap"])
+        if tie_gap > ZOO_TOL["tie"] or flips > ZOO_TOL["tie_share"] * inputs:
+            fail(f"zoo step {label}: {flips} of {inputs} ReLU/max-pool "
+                 f"decisions differ card vs CPU, the widest {tie_gap} of "
+                 f"its call's largest |input| in float64")
+        cpu["loss"], card["loss"] = float(cpu["loss"]), float(card["loss"])
+        rel, abs_ = ZOO_TOL["logits"]
+        logit_err = _check(f"zoo {label} logits card vs CPU", card["logits"],
+                           cpu["logits"], rel, abs_)
+        loss_err = abs(card["loss"] - cpu["loss"])
+        grads = _zoo_grad_check(label, card["grads"], cpu["grads"],
+                                f64["card"]["grads"], f64["cpu"]["grads"])
+        stats_err = 0.0
+        if cpu["stats"]:
+            rel, abs_ = ZOO_TOL["stats"]
+            top = max(float(v.abs().max()) for v in cpu["stats"].values())
+            stats_err = max(float((card["stats"][k] - v).abs().max())
+                            for k, v in cpu["stats"].items())
+            if stats_err > rel * top + abs_:
+                fail(f"zoo step {label}: BatchNorm statistics card vs CPU "
+                     f"{stats_err} > {rel} * {top} + {abs_}")
+        out = {"loss": cpu["loss"], "loss_err": loss_err,
+               "logit_err": logit_err, "stats_err": stats_err,
+               "tie_flips": flips, "tie_inputs": inputs, "tie_gap": tie_gap,
+               **grads}
+        if loss_err > ZOO_TOL["loss"]:
+            fail(f"zoo step {label} card vs CPU past ZOO_TOL: {out}")
+        on_card = {part: {k: v.to(cuda) for k, v in state[part].items()}
+                   for part in state}
+        xs, ys = x.to(cuda), y.to(cuda)
+        ms = None if masks is None else {k: v.to(cuda)
+                                         for k, v in masks.items()}
+        step_ms = _zoo_step_ms(torch, lambda: zoo_step(
+            torch, model, on_card, xs, ys, ms, cuda))
+        print(f"zoo_step family={label} params={n} "
+              f"shape={[ZOO_STEP_BATCH, side, side, 3]} classes={classes} "
+              f"step_ms={step_ms} {json.dumps(out)} card={smi}", flush=True)
+
+
+def _zoo_step_ms(torch, fn, iters=10, warmup=3):
+    """Median milliseconds of ``fn`` on the card (CUDA events; the host's
+    enqueue time included, as a training step pays it)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return sorted(times)[iters // 2]
+
+
+def phase_zoo(torch, grouped_conv, fa, smi):
+    """The CV zoo and the file-backed loaders on the card (module
+    docstring, 13), under deterministic kernels: (a) ``main_fedavg`` on
+    ``prepare`` fixtures (MNIST + LR, cross-silo CIFAR-10 + MobileNet);
+    (b) the fed CIFAR-100 recipe's ResNet-18-GN through the waves; (c)
+    one fp32 step of each family against the CPU. The slice launches
+    none of B1-B4: their counters are set to 0 just before and must
+    read 0 just after."""
+    t0 = time.time()
+    grouped_conv.launches = 0
+    for name in fa.launches:
+        fa.launches[name] = 0
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        _zoo_files(smi)
+        _zoo_fed_cifar100(torch, smi)
+        _zoo_steps(torch, smi)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    if grouped_conv.launches or any(fa.launches.values()):
+        fail(f"zoo: B1-B4 launched ({grouped_conv.launches}, "
+             f"{dict(fa.launches)}); the CV zoo runs none of them")
+    print(f"zoo phase_s={time.time() - t0:.1f} card={smi}", flush=True)
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -2054,6 +2487,7 @@ def main():
     phase_compression(torch, fa, smi)
     cp = phase_control_plane(torch, fa, smi)
     phase_eventloop(torch, fa, smi, cp)
+    phase_zoo(torch, grouped_conv, fa, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

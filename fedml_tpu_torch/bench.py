@@ -714,8 +714,7 @@ def reference_variables(state, model_name):
     from fedml_tpu_torch.utils import torch_import as ti
 
     if model_name == "cnn":
-        return ti.zoo_state_to_variables(state, convs=("conv1", "conv2"))[
-            "params"]
+        return ti.cv_state_to_variables(state)["params"]
     return ti.state_to_variables(state, 56)["params"]
 
 

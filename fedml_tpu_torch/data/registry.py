@@ -1,22 +1,18 @@
 """Dataset registry (counterpart of ``fedml_tpu/data/registry.py``): the
-synthetic sets, the CIFAR family, Shakespeare (TFF h5 and LEAF JSON) and
-StackOverflow (``stackoverflow_nwp``, ``stackoverflow_lr``; TFF h5) from
-local files. Every other name of
-the reference's registry raises, naming the ROADMAP item it waits for."""
+synthetic sets, LEAF MNIST (``mnist``), the CIFAR family, the TFF h5
+sets (``femnist``/``fed_emnist``, ``fed_cifar100``), Shakespeare (TFF h5
+and LEAF JSON), StackOverflow (``stackoverflow_nwp``,
+``stackoverflow_lr``; TFF h5) and the image folders
+(``imagenet``/``ILSVRC2012``, ``gld23k``/``gld160k``) from local files,
+with the reference's defaults. The three segmentation names raise,
+naming the ROADMAP item they wait for."""
 
 from __future__ import annotations
 
 #: names of the reference's registry not ported yet, with their item
 _UNPORTED = {
-    "synthetic_segmentation": "A14 (fedseg)", "pascal_voc": "A14 (fedseg)",
-    "coco_seg": "A14 (fedseg)", "mnist": "A14 (the LEAF loaders)",
-    "femnist": "A14 (the TFF h5 loaders)",
-    "fed_emnist": "A14 (the TFF h5 loaders)",
-    "fed_cifar100": "A14 (the TFF h5 loaders)",
-    "imagenet": "A14 (the image-folder loaders)",
-    "ILSVRC2012": "A14 (the image-folder loaders)",
-    "gld23k": "A14 (the image-folder loaders)",
-    "gld160k": "A14 (the image-folder loaders)",
+    "synthetic_segmentation": "A14c (fedseg)", "pascal_voc": "A14c (fedseg)",
+    "coco_seg": "A14c (fedseg)",
 }
 
 
@@ -52,11 +48,20 @@ def load_dataset(args, dataset_name):
         size_kw.pop("image_size", None)
         return synthetic.load_synthetic_sequences(
             client_num=client_num, seed=seed, **size_kw)
+    if dataset_name == "mnist":
+        from fedml_tpu_torch.data.leaf import load_leaf_mnist
+        return load_leaf_mnist(data_dir, client_num=client_num, seed=seed)
     if dataset_name in ("cifar10", "cifar100", "cinic10"):
         from fedml_tpu_torch.data.cifar import load_cifar_federated
         return load_cifar_federated(
             dataset_name, data_dir, client_num=client_num,
             partition=partition, partition_alpha=alpha, seed=seed)
+    if dataset_name in ("femnist", "fed_emnist"):
+        from fedml_tpu_torch.data.tff_h5 import load_fed_emnist
+        return load_fed_emnist(data_dir, client_num=client_num)
+    if dataset_name == "fed_cifar100":
+        from fedml_tpu_torch.data.tff_h5 import load_fed_cifar100
+        return load_fed_cifar100(data_dir, client_num=client_num)
     if dataset_name in ("shakespeare", "fed_shakespeare"):
         from fedml_tpu_torch.data.shakespeare import load_shakespeare
         return load_shakespeare(data_dir, client_num=client_num,
@@ -65,6 +70,18 @@ def load_dataset(args, dataset_name):
         from fedml_tpu_torch.data.stackoverflow import load_stackoverflow
         return load_stackoverflow(data_dir, task=dataset_name.split("_")[1],
                                   client_num=client_num)
+    if dataset_name in ("imagenet", "ILSVRC2012"):
+        from fedml_tpu_torch.data.imagefolder import load_imagenet_federated
+        return load_imagenet_federated(
+            data_dir, client_num=client_num, partition=partition,
+            partition_alpha=alpha,
+            image_size=getattr(args, "image_size", None) or 224, seed=seed)
+    if dataset_name in ("gld23k", "gld160k"):
+        from fedml_tpu_torch.data.imagefolder import load_landmarks_federated
+        return load_landmarks_federated(
+            data_dir, split=dataset_name,
+            image_size=getattr(args, "image_size", None) or 224,
+            client_num=client_num, seed=seed)
     if dataset_name in _UNPORTED:
         raise NotImplementedError(
             f"dataset {dataset_name!r} waits for ROADMAP "

@@ -19,12 +19,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fedml_tpu_torch.models.layers import conv2d
+
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
 
-def flax_batch_norm(x, scale, bias, mean, var, train, dtype):
-    """BatchNorm over every axis but 1 of ``x`` (NCHW), flax semantics.
+def flax_batch_norm(x, scale, bias, mean, var, train, dtype,
+                    momentum=BN_MOMENTUM, eps=BN_EPS):
+    """BatchNorm over every axis but 1 of ``x`` (NCHW), flax semantics
+    (``momentum`` on the old running value, ``eps`` inside the root).
 
     Returns ``(y, new_mean, new_var)``; in eval mode the running stats
     pass through. Statistics and the normalisation run in fp32, the
@@ -35,14 +39,14 @@ def flax_batch_norm(x, scale, bias, mean, var, train, dtype):
         mu = xf.mean(dim=dims)
         mu2 = (xf * xf).mean(dim=dims)
         v = torch.clamp(mu2 - mu * mu, min=0.0)
-        new_mean = BN_MOMENTUM * mean + (1 - BN_MOMENTUM) * mu.detach()
-        new_var = BN_MOMENTUM * var + (1 - BN_MOMENTUM) * v.detach()
+        new_mean = momentum * mean + (1 - momentum) * mu.detach()
+        new_var = momentum * var + (1 - momentum) * v.detach()
     else:
         mu, v = mean, var
         new_mean, new_var = mean, var
     shape = (1, -1) + (1,) * (x.dim() - 2)
     y = ((xf - mu.reshape(shape))
-         * (torch.rsqrt(v + BN_EPS) * scale).reshape(shape)
+         * (torch.rsqrt(v + eps) * scale).reshape(shape)
          + bias.reshape(shape))
     return y.to(dtype), new_mean, new_var
 
@@ -50,9 +54,10 @@ def flax_batch_norm(x, scale, bias, mean, var, train, dtype):
 class FlaxBatchNorm2d(nn.Module):
     """BatchNorm with flax's statistics (see :func:`flax_batch_norm`)."""
 
-    def __init__(self, channels, dtype=torch.float32):
+    def __init__(self, channels, dtype=torch.float32, momentum=BN_MOMENTUM,
+                 eps=BN_EPS):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.momentum, self.eps = dtype, momentum, eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -61,7 +66,8 @@ class FlaxBatchNorm2d(nn.Module):
     def forward(self, x):
         y, m, v = flax_batch_norm(x, self.weight, self.bias,
                                   self.running_mean, self.running_var,
-                                  self.training, self.dtype)
+                                  self.training, self.dtype,
+                                  self.momentum, self.eps)
         if self.training:
             with torch.no_grad():
                 self.running_mean.copy_(m)
@@ -87,16 +93,13 @@ class BasicBlock(nn.Module):
                 _conv(ci, filters, 1, stride, 0),
                 FlaxBatchNorm2d(filters, dtype))
 
-    def _c(self, conv, x):
-        return F.conv2d(x, conv.weight.to(self.dtype), stride=conv.stride,
-                        padding=conv.padding)
-
     def forward(self, x):
-        y = F.relu(self.bn1(self._c(self.conv1, x)))
-        y = self.bn2(self._c(self.conv2, y))
+        dt = self.dtype
+        y = F.relu(self.bn1(conv2d(self.conv1, x, dt)))
+        y = self.bn2(conv2d(self.conv2, y, dt))
         residual = x
         if self.downsample is not None:
-            residual = self.downsample[1](self._c(self.downsample[0], x))
+            residual = self.downsample[1](conv2d(self.downsample[0], x, dt))
         return F.relu(y + residual)
 
 
@@ -128,7 +131,7 @@ class CifarResNet(nn.Module):
         ``train`` uses batch statistics and updates the running ones."""
         self.train(train)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.conv2d(x, self.conv1.weight.to(self.dtype), padding=1)
+        x = conv2d(self.conv1, x, self.dtype)
         x = F.relu(self.bn1(x))
         x = self.layer3(self.layer2(self.layer1(x)))
         x = x.mean(dim=(2, 3))

@@ -22,11 +22,6 @@ TransformerLM's blocks hold ``block{i}/moe`` in place of the MLP: its
 ``blocks.{i}.moe.router.{weight,bias}``, and ``wi [E, C, H]`` / ``wo [E,
 H, C]`` are einsum parameters -> ``blocks.{i}.moe.{wi,wo}`` untransposed.
 
-LR and the CNNs (:func:`zoo_variables_to_state`): every layer sits at
-the top of ``params`` (``linear``; ``conv1``, ``conv2``, ``fc1``,
-``fc2``) and maps to ``<name>.weight`` / ``<name>.bias``. The port's CNNs
-flatten in flax's (H, W, C) order, so ``fc1`` needs no permutation.
-
 The LSTM LMs (:func:`rnn_variables_to_state`): flax names each LSTM
 ``OptimizedLSTMCell_{j}`` (in order), which maps to ``lstm{j+1}``: the
 input kernels ``ii/if/ig/io`` ``[in, H]`` concatenated in that order and
@@ -34,6 +29,16 @@ transposed -> ``weight_ih [4H, in]``, the hidden kernels ``hi/hf/hg/ho``
 -> ``weight_hh [4H, H]`` and their biases -> ``bias_hh [4H]``; an
 ``embedding`` -> ``<name>.weight``, a Dense -> ``<name>.weight`` ``[out,
 in]`` and ``.bias``.
+
+LR, the CNNs and the CV zoo -- ResNetGN, MobileNet, MobileNetV3,
+EfficientNet and VGG (:func:`cv_variables_to_state`): every port
+submodule carries flax's name (``linear``, ``conv1``, ``fc2``,
+``layer1_block0.downsample_conv``, ``block3.dw``, ``bneck4.se.fc1``,
+``block2_1.se_reduce``, ``conv7``, ``head``), so one rule maps a
+nested flax tree of any depth: a 4-D ``kernel`` HWIO -> OIHW
+(a depthwise ``[kh, kw, 1, C]`` becomes ``[C, 1, kh, kw]``), a 2-D
+``kernel`` transposed, ``scale`` -> ``weight``, ``bias`` as it is, and
+``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
 
 Server optimizer state (:func:`server_state_from_optax`): the JAX
 package's optax chain state (``TraceState``, ``ScaleByAdamState`` or
@@ -217,37 +222,65 @@ def lm_state_to_variables(state):
     return {"params": params}
 
 
-def zoo_variables_to_state(variables, convs=(), device="cpu"):
-    """JAX variables of a model whose layers sit at the top of ``params``
-    (LR, the CNNs; single or lane-stacked) -> fp32 port state
-    ``{"params": ...}``: kernels of the layers named in ``convs`` HWIO ->
-    OIHW, the other kernels ``[in, out] -> [out, in]``, biases as they
-    are."""
-    p = {}
-    for name, leaf in variables["params"].items():
-        k = leaf["kernel"]
-        p[f"{name}.weight"] = (_hwio_to_oihw(k) if name in convs
-                               else _swap_last2(k))
-        if "bias" in leaf:
-            p[f"{name}.bias"] = np.asarray(leaf["bias"])
-    return {"params": {k: torch.as_tensor(np.array(v, np.float32, order="C"),
-                                          device=device)
-                       for k, v in p.items()}}
-
-
-def zoo_state_to_variables(state, convs=()):
-    """Inverse of :func:`zoo_variables_to_state`."""
-    params = {}
-    for key, v in state["params"].items():
-        name, kind = key.rsplit(".", 1)
-        v = v.detach().cpu().numpy()
-        leaf = params.setdefault(name, {})
-        if kind == "bias":
-            leaf["bias"] = v
+def _leaves(tree, prefix=()):
+    """``(path, leaf)`` for every leaf of a nested dict, in its order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
         else:
-            leaf["kernel"] = (_oihw_to_hwio(v) if name in convs
-                              else _swap_last2(v))
-    return {"params": params}
+            yield prefix + (k,), v
+
+
+#: flax leaf -> the port's parameter suffix, and the statistics
+_CV_PARAM = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_CV_STAT = {"mean": "running_mean", "var": "running_var"}
+
+
+def cv_variables_to_state(variables, lead=0, device="cpu"):
+    """JAX variables of a CV-zoo model (numpy or jax arrays; ``lead``
+    leading axes on every leaf, such as a client axis) -> fp32 port
+    state ``{"params", "batch_stats"}`` on ``device`` (``batch_stats``
+    empty for a model without BatchNorm)."""
+    p, bs = {}, {}
+    for path, v in _leaves(variables["params"]):
+        v = np.asarray(v)
+        if path[-1] == "kernel":
+            v = _hwio_to_oihw(v) if v.ndim - lead == 4 else _swap_last2(v)
+        p[".".join(path[:-1] + (_CV_PARAM[path[-1]],))] = v
+    for path, v in _leaves(variables.get("batch_stats", {})):
+        bs[".".join(path[:-1] + (_CV_STAT[path[-1]],))] = np.asarray(v)
+    conv = lambda a: torch.as_tensor(
+        np.array(a, np.float32, order="C"), device=device)
+    return {"params": {k: conv(v) for k, v in p.items()},
+            "batch_stats": {k: conv(v) for k, v in bs.items()}}
+
+
+def cv_state_to_variables(state, lead=0):
+    """Inverse of :func:`cv_variables_to_state`: port state -> JAX
+    variables as nested numpy dicts (no ``batch_stats`` for a model
+    without BatchNorm)."""
+    params, stats = {}, {}
+    for key, v in state["params"].items():
+        v = v.detach().cpu().numpy()
+        path = tuple(key.split("."))
+        nd = v.ndim - lead
+        if path[-1] == "bias":
+            leaf = "bias"
+        elif nd == 4:
+            leaf, v = "kernel", _oihw_to_hwio(v)
+        elif nd == 2:
+            leaf, v = "kernel", _swap_last2(v)
+        else:
+            leaf = "scale"
+        _put(params, path[:-1] + (leaf,), v)
+    names = {v: k for k, v in _CV_STAT.items()}
+    for key, v in state.get("batch_stats", {}).items():
+        path = tuple(key.split("."))
+        _put(stats, path[:-1] + (names[path[-1]],), v.detach().cpu().numpy())
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
 
 
 _GATES = ("i", "f", "g", "o")
@@ -325,13 +358,24 @@ _LEAF = {("conv", "weight"): "kernel", ("dense", "weight"): "kernel",
          ("ln", "bias"): "bias", ("embed", "weight"): "embedding"}
 
 
+def _cv_leaf(module, suffix):
+    """The flax leaf of a CV-zoo (or LR/CNN) port parameter: ``bias``, or
+    ``scale`` for a norm layer's weight (the zoo names every norm layer
+    ``bn...`` or ``..._bn``), else ``kernel``."""
+    if suffix == "bias":
+        return "bias"
+    last = module.rsplit(".", 1)[-1]
+    return "scale" if last.startswith("bn") or last.endswith("_bn") \
+        else "kernel"
+
+
 def reference_names(names):
     """Port parameter names -> ``{port name: the reference's key path}``
-    for the ResNets, the (MoE) TransformerLMs, LR and the CNNs, whose
-    leaves map one to one (the layouts differ: conv kernels HWIO against
-    OIHW, dense kernels ``[in, out]`` against ``[out, in]``); None for a
-    tree that does not map so (the LSTMs split and join leaves:
-    :func:`gate_split`)."""
+    for the ResNets, the (MoE) TransformerLMs, LR, the CNNs and the CV
+    zoo, whose leaves map one to one (the layouts differ: conv kernels
+    HWIO against OIHW, dense kernels ``[in, out]`` against ``[out,
+    in]``); None for a tree that does not map so (the LSTMs split and
+    join leaves: :func:`gate_split`)."""
     names = set(names)
     if "tok_embed.weight" in names:
         n_layers = len({k.split(".")[1] for k in names
@@ -340,11 +384,11 @@ def reference_names(names):
     elif "conv1.weight" in names and "layer1.0.conv1.weight" in names:
         n = len({k.split(".")[1] for k in names if k.startswith("layer1.")})
         modules = _modules(6 * n + 2)
-    elif all(k.count(".") == 1 and k.endswith((".weight", ".bias"))
-             for k in names) and not any(k.startswith("lstm")
-                                         for k in names):
-        modules = [((k.split(".")[0],), k.split(".")[0], "dense")
-                   for k in names]
+    elif all(k.endswith((".weight", ".bias")) for k in names) and not any(
+            k.startswith("lstm") for k in names):
+        # LR, the CNNs and the CV zoo: flax's names, nested by the dots
+        return {k: tuple(k.rsplit(".", 1)[0].split("."))
+                + (_cv_leaf(*k.rsplit(".", 1)),) for k in names}
     else:
         return None
     out = {}
@@ -446,7 +490,7 @@ def reference_tree(params):
 
 __all__ = ["variables_to_state", "state_to_variables",
            "lm_variables_to_state", "lm_state_to_variables",
-           "zoo_variables_to_state", "zoo_state_to_variables",
+           "cv_variables_to_state", "cv_state_to_variables",
            "rnn_variables_to_state", "rnn_state_to_variables",
            "module_state", "server_state_from_optax",
            "server_state_to_optax", "reference_names", "reference_tree",

@@ -30,8 +30,8 @@ from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.parallel.engine import (BucketedStreamRunner,
                                              ClientUpdateConfig)
 from fedml_tpu_torch.program import aggregation as agg
-from fedml_tpu_torch.utils.torch_import import (zoo_state_to_variables,
-                                                zoo_variables_to_state)
+from fedml_tpu_torch.utils.torch_import import (cv_state_to_variables,
+                                                cv_variables_to_state)
 
 ROUNDS, CLIENTS, DIM, CLASSES = 2, 40, 16, 4
 ASYNC = dict(async_agg=1, buffer_k=8, staleness_decay=0.5, async_window=4)
@@ -158,13 +158,13 @@ def lr_runs():
         LogisticRegression(DIM, CLASSES, apply_sigmoid=False)),
         _args(**ASYNC), device="cpu")
     init = jax.tree.map(np.array, japi.global_state)
-    api.global_state = zoo_variables_to_state(init)
+    api.global_state = cv_variables_to_state(init)
     ref, got = [], []
     for _ in range(ROUNDS):
         ref.append((japi.train_one_round(),
                     jax.tree.map(np.array, japi.global_state)))
         got.append((api.train_one_round(),
-                    zoo_state_to_variables(api.global_state)))
+                    cv_state_to_variables(api.global_state)))
     return ref, got, init
 
 
@@ -261,7 +261,7 @@ def _run_mains(monkeypatch, name, jcls_path, tcls_path, argv):
     class PortAPI(tbase):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            self.global_state = zoo_variables_to_state(inits[0])
+            self.global_state = cv_variables_to_state(inits[0])
 
     monkeypatch.setattr(jmod, jcls_path[1], JaxAPI)
     monkeypatch.setattr(tmod, tcls_path[1], PortAPI)

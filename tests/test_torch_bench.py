@@ -401,7 +401,7 @@ def massive(request):
 
     import fedml_tpu.algorithms.fedavg as jfedavg
     import fedml_tpu_torch.algorithms.fedavg as tfedavg
-    from fedml_tpu_torch.utils.torch_import import zoo_variables_to_state
+    from fedml_tpu_torch.utils.torch_import import cv_variables_to_state
 
     argv, flags = MASSIVE_CASES[request.param]
     mp = pytest.MonkeyPatch()
@@ -415,7 +415,7 @@ def massive(request):
     class PortAPI(tfedavg.FedAvgAPI):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            self.global_state = zoo_variables_to_state(inits[0])
+            self.global_state = cv_variables_to_state(inits[0])
 
     mp.setenv("FEDML_TPU_PACKING", "python")
     mp.setattr(jfedavg, "FedAvgAPI", JaxAPI)

@@ -27,8 +27,8 @@ from fedml_tpu_torch.data.augment import make_cifar_augment
 from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.parallel import engine
 from fedml_tpu_torch.parallel.packing import _steps_for
-from fedml_tpu_torch.utils.torch_import import (zoo_state_to_variables,
-                                                zoo_variables_to_state)
+from fedml_tpu_torch.utils.torch_import import (cv_state_to_variables,
+                                                cv_variables_to_state)
 
 IMG, CHUNK, BS, SEED = 32, 3, 4, 7
 SIZES = (30, 5, 17, 2, 9, 40, 12)
@@ -129,14 +129,14 @@ def test_plain_bucketed_rounds_on_images_match_jax(monkeypatch):
     api = FedAvgAPI(ds, make_classification_spec(
         LogisticRegression(IMG * IMG * 3, 10)), args, device="cpu")
     init = jax.tree.map(np.array, japi.global_state)
-    api.global_state = zoo_variables_to_state(init)
+    api.global_state = cv_variables_to_state(init)
     for _ in range(2):
         rm, gm = japi.train_one_round(), api.train_one_round()
         for key in ("Train/Loss", "Train/Acc"):
             np.testing.assert_allclose(gm[key], rm[key], atol=1e-4)
         assert gm["bucket/executed_steps"] == rm["bucket/executed_steps"]
     want = jax.tree.map(np.asarray, japi.global_state)
-    got = zoo_state_to_variables(api.global_state)
+    got = cv_state_to_variables(api.global_state)
     jax.tree.map(lambda a, b: np.testing.assert_allclose(a, b, rtol=0,
                                                          atol=1e-4),
                  got, want)

@@ -23,7 +23,7 @@ from fedml_tpu_torch.experiments import (main_centralized, main_fedavg,
                                          main_fedavg_robust, main_fednova,
                                          main_fedopt, main_hierarchical)
 from fedml_tpu_torch.utils.checkpoint import Checkpointer
-from fedml_tpu_torch.utils.torch_import import zoo_state_to_variables
+from fedml_tpu_torch.utils.torch_import import cv_state_to_variables
 
 FEDADAM = ["--server_optimizer", "adam", "--comm_round", "2",
            "--frequency_of_the_test", "1", "--platform", "cpu"]
@@ -142,8 +142,8 @@ def fedadam_runs(tmp_path_factory):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             from fedml_tpu_torch.utils.torch_import import (
-                zoo_variables_to_state)
-            self.global_state = zoo_variables_to_state(inits[0])
+                cv_variables_to_state)
+            self.global_state = cv_variables_to_state(inits[0])
 
     try:
         mp.setattr(jfedopt, "FedOptAPI", JaxAPI)
@@ -179,7 +179,7 @@ def test_resumed_fedadam_equals_the_uninterrupted_run(fedadam_runs):
 
 def test_fedadam_run_matches_the_reference_main(fedadam_runs):
     japi, full, _, _, _ = fedadam_runs
-    got = zoo_state_to_variables(full.global_state)
+    got = cv_state_to_variables(full.global_state)
     want = jax.tree.map(np.asarray, japi.global_state)
     for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got),
                             jax.tree.leaves(want)):

@@ -37,8 +37,8 @@ from fedml_tpu_torch.models.transformer import TransformerLM
 from fedml_tpu_torch.program.cohort import client_sampling
 from fedml_tpu_torch.utils.torch_import import (lm_state_to_variables,
                                                 lm_variables_to_state,
-                                                zoo_state_to_variables,
-                                                zoo_variables_to_state)
+                                                cv_state_to_variables,
+                                                cv_variables_to_state)
 
 #: (main, argv) on LR with the reference's defaults for 2 rounds
 MAIN_CASES = {
@@ -55,7 +55,7 @@ TOL_LR, TOL_LM = 1e-5, 1e-6
 
 
 def _carry(init):
-    return zoo_variables_to_state(init)
+    return cv_variables_to_state(init)
 
 
 @pytest.fixture(scope="module", params=sorted(MAIN_CASES))
@@ -122,7 +122,7 @@ def test_main_records_match_the_reference(mains):
 
 def test_main_states_and_residuals_match_the_reference(mains):
     case, japi, api = mains
-    got = zoo_state_to_variables(api.global_state)["params"]
+    got = cv_state_to_variables(api.global_state)["params"]
     want = jax.tree.map(np.asarray, japi.global_state["params"])
     for layer, leaves in want.items():
         for k, w in leaves.items():
@@ -130,7 +130,7 @@ def test_main_states_and_residuals_match_the_reference(mains):
                                        atol=TOL_LR, err_msg=f"{case} {k}")
     assert api._ef_store.dense == japi._ef_store.dense
     for c in range(len(api.train_data_local_dict)):
-        res = zoo_state_to_variables({"params": api._ef_store.peek(c)})
+        res = cv_state_to_variables({"params": api._ef_store.peek(c)})
         jres = japi._ef_store.peek(c)
         for layer, leaves in jres.items():
             for k, w in leaves.items():
@@ -308,8 +308,7 @@ def test_check_gate_and_json_bytes_are_the_reference_ones(monkeypatch):
     # the JSON lists depend on the values: equal on the same weights
     variables = CNNOriginalFedAvg(only_digits=True).init(
         jax.random.PRNGKey(3), jnp.zeros((1, 28, 28, 1)))
-    state = zoo_variables_to_state(jax.tree.map(np.asarray, variables),
-                                   convs=("conv1", "conv2"))
+    state = cv_variables_to_state(jax.tree.map(np.asarray, variables))
     assert tbench._json_list_nbytes(tbench.reference_variables(
         state, "cnn")) == bench._json_list_nbytes(variables["params"])
 
@@ -328,7 +327,7 @@ def test_massive_cohort_with_a_compressor_matches_the_reference():
     class PortAPI(tfedavg.FedAvgAPI):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            self.global_state = zoo_variables_to_state(inits[0])
+            self.global_state = cv_variables_to_state(inits[0])
 
     mp = pytest.MonkeyPatch()
     mp.setenv("FEDML_TPU_PACKING", "python")

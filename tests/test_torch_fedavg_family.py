@@ -56,12 +56,11 @@ from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
 from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.utils.torch_import import (server_state_from_optax,
                                                 server_state_to_optax,
-                                                zoo_state_to_variables,
-                                                zoo_variables_to_state)
+                                                cv_state_to_variables,
+                                                cv_variables_to_state)
 from test_torch_rounds import H, _args, check_rounds
 
 TOL = 1e-4
-CONVS = ("conv1", "conv2")
 OPTIMIZERS = ("sgd", "adam", "adagrad", "yogi")
 
 
@@ -83,15 +82,15 @@ def _family(name):
                                 partition="hetero", seed=0)
         return (ds, jax_spec(JaxLR(num_classes=10), jnp.zeros((1, 60))),
                 make_classification_spec(LogisticRegression(60, 10)),
-                zoo_variables_to_state, zoo_state_to_variables)
+                cv_variables_to_state, cv_state_to_variables)
     ds = load_synthetic_images(client_num=4, n_train=150, n_test=40,
                                image_size=H, partition="hetero",
                                partition_alpha=0.5, seed=0)
     return (ds, jax_spec(JaxCNN(), jnp.zeros((1, H, H, 3))),
             make_classification_spec(CNNOriginalFedAvg(input_shape=(H, H,
                                                                     3))),
-            lambda v: zoo_variables_to_state(v, CONVS),
-            lambda s: zoo_state_to_variables(s, CONVS))
+            lambda v: cv_variables_to_state(v),
+            lambda s: cv_state_to_variables(s))
 
 
 def _pair(jcls, tcls, name, args, jkw=None, tkw=None, ds=None):

@@ -36,7 +36,7 @@ from fedml_tpu_torch.models.moe import (MoEBlock, MoEMLP, MoETransformerLM,
 from fedml_tpu_torch.models.transformer import TransformerLM
 from fedml_tpu_torch.utils.torch_import import (lm_state_to_variables,
                                                 lm_variables_to_state,
-                                                zoo_variables_to_state)
+                                                cv_variables_to_state)
 
 C, E, V, T = 16, 4, 30, 8
 LM = dict(n_layers=2, n_heads=2, d_model=C, max_len=T, n_experts=E)
@@ -322,7 +322,7 @@ def test_classification_spec_adds_the_sown_loss():
                                     for k, b in batch.items()},
                                 None, True)[0]) for i in range(2)]
     spec = specs.make_classification_spec(_Sower())
-    state = zoo_variables_to_state(jax.tree.map(np.asarray, v))
+    state = cv_variables_to_state(jax.tree.map(np.asarray, v))
     tb = {k: torch.as_tensor(b) for k, b in batch.items()}
     got = [float(spec.loss_fn(state, {k: b[i] for k, b in tb.items()},
                               True)[0]) for i in range(2)]

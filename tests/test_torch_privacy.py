@@ -31,8 +31,8 @@ from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.parallel.engine import ClientUpdateConfig
 from fedml_tpu_torch.program import privacy
 from fedml_tpu_torch.program.round import RoundProgram
-from fedml_tpu_torch.utils.torch_import import (zoo_state_to_variables,
-                                                zoo_variables_to_state)
+from fedml_tpu_torch.utils.torch_import import (cv_state_to_variables,
+                                                cv_variables_to_state)
 
 TOL = 1e-6
 RNG = np.random.default_rng(0)
@@ -296,8 +296,8 @@ def test_clip_leg_lowers_onto_the_payload_hook(legs, monkeypatch):
         LogisticRegression(60, 10)), ClientUpdateConfig(lr=0.1))
     data = {k: torch.as_tensor(v) for k, v in cohort.items()}
     data["y"] = data["y"].long()
-    got, _, _ = fn(zoo_variables_to_state(init), (), data, 1)
-    got = zoo_state_to_variables(got)
+    got, _, _ = fn(cv_variables_to_state(init), (), data, 1)
+    got = cv_state_to_variables(got)
     moved = 0.0
     for (path, g), w, i in zip(jax.tree_util.tree_leaves_with_path(got),
                                jax.tree.leaves(want), jax.tree.leaves(init)):

@@ -48,8 +48,8 @@ from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.program.cohort import CohortPolicy, client_sampling
 from fedml_tpu_torch.resilience import faults
 from fedml_tpu_torch.resilience.integration import SimResilience
-from fedml_tpu_torch.utils.torch_import import (zoo_state_to_variables,
-                                                zoo_variables_to_state)
+from fedml_tpu_torch.utils.torch_import import (cv_state_to_variables,
+                                                cv_variables_to_state)
 
 ROUNDS, TOL = 2, 1e-4
 RES = {"overselect": 0.3, "straggler_p": 0.25, "quorum": 0.5}
@@ -184,7 +184,7 @@ def _lr_family():
                             partition="hetero", seed=0)
     return (ds, jax_spec(JaxLR(num_classes=10), jnp.zeros((1, 60))),
             make_classification_spec(LogisticRegression(60, 10)),
-            zoo_variables_to_state, zoo_state_to_variables)
+            cv_variables_to_state, cv_state_to_variables)
 
 
 def _both(jcls, tcls, args):

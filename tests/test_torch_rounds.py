@@ -48,13 +48,12 @@ from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.models.resnet import CifarResNet
 from fedml_tpu_torch.utils.torch_import import (state_to_variables,
                                                 variables_to_state,
-                                                zoo_state_to_variables,
-                                                zoo_variables_to_state)
+                                                cv_state_to_variables,
+                                                cv_variables_to_state)
 
 ROUNDS, H, TOL = 2, 8, 1e-4
 # (wave_mode, device_resident)
 PATHS = [(0, "auto"), (1, "auto"), (2, "auto"), (3, "auto"), (1, "0")]
-CONVS = ("conv1", "conv2")
 
 
 def _args(mode, resident):
@@ -71,8 +70,8 @@ def _family(name, resident):
         ds = jax_load_federated(client_num=4, n_train=150, n_test=40,
                                 seed=0)
         return (ds, JaxLR(num_classes=10), jnp.zeros((1, 60)),
-                LogisticRegression(60, 10), zoo_variables_to_state,
-                zoo_state_to_variables)
+                LogisticRegression(60, 10), cv_variables_to_state,
+                cv_state_to_variables)
     if name == "resnet" and resident == "0":
         # whole batches: no zero-padded rows through BatchNorm
         ds = load_synthetic_images(client_num=4, n_train=128, n_test=32,
@@ -84,8 +83,8 @@ def _family(name, resident):
     ex = jnp.zeros((1, H, H, 3))
     if name == "cnn":
         return (ds, JaxCNN(), ex, CNNOriginalFedAvg(input_shape=(H, H, 3)),
-                lambda v: zoo_variables_to_state(v, CONVS),
-                lambda s: zoo_state_to_variables(s, CONVS))
+                lambda v: cv_variables_to_state(v),
+                lambda s: cv_state_to_variables(s))
     return (ds, JaxResNet(depth=8, num_classes=10), ex, CifarResNet(depth=8),
             lambda v: variables_to_state(v, 8),
             lambda s: state_to_variables(s, 8))

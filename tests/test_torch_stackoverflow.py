@@ -30,7 +30,7 @@ from fedml_tpu_torch.algorithms.specs import make_multilabel_spec
 from fedml_tpu_torch.data import registry, stackoverflow
 from fedml_tpu_torch.experiments import common, main_fedavg
 from fedml_tpu_torch.models.linear import LogisticRegression
-from fedml_tpu_torch.utils.torch_import import zoo_variables_to_state
+from fedml_tpu_torch.utils.torch_import import cv_variables_to_state
 from test_torch_data import _assert_eight_tuple_equal
 
 h5py = pytest.importorskip("h5py")
@@ -121,7 +121,7 @@ def test_multilabel_spec_matches_the_reference():
         jax.random.PRNGKey(3)))
     # push some probabilities past 0.5 and some into the clip
     variables["params"]["linear"]["kernel"] *= 8.0
-    state = zoo_variables_to_state(variables)
+    state = cv_variables_to_state(variables)
     spec = make_multilabel_spec(LogisticRegression(d, labels))
     batches = [_multilabel_batch(s) for s in (0, 1)]
     stacked_m = spec.stacked_loss_fn(

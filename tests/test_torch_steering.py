@@ -33,8 +33,8 @@ from fedml_tpu_torch.algorithms.specs import make_classification_spec
 from fedml_tpu_torch.models.linear import LogisticRegression
 from fedml_tpu_torch.observability import registry
 from fedml_tpu_torch.resilience import faults, steering
-from fedml_tpu_torch.utils.torch_import import (zoo_state_to_variables,
-                                                zoo_variables_to_state)
+from fedml_tpu_torch.utils.torch_import import (cv_state_to_variables,
+                                                cv_variables_to_state)
 
 TOL = 1e-4
 
@@ -317,9 +317,9 @@ def _run_port(dataset, init, args, rounds=5):
     spec = make_classification_spec(LogisticRegression(
         8, 4, apply_sigmoid=False))
     api = FedAvgAPI(dataset, spec, args, device="cpu")
-    api.global_state = zoo_variables_to_state(init)
+    api.global_state = cv_variables_to_state(init)
     records = [api.train_one_round() for _ in range(rounds)]
-    return zoo_state_to_variables(api.global_state), records, api
+    return cv_state_to_variables(api.global_state), records, api
 
 
 def _run_jax(dataset, spec, args, rounds=5):
