@@ -170,7 +170,34 @@ Phases (any failure exits non-zero):
    the same ReLU and max-pool decisions, within ``ZOO_TOL``, each with
    its parameter count and step milliseconds. None of B1-B4 runs in this
    phase (their counters read 0 after it);
-14. print the ``kernels`` JSON line and, last, the ``ok`` line.
+14. run serverless, split, vertical and secure FL through their four
+   mains (``phase_serverless``), under deterministic kernels, each run
+   printing its seconds beside the card's name and power limit: (a)
+   ``main_decentralized --algorithm dsgd`` on the full-width
+   TransformerLM (the factory's d_model 256, 4 layers, 4 heads of 64,
+   bf16) over 8 nodes of synthetic sequences, batch 4, 2 rounds, then
+   the same with ``--compressor topk:0.01``: the attention counters set
+   to 0 just before each run and read just after, B2, B3 and B4 each
+   launched once a layer a local step (the 8 nodes train in one launch),
+   and ``bytes_on_wire`` and ``compression_ratio`` equal to those of the
+   same compressed main run on the CPU (1 round over 64 samples: the
+   count rests on the shapes alone); (b) ``--algorithm pushsum --asymmetric 1
+   --topology_neighbors 3`` on full-width ResNet-56 (fp32, the
+   experiment phase's 8 clients and 4,096 samples, 1 round):
+   ``pushsum_w`` equal to ``W @ 1`` on the host, every node state
+   finite; (c) ``--online 1`` DSGD and PushSum with ``--time_varying 1``
+   on the synthetic stream (8 nodes, T 200): ``w`` and ``Online/*``
+   within ``SL_TOL`` of the same run on the CPU; (d) ``main_splitnn
+   --cut conv`` on CIFAR-shaped ``synthetic_images`` (8 clients, batch
+   64, 1 epoch, 2 rounds): both halves within ``SL_TOL`` of the CPU's
+   from the same weights; (e) ``main_vfl`` on ``synthetic_vertical`` and
+   on a 1,000-row Lending Club fixture with the finance tests' schema,
+   2 and 3 parties each, 2 epochs: the records within ``SL_TOL`` of the
+   CPU's; (f) ``main_turboaggregate`` on the same ResNet-56 for 1 round:
+   its global state within ``C / (2 * mpc_scale)`` plus 1e-5 of
+   ``main_fedavg``'s same host-packed round. B1's counter reads 0 after
+   the phase;
+15. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -2316,6 +2343,286 @@ def phase_zoo(torch, grouped_conv, fa, smi):
     print(f"zoo phase_s={time.time() - t0:.1f} card={smi}", flush=True)
 
 
+#: phase 14 (module docstring): (a) DSGD on the full-width TransformerLM
+#: (the factory's d_model 256, 4 layers, 4 heads of 64) in bf16, 8 nodes
+#: of synthetic sequences, batch 4, 2 rounds
+SL_LM = ["--model", "transformer", "--dataset", "synthetic_sequences",
+         "--model_dtype", "bf16", "--client_num_in_total", "8",
+         "--client_num_per_round", "8", "--batch_size", "4",
+         "--comm_round", "2", "--algorithm", "dsgd"]
+#: the same compressed LM main on the CPU, for its ``bytes_on_wire`` and
+#: ``compression_ratio``: 1 round over 64 samples (8 a node)
+SL_LM_CPU_WIRE = ["--platform", "cpu", "--comm_round", "1",
+                  "--n_train", "64"]
+#: (b) PushSum on a directed topology over full-width ResNet-56 (fp32),
+#: the experiment phase's 8 clients and 4,096 samples, 1 round
+SL_PUSHSUM = EXP_RESNET + ["--algorithm", "pushsum", "--asymmetric", "1",
+                           "--topology_neighbors", "3"]
+#: (c) online gossip on the synthetic stream, 8 nodes, T 200
+#: (3 neighbors: uneven degrees, so DSGD's W^T and PushSum's
+#: column-stochastic matrix differ)
+SL_ONLINE = ["--online", "1", "--client_num_in_total", "8",
+             "--stream_length", "200", "--time_varying", "1",
+             "--topology_neighbors", "3", "--lr", "0.2"]
+#: (d) SplitNN's conv cut on CIFAR-shaped images, 8 clients, batch 64
+SL_SPLIT = ["--dataset", "synthetic_images", "--image_size", "32",
+            "--client_num_in_total", "8", "--batch_size", "64",
+            "--epochs", "1", "--comm_round", "2", "--cut", "conv"]
+#: (e) vertical FL, 2 epochs
+SL_VFL = ["--epochs", "2"]
+#: card against CPU from the same weights: the online and vertical runs'
+#: models and records (a few hundred fp32 steps of tiny products), and
+#: SplitNN's halves and records (64 steps of cuDNN against oneDNN convs)
+SL_TOL = {"online": 1e-5, "vfl": 1e-5, "split": 1e-4}
+#: TurboAggregate's fixed-point scale (the default) and cohort
+SL_MPC_SCALE, SL_COHORT = 2 ** 16, 8
+
+
+def _sl_run(main, argv):
+    """One run of the port's experiment main ``main``: ``(api, result,
+    seconds)``, the seconds up to the card's synchronize."""
+    import importlib
+
+    import torch
+
+    module = importlib.import_module(f"fedml_tpu_torch.experiments.{main}")
+    t0 = time.time()
+    api, result = module.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return api, result, time.time() - t0
+
+
+def _sl_card(api, label):
+    if api.device.type != "cuda":
+        fail(f"serverless {label}: ran on {api.device}")
+
+
+def _sl_finite(torch, tree, label):
+    from fedml_tpu_torch.compression.compressors import tree_items
+
+    for path, leaf in tree_items(tree):
+        if not bool(torch.isfinite(leaf).all()):
+            fail(f"serverless {label}: non-finite {'/'.join(path)}")
+
+
+def _sl_gap(torch, a, b):
+    """Largest absolute difference over two same-structured trees of
+    tensors or arrays, on either device (compared on the CPU)."""
+    from fedml_tpu_torch.compression.compressors import tree_map
+
+    cpu = lambda t: tree_map(lambda x: torch.as_tensor(x).cpu(), t)
+    return _states_diff(torch, cpu(a), cpu(b))
+
+
+def _sl_gossip_lm(torch, fa, smi):
+    """(a): DSGD on the full-width LM, plain and with topk 1%; the
+    attention counters set to 0 just before each run and read just after:
+    the N nodes train at once, so each of B2-B4 runs once a layer a local
+    step (the packed steps S, all nodes in one launch)."""
+    import math
+
+    from fedml_tpu_torch.parallel.packing import _steps_for
+
+    out = {}
+    for label, extra in (("dsgd_lm", []),
+                         ("dsgd_lm_topk", ["--compressor", "topk:0.01"])):
+        for name in fa.launches:
+            fa.launches[name] = 0
+        api, states, secs = _sl_run("main_decentralized", SL_LM + extra)
+        launches = dict(fa.launches)
+        _sl_card(api, label)
+        _sl_finite(torch, states, label)
+        layers = sum(1 for k in states["params"] if k.endswith(".qkv.weight"))
+        ns = [len(d["y"]) for d in api.train_data_local_dict.values()]
+        S = math.ceil(max(_steps_for(n, api.args.batch_size, 1)
+                          for n in ns) / 8) * 8
+        expect = layers * S * api.args.comm_round
+        if launches != {"fwd": expect, "dq": expect, "dkv": expect}:
+            fail(f"serverless {label}: attention launches {launches}, "
+                 f"expected {expect} each ({layers} layers x {S} steps x "
+                 f"{api.args.comm_round} rounds)")
+        rec = api.history[-1]
+        line = {"launches": launches, "nodes": api.n_nodes,
+                "steps_per_round": S,
+                "train_loss": [r["Train/Loss"] for r in api.history],
+                "consensus": api.consensus_distance()}
+        if extra:
+            # the count rests on the shapes alone, so the CPU's run of the
+            # same main takes one round over a few samples
+            cpu, _, cpu_secs = _sl_run("main_decentralized", SL_LM + extra
+                                       + SL_LM_CPU_WIRE)
+            got = (rec["bytes_on_wire"], rec["compression_ratio"])
+            exp = (cpu.history[-1]["bytes_on_wire"],
+                   cpu.history[-1]["compression_ratio"])
+            if cpu.device.type != "cpu" or got != exp:
+                fail(f"serverless {label}: bytes_on_wire/compression_ratio "
+                     f"{got[0]}/{got[1]}, the CPU run's {exp[0]}/{exp[1]}")
+            line.update(bytes_on_wire=got[0], compression_ratio=got[1],
+                        cpu_wire_run_s=round(cpu_secs, 3))
+        print(f"serverless run={label} s={secs:.3f} "
+              f"s_per_round={secs / api.args.comm_round:.3f} "
+              f"{json.dumps(line)} card={smi}", flush=True)
+        out[label] = launches
+    return out
+
+
+def _sl_pushsum_resnet(torch, smi):
+    """(b): PushSum on a directed topology over ResNet-56: ``pushsum_w``
+    equal to ``W @ 1`` on the host, every node state finite."""
+    import numpy as np
+
+    api, states, secs = _sl_run("main_decentralized", SL_PUSHSUM)
+    _sl_card(api, "pushsum_resnet56")
+    _sl_finite(torch, states, "pushsum_resnet56")
+    W = api.W.cpu().double().numpy()
+    want = W @ np.ones(api.n_nodes)
+    got = api.pushsum_w.cpu().double().numpy()
+    gap = float(np.abs(got - want).max())
+    if gap > 1e-6 or np.allclose(want, 1.0):
+        fail(f"serverless pushsum_resnet56: pushsum_w {got}, W @ 1 {want}")
+    print(f"serverless run=pushsum_resnet56 s_per_round={secs:.3f} "
+          f"nodes={api.n_nodes} pushsum_w={got.round(6).tolist()} "
+          f"w_gap={gap} train_loss={api.history[-1]['Train/Loss']} "
+          f"consensus={api.consensus_distance()} card={smi}", flush=True)
+
+
+def _sl_online(torch, smi):
+    """(c): online DSGD and PushSum, time-varying, card against CPU."""
+    for algo in ("dsgd", "pushsum"):
+        argv = SL_ONLINE + ["--algorithm", algo]
+        api, w, secs = _sl_run("main_decentralized", argv)
+        _sl_card(api, f"online_{algo}")
+        cpu, w_cpu, _ = _sl_run("main_decentralized",
+                                argv + ["--platform", "cpu"])
+        gap = _sl_gap(torch, {"w": w}, {"w": w_cpu})
+        rec_gap = max(abs(api.history[k] - cpu.history[k])
+                      for k in cpu.history)
+        if max(gap, rec_gap) > SL_TOL["online"]:
+            fail(f"serverless online_{algo}: card vs CPU w {gap}, "
+                 f"records {rec_gap} > {SL_TOL['online']}")
+        print(f"serverless run=online_{algo} T={api.T} s={secs:.3f} "
+              f"w_gap={gap} record_gap={rec_gap} "
+              f"{json.dumps(api.history)} card={smi}", flush=True)
+
+
+def _sl_split(torch, smi):
+    """(d): SplitNN's conv cut, card against CPU from the same weights
+    (both sides draw them from the seed on the host)."""
+    api, _, secs = _sl_run("main_splitnn", SL_SPLIT)
+    _sl_card(api, "splitnn")
+    cpu, _, cpu_secs = _sl_run("main_splitnn", SL_SPLIT + ["--platform",
+                                                           "cpu"])
+    gaps = {"client": _sl_gap(torch, api.client_params, cpu.client_params),
+            "server": _sl_gap(torch, api.server_params, cpu.server_params)}
+    acc = api.evaluate(0)["Test/Acc"]
+    if max(gaps.values()) > SL_TOL["split"] or abs(
+            acc - cpu.evaluate(0)["Test/Acc"]) > SL_TOL["split"]:
+        fail(f"serverless splitnn: card vs CPU {gaps} > {SL_TOL['split']}")
+    print(f"serverless run=splitnn_conv clients={api.n_clients} "
+          f"s_per_round={secs / api.args.comm_round:.3f} "
+          f"cpu_s_per_round={cpu_secs / api.args.comm_round:.3f} "
+          f"gaps={json.dumps(gaps)} test_acc={acc} card={smi}", flush=True)
+
+
+def _loan_fixture(path, n=1000, seed=0):
+    """A processed loan csv with the schema of the finance tests
+    (``tests/test_data_extra.py`` ``TestVerticalFinance``): the first
+    names of each feature group and ``target``."""
+    import csv
+
+    import numpy as np
+
+    from fedml_tpu_torch.data import vertical_finance as vf
+
+    cols = (vf.QUALIFICATION_FEAT[:3] + vf.LOAN_FEAT[:2] + vf.DEBT_FEAT[:3]
+            + vf.REPAYMENT_FEAT[:2] + vf.MULTI_ACC_FEAT[:2]
+            + vf.MAL_BEHAVIOR_FEAT[:2])
+    rng = np.random.default_rng(seed)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(cols + ["target"])
+        for _ in range(n):
+            w.writerow(list(rng.normal(size=len(cols)).round(4))
+                       + [int(rng.integers(0, 2))])
+
+
+def _sl_vfl(torch, smi):
+    """(e): vertical FL on the synthetic set (2 and 3 parties) and on a
+    Lending Club fixture (2 and 3 parties), card against CPU."""
+    import shutil
+
+    root = os.path.join(HERE, "build", "chip_smoke_serverless")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _loan_fixture(os.path.join(root, "loan_processed.csv"))
+    for dataset in ("synthetic_vertical", "lending_club"):
+        for parties in ("2", "3"):
+            argv = SL_VFL + ["--dataset", dataset, "--party_num", parties,
+                             "--data_dir", root]
+            label = f"vfl_{dataset}_{parties}"
+            api, hist, secs = _sl_run("main_vfl", argv)
+            _sl_card(api, label)
+            _, cpu_hist, _ = _sl_run("main_vfl", argv + ["--platform",
+                                                          "cpu"])
+            gap = max(abs(a[k] - b[k]) for a, b in zip(hist, cpu_hist)
+                      for k in b)
+            if len(hist) != 2 or gap > SL_TOL["vfl"]:
+                fail(f"serverless {label}: card vs CPU records {gap} > "
+                     f"{SL_TOL['vfl']} ({hist} / {cpu_hist})")
+            print(f"serverless run={label} rows={int(api.y.shape[0])} "
+                  f"s_per_epoch={secs / 2:.3f} record_gap={gap} "
+                  f"{json.dumps(hist[-1])} card={smi}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _sl_turbo(torch, smi):
+    """(f): TurboAggregate on ResNet-56 against ``main_fedavg``'s same
+    host-packed round: within ``C / (2 * mpc_scale)`` plus 1e-5."""
+    argv = EXP_RESNET + ["--device_resident", "0"]
+    turbo, state, secs = _sl_run("main_turboaggregate", argv)
+    _sl_card(turbo, "turboaggregate")
+    _sl_finite(torch, state, "turboaggregate")
+    plain, plain_state, plain_secs = _sl_run("main_fedavg", argv)
+    bound = SL_COHORT / (2 * SL_MPC_SCALE) + 1e-5
+    gap = _sl_gap(torch, state, plain_state)
+    moved = _sl_gap(torch, state, turbo.spec.init_fn(turbo.seed, "cpu"))
+    if gap > bound or moved < 100 * bound:
+        fail(f"serverless turboaggregate: {gap} from FedAvg (bound "
+             f"{bound}), {moved} from the init")
+    print(f"serverless run=turboaggregate_resnet56 "
+          f"s_per_round={secs:.3f} fedavg_s_per_round={plain_secs:.3f} "
+          f"gap={gap} bound={bound} "
+          f"train_loss={turbo.history[-1]['Train/Loss']} card={smi}",
+          flush=True)
+
+
+def phase_serverless(torch, grouped_conv, fa, smi):
+    """Serverless, split, vertical and secure FL through their four mains
+    on the card (module docstring, 14), under deterministic kernels. B1
+    runs in none of them (its counter is set to 0 just before and must
+    read 0 just after); the decentralized LM runs B2-B4."""
+    t0 = time.time()
+    grouped_conv.launches = 0
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches = _sl_gossip_lm(torch, fa, smi)
+        _sl_pushsum_resnet(torch, smi)
+        _sl_online(torch, smi)
+        _sl_split(torch, smi)
+        _sl_vfl(torch, smi)
+        _sl_turbo(torch, smi)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    if grouped_conv.launches:
+        fail(f"serverless: B1 launched {grouped_conv.launches} times")
+    print(f"serverless phase_s={time.time() - t0:.1f} card={smi}",
+          flush=True)
+    return launches
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -2488,6 +2795,7 @@ def main():
     cp = phase_control_plane(torch, fa, smi)
     phase_eventloop(torch, fa, smi, cp)
     phase_zoo(torch, grouped_conv, fa, smi)
+    phase_serverless(torch, grouped_conv, fa, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

@@ -264,11 +264,14 @@ def _step(optimizer, loss_fn, params, rest, opt, batch):
 
 def _make_trip_loop_core(spec: TrainSpec, cfg: ClientUpdateConfig):
     """The training loop of K clients at once, shared by every client
-    update: ``run(global_state, K, batch_at, trip, seeds_at=None) ->
-    (params, rest, metrics_sum)`` runs exactly ``trip`` steps of the
-    spec's ``stacked_loss_fn``; ``batch_at(i)`` gives step ``i``'s
-    ``{"x", "y", "mask"}`` (leading K) and ``seeds_at(i)`` the clients'
-    host seeds for that step (augmentation and dropout draws)."""
+    update: ``run(states, batch_at, trip, seeds_at=None) -> (params, rest,
+    metrics_sum)`` runs exactly ``trip`` steps of the spec's
+    ``stacked_loss_fn`` from ``states``, whose leaves lead with the K
+    clients (a broadcast global state, or one state a gossip node);
+    ``batch_at(i)`` gives step ``i``'s ``{"x", "y", "mask"}`` (leading K)
+    and ``seeds_at(i)`` the clients' host seeds for that step
+    (augmentation and dropout draws).
+    The steps make new tensors, so the caller's leaves stay as given."""
     optimizer = make_optimizer(cfg)
     if spec.stacked_loss_fn is None:
         raise ValueError(
@@ -276,13 +279,13 @@ def _make_trip_loop_core(spec: TrainSpec, cfg: ClientUpdateConfig):
             "updates train K clients at once over a client axis "
             "(algorithms/specs.py)")
 
-    def run(global_state, K, batch_at, trip, seeds_at=None):
+    def run(states, batch_at, trip, seeds_at=None):
         if int(trip) < 1:
             raise ValueError(f"trip={trip}: a client update runs at least "
                              "one step")
-        params = _stack(global_state["params"], K)
-        rest = _stack({k: v for k, v in global_state.items()
-                       if k != "params"}, K)
+        params = dict(states["params"])
+        rest = {k: v for k, v in states.items() if k != "params"}
+        K = next(iter(params.values())).shape[0]
         opt = optimizer.init(params, (K,))
         msum = None
         for i in range(int(trip)):
@@ -311,26 +314,42 @@ def _local(params, rest):
     return local_state
 
 
-def make_client_update(spec: TrainSpec, cfg: ClientUpdateConfig):
-    """Local training of K clients over their packed batches (the
-    host-packed round).
+def make_node_update(spec: TrainSpec, cfg: ClientUpdateConfig):
+    """Local training of K clients over their packed batches, each from
+    its own state (the reference's vmap over node states in its gossip
+    rounds).
 
-    Returns ``fn(global_state, client_data, client_seeds) ->
-    (local_states, aux, metrics_sum)``: ``client_data`` is ``{"x": [K, S,
-    B, ...], "y": [K, S, B, ...], "mask": [K, S, B], "n": [K]}``, all S
-    steps run (fully masked ones leave a client untouched), and ``aux`` is
-    ``{"n", "steps"}`` per client. Every leaf leads with K."""
+    Returns ``fn(states, client_data, client_seeds) -> (local_states,
+    aux, metrics_sum)``: every leaf of ``states`` leads with K;
+    ``client_data`` is ``{"x": [K, S, B, ...], "y": [K, S, B, ...],
+    "mask": [K, S, B], "n": [K]}``, all S steps run (fully masked ones
+    leave a client untouched), and ``aux`` is ``{"n", "steps"}`` per
+    client. Every leaf leads with K."""
     run = _make_trip_loop_core(spec, cfg)
 
-    def client_update(global_state, client_data, client_seeds):
-        K, S = client_data["mask"].shape[:2]
+    def node_update(states, client_data, client_seeds):
+        S = client_data["mask"].shape[1]
         params, rest, msum = run(
-            global_state, K,
+            states,
             lambda i: {k: client_data[k][:, i] for k in ("x", "y", "mask")},
             S, lambda i: fold_seed(client_seeds, i))
         steps = (client_data["mask"] > 0).any(dim=-1).sum(dim=1)
         return _local(params, rest), {"n": client_data["n"],
                                       "steps": steps}, msum
+
+    return node_update
+
+
+def make_client_update(spec: TrainSpec, cfg: ClientUpdateConfig):
+    """Local training of K clients over their packed batches (the
+    host-packed round): :func:`make_node_update` with every client
+    starting from ``global_state``.
+    ``fn(global_state, client_data, client_seeds)``."""
+    update = make_node_update(spec, cfg)
+
+    def client_update(global_state, client_data, client_seeds):
+        return update(_stack(global_state, client_data["mask"].shape[0]),
+                      client_data, client_seeds)
 
     return client_update
 
@@ -356,7 +375,7 @@ def make_loop_client_update(spec: TrainSpec, cfg: ClientUpdateConfig):
             return {"x": data["x"][flat], "y": data["y"][flat],
                     "mask": sched["mask"][:, i]}
 
-        params, rest, msum = run(global_state, K, batch_at, steps,
+        params, rest, msum = run(_stack(global_state, K), batch_at, steps,
                                  lambda i: fold_seed(client_seeds, i))
         stepped = (sched["mask"] > 0).any(dim=-1).sum(dim=1)
         return _local(params, rest), {"n": sched["n"],
@@ -587,7 +606,7 @@ def make_streamed_client_update(spec: TrainSpec, cfg: ClientUpdateConfig):
     def client_update(global_state, batches, n, trip, client_seeds):
         K = batches["mask"].shape[0]
         params, rest, msum = run(
-            global_state, K,
+            _stack(global_state, K),
             lambda i: {k: batches[k][:, i] for k in ("x", "y", "mask")},
             trip, lambda i: fold_seed(client_seeds, i))
         steps_done = (batches["mask"] > 0).any(dim=-1).sum(dim=1)

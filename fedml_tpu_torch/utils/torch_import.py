@@ -30,15 +30,21 @@ transposed -> ``weight_ih [4H, in]``, the hidden kernels ``hi/hf/hg/ho``
 ``embedding`` -> ``<name>.weight``, a Dense -> ``<name>.weight`` ``[out,
 in]`` and ``.bias``.
 
-LR, the CNNs and the CV zoo -- ResNetGN, MobileNet, MobileNetV3,
-EfficientNet and VGG (:func:`cv_variables_to_state`): every port
-submodule carries flax's name (``linear``, ``conv1``, ``fc2``,
-``layer1_block0.downsample_conv``, ``block3.dw``, ``bneck4.se.fc1``,
-``block2_1.se_reduce``, ``conv7``, ``head``), so one rule maps a
+LR, the CNNs, the vertical-FL party models (``DenseModel``,
+``LocalModel``), SplitNN's halves (``lead=1`` for the client halves,
+stacked on a client axis) and the CV zoo -- ResNetGN, MobileNet,
+MobileNetV3, EfficientNet and VGG (:func:`cv_variables_to_state`): every
+port submodule carries flax's name (``linear``, ``hidden_0``,
+``Dense_1``, ``conv1``, ``fc2``, ``layer1_block0.downsample_conv``,
+``block3.dw``, ``bneck4.se.fc1``, ``block2_1.se_reduce``, ``conv7``,
+``head``), so one rule maps a
 nested flax tree of any depth: a 4-D ``kernel`` HWIO -> OIHW
 (a depthwise ``[kh, kw, 1, C]`` becomes ``[C, 1, kh, kw]``), a 2-D
 ``kernel`` transposed, ``scale`` -> ``weight``, ``bias`` as it is, and
 ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+
+A whole node state under the reference's names, BatchNorm statistics
+included (:func:`reference_state`), frames the gossip rounds' wire.
 
 Server optimizer state (:func:`server_state_from_optax`): the JAX
 package's optax chain state (``TraceState``, ``ScaleByAdamState`` or
@@ -488,10 +494,32 @@ def reference_tree(params):
     return out
 
 
+def reference_state(state):
+    """A port state (``{"params"}`` and any ``batch_stats``) under the
+    reference's names: the params through :func:`reference_tree`, and
+    each running statistic at its norm layer's path as ``mean`` or
+    ``var``, where the params' names map one to one (as the reference
+    frames a whole node state on the wire)."""
+    out = {"params": reference_tree(state["params"])}
+    stats = state.get("batch_stats")
+    if stats:
+        paths = reference_names(state["params"])
+        names = {v: k for k, v in _CV_STAT.items()}
+        bs = {}
+        for key, leaf in stats.items():
+            layer, kind = key.rsplit(".", 1)
+            path = (paths[f"{layer}.weight"][:-1] if paths is not None
+                    else tuple(layer.split(".")))
+            _put(bs, path + (names[kind],), leaf)
+        out["batch_stats"] = bs
+    return out
+
+
 __all__ = ["variables_to_state", "state_to_variables",
            "lm_variables_to_state", "lm_state_to_variables",
            "cv_variables_to_state", "cv_state_to_variables",
            "rnn_variables_to_state", "rnn_state_to_variables",
            "module_state", "server_state_from_optax",
            "server_state_to_optax", "reference_names", "reference_tree",
+           "reference_state",
            "gate_split", "gate_join"]

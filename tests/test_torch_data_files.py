@@ -18,7 +18,8 @@ package's, on the same files.
   has neither).
 - The reference's own cases retargeted at the port: ``test_data.py``'s
   ``TestLeafJson`` and ``TestTffH5`` (``slow`` there and here),
-  ``test_data_extra.py``'s ``TestStreamingUCI`` and ``TestImageFolder``,
+  ``test_data_extra.py``'s ``TestStreamingUCI``, ``TestImageFolder`` and
+  ``TestVerticalFinance``,
   and ``test_prepare.py``."""
 
 import io
@@ -40,7 +41,7 @@ from fedml_tpu.data import registry as jregistry
 from fedml_tpu.data import tff_h5 as jtff
 from fedml_tpu.data import uci as juci
 from fedml_tpu_torch.data import (imagefolder, leaf, prepare, registry,
-                                  tff_h5, uci)
+                                  tff_h5, uci, vertical_finance)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -48,12 +49,13 @@ FIXDIR = os.path.join(HERE, "fixtures")
 
 # -- the reference's own cases, through the port ------------------------------
 _data = retarget("test_data.py")
-_extra = retarget("test_data_extra.py", drop=("vertical_finance",))
+_extra = retarget("test_data_extra.py")
 _prep = retarget("test_prepare.py")
 TestLeafJson = pytest.mark.slow(_data.TestLeafJson)
 TestTffH5 = pytest.mark.slow(_data.TestTffH5)
 TestStreamingUCI = _extra.TestStreamingUCI
 TestImageFolder = _extra.TestImageFolder
+TestVerticalFinance = _extra.TestVerticalFinance
 test_layout_docs_cover_all_datasets = _prep.test_layout_docs_cover_all_datasets
 test_fixture_roundtrips_through_real_loader = \
     _prep.test_fixture_roundtrips_through_real_loader
@@ -66,6 +68,7 @@ test_fixture_matches_layout_promise = _prep.test_fixture_matches_layout_promise
 def test_the_retargeted_scenarios_run_the_port():
     assert _prep.main.__module__ == "fedml_tpu_torch.data.prepare"
     assert _extra.uci is uci and _extra.imagefolder is imagefolder
+    assert _extra.vertical_finance is vertical_finance
     assert _data.load_dataset is registry.load_dataset
 
 

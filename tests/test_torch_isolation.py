@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``fedml_tpu_torch``
-(in a fresh interpreter) loads neither JAX nor the JAX package, no port
+(in a fresh interpreter) loads neither JAX, the JAX package nor pandas
+(the card's machine has none), no port
 source, ``chip_smoke.py`` or the card's test file names them in an
 import, and the entry points refuse to run on the CPU unless the caller
 asks for it."""
@@ -35,8 +36,9 @@ def test_importing_the_port_loads_no_jax():
         f"mods = {_modules()!r}\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'pandas')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'flax', 'optax',\n"
+        "                              'pandas.'))\n"
         "             or m == 'fedml_tpu' or m.startswith('fedml_tpu.'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -125,6 +127,58 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     spec = make_classification_spec(resnet56(), lane_lowering="pallas")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FedAvgAPI(dataset, spec, args)
+
+
+def test_serverless_split_vertical_and_secure_entry_points_need_a_gpu(
+        monkeypatch):
+    """The gossip, online, split, vertical and secure APIs and their four
+    mains raise without a card unless asked for the CPU."""
+    import numpy as np
+
+    from fedml_tpu_torch.algorithms import (DecentralizedFedAPI,
+                                            DecentralizedOnlineAPI,
+                                            SplitNNAPI, TurboAggregateAPI,
+                                            VerticalFLAPI)
+    from fedml_tpu_torch.algorithms.specs import make_classification_spec
+    from fedml_tpu_torch.data import uci
+    from fedml_tpu_torch.data.synthetic import load_synthetic_federated
+    from fedml_tpu_torch.experiments import (main_decentralized,
+                                             main_splitnn,
+                                             main_turboaggregate, main_vfl)
+    from fedml_tpu_torch.experiments.main_splitnn import split_pair
+    from fedml_tpu_torch.models.linear import LocalModel, LogisticRegression
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = load_synthetic_federated(client_num=2, n_train=40, n_test=8,
+                                  seed=0)
+    args = types.SimpleNamespace(
+        client_num_in_total=2, client_num_per_round=2, comm_round=1,
+        epochs=1, batch_size=8, lr=0.1, seed=0)
+    spec = make_classification_spec(LogisticRegression(60, 10))
+    x = np.zeros((4, 3), np.float32)
+    builds = [
+        lambda d: DecentralizedFedAPI(ds, spec, args, device=d),
+        lambda d: DecentralizedOnlineAPI(
+            uci.load_synthetic_stream(client_num=2, T=4), args, device=d),
+        lambda d: SplitNNAPI(ds, *split_pair("dense", (60,), 10), args,
+                             device=d),
+        lambda d: VerticalFLAPI([LocalModel(3, output_dim=1)], [x],
+                                np.zeros(4), args, device=d),
+        lambda d: TurboAggregateAPI(ds, spec, args, device=d),
+    ]
+    for build in builds:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(None)
+        assert build("cpu").device == torch.device("cpu")
+    tiny = ["--comm_round", "1", "--client_num_in_total", "2"]
+    for main, argv in ((main_decentralized, []),
+                       (main_decentralized, ["--online", "1"]),
+                       (main_splitnn, ["--dataset", "synthetic",
+                                       "--cut", "dense"]),
+                       (main_turboaggregate, []),
+                       (main_vfl, ["--dataset", "synthetic_vertical"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main.main(argv + tiny)
 
 
 def test_chip_smoke_fails_without_a_gpu_and_prints_no_result(tmp_path):

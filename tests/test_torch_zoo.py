@@ -3,7 +3,8 @@ zoo's are ``test_torch_zoo_cv.py``'s): forwards
 of ``LogisticRegression``, ``CNNOriginalFedAvg`` and ``CNNDropOut`` (eval
 mode: the two frameworks draw different dropout masks) on the reference's
 weights carried over, at 1e-5; the parameter counts the reference's
-docstrings give; ``resnet110``'s depth; the factory's names and
+docstrings give; the vertical-FL party models ``DenseModel`` and
+``LocalModel`` (names, shapes, outputs); ``resnet110``'s depth; the factory's names and
 refusals; the lane-packed CNN against per-lane forwards and against the
 JAX package's packed CNN; ``CNNDropOut``'s training repeatable for a
 seed."""
@@ -25,7 +26,8 @@ from fedml_tpu_torch.models.cnn import CNNDropOut, CNNOriginalFedAvg
 from fedml_tpu_torch.models.factory import create_model
 from fedml_tpu_torch.models.lane_packed import (builder_for,
                                                 make_lane_packed_apply)
-from fedml_tpu_torch.models.linear import LogisticRegression
+from fedml_tpu_torch.models.linear import (DenseModel, LocalModel,
+                                           LogisticRegression)
 from fedml_tpu_torch.models.resnet import CifarResNet
 from fedml_tpu_torch.utils.torch_import import (cv_state_to_variables,
                                                 cv_variables_to_state)
@@ -183,3 +185,35 @@ def test_cnn_dropout_training_is_repeatable_for_a_seed():
             {"params": {k: v[None] for k, v in st["params"].items()}},
             {"x": torch.zeros(1, 2, 12, 12, 1), "y": torch.zeros(1, 2).long(),
              "mask": torch.ones(1, 2)}, True)
+
+
+def _state(variables):
+    return cv_variables_to_state(jax.tree.map(np.array, variables))["params"]
+
+
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_dense_model_is_flax(use_bias):
+    x = np.random.default_rng(0).normal(size=(3, 5)).astype(np.float32)
+    jm = jlinear.DenseModel(output_dim=2, use_bias=use_bias)
+    v = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 5)))
+    m = DenseModel(5, output_dim=2, use_bias=use_bias)
+    assert set(m.state_dict()) == set(_state(v))
+    m.load_state_dict(_state(v))
+    out = m(torch.as_tensor(x)).detach().numpy()
+    assert out.shape == (3, 2)
+    np.testing.assert_allclose(out, np.asarray(jm.apply(v, jnp.asarray(x))),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("hidden", [(), (16,), (8, 4)])
+def test_local_model_is_flax(hidden):
+    x = np.random.default_rng(0).normal(size=(3, 6)).astype(np.float32)
+    jm = jlinear.LocalModel(hidden_dims=hidden, output_dim=3)
+    v = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 6)))
+    m = LocalModel(6, hidden_dims=hidden, output_dim=3)
+    assert set(m.state_dict()) == set(_state(v))
+    m.load_state_dict(_state(v))
+    out = m(torch.as_tensor(x)).detach().numpy()
+    assert out.shape == (3, 3)
+    np.testing.assert_allclose(out, np.asarray(jm.apply(v, jnp.asarray(x))),
+                               atol=1e-6)
