@@ -197,7 +197,32 @@ Phases (any failure exits non-zero):
    its global state within ``C / (2 * mpc_scale)`` plus 1e-5 of
    ``main_fedavg``'s same host-packed round. B1's counter reads 0 after
    the phase;
-15. print the ``kernels`` JSON line and, last, the ``ok`` line.
+15. run FedSeg, FedNAS and FedGKT through their mains (``phase_a14c``),
+   under deterministic kernels, each run printing its seconds beside
+   the card's name and power limit: (a) ``main_fedseg`` on the
+   full-width DeepLab (``--backbone resnet``, width 32, ``--outstride
+   16``) over 128x128 ``synthetic_segmentation``, 4 clients, batch 8,
+   the poly schedule, 2 rounds, printing ``Seg/mIoU``; one round of the
+   same at 8 samples a client card against CPU from the same weights,
+   the global states within ``A14C_TOL``; 1 round at ``--outstride 8``;
+   (b) ``main_fednas --stage search`` at the reference's defaults (C 16,
+   8 layers, 4 steps a cell, ``--arch_order 2``) on CIFAR-shaped
+   synthetic images, 2 clients, 1 round; one client's second-order
+   search step at batch 8 (C 16, 8 layers, 2 steps a cell) card against
+   CPU from the same weights (the arch gradient the step took, the
+   clipped weight step and the statistics within ``A14C_TOL`` of their
+   scales, an alpha apart only where its gradient lies within the two
+   sides' gap, the same genotype; a 4-step cell's second-order arch
+   gradient is held against the reference only on the CPU, in the
+   tests' slow tier); ``--stage train`` on ``DARTS_V1`` at C 16 and 8
+   layers for 1 round; (c) ``main_fedgkt`` with ``resnet8_56`` clients and the
+   ResNet-56 tail (``--server_blocks 9``) on 512 CIFAR-shaped images, 4
+   clients, 2 rounds; the same 2 rounds at 32 samples a client, batch 16
+   and lr 1e-4 card against CPU (client states, server state and
+   teacher logits within ``A14C_TOL``, the weights within its
+   ``gkt_rel`` of their round-2 moves). None of B1-B4 runs (their
+   counters read 0 after the phase);
+16. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -2623,6 +2648,303 @@ def phase_serverless(torch, grouped_conv, fa, smi):
     return launches
 
 
+#: phase 15 (module docstring): (a) FedSeg on the full-width DeepLab
+#: (resnet backbone, width 32) at 128x128, 4 clients, batch 8, poly
+SEG_ARGV = ["--dataset", "synthetic_segmentation", "--backbone", "resnet",
+            "--image_size", "128", "--client_num_in_total", "4",
+            "--client_num_per_round", "4", "--batch_size", "8",
+            "--lr_scheduler", "poly", "--epochs", "1",
+            "--frequency_of_the_test", "1"]
+#: the card-against-CPU FedSeg round: 8 samples a client (one step)
+SEG_SMALL = ["--n_train", "32", "--n_test", "8", "--comm_round", "1"]
+#: (b) FedNAS at the reference's defaults (C 16, 8 layers, 4 steps a
+#: cell, second order, batch 32) on CIFAR-shaped images, 2 clients of 64
+#: samples (one search step each on its 32-sample train half), 1 round
+NAS_ARGV = ["--dataset", "synthetic_images", "--image_size", "32",
+            "--client_num_in_total", "2", "--client_num_per_round", "2",
+            "--n_train", "128", "--n_test", "64", "--partition_method",
+            "homo", "--comm_round", "1", "--arch_order", "2"]
+#: the card-against-CPU search step: C 16 and 8 layers at 2 steps a cell
+#: (the CPU's second-order step at the reference's 4 steps takes 33-41 s,
+#: past the phase's budget), batch 8
+NAS_STEP_NET = {"C": 16, "layers": 8, "steps": 2}
+#: (c) FedGKT: resnet8_56 clients and the ResNet-56 tail on the server,
+#: 4 clients of 128 CIFAR-shaped images, 2 rounds (round 2 distils from
+#: round 1's server)
+GKT_ARGV = ["--dataset", "synthetic_images", "--image_size", "32",
+            "--client_num_in_total", "4", "--client_num_per_round", "4",
+            "--partition_method", "homo", "--client_model", "resnet8_56",
+            "--server_blocks", "9", "--comm_round", "2"]
+#: the card-against-CPU FedGKT rounds: 32 samples a client at batch 16
+#: (2 client steps a round, 8 server steps), the lr set below the
+#: server's stability limit (at the default 0.03 a server step amplifies
+#: a 1e-5 parameter difference 60 times; the CPU at 1 thread against 8
+#: ends 0.28 apart)
+GKT_SMALL = ["--n_train", "128", "--n_test", "32", "--batch_size", "16",
+             "--lr", "0.0001"]
+#: card against CPU (fp32, deterministic kernels; cuDNN's convolutions
+#: against the CPU's): FedSeg's global state after one step of the
+#: full-width DeepLab; FedGKT's client and server states and teacher
+#: logits after 2 rounds through the ResNet-56 tail, and ("gkt_rel") the
+#: clients' and the server's weights relative to their round-2 moves
+#: (1.2e-4 and 2.0e-3 at lr 1e-4; the H100 read 2.5e-4 and 1.9e-3 of
+#: them, the CPU at 1 thread against 8 5.0e-4 and 1.5e-3), so a faulty
+#: or missing step on the card, about a move apart, fails. FedNAS's step
+#: is held relative to each quantity's scale ("nas_rel": the arch
+#: gradient's largest magnitude, the weights' and statistics' largest
+#: move), each limit a small multiple of its reading on the H100 (0.37%,
+#: 9.0e-4 and 7.6e-7): the CPU's own fp32 second-order arch gradient at
+#: this network lies 1.5-4% of its scale from float64 (flax's fast
+#: BatchNorm variance in fp32 through 8 cells), so the arch gradient's
+#: limit stays under that spread; the weight step follows alphas that
+#: Adam's first step moves by +-arch_lr wherever a gradient's sign lies
+#: within that noise
+A14C_TOL = {"seg": 1e-3, "gkt": 1e-3, "gkt_rel": 1e-2,
+            "nas_rel": {"arch_grad": 1e-2, "weights": 5e-3, "stats": 5e-6}}
+
+
+def _a14c_seg(torch, smi):
+    """(a): FedSeg through ``main_fedseg``: 2 rounds at output stride 16,
+    one round card against CPU from the same weights, 1 round at output
+    stride 8."""
+    api, state, secs = _sl_run("main_fedseg", SEG_ARGV + ["--comm_round",
+                                                          "2"])
+    _sl_card(api, "fedseg")
+    _sl_finite(torch, state, "fedseg")
+    rec = api.history[-1]
+    if not 0.0 <= rec["Seg/mIoU"] <= 1.0:
+        fail(f"a14c fedseg: Seg/mIoU {rec['Seg/mIoU']}")
+    print(f"a14c run=fedseg_deeplab_os16 rounds=2 "
+          f"s_per_round={secs / 2:.3f} seg_miou={rec['Seg/mIoU']} "
+          f"train_miou={rec['Train/mIoU']} test_acc={rec['Test/Acc']} "
+          f"card={smi}", flush=True)
+    card, _, c_secs = _sl_run("main_fedseg", SEG_ARGV + SEG_SMALL)
+    cpu, _, cpu_secs = _sl_run("main_fedseg", SEG_ARGV + SEG_SMALL
+                               + ["--platform", "cpu"])
+    gap = _sl_gap(torch, card.global_state, cpu.global_state)
+    moved = _sl_gap(torch, card.global_state,
+                      card.spec.init_fn(card.seed, "cpu"))
+    if gap > A14C_TOL["seg"] or moved < 10 * A14C_TOL["seg"]:
+        fail(f"a14c fedseg: card vs CPU {gap} (tol {A14C_TOL['seg']}), "
+             f"moved {moved}")
+    print(f"a14c run=fedseg_card_vs_cpu gap={gap} moved={moved} "
+          f"tol={A14C_TOL['seg']} s={c_secs:.3f} cpu_s={cpu_secs:.3f} "
+          f"seg_miou={card.history[-1]['Seg/mIoU']} "
+          f"cpu_seg_miou={cpu.history[-1]['Seg/mIoU']} card={smi}",
+          flush=True)
+    api, state, secs = _sl_run("main_fedseg", SEG_ARGV + SEG_SMALL
+                               + ["--outstride", "8"])
+    _sl_card(api, "fedseg os8")
+    _sl_finite(torch, state, "fedseg os8")
+    print(f"a14c run=fedseg_deeplab_os8 rounds=1 s_per_round={secs:.3f} "
+          f"seg_miou={api.history[-1]['Seg/mIoU']} card={smi}", flush=True)
+
+
+def _a14c_nas_step(torch, device, batches):
+    """One client's second-order search step on ``device`` from the seed's
+    weights (``NAS_STEP_NET``), built here and taken by the function it
+    returns: ``take() -> (the arch gradient the step took, local state
+    after the step, initial state, seconds)``."""
+    from fedml_tpu_torch.algorithms import fednas
+    from fedml_tpu_torch.algorithms.specs import make_classification_spec
+    from fedml_tpu_torch.models import darts
+
+    spec = make_classification_spec(darts.DARTSNetwork(**NAS_STEP_NET))
+    state = spec.init_fn(0, device)
+    cfg = fednas.FedNASConfig(arch_order=2)
+    data = {k: torch.as_tensor(v, device=device) for k, v in batches.items()}
+    taken, make = [], fednas.make_arch_grad_fn
+
+    def recording(spec, cfg):
+        arch_grads = make(spec, cfg)
+        return lambda *a: taken.append(arch_grads(*a)) or taken[-1]
+
+    fednas.make_arch_grad_fn = recording
+    try:
+        update = fednas.make_search_client_update(spec, cfg)
+    finally:
+        fednas.make_arch_grad_fn = make
+
+    def take():
+        t0 = time.time()
+        local, _ = update(state, data)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return taken[0], local, state, time.time() - t0
+
+    return take
+
+
+def _a14c_rel(torch, got, want, start=None):
+    """Largest difference over two states, over the largest magnitude of
+    ``want`` (or of its move from ``start``)."""
+    ref = want if start is None else {
+        k: torch.as_tensor(want[k]).cpu() - torch.as_tensor(start[k]).cpu()
+        for k in want}
+    scale = max(float(torch.as_tensor(v).abs().max()) for v in ref.values())
+    return _sl_gap(torch, got, want) / max(scale, 1e-30), scale
+
+
+def _a14c_nas(torch, smi):
+    """(b): FedNAS's search and train stages through ``main_fednas``, and
+    one client's second-order step card against CPU."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from fedml_tpu_torch.models import darts
+
+    rng = np.random.default_rng(0)
+    batches = {"x": rng.normal(size=(1, 8, 32, 32, 3)).astype(np.float32),
+               "y": rng.integers(0, 10, (1, 8)).astype(np.int64),
+               "mask": np.ones((1, 8), np.float32),
+               "val_x": rng.normal(size=(1, 8, 32, 32, 3)).astype(
+                   np.float32),
+               "val_y": rng.integers(0, 10, (1, 8)).astype(np.int64)}
+    # the CPU's side of the step runs in a thread beside the card's
+    # search round (the round is host launches on one core; the CPU's
+    # step is compute, outside the GIL)
+    with ThreadPoolExecutor(1) as pool:
+        cpu_step = pool.submit(_a14c_nas_step(torch, "cpu", batches))
+        api, genotype, secs = _sl_run("main_fednas", NAS_ARGV
+                                      + ["--stage", "search"])
+        g_card, l_card, _, t_card = _a14c_nas_step(torch, "cuda",
+                                                   batches)()
+        g_cpu, l_cpu, s_cpu, t_cpu = cpu_step.result()
+    _sl_card(api, "fednas search")
+    _sl_finite(torch, api.global_state, "fednas search")
+    print(f"a14c run=fednas_search C=16 layers=8 steps=4 order=2 "
+          f"s_per_round={secs:.3f} "
+          f"train_loss={api.history[-1]['Train/Loss']} "
+          f"genotype={json.dumps(str(genotype))} card={smi}", flush=True)
+    rel = {"arch_grad": _a14c_rel(torch, g_card, g_cpu),
+           "weights": _a14c_rel(torch, l_card["params"], l_cpu["params"],
+                                s_cpu["params"]),
+           "stats": _a14c_rel(torch, l_card["batch_stats"],
+                              l_cpu["batch_stats"], s_cpu["batch_stats"])}
+    # Adam's first step moves each alpha by about arch_lr * sign(grad):
+    # an alpha may land apart only where its gradient lies within the
+    # two sides' gradient gap of 0
+    grad_gap = _sl_gap(torch, g_card, g_cpu)
+    flips, unexplained = 0, 0
+    for k, g in g_cpu.items():
+        apart = (l_card["arch"][k].cpu() - l_cpu["arch"][k]).abs() > 1e-6
+        flips += int(apart.sum())
+        unexplained += int((apart & (g.abs() > grad_gap)).sum())
+    same = darts.derive_genotype(l_card["arch"]) == darts.derive_genotype(
+        l_cpu["arch"])
+    tol = A14C_TOL["nas_rel"]
+    if any(rel[k][0] > tol[k] for k in rel) or unexplained or not same:
+        fail(f"a14c fednas step: card vs CPU relative {rel} (tol {tol}), "
+             f"{unexplained} of {flips} alpha flips outside the gradient "
+             f"gap, same genotype {same}")
+    print(f"a14c run=fednas_step_card_vs_cpu net={json.dumps(NAS_STEP_NET)}"
+          f" batch=8 rel={json.dumps(rel)} tol={json.dumps(tol)} "
+          f"alpha_flips={flips} "
+          f"same_genotype={same} s={t_card:.3f} cpu_s={t_cpu:.3f} "
+          f"card={smi}", flush=True)
+    api, state, secs = _sl_run("main_fednas", NAS_ARGV + ["--stage",
+                                                          "train"])
+    _sl_card(api, "fednas train")
+    _sl_finite(torch, state, "fednas train")
+    print(f"a14c run=fednas_train genotype=DARTS_V1 C=16 layers=8 "
+          f"s_per_round={secs:.3f} "
+          f"train_loss={api.history[-1]['Train/Loss']} card={smi}",
+          flush=True)
+
+
+def _a14c_gkt(torch, smi):
+    """(c): FedGKT through ``main_fedgkt``, then 2 rounds at 32 samples a
+    client card against CPU from the same weights."""
+    api, server_state, secs = _sl_run("main_fedgkt", GKT_ARGV
+                                      + ["--n_train", "512"])
+    _sl_card(api, "fedgkt")
+    _sl_finite(torch, server_state, "fedgkt server")
+    _sl_finite(torch, api.client_states, "fedgkt clients")
+    ev = api.evaluate()
+    print(f"a14c run=fedgkt_resnet8_56_server56 clients=4 rounds=2 "
+          f"s_per_round={secs / 2:.3f} test_acc={ev['Test/Acc']} "
+          f"test_samples={ev['Test/Samples']} card={smi}", flush=True)
+    card, _, c_secs = _a14c_gkt_rounds(torch, GKT_SMALL)
+    cpu, cpu_r1, cpu_secs = _a14c_gkt_rounds(torch, GKT_SMALL
+                                             + ["--platform", "cpu"])
+    gaps, moves, rel = _a14c_gkt_gaps(torch, card, cpu, cpu_r1)
+    tol, rel_tol = A14C_TOL["gkt"], A14C_TOL["gkt_rel"]
+    if (any(g > tol for g in gaps.values())
+            or any(not moves[k] > 0 or rel[k] > rel_tol for k in rel)
+            or not card.teacher_logits.any()):
+        fail(f"a14c fedgkt: card vs CPU {gaps} (tol {tol}); the weights "
+             f"{rel} of their round-2 moves {moves} apart (tol {rel_tol})")
+    print(f"a14c run=fedgkt_card_vs_cpu samples_per_client=32 batch=16 "
+          f"gaps={json.dumps(gaps)} tol={tol} weight_moves="
+          f"{json.dumps(moves)} weight_rel={json.dumps(rel)} "
+          f"rel_tol={rel_tol} "
+          f"s_per_round={c_secs / 2:.3f} cpu_s_per_round={cpu_secs / 2:.3f} "
+          f"card={smi}", flush=True)
+
+
+def _a14c_gkt_rounds(torch, argv):
+    """2 rounds of ``main_fedgkt``: round 1 through the main, round 2 by
+    ``train_one_round``; ``(api, round 1's clients and server on the
+    CPU, seconds)``."""
+    from fedml_tpu_torch.compression.compressors import tree_map
+
+    api, _, secs = _sl_run("main_fedgkt", GKT_ARGV + argv
+                           + ["--comm_round", "1"])
+    cpu = lambda t: tree_map(lambda x: x.detach().cpu().clone(), t)
+    r1 = {"clients": cpu(api.client_states),
+          "server": cpu(api.server_state)}
+    t0 = time.time()
+    api.train_one_round()
+    if api.device.type == "cuda":
+        torch.cuda.synchronize()
+    return api, r1, secs + time.time() - t0
+
+
+def _a14c_gkt_gaps(torch, card, cpu, cpu_r1):
+    """The card's clients and server (whole states) and teacher logits
+    after round 2 from the CPU's (``gaps``); the CPU's round-2 move of
+    the clients' and the server's weights (``moves``; the statistics and
+    the teachers move also without a step) and the card's weights' gap
+    over it (``rel``): a faulty step in either round lies about a move
+    apart."""
+    states = lambda api: {"clients": api.client_states,
+                          "server": api.server_state}
+    got, want = states(card), states(cpu)
+    gaps = {k: _sl_gap(torch, got[k], want[k]) for k in want}
+    gaps["teacher"] = float(abs(card.teacher_logits
+                                - cpu.teacher_logits).max())
+    moves = {k: _sl_gap(torch, want[k]["params"], cpu_r1[k]["params"])
+             for k in want}
+    rel = {k: _sl_gap(torch, got[k]["params"], want[k]["params"])
+           / max(moves[k], 1e-30) for k in want}
+    return gaps, moves, rel
+
+
+def phase_a14c(torch, grouped_conv, fa, smi):
+    """FedSeg, FedNAS and FedGKT through their mains on the card (module
+    docstring, 15), under deterministic kernels. The slice launches none
+    of B1-B4: their counters are set to 0 just before and must read 0
+    just after."""
+    t0 = time.time()
+    grouped_conv.launches = 0
+    for name in fa.launches:
+        fa.launches[name] = 0
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        _a14c_seg(torch, smi)
+        _a14c_nas(torch, smi)
+        _a14c_gkt(torch, smi)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    if grouped_conv.launches or any(fa.launches.values()):
+        fail(f"a14c: B1-B4 launched ({grouped_conv.launches}, "
+             f"{dict(fa.launches)}); the slice runs none of them")
+    print(f"a14c phase_s={time.time() - t0:.1f} card={smi}", flush=True)
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -2796,6 +3118,7 @@ def main():
     phase_eventloop(torch, fa, smi, cp)
     phase_zoo(torch, grouped_conv, fa, smi)
     phase_serverless(torch, grouped_conv, fa, smi)
+    phase_a14c(torch, grouped_conv, fa, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

@@ -379,6 +379,9 @@ class FedAvgAPI:
         with tracer.span("report"):
             m = {k: float(v.sum()) for k, v in info["metrics"].items()}
         self._last_metrics = m
+        # the round's metrics as summed, per-client axes and all (FedSeg
+        # reads its confusion matrix from them)
+        self._last_round_metrics = info["metrics"]
         train_metrics = {
             "round": self.round_idx,
             "Train/Loss": m["loss_sum"] / max(m["count"], 1),

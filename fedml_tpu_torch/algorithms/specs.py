@@ -1,6 +1,6 @@
 """TrainSpec builders (counterpart of ``fedml_tpu/algorithms/specs.py``:
-``make_classification_spec``, ``make_seq_classification_spec`` and
-``make_multilabel_spec``).
+``make_classification_spec``, ``make_seq_classification_spec``,
+``make_multilabel_spec`` and ``make_segmentation_spec``).
 
 Softmax cross-entropy over logits (or the sigmoid multilabel loss over
 probabilities); metrics are sums (``loss_sum``, ``correct``, ``count``)
@@ -115,23 +115,34 @@ def _module_spec(model, loss_and_metrics, name, augment_fn, aux_loss_weight,
                  lane_loss_builder):
     """The spec of an ``nn.Module`` applied functionally (one client's
     state, or K clients' through ``torch.func.vmap``), its loss and
-    metrics from ``loss_and_metrics(out, y, mask)``."""
+    metrics from ``loss_and_metrics(out, y, mask)``. A search network
+    (``init_arch_``, ``arch_names``) keeps its architecture weights in
+    the state's ``"arch"``."""
     sows = getattr(model, "sows_losses", False)
 
     def init_fn(seed, device):
-        lecun_init_(model, torch.Generator().manual_seed(int(seed)))
+        gen = torch.Generator().manual_seed(int(seed))
+        lecun_init_(model, gen)
         state = {k: {n: t.to(device) for n, t in v.items()}
                  for k, v in module_state(model).items()}
         if not state["batch_stats"]:
             del state["batch_stats"]
+        if hasattr(model, "init_arch_"):
+            model.init_arch_(gen)
+            state["arch"] = {n: getattr(model, n).detach().clone().to(device)
+                             for n in model.arch_names}
         return state
 
-    def _apply(params, stats, x, train, masks=None, with_sown=False):
+    def _apply(params, stats, x, train, masks=None, with_sown=False,
+               arch=None):
         """Logits, the new running statistics and (``with_sown``, for a
-        model that sows) the sown aux loss, else None, of one client. The
+        model that sows) the sown aux loss, else None, of one client;
+        ``arch`` holds a search network's architecture weights. The
         module writes updated statistics into the buffers it is given:
         hand it copies so the caller's state stays untouched."""
         tensors = dict(params)
+        if arch:
+            tensors.update(arch)
         stats = {k: v.clone() for k, v in stats.items()}
         tensors.update(stats)
         kwargs = {"train": train}
@@ -148,6 +159,8 @@ def _module_spec(model, loss_and_metrics, name, augment_fn, aux_loss_weight,
         if "batch_stats" in state:
             new_state["batch_stats"] = {k: v.detach()
                                         for k, v in stats.items()}
+        if "arch" in state:
+            new_state["arch"] = state["arch"]
         return new_state
 
     def loss_fn(state, batch, train, seed=0):
@@ -158,7 +171,8 @@ def _module_spec(model, loss_and_metrics, name, augment_fn, aux_loss_weight,
                                             for k, v in masks.items()}
         logits, stats, aux = _apply(state["params"],
                                     state.get("batch_stats", {}), x, train,
-                                    masks, with_sown=True)
+                                    masks, with_sown=True,
+                                    arch=state.get("arch"))
         loss, metrics = loss_and_metrics(logits, batch["y"], batch["mask"])
         if aux is not None:
             loss = loss + aux_loss_weight * aux
@@ -174,18 +188,18 @@ def _module_spec(model, loss_and_metrics, name, augment_fn, aux_loss_weight,
                                  "per-client seeds for its dropout masks")
             masks = _dropout_masks(model, x.shape[1], seeds[:K], x.device)
 
-        def one(params, stats, x, y, mask, masks):
+        def one(params, stats, x, y, mask, masks, arch):
             logits, new_stats, aux = _apply(params, stats, x, train, masks,
-                                            with_sown=True)
+                                            with_sown=True, arch=arch)
             loss, metrics = loss_and_metrics(logits, y, mask)
             if aux is not None:
                 loss = loss + aux_loss_weight * aux
             return loss, new_stats, metrics
 
-        in_dims = (0, 0, 0, 0, 0, None if masks is None else 0)
+        in_dims = (0, 0, 0, 0, 0, None if masks is None else 0, 0)
         losses, stats, metrics = vmap(one, in_dims=in_dims)(
             state["params"], state.get("batch_stats", {}), x, batch["y"],
-            batch["mask"], masks)
+            batch["mask"], masks, state.get("arch", {}))
         return losses.sum(), (_state(state["params"], state, stats),
                               metrics)
 
@@ -193,13 +207,60 @@ def _module_spec(model, loss_and_metrics, name, augment_fn, aux_loss_weight,
         with torch.no_grad():
             logits, _, _ = _apply(state["params"],
                                   state.get("batch_stats", {}), batch["x"],
-                                  False)
+                                  False, arch=state.get("arch"))
             return loss_and_metrics(logits, batch["y"], batch["mask"])[1]
 
     return TrainSpec(init_fn=init_fn, loss_fn=loss_fn, metrics_fn=metrics_fn,
                      name=name, augment_fn=augment_fn,
                      lane_loss_builder=lane_loss_builder,
                      stacked_loss_fn=stacked_loss_fn)
+
+
+def _seg_loss_and_metrics(logits, y, mask, num_classes, ignore_index):
+    """Per-pixel cross-entropy over ``logits [B, H, W, C]`` with the
+    pixels labelled ``ignore_index`` (or outside ``[0, C)``) and the
+    masked samples left out; metrics ``loss_sum``, ``correct``, ``count``
+    and the summed ``[C, C]`` ``confusion`` (fp32 counts, rows ground
+    truth), counted as a product of one-hot rows, which ``vmap`` maps
+    over stacked clients (``torch.bincount`` does not map); each count
+    stays far below fp32's 2^24."""
+    y = y.long()
+    pix = ((y != ignore_index) & (y >= 0) & (y < num_classes)).float()
+    pix = pix * mask.reshape(mask.shape + (1,) * (y.dim() - mask.dim()))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    y_safe = torch.clamp(y, 0, logits.shape[-1] - 1)
+    ll = logp.gather(-1, y_safe[..., None])[..., 0]
+    count = pix.sum()
+    loss_sum = (-ll * pix).sum()
+    pred = logits.argmax(dim=-1)
+    correct = ((pred == y).float() * pix).sum()
+    with torch.no_grad():
+        classes = torch.arange(num_classes, device=y.device)
+        truth = (y_safe[..., None] == classes).float() * pix[..., None]
+        cm = torch.einsum("...i,...j->ij", truth,
+                          (pred[..., None] == classes).float())
+    return loss_sum / torch.clamp(count, min=1.0), {
+        "loss_sum": loss_sum, "correct": correct, "count": count,
+        "confusion": cm}
+
+
+def make_segmentation_spec(model, example_x=None, num_classes=None,
+                           ignore_index=255, name="segmentation",
+                           aux_loss_weight=0.01):
+    """Per-pixel cross-entropy over ``[B, H, W, C]`` logits with the
+    ignore label 255 (the reference FedSeg trainer's loss); the metrics
+    carry the summed ``[C, C]`` confusion matrix, so mIoU and FWIoU are
+    exact (``core/seg_eval.py``). A model that sows an aux loss adds
+    ``aux_loss_weight`` times it, as in :func:`make_classification_spec`.
+    ``example_x`` is accepted for signature parity and unused."""
+    del example_x
+    if num_classes is None:
+        num_classes = model.num_classes
+    return _module_spec(
+        model,
+        lambda out, y, mask: _seg_loss_and_metrics(
+            out, y, mask, num_classes, ignore_index),
+        name, None, aux_loss_weight, None)
 
 
 def _seq_loss_and_metrics(logits, y, mask, ignore_index, dims):
@@ -277,4 +338,4 @@ def make_seq_classification_spec(model, example_x=None, ignore_index=0,
 
 
 __all__ = ["make_classification_spec", "make_seq_classification_spec",
-           "make_multilabel_spec"]
+           "make_multilabel_spec", "make_segmentation_spec"]

@@ -1,5 +1,6 @@
 """Non-IID data partitioners (host numpy; counterpart of
-``fedml_tpu/core/partition.py``, byte-equal for the same seed).
+``fedml_tpu/core/partition.py``, byte-equal for the same seed),
+classification and segmentation.
 
 Latent-Dirichlet partition: per class, draw Dirichlet(alpha) proportions
 over clients, cap any client already holding ``N / client_num`` samples,
@@ -41,12 +42,13 @@ def non_iid_partition_with_dirichlet_distribution(
         seed=None, min_require_size=DEFAULT_MIN_SAMPLES):
     """LDA partition of sample indices into ``client_num`` shards.
 
-    Returns ``{client_idx: np.ndarray of sample indices}``. Only
-    ``task="classification"`` (one label per sample) is ported."""
-    if task != "classification":
-        raise NotImplementedError(
-            "segmentation partitions wait for ROADMAP A14 (fedseg)")
-    label_list = np.asarray(label_list)
+    Returns ``{client_idx: np.ndarray of sample indices}``. ``task`` is
+    ``"classification"`` (one label per sample) or ``"segmentation"``
+    (a list of the classes present in each sample: each sample is dealt
+    once, with the first class it holds)."""
+    segmentation = task == "segmentation"
+    label_list = (np.asarray(label_list, dtype=object) if segmentation
+                  else np.asarray(label_list))
     rng = np.random.default_rng(seed)
     N = len(label_list)
     if client_num * min_require_size > N:
@@ -56,8 +58,16 @@ def non_iid_partition_with_dirichlet_distribution(
     min_size = 0
     while min_size < min_require_size:
         idx_batch = [[] for _ in range(client_num)]
+        if segmentation:
+            first_class = [min(cats) for cats in label_list]
         for k in range(classes):
-            idx_k = np.where(label_list == k)[0]
+            if segmentation:
+                idx_k = np.asarray([i for i, fc in enumerate(first_class)
+                                    if fc == k], dtype=np.int64)
+                if len(idx_k) == 0:
+                    continue
+            else:
+                idx_k = np.where(label_list == k)[0]
             idx_batch, min_size = \
                 partition_class_samples_with_dirichlet_distribution(
                     N, alpha, client_num, idx_batch, idx_k, rng)

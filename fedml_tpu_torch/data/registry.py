@@ -3,17 +3,12 @@ synthetic sets, LEAF MNIST (``mnist``), the CIFAR family, the TFF h5
 sets (``femnist``/``fed_emnist``, ``fed_cifar100``), Shakespeare (TFF h5
 and LEAF JSON), StackOverflow (``stackoverflow_nwp``,
 ``stackoverflow_lr``; TFF h5) and the image folders
-(``imagenet``/``ILSVRC2012``, ``gld23k``/``gld160k``) from local files,
-with the reference's defaults. The three segmentation names raise,
-naming the ROADMAP item they wait for."""
+(``imagenet``/``ILSVRC2012``, ``gld23k``/``gld160k``) and the
+segmentation sets (``synthetic_segmentation``, and ``pascal_voc`` /
+``coco_seg`` from a VOC tree) from local files, with the reference's
+defaults."""
 
 from __future__ import annotations
-
-#: names of the reference's registry not ported yet, with their item
-_UNPORTED = {
-    "synthetic_segmentation": "A14c (fedseg)", "pascal_voc": "A14c (fedseg)",
-    "coco_seg": "A14c (fedseg)",
-}
 
 
 def load_dataset(args, dataset_name):
@@ -48,6 +43,15 @@ def load_dataset(args, dataset_name):
         size_kw.pop("image_size", None)
         return synthetic.load_synthetic_sequences(
             client_num=client_num, seed=seed, **size_kw)
+    if dataset_name == "synthetic_segmentation":
+        return synthetic.load_synthetic_segmentation(
+            client_num=client_num, seed=seed, **size_kw)
+    if dataset_name in ("pascal_voc", "coco_seg"):
+        from fedml_tpu_torch.data.voc import load_voc_federated
+        return load_voc_federated(
+            data_dir, client_num=client_num, partition=partition,
+            partition_alpha=alpha,
+            image_size=getattr(args, "image_size", None) or 513, seed=seed)
     if dataset_name == "mnist":
         from fedml_tpu_torch.data.leaf import load_leaf_mnist
         return load_leaf_mnist(data_dir, client_num=client_num, seed=seed)
@@ -82,10 +86,6 @@ def load_dataset(args, dataset_name):
             data_dir, split=dataset_name,
             image_size=getattr(args, "image_size", None) or 224,
             client_num=client_num, seed=seed)
-    if dataset_name in _UNPORTED:
-        raise NotImplementedError(
-            f"dataset {dataset_name!r} waits for ROADMAP "
-            f"{_UNPORTED[dataset_name]}")
     raise ValueError(f"unknown dataset: {dataset_name}")
 
 

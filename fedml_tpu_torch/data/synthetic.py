@@ -1,7 +1,7 @@
 """Synthetic federated datasets (counterpart of
 ``fedml_tpu/data/synthetic.py``; byte-equal for the same seed): the LEAF
-synthetic(alpha, beta) logistic-regression task, CIFAR-shaped images and
-next-token sequences. Host numpy: the FedAvg API uploads the data."""
+synthetic(alpha, beta) logistic-regression task, CIFAR-shaped images,
+rectangles to segment and next-token sequences. Host numpy: the FedAvg API uploads the data."""
 
 from __future__ import annotations
 
@@ -95,6 +95,33 @@ def load_synthetic_images(client_num=10, n_train=2000, n_test=400,
     else:
         train_parts = non_iid_partition_with_dirichlet_distribution(
             y_train, client_num, class_num, partition_alpha, seed=seed)
+    test_parts = homo_partition(n_test, client_num, seed + 1)
+    return _eight_tuple(train_parts, test_parts, x_train, y_train,
+                        x_test, y_test, class_num)
+
+
+def load_synthetic_segmentation(client_num=4, n_train=200, n_test=40,
+                                image_size=32, class_num=4, seed=0):
+    """Synthetic segmentation set: each image holds one colored rectangle
+    of a foreground class on background (class 0), with per-pixel labels
+    ``[n, H, W]``; images are class-colored with noise so a segmentation
+    net can fit it. Homogeneous shards."""
+    rng = np.random.default_rng(seed)
+    n = n_train + n_test
+    H = W = image_size
+    x = rng.normal(0, 0.3, (n, H, W, 3)).astype(np.float32)
+    y = np.zeros((n, H, W), np.int64)
+    colors = rng.normal(0, 1, (class_num, 3))
+    for i in range(n):
+        c = int(rng.integers(1, class_num))
+        h0, w0 = rng.integers(0, H // 2, 2)
+        h1 = h0 + int(rng.integers(H // 4, H // 2))
+        w1 = w0 + int(rng.integers(W // 4, W // 2))
+        y[i, h0:h1, w0:w1] = c
+        x[i, h0:h1, w0:w1] += colors[c]
+    x_train, y_train, x_test, y_test = (x[:n_train], y[:n_train],
+                                        x[n_train:], y[n_train:])
+    train_parts = homo_partition(n_train, client_num, seed)
     test_parts = homo_partition(n_test, client_num, seed + 1)
     return _eight_tuple(train_parts, test_parts, x_train, y_train,
                         x_test, y_test, class_num)

@@ -23,6 +23,8 @@ from fedml_tpu_torch.resilience.integration import add_resilience_args
 from fedml_tpu_torch.resilience.steering import add_steering_args
 
 _A16_OBS = "ROADMAP A16 (the observability switchboard)"
+#: the segmentation sets (``main_fedseg`` trains them)
+SEGMENTATION_SETS = ("synthetic_segmentation", "pascal_voc", "coco_seg")
 #: flag -> (value that runs, the ROADMAP item a change waits for)
 _UNPORTED = {
     "mesh": (0, "ROADMAP A15 (multi-device)"),
@@ -232,6 +234,11 @@ def prepare(parser, argv, run_name):
     the run. Returns ``(args, device, logger, dataset, spec)``."""
     args = parser.parse_args(argv)
     refuse_unported(args)
+    if args.dataset in SEGMENTATION_SETS:
+        raise ValueError(
+            f"--dataset {args.dataset}: per-pixel labels train through "
+            "main_fedseg (DeepLab and the segmentation spec), not through "
+            "a classification main")
     device = device_for(args)
     logger = setup(args, run_name=run_name(args))
     dataset, model = load_dataset_and_model(args)

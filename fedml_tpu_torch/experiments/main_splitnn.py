@@ -18,7 +18,6 @@ reference's weights. ``main(argv)`` returns ``(api, server_params)``.
 from __future__ import annotations
 
 import argparse
-import math
 
 import numpy as np
 import torch
@@ -26,19 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fedml_tpu_torch.experiments import common
-from fedml_tpu_torch.models.layers import hwc, nchw
-
-
-def same_pad(x, kernel, stride):
-    """Pad NCHW ``x`` as flax's ``"SAME"`` does: ``ceil(n / stride)``
-    outputs a side, the odd pixel of padding at the end -- (0, 1) for a
-    3x3 stride-2 conv over an even side, not ``padding=1``."""
-    pads = []
-    for n in (x.shape[3], x.shape[2]):   # F.pad lists the last axis first
-        out = math.ceil(n / stride)
-        total = max((out - 1) * stride + kernel - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
+from fedml_tpu_torch.models.layers import hwc, nchw, same_pad
 
 
 class ConvStem(nn.Module):

@@ -19,4 +19,8 @@ from fedml_tpu_torch.models.transformer import (  # noqa: F401
     TransformerLM, lm_loss, transformer_nwp)
 from fedml_tpu_torch.models.vgg import (  # noqa: F401
     VGG, vgg11, vgg13, vgg16, vgg19)
+from fedml_tpu_torch.models.gkt import (  # noqa: F401
+    GKTClientResNet, GKTServerResNet, resnet5_56, resnet8_56, resnet56_server)
+from fedml_tpu_torch.models.darts import (  # noqa: F401
+    DARTS_V1, DARTSFixedNetwork, DARTSNetwork, Genotype, derive_genotype)
 from fedml_tpu_torch.models.factory import create_model  # noqa: F401

@@ -1,7 +1,8 @@
 """Shared layers and initialisers of the port's model zoo (counterpart of
 ``fedml_tpu/models/layers.py``): flax's default initialisers,
-per-sample stochastic depth from a given keep mask, and GroupNorm with
-flax's statistics."""
+per-sample stochastic depth from a given keep mask, flax's ``"SAME"``
+padding for convolutions and pools, and GroupNorm with flax's
+statistics."""
 
 from __future__ import annotations
 
@@ -64,6 +65,140 @@ def dense(lin, x, dtype):
 def flatten_hwc(x):
     """``[B, C, H, W] -> [B, H*W*C]`` in flax's (H, W, C) order."""
     return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+def same_padding(n, kernel, stride, dilation=1):
+    """``(low, high)`` padding of one side of ``n`` pixels under flax's
+    ``"SAME"``: ``ceil(n / stride)`` outputs, the kernel's effective
+    size ``dilation * (kernel - 1) + 1``, the odd pixel at the end."""
+    eff = dilation * (kernel - 1) + 1
+    out = math.ceil(n / stride)
+    total = max((out - 1) * stride + eff - n, 0)
+    return total // 2, total - total // 2
+
+
+def same_pad(x, kernel, stride, dilation=1, value=0.0):
+    """Pad NCHW ``x`` as flax's ``"SAME"`` does (:func:`same_padding`):
+    (0, 1) for a 3x3 stride-2 window over an even side, not
+    ``padding=1``. ``value`` fills the pad (``-inf`` for a max pool)."""
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):  # F.pad lists the last axis first
+        pads += list(same_padding(n, kernel, stride, dilation))
+    if not any(pads):
+        return x
+    return F.pad(x, pads, value=value)
+
+
+def same_conv2d(conv, x, dtype, fn=None):
+    """``conv`` (an ``nn.Conv2d`` built with ``padding=0``) applied in
+    ``dtype`` over flax's ``"SAME"`` padding of ``x``: a symmetric pad
+    goes to the convolution itself, an uneven one to :func:`same_pad`.
+    ``fn`` is the convolution (``F.conv2d``'s signature; default it)."""
+    fn = fn or F.conv2d
+    k, s, d = conv.kernel_size[0], conv.stride[0], conv.dilation[0]
+    (top, bottom), (left, right) = (same_padding(x.shape[2], k, s, d),
+                                    same_padding(x.shape[3], k, s, d))
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    w = conv.weight.to(dtype)
+    if top == bottom and left == right:
+        return fn(x, w, bias, s, (top, left), d, conv.groups)
+    return fn(F.pad(x, (left, right, top, bottom)), w, bias, s, 0, d,
+              conv.groups)
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (tuple, list)) else [v, v]
+
+
+class _Conv(torch.autograd.Function):
+    """``y = conv(x, w)`` whose backward is :class:`_ConvGrad`, itself
+    differentiable."""
+
+    @staticmethod
+    def forward(x, w, stride, padding, dilation, groups):
+        return F.conv2d(x, w, None, stride, padding, dilation, groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, *conf = inputs
+        ctx.save_for_backward(x, w)
+        ctx.conf = conf
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx, gw = _ConvGrad.apply(gy, x, w, *ctx.conf)
+        return gx, gw, None, None, None, None
+
+
+class _ConvGrad(torch.autograd.Function):
+    """``(gx, gw)`` of ``y = conv(x, w)`` at the output gradient ``gy``,
+    by ``convolution_backward``. Its own backward is written in the
+    convolution and its two gradients again (for incoming ``a`` on
+    ``gx`` and ``b`` on ``gw``: ``conv(a, w) + conv(x, b)`` on ``gy``,
+    the weight gradient of ``(a, gy)`` on ``w`` and the input gradient
+    of ``(gy, b)`` on ``x``), where autograd's own double backward
+    computes the weight gradient as a convolution whose kernel is a
+    whole image."""
+
+    @staticmethod
+    def forward(gy, x, w, stride, padding, dilation, groups):
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            gy, x, w, None, _pair(stride), _pair(padding), _pair(dilation),
+            False, [0, 0], groups, [True, True, False])
+        return gx, gw
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        gy, x, w, *conf = inputs
+        ctx.save_for_backward(gy, x, w)
+        ctx.conf = conf
+
+    @staticmethod
+    def backward(ctx, a, b):
+        gy, x, w = ctx.saved_tensors
+        conf = ctx.conf
+        g_gy = g_x = g_w = None
+        if a is not None:
+            g_gy = _Conv.apply(a, w, *conf)
+            g_w = _ConvGrad.apply(gy, a, w, *conf)[1]
+        if b is not None:
+            t = _Conv.apply(x, b, *conf)
+            g_gy = t if g_gy is None else g_gy + t
+            g_x = _ConvGrad.apply(gy, x, b, *conf)[0]
+        return g_gy, g_x, g_w, None, None, None, None
+
+
+def conv2d_twice(x, w, bias=None, stride=1, padding=0, dilation=1,
+                 groups=1):
+    """``F.conv2d`` with a hand-written double backward in
+    ``convolution_backward``'s own products (:class:`_ConvGrad`): the
+    second-order DARTS step differentiates through every weight gradient,
+    and autograd's formula for that runs each as a convolution with an
+    image-sized kernel (on the card, cuDNN's slow indexed implicit GEMM).
+    Same values; not for ``torch.func.vmap``."""
+    y = _Conv.apply(x, w, stride, padding, dilation, groups)
+    return y if bias is None else y + bias.reshape(1, -1, 1, 1)
+
+
+def max_pool_same(x, window, stride):
+    """flax ``nn.max_pool(padding="SAME")`` over NCHW ``x``: the pad is
+    ``-inf``, so it is never the maximum."""
+    return F.max_pool2d(same_pad(x, window, stride, value=float("-inf")),
+                        window, stride)
+
+
+def avg_pool_same(x, window, stride):
+    """flax ``nn.avg_pool(padding="SAME", count_include_pad=False)`` over
+    NCHW ``x``: each window's sum over the in-bounds pixels divided by
+    their count, also where the pad is uneven."""
+    total = F.avg_pool2d(same_pad(x, window, stride), window, stride,
+                         divisor_override=1)
+    ones = torch.ones((1, 1) + tuple(x.shape[-2:]), dtype=x.dtype,
+                      device=x.device)
+    count = F.avg_pool2d(same_pad(ones, window, stride), window, stride,
+                         divisor_override=1)
+    return total / count
 
 
 def drop_path(x, keep_mask, rate):
@@ -172,5 +307,6 @@ class FlaxGroupNorm2d(nn.Module):
 
 
 __all__ = ["lecun_init_", "nchw", "hwc", "conv2d", "dense", "flatten_hwc",
-           "drop_path", "draw_keep", "MaskedDropout", "flax_group_norm",
-           "FlaxGroupNorm2d"]
+           "same_padding", "same_pad", "same_conv2d", "conv2d_twice",
+           "max_pool_same", "avg_pool_same", "drop_path", "draw_keep",
+           "MaskedDropout", "flax_group_norm", "FlaxGroupNorm2d"]

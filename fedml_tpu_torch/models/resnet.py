@@ -31,7 +31,7 @@ def flax_batch_norm(x, scale, bias, mean, var, train, dtype,
     (``momentum`` on the old running value, ``eps`` inside the root).
 
     Returns ``(y, new_mean, new_var)``; in eval mode the running stats
-    pass through. Statistics and the normalisation run in fp32, the
+    pass through. ``scale`` and ``bias`` may be None (no affine). Statistics and the normalisation run in fp32, the
     result is cast to ``dtype``."""
     xf = x.float()
     if train:
@@ -45,21 +45,28 @@ def flax_batch_norm(x, scale, bias, mean, var, train, dtype,
         mu, v = mean, var
         new_mean, new_var = mean, var
     shape = (1, -1) + (1,) * (x.dim() - 2)
-    y = ((xf - mu.reshape(shape))
-         * (torch.rsqrt(v + eps) * scale).reshape(shape)
-         + bias.reshape(shape))
+    mul = torch.rsqrt(v + eps)
+    if scale is not None:
+        mul = mul * scale
+    y = (xf - mu.reshape(shape)) * mul.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
     return y.to(dtype), new_mean, new_var
 
 
 class FlaxBatchNorm2d(nn.Module):
-    """BatchNorm with flax's statistics (see :func:`flax_batch_norm`)."""
+    """BatchNorm with flax's statistics (see :func:`flax_batch_norm`);
+    ``affine=False`` (flax's ``use_scale=use_bias=False``) keeps the
+    statistics and no scale or bias."""
 
     def __init__(self, channels, dtype=torch.float32, momentum=BN_MOMENTUM,
-                 eps=BN_EPS):
+                 eps=BN_EPS, affine=True):
         super().__init__()
         self.dtype, self.momentum, self.eps = dtype, momentum, eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.weight = self.bias = None
+        if affine:
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 

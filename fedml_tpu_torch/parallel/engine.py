@@ -72,25 +72,52 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
+def _neg_lr(lr, count):
+    """``-lr``, or ``-lr(count)`` on ``count``'s device for a schedule
+    (read before the count is incremented, as optax's
+    ``scale_by_schedule`` reads it)."""
+    return -lr(count).to(count.device) if callable(lr) else -lr
+
+
+def _per_client(step, p):
+    """A step size of one a stacked client, broadcast over ``p``'s
+    trailing axes (a float passes through)."""
+    if isinstance(step, torch.Tensor):
+        return step.reshape(step.shape + (1,) * (p.dim() - step.dim()))
+    return step
+
+
 class SGD:
     """``optax.chain(add_decayed_weights(wd), sgd(lr, momentum))`` over
     dicts of tensors: ``g' = g + wd*p``, ``buf = g' + momentum*buf``,
     ``p <- p - lr*buf``. Optimizer state is ``{name: buf}`` (empty
-    without momentum)."""
+    without momentum). A callable ``lr`` (a schedule,
+    ``utils/schedules.py``) adds a step ``"count"`` of ``count_shape``
+    (one a client when K clients are stacked), read by the schedule
+    before it is incremented and 0 at each ``init``, as optax's
+    ``scale_by_schedule`` counts."""
 
     def __init__(self, cfg: ClientUpdateConfig):
         self.lr, self.wd, self.momentum = (cfg.lr, cfg.weight_decay,
                                            cfg.momentum)
 
     def init(self, params, count_shape=()):
-        """Fresh state; ``count_shape`` is unused (SGD keeps no count)."""
-        if not self.momentum:
-            return {}
-        return {k: torch.zeros_like(v) for k, v in params.items()}
+        """Fresh state; ``count_shape`` shapes the schedule's count."""
+        state = {}
+        if self.momentum:
+            state = {k: torch.zeros_like(v) for k, v in params.items()}
+        if callable(self.lr):
+            dev = next(iter(params.values())).device
+            state["count"] = torch.zeros(count_shape, dtype=torch.int32,
+                                         device=dev)
+        return state
 
     def update(self, grads, opt_state, params):
         """Returns ``(new_params, new_opt_state)``; inputs untouched."""
         new_params, new_state = {}, {}
+        if callable(self.lr):
+            new_state["count"] = opt_state["count"] + 1
+        neg_lr = _neg_lr(self.lr, opt_state.get("count"))
         for k, p in params.items():
             g = grads[k]
             if self.wd:
@@ -98,8 +125,48 @@ class SGD:
             if self.momentum:
                 g = g + self.momentum * opt_state[k]
                 new_state[k] = g
-            new_params[k] = p + (-self.lr) * g
+            new_params[k] = p + _per_client(neg_lr, p) * g
         return new_params, new_state
+
+
+class ClipByGlobalNorm:
+    """``optax.chain(clip_by_global_norm(max_norm), <inner>)``: each
+    client's gradient scaled by ``max_norm / norm`` where its global norm
+    (over all of its leaves) reaches ``max_norm``, before the inner
+    optimizer's weight decay. With K clients stacked on a leading axis
+    (``init(params, count_shape=(K,))``) each client's norm is its own;
+    the state keeps a ``"lead"`` tensor of ``count_shape`` that says so."""
+
+    def __init__(self, max_norm, inner):
+        self.max_norm, self.inner = float(max_norm), inner
+
+    def init(self, params, count_shape=()):
+        dev = next(iter(params.values())).device
+        return {"lead": torch.zeros(count_shape, device=dev),
+                "inner": self.inner.init(params, count_shape)}
+
+    def clip(self, grads, lead):
+        """``grads`` clipped by each client's global norm; ``lead`` is
+        the number of leading client axes."""
+        sq = None
+        for g in grads.values():
+            s = (g.float() * g.float()).sum(
+                dim=tuple(range(lead, g.dim()))) if g.dim() > lead else (
+                g.float() * g.float())
+            sq = s if sq is None else sq + s
+        norm = torch.sqrt(sq)
+        out = {}
+        for k, g in grads.items():
+            n = norm.reshape(norm.shape + (1,) * (g.dim() - norm.dim()))
+            out[k] = torch.where(n < self.max_norm, g,
+                                 (g / n.to(g.dtype)) * self.max_norm)
+        return out
+
+    def update(self, grads, opt_state, params):
+        grads = self.clip(grads, opt_state["lead"].dim())
+        new_params, inner = self.inner.update(grads, opt_state["inner"],
+                                              params)
+        return new_params, {"lead": opt_state["lead"], "inner": inner}
 
 
 class AMSGrad:
@@ -112,7 +179,8 @@ class AMSGrad:
     raw moment and corrects afterwards: a different optimizer from step 2
     on.) The count is per client: ``init(params, count_shape=(K,))`` for
     K stacked clients, whose bias corrections broadcast over each leaf's
-    trailing axes."""
+    trailing axes. A callable ``lr`` (a schedule) reads the count before
+    its increment, as ``optax.amsgrad(schedule)`` does."""
     b1, b2, eps = 0.9, 0.999, 1e-8
 
     def __init__(self, cfg: ClientUpdateConfig):
@@ -128,6 +196,7 @@ class AMSGrad:
     def update(self, grads, opt_state, params):
         """Returns ``(new_params, new_opt_state)``; inputs untouched."""
         b1, b2 = self.b1, self.b2
+        neg_lr = _neg_lr(self.lr, opt_state["count"])
         count = opt_state["count"] + 1
         bc1 = 1 - b1 ** count.float()
         bc2 = 1 - b2 ** count.float()
@@ -143,20 +212,21 @@ class AMSGrad:
                                       nu[k] / bc2.reshape(lead))
             u = (mu[k] / bc1.reshape(lead)) / (torch.sqrt(nu_max[k])
                                                + self.eps)
-            new_params[k] = p + (-self.lr) * u
+            new_params[k] = p + _per_client(neg_lr, p) * u
         return new_params, {"count": count, "mu": mu, "nu": nu,
                             "nu_max": nu_max}
 
 
 def make_optimizer(cfg: ClientUpdateConfig):
-    if cfg.grad_clip:
-        raise NotImplementedError(
-            "grad_clip waits for ROADMAP A14 (fednas)")
+    """The local optimizer of ``cfg``: SGD or AMSGrad, behind the global
+    norm clip when ``grad_clip`` is set (the reference's chain order)."""
     if cfg.optimizer == "sgd":
-        return SGD(cfg)
-    if cfg.optimizer == "adam":
-        return AMSGrad(cfg)
-    raise ValueError(f"unknown optimizer {cfg.optimizer}")
+        opt = SGD(cfg)
+    elif cfg.optimizer == "adam":
+        opt = AMSGrad(cfg)
+    else:
+        raise ValueError(f"unknown optimizer {cfg.optimizer}")
+    return ClipByGlobalNorm(cfg.grad_clip, opt) if cfg.grad_clip else opt
 
 
 _U64 = np.uint64
@@ -1042,7 +1112,8 @@ def make_eval_fn(spec: TrainSpec):
     return eval_fn
 
 
-__all__ = ["ClientUpdateConfig", "SGD", "AMSGrad", "make_optimizer",
+__all__ = ["ClientUpdateConfig", "SGD", "AMSGrad", "ClipByGlobalNorm",
+           "make_optimizer",
            "fold_seed", "fold_step_seeds", "client_seeds_for",
            "make_client_update", "make_indexed_client_update",
            "make_loop_client_update", "make_lane_update",

@@ -136,7 +136,7 @@ def plan_tree(spec: TreeSpec, spec_path, status_dir, ledger_path=None):
 
 def run_tree(spec: TreeSpec, workdir, init_params=None, supervise=True,
              join_timeout=600.0, metrics_logger=None,
-             ledger_path=None, on_spawned=None):
+             ledger_path=None, on_spawned=None, reap_timeout=60.0):
     """Run the spec's tree to completion. ``workdir`` receives the
     spec file and every tier's status.json; ``ledger_path`` (optional)
     collects the per-tier reports/sec rows plus the coordinator's.
@@ -144,7 +144,8 @@ def run_tree(spec: TreeSpec, workdir, init_params=None, supervise=True,
     is up (the edge-kill test reaches through it). Returns a result
     dict: the coordinator server, per-process summaries and statuses,
     and the supervision/teardown counters -- ``zombies`` MUST be 0 on
-    a clean run."""
+    a clean run. After the run, children get ``reap_timeout`` seconds
+    to exit before the ones that overstay are killed (and counted)."""
     from fedml_tpu_torch.resilience.async_agg import (
         AsyncBufferedFedAvgServer)
     from fedml_tpu_torch.resilience.steering import PaceController
@@ -236,7 +237,7 @@ def run_tree(spec: TreeSpec, workdir, init_params=None, supervise=True,
                 except subprocess.TimeoutExpired:
                     s.proc.terminate()
                     killed += 1
-        reap_by = time.monotonic() + 60.0
+        reap_by = time.monotonic() + reap_timeout
         for c in children:
             if c.proc is None:
                 continue

@@ -30,6 +30,13 @@ transposed -> ``weight_ih [4H, in]``, the hidden kernels ``hi/hf/hg/ho``
 ``embedding`` -> ``<name>.weight``, a Dense -> ``<name>.weight`` ``[out,
 in]`` and ``.bias``.
 
+The DARTS networks, DeepLab and the FedGKT pair go through the CV
+carrier too: DARTS' ``arch`` collection (``alphas_normal``,
+``alphas_reduce``) is carried as its own top-level key, its ops'
+norms carry statistics and no scale or bias, and the GKT ResNets'
+shortcuts (the port's ``downsample.{0,1}``) are renamed by
+:func:`gkt_variables_to_state`.
+
 LR, the CNNs, the vertical-FL party models (``DenseModel``,
 ``LocalModel``), SplitNN's halves (``lead=1`` for the client halves,
 stacked on a client axis) and the CV zoo -- ResNetGN, MobileNet,
@@ -248,7 +255,7 @@ def cv_variables_to_state(variables, lead=0, device="cpu"):
     state ``{"params", "batch_stats"}`` on ``device`` (``batch_stats``
     empty for a model without BatchNorm)."""
     p, bs = {}, {}
-    for path, v in _leaves(variables["params"]):
+    for path, v in _leaves(variables.get("params", {})):
         v = np.asarray(v)
         if path[-1] == "kernel":
             v = _hwio_to_oihw(v) if v.ndim - lead == 4 else _swap_last2(v)
@@ -257,8 +264,11 @@ def cv_variables_to_state(variables, lead=0, device="cpu"):
         bs[".".join(path[:-1] + (_CV_STAT[path[-1]],))] = np.asarray(v)
     conv = lambda a: torch.as_tensor(
         np.array(a, np.float32, order="C"), device=device)
-    return {"params": {k: conv(v) for k, v in p.items()},
-            "batch_stats": {k: conv(v) for k, v in bs.items()}}
+    out = {"params": {k: conv(v) for k, v in p.items()},
+           "batch_stats": {k: conv(v) for k, v in bs.items()}}
+    if "arch" in variables:
+        out["arch"] = {k: conv(v) for k, v in variables["arch"].items()}
+    return out
 
 
 def cv_state_to_variables(state, lead=0):
@@ -286,7 +296,39 @@ def cv_state_to_variables(state, lead=0):
     out = {"params": params}
     if stats:
         out["batch_stats"] = stats
+    if "arch" in state:
+        out["arch"] = {k: v.detach().cpu().numpy()
+                       for k, v in state["arch"].items()}
     return out
+
+
+#: the reference ResNet block's shortcut names -> the port's
+_GKT_SHORTCUT = {"downsample_conv": "downsample.0",
+                 "downsample_bn": "downsample.1"}
+
+
+def _rename(state, table):
+    def key(k):
+        for a, b in table.items():
+            k = k.replace(f".{a}.", f".{b}.")
+        return k
+    return {c: {key(k): v for k, v in tree.items()}
+            for c, tree in state.items()}
+
+
+def gkt_variables_to_state(variables, lead=0, device="cpu"):
+    """JAX variables of a FedGKT client or server ResNet (``lead``
+    leading axes, such as the API's client axis) -> fp32 port state: the
+    CV carrier with the blocks' shortcuts renamed to the port's
+    ``downsample.{0,1}``."""
+    return _rename(cv_variables_to_state(variables, lead, device),
+                   _GKT_SHORTCUT)
+
+
+def gkt_state_to_variables(state, lead=0):
+    """Inverse of :func:`gkt_variables_to_state`."""
+    back = {v: k for k, v in _GKT_SHORTCUT.items()}
+    return cv_state_to_variables(_rename(state, back), lead)
 
 
 _GATES = ("i", "f", "g", "o")
@@ -371,8 +413,8 @@ def _cv_leaf(module, suffix):
     if suffix == "bias":
         return "bias"
     last = module.rsplit(".", 1)[-1]
-    return "scale" if last.startswith("bn") or last.endswith("_bn") \
-        else "kernel"
+    return "scale" if last.startswith(("bn", "BatchNorm")) or last.endswith(
+        "_bn") else "kernel"
 
 
 def reference_names(names):
@@ -518,6 +560,7 @@ def reference_state(state):
 __all__ = ["variables_to_state", "state_to_variables",
            "lm_variables_to_state", "lm_state_to_variables",
            "cv_variables_to_state", "cv_state_to_variables",
+           "gkt_variables_to_state", "gkt_state_to_variables",
            "rnn_variables_to_state", "rnn_state_to_variables",
            "module_state", "server_state_from_optax",
            "server_state_to_optax", "reference_names", "reference_tree",

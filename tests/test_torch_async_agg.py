@@ -10,6 +10,7 @@ every ``async/*`` counter equal and the parameters within 1e-5; and
 reference mains, records within 1e-4. Both packages pack schedules with
 numpy (``FEDML_TPU_PACKING=python``)."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import types
 
 import jax

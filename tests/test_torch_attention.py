@@ -12,6 +12,7 @@ is about 1e-6): fp32 sums in another order; one bf16 ulp on the bf16
 forward and backward.
 """
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ exactly as ``make_cifar_augment`` makes them from its key) are fed to
 the port, and the two outputs must be equal (crop, flip and Cutout move
 or zero values; the fill shift is one fp32 add each way)."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ control-plane soaks (``--soak``, ``--tree_soak``) with the reference's
 record keys on the host, the refusal of every unported flag naming its
 ROADMAP item, and the failure without a card."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import os
 import subprocess

@@ -9,6 +9,7 @@ augmentation off, two bucketed rounds of LR on 32x32x3 images equal the
 JAX ``FedAvgAPI``'s within 1e-4 (the round tests' tolerance), from the
 reference's initial weights, numpy packing in both."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import types
 
 import jax

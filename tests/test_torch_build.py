@@ -3,6 +3,7 @@ without a compiler: the key that names a built library follows the
 source, every ``csrc/*.cuh`` header and the flags, and the ``-Xptxas -v``
 report parses into registers and spills per kernel."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import os
 
 import pytest

@@ -8,6 +8,7 @@ rounds (the port from the reference's initial weights carried over, both
 sides packing schedules with numpy); every FedAvg-family main and the
 centralized main save and resume."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import os
 import types

@@ -9,6 +9,7 @@ a reference server serving port clients, 3 rounds of
 run. Every socket test bounds itself through the transports' own
 timeouts; nothing compared depends on the wall clock."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import socket
 import threading
 import types

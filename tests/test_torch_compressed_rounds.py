@@ -17,6 +17,7 @@ parameters and residuals to 1e-5 (LR) and 1e-6 (the LM's SGD steps):
 fp32 sums in another order move a delta by an ulp, and topk keeps the
 same coordinates while its magnitudes stay apart."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import types
 

@@ -14,6 +14,7 @@ residual`` to 1e-6; the compressed folds, the compressed buffered
 oracle and the robust fold over compressed reports bitwise; the payload
 byte counts exactly."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import dataclasses
 import json
 import types

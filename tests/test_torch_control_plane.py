@@ -23,6 +23,7 @@ deadline decides keep every report well inside or well past it. Every
 socket test bounds itself through the drivers' ``timeout`` and
 ``join_timeout``."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import functools
 import importlib
 import threading

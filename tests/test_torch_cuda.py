@@ -22,6 +22,7 @@ final maximum. lse is fp32 on both sides and
 held at 1e-4*max|lse| + 1e-5.
 """
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import pytest
 import torch
 

@@ -5,6 +5,7 @@ CIFAR family from a tiny fixture written under ``tmp_path`` in the
 format the loaders read), the partitions, ``normalized_black``,
 ``pack_cohort`` (numpy backend) and the registry's refusals."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import os
 import pickle
 import types
@@ -144,13 +145,15 @@ def test_load_dataset_is_byte_equal(name, kw):
     ("ILSVRC2012", "A14"), ("gld160k", "A14"),
     ("imagenet", "A14"), ("gld23k", "A14")])
 def test_registry_refuses_unported_names(name, item):
-    # the segmentation names still wait for ROADMAP A14c; the file-backed
-    # loaders of A14a are ported and look for their files
-    if name in ("synthetic_segmentation", "pascal_voc", "coco_seg"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            registry.load_dataset(_args(), name)
+    # every name of ROADMAP {item} is ported (A14a's file-backed loaders,
+    # A14c's segmentation sets) and the registry refuses none: the
+    # file-backed ones look for their files, the synthetic set loads
+    assert not hasattr(registry, "_UNPORTED"), item
+    if name == "synthetic_segmentation":
+        ds = registry.load_dataset(_args(n_train=8, n_test=4,
+                                         image_size=8), name)
+        assert ds[2]["y"].shape == (8, 8, 8)
     else:
-        assert name not in registry._UNPORTED
         with pytest.raises(FileNotFoundError):
             registry.load_dataset(_args(data_dir="/nonexistent"), name)
 

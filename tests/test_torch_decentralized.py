@@ -23,6 +23,7 @@
   the online one, through the port with ``--platform cpu``.
 """
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import types
 
 import jax

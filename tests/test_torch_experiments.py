@@ -11,6 +11,7 @@ defaults equal the reference's, each unported flag refuses naming its
 ROADMAP item, and without a card and without ``--platform cpu`` the
 command exits non-zero."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import argparse
 import json
 import os
@@ -142,7 +143,8 @@ def test_flags_and_defaults_are_the_reference_ones():
     (["--xprof_round", "1"], "A16"),
     (["--trace_dir", "/nonexistent"], "A16"),
     # the CV zoo and its file-backed sets run (test_torch_zoo_round.py);
-    # the segmentation sets still refuse, whatever the model
+    # the segmentation sets (A14c) train through main_fedseg, and the
+    # classification mains refuse them, whatever the model
     (["--dataset", "synthetic_segmentation", "--model", "vgg11"], "A14"),
     (["--dataset", "coco_seg", "--model", "resnet18_gn"], "A14"),
     (["--dataset", "pascal_voc", "--model", "mobilenet"], "A14"),
@@ -151,10 +153,15 @@ def test_flags_and_defaults_are_the_reference_ones():
     (["--dataset", "synthetic_segmentation"], "A14"),
 ])
 def test_unported_flag_refuses_naming_its_item(argv, item):
+    argv = argv + ["--platform", "cpu", "--comm_round", "1",
+                   "--client_num_in_total", "2", "--client_num_per_round",
+                   "2"]
+    if set(argv) & {"synthetic_segmentation", "pascal_voc", "coco_seg"}:
+        with pytest.raises(ValueError, match="main_fedseg"):
+            main_fedavg.main(argv)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main_fedavg.main(argv + ["--platform", "cpu", "--comm_round", "1",
-                                 "--client_num_in_total", "2",
-                                 "--client_num_per_round", "2"])
+        main_fedavg.main(argv)
 
 
 def test_transport_eventloop_configures_as_in_the_reference(tmp_path,

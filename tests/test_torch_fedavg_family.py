@@ -13,6 +13,7 @@ optimizers 1e-6 relative (and 1e-7 absolute, for entries near zero) over
 the round metrics; the FedAdam server state 1e-4 absolute and
 relative."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import argparse
 import math
 import types

@@ -10,6 +10,7 @@ atol 1e-4 / rtol 1e-5 for the forward, dX and dW -- values reach about
 the dW tolerance of the reference's own Pallas-vs-XLA test.
 """
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,7 @@ the LDA partition, the synthetic image loader, cohort sampling, client
 stacking, the index schedule, the lane packing and the eval packing
 (the reference's numpy packing backend, ``native=False``)."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import numpy as np
 import pytest
 

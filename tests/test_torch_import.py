@@ -1,6 +1,7 @@
 """torch<->flax ResNet checkpoint conversion (migration aid for reference
 users' state_dict checkpoints; naming per fedml_api/model/cv/resnet.py)."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

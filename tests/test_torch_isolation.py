@@ -5,6 +5,7 @@ source, ``chip_smoke.py`` or the card's test file names them in an
 import, and the entry points refuse to run on the CPU unless the caller
 asks for it."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import ast
 import os
 import subprocess
@@ -177,6 +178,50 @@ def test_serverless_split_vertical_and_secure_entry_points_need_a_gpu(
                                        "--cut", "dense"]),
                        (main_turboaggregate, []),
                        (main_vfl, ["--dataset", "synthetic_vertical"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main.main(argv + tiny)
+
+
+def test_segmentation_nas_and_gkt_entry_points_need_a_gpu(monkeypatch):
+    """FedSeg, FedNAS and FedGKT's APIs and their three mains raise
+    without a card unless asked for the CPU."""
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
+    from fedml_tpu_torch.algorithms.fednas import FedNASAPI
+    from fedml_tpu_torch.algorithms.fedseg import FedSegAPI
+    from fedml_tpu_torch.algorithms.specs import make_segmentation_spec
+    from fedml_tpu_torch.data.synthetic import (load_synthetic_images,
+                                                load_synthetic_segmentation)
+    from fedml_tpu_torch.experiments import (main_fedgkt, main_fednas,
+                                             main_fedseg)
+    from fedml_tpu_torch.models import darts, deeplab, gkt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seg = load_synthetic_segmentation(client_num=2, n_train=8, n_test=4,
+                                      image_size=8)
+    img = load_synthetic_images(client_num=2, n_train=16, n_test=4,
+                                image_size=8, partition="homo", seed=0)
+    args = types.SimpleNamespace(
+        client_num_in_total=2, client_num_per_round=2, comm_round=1,
+        epochs=1, batch_size=4, lr=0.1, seed=0, lr_scheduler="poly")
+    builds = [
+        lambda d: FedSegAPI(seg, make_segmentation_spec(
+            deeplab.DeepLab(num_classes=4, backbone="mobilenet")), args,
+            device=d),
+        lambda d: FedNASAPI(img, args, model=darts.DARTSNetwork(
+            C=2, layers=1, num_classes=10, steps=1), device=d),
+        lambda d: FedGKTAPI(img, gkt.resnet5_56(), gkt.GKTServerResNet(n=1),
+                            args, device=d),
+    ]
+    for build in builds:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(None)
+        assert build("cpu").device == torch.device("cpu")
+    tiny = ["--comm_round", "1", "--client_num_in_total", "2",
+            "--n_train", "40", "--image_size", "8"]
+    for main, argv in ((main_fedseg, ["--dataset",
+                                      "synthetic_segmentation"]),
+                       (main_fednas, ["--dataset", "synthetic_images"]),
+                       (main_fedgkt, ["--dataset", "synthetic_images"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main.main(argv + tiny)
 

@@ -5,6 +5,7 @@ logits and BatchNorm statistics. Depth 8, L=4, fp32; tolerance atol
 1e-5 (fp32 convs in different implementations), the reference's own
 packed-vs-vmap tolerance."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

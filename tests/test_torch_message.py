@@ -10,6 +10,7 @@ params, bf16 params (a ``torch.bfloat16`` tensor against the reference's
 values; the legacy JSON codec and ``params_to_lists`` /
 ``lists_to_params`` give equal results."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 
 import ml_dtypes

@@ -15,6 +15,7 @@ nothing adds exactly nothing; and ``main_fedavg --model moe_transformer
 within 1e-5 and parameters at the LM rounds' tolerance (lr/2 elementwise,
 99.9% within 1e-6)."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import functools
 import types
 

@@ -18,6 +18,7 @@ on the CPU.
   the reference's unread ``--secure`` switch does not parse.
 """
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import types
 
 import jax

@@ -7,6 +7,7 @@ argument; and the native backend asked for by name raising with the
 compiler's output, never falling back to numpy, when the build fails.
 Skipped where there is no ``g++``."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import os
 import shutil
 

@@ -21,6 +21,7 @@ Three kinds of test:
 Every socket test bounds itself through the drivers' ``timeout`` and
 ``join_timeout``."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import tempfile
 

@@ -11,6 +11,7 @@ reference.
 - With everything the port has armed, a TCP run is bit-equal to an
   unobserved one, and the status file's fields equal the reference's."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 
 import numpy as np

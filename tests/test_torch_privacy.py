@@ -7,6 +7,7 @@ onto the payload hook (one host-packed LR round against the reference's
 at 1e-4) and refusing the noise and order-statistic legs as the
 reference does."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import math
 import types

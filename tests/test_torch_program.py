@@ -7,6 +7,7 @@ entries, ``client_sampling`` with ``attempt > 0`` equal, and the legs
 that wait for later work raising with their ROADMAP item (the privacy
 legs themselves: ``tests/test_torch_privacy.py``)."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import dataclasses
 import json
 import types

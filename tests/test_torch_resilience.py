@@ -12,6 +12,7 @@ steering, and carries the reference's resumed records with it. The
 reference's behaviour tests (renormalise, don't zero-bias) hold on the
 port."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import itertools
 import logging
 import types

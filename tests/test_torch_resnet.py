@@ -4,6 +4,7 @@ step writes) on weights carried over from flax, and exact round trips of
 the carrier, single and lane-stacked. Forward tolerance atol 1e-5: fp32
 on both sides, convs in different implementations."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ applications, the weight carrier's round trip exact under flax's
 ``rnn_stackoverflow`` against the JAX ``FedAvgAPI`` within 1e-4 (numpy
 packing in both)."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import types
 
 import jax

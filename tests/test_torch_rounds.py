@@ -22,6 +22,7 @@ prints both).
 This file runs LR and the CNN; ``test_torch_rounds_resnet.py`` runs the
 ResNet with the same helpers, and holds the port's modes 0, 1 and 2 to
 one another with augmentation on (every runner derives a client's draws
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 from its cohort slot)."""
 
 import types

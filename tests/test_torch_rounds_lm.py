@@ -14,6 +14,7 @@ step moves an element whose gradient sits near 0 by up to lr either way
 when the frameworks' fp32 sums differ in the last bit); the test metrics
 to 1e-5."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import types
 
 import jax

@@ -4,6 +4,7 @@ the JAX ``FedAvgAPI`` (the configuration, tolerances and helpers of
 another with augmentation on, and the conditioning of a zero-padded
 BatchNorm step that sets the host-packed ResNet's data."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import numpy as np
 import pytest
 import torch

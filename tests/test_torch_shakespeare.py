@@ -8,6 +8,7 @@ one-next-character labels refused by the sequence spec in both packages
 ``main_fedavg``; and the bench's LM smoke on the h5 fixture, with V and
 T read from the file."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import os
 import subprocess
 import sys

@@ -21,6 +21,7 @@
   main (the synthetic set's loader is ``test_vfl_fit_is_the_reference``'s).
 """
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import csv
 import types
 

@@ -11,6 +11,7 @@ its model's extended vocabulary, where the reference's model returns
 NaN logits, and the port refuses the id on the host with a
 ``ValueError``."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import math
 import os
 import types

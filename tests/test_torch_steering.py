@@ -12,6 +12,7 @@ the reference's initial weights, with the parameters within 1e-4; and
 the reference's behaviour tests of the steered simulation hold on the
 port."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import math
 import types
 

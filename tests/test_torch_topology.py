@@ -15,6 +15,7 @@ against the reference.
 - ``TreeSpec.to_json()`` and ``manifest_core`` equal to the reference's
   for the same specs."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import sys
 
@@ -74,14 +75,17 @@ def test_every_spawned_argv_names_the_port(tmp_path, kw):
 def test_supervised_respawn_completes(tmp_path):
     """The reference's supervised-respawn scenario: edge 1 is killed once
     every process is up, the orchestrator respawns its argv, and the run
-    completes its 3 updates with no process left behind."""
+    completes its 3 updates with no process left behind. The run's third
+    flush lands about 8 s in; the respawned edge and its swarm then
+    outstay the stop wave, so the teardown's reap budget is cut from 60 s
+    to 5 s before they are killed (``killed``; ``zombies`` stays 0)."""
     import numpy as np
     spec = TreeSpec(fanout=(2,), leaves_per_edge=2, total_updates=3,
                     jitter_s=1.0, flush_deadline_s=8.0)
     init = {"w": np.arange(8, dtype=np.float32).reshape(2, 4),
             "b": np.zeros(4, np.float32)}
     res = run_tree(spec, str(tmp_path), init_params=init, supervise=True,
-                   join_timeout=240,
+                   join_timeout=240, reap_timeout=5.0,
                    on_spawned=lambda ch: ch["tier1-edge1"].proc.kill())
     srv = res["server"]
     assert srv.failed is None

@@ -12,6 +12,7 @@ computes bit for bit what it computes under a real ``Tracer``. The
 tracing module itself behaves as the reference's on a nested scenario,
 and ``profile_trace`` writes a Chrome trace."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
 import types
 

@@ -12,6 +12,7 @@ outside fp32, the Dense product's accumulation), each rounding 2^-8
 relative.
 """
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

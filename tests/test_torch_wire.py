@@ -13,6 +13,7 @@ reductions in another order), qsgd's scale equal, the wire packing a
 bitwise inverse over the device's codes, and decodes of shared codes
 within 4 ulp."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import importlib
 import sys
 

@@ -9,6 +9,7 @@ refusals; the lane-packed CNN against per-lane forwards and against the
 JAX package's packed CNN; ``CNNDropOut``'s training repeatable for a
 seed."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import types
 
 import jax

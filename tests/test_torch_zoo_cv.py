@@ -28,6 +28,7 @@ repeatable for a seed, absent in eval. The reference's own model cases
 (``tests/test_models.py``, all ``slow`` there) are restated in torch
 idiom below, ``slow`` as there."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import types
 
 import jax

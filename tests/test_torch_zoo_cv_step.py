@@ -20,6 +20,7 @@ gradients in ``test_torch_zoo_cv.py``, the fed CIFAR-100 round in
 ill-conditioned in fp32, so the inputs keep every BatchNorm at 8 values
 or more."""
 
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ XLA's fp32 on the CPU carries the two local SGD steps of a client 3.9e-4
 fp32 stays within 3e-8 of it. The port runs torch's native CPU
 convolution (``torch.backends.mkldnn`` off): oneDNN's fp32 weight
 gradients at these shapes stray up to 1.2e-4 of the largest |gradient|
+import torch_threads  # noqa: F401  (caps torch threads under xdist)
 from float64, the native kernels about 5e-7."""
 
 import numpy as np
