@@ -222,7 +222,26 @@ Phases (any failure exits non-zero):
    teacher logits within ``A14C_TOL``, the weights within its
    ``gkt_rel`` of their round-2 moves). None of B1-B4 runs (their
    counters read 0 after the phase);
-16. print the ``kernels`` JSON line and, last, the ``ok`` line.
+16. run the mains' run-time tooling (``phase_tooling``) on the
+   experiment phase's full-width TransformerLM streamed through bucketed
+   chunks (``--bucket_edges geometric``), 2 rounds, with ``--trace``,
+   ``--flightrec``, ``--perfmon`` (``--xprof_round 1``), ``--costmodel``,
+   ``--audit``, ``--race_audit``, ``--warmup``, ``--checkpoint_dir`` and
+   ``--compile_cache_dir``: (a) cold, in a fresh process over an empty
+   build cache: the trace, spans, ``metrics.prom`` and a final
+   ``status.json`` written, exactly one profiler capture (round 1's)
+   holding B2-B4's ``fwd_mma_kernel``, ``dq_mma_kernel`` and
+   ``dkv_mma_kernel``, the warmup building ``flash_attention`` once (1
+   miss, 0 hits) and no round building or loading anything, 0
+   transfer-guard violations, no lock-order cycle or held-while-blocking
+   event, and each round's bucket FLOPs equal to ``train_step_flops``
+   of one client's step times its executed (and true) client-steps; (b)
+   a warm restart in a new process over the same cache and checkpoints
+   (``--resume 1 --comm_round 4``): 0 ``nvcc`` runs, 0 warmup misses, no
+   build in any round, B2-B4 launched; (c) in this process under
+   deterministic kernels, the 2-round run with every flag on bit-equal
+   to the same run with none;
+17. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -2945,6 +2964,226 @@ def phase_a14c(torch, grouped_conv, fa, smi):
     print(f"a14c phase_s={time.time() - t0:.1f} card={smi}", flush=True)
 
 
+#: phase 16's run: the experiment phase's full-width TransformerLM,
+#: streamed through bucketed chunks (the path whose buckets the cost
+#: model attributes)
+TOOL_LM = EXP_LM + ["--bucket_edges", "geometric"]
+#: a cold or warm run in a fresh process: the main, then the launch
+#: counters and this process's nvcc runs
+_TOOL_CHILD = (
+    "import json, sys\n"
+    "from fedml_tpu_torch.ops import _build\n"
+    "from fedml_tpu_torch.ops import flash_attention as fa\n"
+    "from fedml_tpu_torch.experiments import main_fedavg\n"
+    "main_fedavg.main(sys.argv[1:])\n"
+    "print('tooling_child ' + json.dumps({'launches': fa.launches, "
+    "'nvcc_runs': _build.build_stats['builds']}), flush=True)\n")
+
+
+def _tool_flags(root, run, ckpt="ckpt", xprof=True):
+    """Every tooling flag, the artifacts under ``run``, the build cache
+    under ``root`` (shared by every run) and the checkpoints in
+    ``root/ckpt``."""
+    flags = ["--trace", "1", "--trace_dir", os.path.join(run, "trace"),
+             "--flightrec", "1", "--perfmon", "1", "--costmodel", "1",
+             "--audit", "1", "--race_audit", "1", "--warmup", "1",
+             "--checkpoint_dir", os.path.join(root, ckpt),
+             "--compile_cache_dir", os.path.join(root, "cache"),
+             "--run_dir", run]
+    if xprof:
+        flags += ["--xprof_round", "1",
+                  "--xprof_dir", os.path.join(run, "xprof")]
+    return flags
+
+
+def _tool_start(argv):
+    """Start one run of the main in a fresh process (the build records
+    and the loaded libraries are process-wide)."""
+    return time.time(), subprocess.Popen(
+        [sys.executable, "-c", _TOOL_CHILD, *argv], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": HERE})
+
+
+def _tool_wait(started, label):
+    """Wait for a run :func:`_tool_start` started (killing it past 600
+    s): its launch counters, nvcc runs and seconds."""
+    t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    lines = [ln for ln in out.splitlines() if ln.startswith("tooling_child ")]
+    if proc.returncode != 0 or not lines:
+        fail(f"tooling {label}: exit {proc.returncode}\n{err[-4000:]}")
+    res = json.loads(lines[-1].split(" ", 1)[1])
+    res["seconds"] = time.time() - t0
+    return res
+
+
+def _tool_records(run):
+    """The run's metrics records merged (the reports land once each) and
+    its round records."""
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    merged = {}
+    for r in recs:
+        merged.update(r)
+    return merged, [r for r in recs if "Train/Loss" in r]
+
+
+def _tool_common(label, m, rounds, launches):
+    """What both processes hold to: no build in any round, no transfer
+    off the device, a clean race audit, B2-B4 launched."""
+    want = [0] * len(rounds)
+    for key in ("audit/compiles_per_round", "audit/retraces_per_round",
+                "compile/compiles_per_round"):
+        if m[key] != want:
+            fail(f"tooling {label}: {key} {m[key]}, want {want}")
+    if m["audit/transfer_guard_violations"] != 0:
+        fail(f"tooling {label}: {m['audit/transfer_guard_violations']} "
+             "transfer-guard violations")
+    if m["race/lock_order_cycles"] or m["race/held_while_blocking"]:
+        fail(f"tooling {label}: race audit {m['race/lock_order_cycles']} "
+             f"{m['race/held_while_blocking']}")
+    if not all(launches[k] > 0 for k in ("fwd", "dq", "dkv")):
+        fail(f"tooling {label}: attention launches {launches}")
+
+
+def _tool_step_flops(torch):
+    """FLOPs of one client's local step of ``TOOL_LM``, counted on the
+    CPU (``train_step_flops``)."""
+    from fedml_tpu_torch.experiments import common, main_fedavg
+    from fedml_tpu_torch.observability.costmodel import train_step_flops
+    from fedml_tpu_torch.parallel.engine import ClientUpdateConfig
+
+    args = main_fedavg.parser().parse_args(TOOL_LM)
+    dataset, model = common.load_dataset_and_model(args)
+    spec = common.make_spec(args, model, dataset)
+    x = common.example_train_data(dataset)["x"]
+    bs = args.batch_size
+    cfg = ClientUpdateConfig(optimizer=args.client_optimizer, lr=args.lr)
+    return train_step_flops(
+        spec, cfg, {"x": ((bs,) + tuple(x.shape[1:]),
+                          torch.as_tensor(x[:1]).dtype),
+                    "y": ((bs,) + tuple(x.shape[1:]), torch.int64),
+                    "mask": ((bs,), torch.float32)})
+
+
+def _tool_profile(path):
+    """Device microseconds of each of B2-B4's kernels in a profiler
+    trace, by kernel name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for name in ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel"):
+        durs = [e.get("dur", 0) for e in events
+                if e.get("cat") == "kernel" and name in e.get("name", "")]
+        if not durs:
+            fail(f"tooling: the profiled round's trace {path} holds no "
+                 f"{name}")
+        out[name] = {"launches": len(durs), "us": round(sum(durs), 1)}
+    return out
+
+
+def phase_tooling(torch, fa, smi):
+    """The mains' run-time tooling on the card (module docstring, 16):
+    (a) a cold run and (b) a warm restart, each in a fresh process, and
+    (c) the tooled run bit-equal to the plain one in this process, run
+    while (b) runs (its readings are counts, not times)."""
+    import shutil
+    import tempfile
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    try:
+        # (a) cold: a fresh, empty build cache
+        run = os.path.join(root, "cold")
+        cold = _tool_wait(_tool_start(TOOL_LM + _tool_flags(root, run)),
+                          "cold")
+        m, rounds = _tool_records(run)
+        for path in (os.path.join(run, "trace", "trace.json"),
+                     os.path.join(run, "trace", "spans.jsonl"),
+                     os.path.join(run, "metrics.prom")):
+            if not os.path.exists(path):
+                fail(f"tooling cold: {path} not written")
+        with open(os.path.join(run, "status.json")) as f:
+            if json.load(f).get("final") is not True:
+                fail("tooling cold: status.json is not final")
+        xprof = sorted(os.listdir(os.path.join(run, "xprof")))
+        if xprof != ["xprof_round_1"]:
+            fail(f"tooling cold: profiler captures {xprof}, want round 1's")
+        kernels = _tool_profile(os.path.join(run, "xprof", "xprof_round_1",
+                                             "trace.json"))
+        if not (m["warmup/programs"] == m["warmup/cache_misses"] == 1
+                and m["warmup/cache_hits"] == 0 and cold["nvcc_runs"] == 1):
+            fail(f"tooling cold: warmup {m['warmup/programs']} programs, "
+                 f"{m['warmup/cache_misses']} misses, "
+                 f"{m['warmup/cache_hits']} hits, {cold['nvcc_runs']} nvcc "
+                 "runs; want flash_attention built once")
+        _tool_common("cold", m, rounds, cold["launches"])
+        step = _tool_step_flops(torch)
+        for r in rounds:
+            for kind in ("executed", "true"):
+                want = step * r[f"bucket/{kind}_steps"]
+                got = r[f"bucket/{kind}_flops"]
+                if abs(got - want) > 1e-9 * want:
+                    fail(f"tooling cold: round {r['round']} {kind} FLOPs "
+                         f"{got} != step {step} x {r[f'bucket/{kind}_steps']}")
+        print(f"tooling cold s={cold['seconds']:.1f} "
+              f"nvcc_s={m['warmup/compile_seconds']} "
+              f"warmup_s={m['warmup/seconds']} "
+              f"misses={m['warmup/cache_misses']} "
+              f"launches={json.dumps(cold['launches'])} card={smi}",
+              flush=True)
+        print(f"tooling profiled_round=1 kernels={json.dumps(kernels)} "
+              f"round_time_s={rounds[1]['round_time_s']} card={smi}",
+              flush=True)
+        print(f"tooling flops step={step} executed_per_round="
+              f"{[r['bucket/executed_flops'] for r in rounds]} "
+              f"waste_frac={[r['bucket/flops_waste_frac'] for r in rounds]}"
+              f" card={smi}", flush=True)
+
+        # (b) warm restart over the same cache and checkpoints, and
+        # meanwhile (c) bit-equality in this process under deterministic
+        # kernels (its checkpoints apart from (b)'s)
+        run = os.path.join(root, "warm")
+        started = _tool_start(TOOL_LM + ["--resume", "1", "--comm_round",
+                                         "4"]
+                              + _tool_flags(root, run, xprof=False))
+        torch.use_deterministic_algorithms(True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            plain, _ = _experiment(TOOL_LM)
+            tooled, _ = _experiment(TOOL_LM + _tool_flags(
+                root, os.path.join(root, "inproc"), ckpt="ckpt_inproc"))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+            warm = _tool_wait(started, "warm")
+        m, rounds = _tool_records(run)
+        if not (warm["nvcc_runs"] == 0 and m["warmup/cache_misses"] == 0
+                and m["warmup/cache_hits"] == 1 and len(rounds) == 2):
+            fail(f"tooling warm: {warm['nvcc_runs']} nvcc runs, "
+                 f"{m['warmup/cache_misses']} misses, "
+                 f"{m['warmup/cache_hits']} hits, {len(rounds)} rounds")
+        _tool_common("warm", m, rounds, warm["launches"])
+        print(f"tooling warm_restart s={warm['seconds']:.1f} nvcc_runs=0 "
+              f"misses=0 hits={m['warmup/cache_hits']} "
+              f"warmup_s={m['warmup/seconds']} "
+              f"launches={json.dumps(warm['launches'])} card={smi}",
+              flush=True)
+        gap = _states_diff(torch, plain.global_state, tooled.global_state)
+        if gap != 0.0:
+            fail(f"tooling: the tooled run's state differs from the plain "
+                 f"run's by {gap}")
+        print(f"tooling bit_equal=1 phase_s={time.time() - t0:.1f} "
+              f"card={smi}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -3119,6 +3358,7 @@ def main():
     phase_zoo(torch, grouped_conv, fa, smi)
     phase_serverless(torch, grouped_conv, fa, smi)
     phase_a14c(torch, grouped_conv, fa, smi)
+    phase_tooling(torch, fa, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

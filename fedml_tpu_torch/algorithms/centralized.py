@@ -25,6 +25,7 @@ from fedml_tpu_torch.parallel.engine import (ClientUpdateConfig,
                                              make_eval_fn)
 from fedml_tpu_torch.parallel.packing import pack_cohort, pack_eval
 from fedml_tpu_torch.utils.device import resolve_device
+from fedml_tpu_torch.utils.profiling import end_of_round_sync, off_round_work
 
 
 class CentralizedTrainer:
@@ -67,8 +68,7 @@ class CentralizedTrainer:
         local, _, metrics = self._update(self.global_state, data, seeds)
         self.global_state = {k: {n: t[0] for n, t in v.items()}
                              for k, v in local.items()}
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        end_of_round_sync(self.global_state, self.device)
         m = {k: float(v.sum()) for k, v in metrics.items()}
         out = {"round": self.round_idx,
                "Train/Loss": m["loss_sum"] / max(m["count"], 1),
@@ -87,14 +87,15 @@ class CentralizedTrainer:
 
     def train(self, on_round=None):
         """Rounds until ``comm_round``, evaluating every
-        ``frequency_of_the_test`` rounds and on the last; ``on_round(self,
-        metrics)`` runs after each."""
+        ``frequency_of_the_test`` rounds and on the last (off-round work
+        for an auditor); ``on_round(self, metrics)`` runs after each."""
         freq = getattr(self.args, "frequency_of_the_test", 5)
         while self.round_idx < self.args.comm_round:
             metrics = self.train_one_round()
             last = self.round_idx == self.args.comm_round
             if self.round_idx % freq == 0 or last:
-                metrics.update(self.evaluate_global())
+                with off_round_work():
+                    metrics.update(self.evaluate_global())
             self.metrics_logger(metrics)
             self.history.append(metrics)
             if on_round is not None:

@@ -34,6 +34,7 @@ ROADMAP A15.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -45,6 +46,7 @@ from fedml_tpu_torch.compression.compressors import get_compressor
 from fedml_tpu_torch.compression.integration import (
     ResidualStore, compressed_payload_nbytes, raw_payload_nbytes)
 from fedml_tpu_torch.core.trainer import TrainSpec
+from fedml_tpu_torch.observability.perfmon import get_perf_monitor
 from fedml_tpu_torch.observability.tracing import get_tracer
 from fedml_tpu_torch.parallel.engine import (ClientUpdateConfig, LaneRunner,
                                              WaveRunner, fold_seed,
@@ -61,6 +63,7 @@ from fedml_tpu_torch.program.round import RoundProgram
 from fedml_tpu_torch.resilience.integration import SimResilience
 from fedml_tpu_torch.resilience.steering import PaceController
 from fedml_tpu_torch.utils.device import resolve_device
+from fedml_tpu_torch.utils.profiling import end_of_round_sync, off_round_work
 from fedml_tpu_torch.utils.torch_import import gate_split, reference_tree
 
 #: ``local-train`` span mode of each resident ``wave_mode``
@@ -321,9 +324,19 @@ class FedAvgAPI:
         # enqueue (plus the host work inside it) and the device wait lands
         # in "aggregate", where the end-of-round synchronize sits
         tracer = get_tracer()
+        mon = get_perf_monitor()  # one global read when monitoring is off
         t0 = time.time()
-        with tracer.span("round", round=int(self.round_idx)):
-            metrics = self._traced_round_body(tracer, t0)
+        with (mon.xprof(self.round_idx) if mon is not None
+              else contextlib.nullcontext()):
+            with tracer.span("round", round=int(self.round_idx)):
+                metrics = self._traced_round_body(tracer, t0)
+        if mon is not None:
+            # true steps are known on the host on the bucketed path only;
+            # elsewhere the per-step histogram is skipped rather than
+            # reading the device
+            steps = (self._last_bucket_info["bucket"]["true_steps"]
+                     if self.bucket_runner is not None else None)
+            mon.observe_round(metrics["round_time_s"], steps=steps)
         self.round_idx += 1
         return metrics
 
@@ -373,8 +386,7 @@ class FedAvgAPI:
                                        packed, round_seed)
         self._last_trip = info.get("trip")
         with tracer.span("aggregate"):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            end_of_round_sync(self.global_state, self.device)
         dt = time.time() - t0
         with tracer.span("report"):
             m = {k: float(v.sum()) for k, v in info["metrics"].items()}
@@ -398,6 +410,12 @@ class FedAvgAPI:
                 "bucket/executed_steps": b["executed_steps"],
                 "bucket/true_steps": b["true_steps"],
                 "bucket/waste_frac": b["waste_frac"]})
+            if "executed_flops" in b:
+                # the cost model's attribution (--costmodel)
+                train_metrics.update({
+                    "bucket/executed_flops": b["executed_flops"],
+                    "bucket/true_flops": b["true_flops"],
+                    "bucket/flops_waste_frac": b["flops_waste_frac"]})
             # the buffer's counters ride every round record on async runs
             train_metrics.update(info.get("async") or {})
             if self.round_idx == 0:
@@ -504,8 +522,9 @@ class FedAvgAPI:
     def train(self, on_round=None):
         """Round loop until ``comm_round``; evaluates every
         ``frequency_of_the_test`` rounds and on the last, inside an
-        ``eval`` span carrying the trained round. ``on_round(api,
-        metrics)`` runs after each round."""
+        ``eval`` span carrying the trained round and booked as off-round
+        work (an auditor never charges its kernel loads to the next
+        round). ``on_round(api, metrics)`` runs after each round."""
         freq = getattr(self.args, "frequency_of_the_test", 5)
         while self.round_idx < self.args.comm_round:
             metrics = self.train_one_round()
@@ -514,7 +533,8 @@ class FedAvgAPI:
                 with get_tracer().span(
                         "eval", round=int(metrics.get("round",
                                                       self.round_idx - 1))):
-                    metrics.update(self.evaluate_global())
+                    with off_round_work():
+                        metrics.update(self.evaluate_global())
             self.metrics_logger(metrics)
             self.history.append(metrics)
             if on_round is not None:

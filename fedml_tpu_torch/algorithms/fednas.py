@@ -41,6 +41,7 @@ from fedml_tpu_torch.parallel.engine import (ClientUpdateConfig,
 from fedml_tpu_torch.parallel.packing import pack_cohort, pack_eval
 from fedml_tpu_torch.program.cohort import client_sampling
 from fedml_tpu_torch.utils.device import resolve_device
+from fedml_tpu_torch.utils.profiling import end_of_round_sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,8 +286,7 @@ class FedNASAPI:
             if msum is not None:
                 msums.append(msum)
         self.global_state = weighted_mean(locals_, packed["n"])
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        end_of_round_sync(self.global_state, self.device)
         m = {k: sum(float(ms[k]) for ms in msums) for k in
              ("loss_sum", "correct", "count")}
         out = {"round": self.round_idx,

@@ -32,6 +32,7 @@ from fedml_tpu_torch.parallel.engine import (_tree_map, _weighted_sum,
                                              make_client_update)
 from fedml_tpu_torch.parallel.packing import pack_cohort
 from fedml_tpu_torch.program.cohort import client_sampling
+from fedml_tpu_torch.utils.profiling import end_of_round_sync
 
 
 def round_robin_groups(ids, n_groups):
@@ -117,8 +118,7 @@ class HierarchicalFedAvgAPI(FedAvgAPI):
         with torch.no_grad():
             stacked = _tree_map(lambda *xs: torch.stack(xs), *states)
             self.global_state = _weighted_mean(stacked, torch.stack(ns))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        end_of_round_sync(self.global_state, self.device)
         m = {k: float(v) for k, v in msum.items()}
         out = {"round": self.round_idx,
                "Train/Loss": m["loss_sum"] / max(m["count"], 1),

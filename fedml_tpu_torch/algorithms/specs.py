@@ -22,7 +22,8 @@ import torch
 from torch.func import functional_call, vmap
 
 from fedml_tpu_torch.core.trainer import TrainSpec
-from fedml_tpu_torch.models.lane_packed import LOWERINGS, builder_for
+from fedml_tpu_torch.models.lane_packed import (LOWERINGS, builder_for,
+                                               lane_kernel_libraries)
 from fedml_tpu_torch.models.layers import lecun_init_
 from fedml_tpu_torch.utils.torch_import import module_state
 
@@ -94,7 +95,9 @@ def make_classification_spec(model, example_x=None, num_classes=None,
                          "choose blockdiag, bgc, auto or pallas")
     return _module_spec(model, _loss_and_metrics, name, augment_fn,
                         aux_loss_weight,
-                        builder_for(model, lowering=lane_lowering))
+                        builder_for(model, lowering=lane_lowering),
+                        lane_kernels=lane_kernel_libraries(model,
+                                                           lane_lowering))
 
 
 def make_multilabel_spec(model, example_x=None, name="tag_prediction",
@@ -112,7 +115,7 @@ def make_multilabel_spec(model, example_x=None, name="tag_prediction",
 
 
 def _module_spec(model, loss_and_metrics, name, augment_fn, aux_loss_weight,
-                 lane_loss_builder):
+                 lane_loss_builder, lane_kernels=()):
     """The spec of an ``nn.Module`` applied functionally (one client's
     state, or K clients' through ``torch.func.vmap``), its loss and
     metrics from ``loss_and_metrics(out, y, mask)``. A search network
@@ -213,7 +216,9 @@ def _module_spec(model, loss_and_metrics, name, augment_fn, aux_loss_weight,
     return TrainSpec(init_fn=init_fn, loss_fn=loss_fn, metrics_fn=metrics_fn,
                      name=name, augment_fn=augment_fn,
                      lane_loss_builder=lane_loss_builder,
-                     stacked_loss_fn=stacked_loss_fn)
+                     stacked_loss_fn=stacked_loss_fn,
+                     kernels=tuple(getattr(model, "kernel_libraries", ())),
+                     lane_kernels=tuple(lane_kernels))
 
 
 def _seg_loss_and_metrics(logits, y, mask, num_classes, ignore_index):
@@ -334,7 +339,8 @@ def make_seq_classification_spec(model, example_x=None, ignore_index=0,
             return _loss(state, batch, False, False)[1]
 
     return TrainSpec(init_fn=init_fn, loss_fn=loss_fn, metrics_fn=metrics_fn,
-                     name=name, stacked_loss_fn=stacked_loss_fn)
+                     name=name, stacked_loss_fn=stacked_loss_fn,
+                     kernels=tuple(getattr(model, "kernel_libraries", ())))
 
 
 __all__ = ["make_classification_spec", "make_seq_classification_spec",

@@ -10,6 +10,8 @@ on one NVIDIA H100 (counterpart of the repository's ``bench.py``).
     python -m fedml_tpu_torch.bench --check
     python -m fedml_tpu_torch.bench --soak [N] [--compressor SPEC]
     python -m fedml_tpu_torch.bench --tree_soak [N] [--tree_fanout 2,2]
+    python -m fedml_tpu_torch.bench --steering [--steering_rounds R]
+        [--steering_scale S] [--steering_transport tcp|eventloop]
 
 **ResNet-56 flagship** (no flags): cross-silo FedAvg on CIFAR-10-shaped
 synthetic data (50,000 samples, 32x32, LDA alpha=0.5, seed 0), 32
@@ -62,6 +64,23 @@ audits every tier's ``status.json``. ``--soak_updates``,
 ``--compressor`` shape both; ``--soak_decode_workers`` the soak's
 server, ``--tree_transport`` and ``--tree_steering`` the tree.
 
+**Pace steering** (``--steering``; host only, no device): bench.py's
+``run_steering_bench``. One seeded diurnal trace (day, flash crowd,
+outage, then night with correlated dropouts), a sweep of fixed
+(deadline, overselect) configurations and one run under the
+``PaceController``, all over the real control plane (``run_tcp_fedavg``
+on ``--steering_transport``) with the perf monitor armed; the headline
+is the steered rounds/hour, beside the best surviving fixed
+configuration whose final model stays within ``--steering_quality_tol``
+of an unshaped full-participation run. It passes at a speedup of 1.10
+or more.
+
+**Kernel builds.** ``--warmup`` builds the run's kernel libraries before
+the warmup round (``fedml_tpu_torch.compile``; the record adds
+``warmup_programs`` and ``warmup_seconds``), and ``--compile_cache_dir
+DIR`` builds and loads them in DIR instead of ``build/``
+(``utils/compile_cache.py``; the record names it).
+
 Each run prints one JSON record with the reference's keys, appends it
 to ``--ledger`` (default ``bench_results/torch_ledger.jsonl``, a ledger
 of the port's own; ``''`` disables) and returns it from :func:`main`.
@@ -90,9 +109,9 @@ Where the port differs from ``bench.py`` on purpose:
   fails (``--platform cpu`` asks for the CPU, and tags the metric as a
   smoke). On the CPU ``mfu``, ``achieved_tflops`` and the peak are null.
 - There is no degrade ladder: the one configuration asked for runs, or
-  the bench fails. Flags of paths not ported fail naming their ROADMAP
-  item. Every failure prints the one-line record with ``error``, and the
-  command exits non-zero.
+  the bench fails. A flag the reference bench lacks fails. Every failure
+  prints the one-line record with ``error``, and the command exits
+  non-zero.
 - ``device`` is the card's name and ``power_limit_w`` its power limit
   (``nvidia-smi``); ``host_cpu`` and ``host_cpus`` name the host that
   enqueues the rounds' work. The massive cohort's record also names
@@ -130,6 +149,7 @@ from fedml_tpu_torch.observability.perfmon import (DEFAULT_REGRESS_BAND,
                                                    check_regression)
 from fedml_tpu_torch.observability.tracing import Tracer, set_tracer
 from fedml_tpu_torch.ops import _build
+from fedml_tpu_torch.utils.compile_cache import compilation_cache
 from fedml_tpu_torch.utils.device import resolve_device
 from fedml_tpu_torch.utils.profiling import profile_trace
 
@@ -154,15 +174,7 @@ _LM_FAILURE_METRIC = "federated-LM rounds/hour (TransformerLM)"
 _MASSIVE_FAILURE_METRIC = "massive-cohort clients/sec (bucketed streaming)"
 _SMOKE_TAG = " [SMOKE -- not baseline-comparable]"
 
-#: flags of bench.py whose paths are not ported, by name or by name
-#: prefix (``--steering`` also covers ``--steering_*``), with the queue
-#: item
-_UNPORTED_FLAGS = (
-    ("--warmup", "ROADMAP A16 (round-program warmup)"),
-    ("--compile_cache_dir", "ROADMAP A16 (compile caches)"),
-    ("--steering", "ROADMAP A16 (the pace-steering bench, "
-     "run_steering_bench)"),
-)
+_STEERING_FAILURE_METRIC = "fedpace steered rounds/hour"
 
 
 def peak_flops(device_name):
@@ -230,6 +242,17 @@ def _build_counts():
 def _builds_since(before):
     now = _build.build_stats
     return {k: now[k] - before[k] for k in now}
+
+
+def _warmup(args, api):
+    """``--warmup``: build the run's kernel libraries now; the record's
+    ``warmup_programs`` and ``warmup_seconds`` (empty without it)."""
+    if not args.warmup:
+        return {}
+    from fedml_tpu_torch.compile import warmup_api
+    report = warmup_api(api)
+    return {"warmup_programs": report["warmup/programs"],
+            "warmup_seconds": report["warmup/seconds"]}
 
 
 def _phase_fields(tracer, rounds):
@@ -366,6 +389,7 @@ def run_resnet_bench(args, device):
         torch.cuda.reset_peak_memory_stats(device)
     builds0 = _build_counts()
     t0 = time.time()
+    warm_fields = _warmup(args, api)
     api.train_one_round()  # warmup (builds the kernels it launches)
     compile_s = time.time() - t0
     warm = _builds_since(builds0)
@@ -409,6 +433,7 @@ def run_resnet_bench(args, device):
         "compile_s": round(compile_s, 1),
         "compile_count": warm["builds"],
         "compile_seconds": round(warm["seconds"], 4),
+        **warm_fields,
         "samples_per_round": samples_per_round,
         **({} if steps_key is None else {steps_key: int(api._last_trip)}),
         "ms_per_step_batch": round(1e3 * round_s / max(steps_round, 1), 3),
@@ -482,6 +507,7 @@ def run_lm_bench(args, device):
         torch.cuda.reset_peak_memory_stats(device)
     builds0 = _build_counts()
     t0 = time.time()
+    warm_fields = _warmup(args, api)
     api.train_one_round()
     compile_s = time.time() - t0
     warm = _builds_since(builds0)
@@ -531,6 +557,7 @@ def run_lm_bench(args, device):
         "warmup_cache_hits": warm["cached"],
         "warmup_cache_misses": warm["builds"],
         "steady_compiles": steady["builds"],
+        **warm_fields,
         "bucket_shapes": binfo["buckets_used"],
         "bucket_waste_frac": metrics[-1].get("bucket/waste_frac"),
         "train_loss": round(float(metrics[-1]["Train/Loss"]), 4),
@@ -1044,6 +1071,160 @@ def run_tree_soak_bench(args):
 
 
 # ---------------------------------------------------------------------------
+# pace steering
+# ---------------------------------------------------------------------------
+def _quality_rel(final, ref):
+    """Max relative leaf deviation between two parameter trees (the
+    steering bench's convergence-within-tolerance metric)."""
+    num = max(float(np.max(np.abs(np.asarray(final[k], np.float64)
+                                  - np.asarray(ref[k], np.float64))))
+              for k in ref)
+    den = max(max(float(np.max(np.abs(np.asarray(v, np.float64))))
+                  for v in ref.values()), 1e-9)
+    return num / den
+
+
+def run_steering_bench(args):
+    """``--steering``: bench.py's ``run_steering_bench`` (the same
+    record and pass rule). One seeded diurnal trace, a sweep of fixed
+    (deadline, overselect) configurations and one steered run, all over
+    ``run_tcp_fedavg`` with the perf monitor armed so the controller
+    reads live ``fed_report_latency_seconds`` windows. A fixed deadline
+    must outlast the outage (shorter ones abandon the round past its
+    retries and fail the run) and then pays it on every night round,
+    whose correlated dropouts hold the round to its deadline; the
+    steered run backs off through the outage and tightens to the night's
+    tail. Returns the record; it passes when the steered run's final
+    model is within ``--steering_quality_tol`` of the unshaped reference
+    and its rounds/hour beat the best qualifying fixed configuration's by
+    1.10 or more."""
+    import tempfile
+
+    from fedml_tpu_torch.observability import enable
+    from fedml_tpu_torch.program.cohort import CohortPolicy
+    from fedml_tpu_torch.resilience import (PaceBounds, PaceController,
+                                            run_tcp_fedavg)
+    from fedml_tpu_torch.resilience.faults import (DiurnalTrace, LoadPhase,
+                                                   TraceLoadGen)
+
+    scale = float(args.steering_scale)
+    if args.steering_trace:
+        trace = DiurnalTrace.from_file(args.steering_trace)
+    else:
+        # one shot: day, flash crowd, outage, then night to the end of
+        # the run (repeat=False), so every round past the outage is a
+        # night round for every configuration
+        trace = DiurnalTrace([
+            LoadPhase(dur_s=0.15 * scale, delay_s=0.05, jitter=0.5,
+                      name="day"),
+            LoadPhase(dur_s=0.1 * scale, delay_s=0.02, jitter=0.5,
+                      name="flash"),
+            LoadPhase(dur_s=5.5 * scale, delay_s=1.5, jitter=0.2,
+                      name="outage"),
+            LoadPhase(dur_s=600.0, delay_s=0.3, jitter=0.5,
+                      dropout_p=0.5, name="night"),
+        ], repeat=False, seed=args.steering_seed)
+    world = 9
+    cohort_target = 5
+    quorum = 0.5
+    rounds = int(args.steering_rounds)
+    transport = args.steering_transport
+    w0 = {"w": np.zeros((8, 8), np.float32), "b": np.ones(8, np.float32)}
+    population = list(range(1, world))
+    join_timeout = max(240.0, 60.0 * scale * rounds)
+
+    def one_run(policy, pace=None, shaped=True):
+        gen = (TraceLoadGen(trace, seed=args.steering_seed,
+                            population=population) if shaped else None)
+        d = tempfile.mkdtemp(prefix="bench_steering_")
+        t0 = time.time()
+        with enable(perfmon=True, flightrec_dir=d, compile_events=False):
+            if gen is not None:
+                gen.reset_epoch()
+            try:
+                srv = run_tcp_fedavg(
+                    world, rounds, policy, w0, fault_plan=gen,
+                    cohort_target=cohort_target, transport=transport,
+                    pace_controller=pace, join_timeout=join_timeout)
+            except TimeoutError as e:
+                return {"failed": f"hung: {e}",
+                        "wall_s": round(time.time() - t0, 3)}
+        wall = time.time() - t0
+        out = {"wall_s": round(wall, 3),
+               "rounds_completed": len(srv.history),
+               "degraded": srv.counters["rounds_degraded"],
+               "abandoned": srv.counters["rounds_abandoned"]}
+        if srv.failed is not None or len(srv.history) < rounds:
+            out["failed"] = srv.failed or "incomplete"
+            return out
+        out["rph"] = round(rounds / wall * 3600.0, 2)
+        out["final"] = srv.history[-1]
+        return out
+
+    # the unshaped full-participation run: the convergence yardstick
+    ref = one_run(CohortPolicy(deadline_s=30.0, quorum=quorum),
+                  shaped=False)
+    if "rph" not in ref:
+        raise RuntimeError(f"reference run failed: {ref}")
+
+    quality_tol = float(args.steering_quality_tol)
+    fixed = []
+    for d_s, eps in [(0.6, 0.6), (1.2, 0.0), (2.5, 0.6)]:
+        r = one_run(CohortPolicy(deadline_s=d_s, overselect=eps,
+                                  quorum=quorum))
+        r["config"] = {"deadline_s": d_s, "overselect": eps}
+        if "rph" in r:
+            r["quality_rel"] = round(_quality_rel(r.pop("final"),
+                                                  ref["final"]), 4)
+        fixed.append(r)
+        print(f"# fixed {r['config']}: "
+              + (f"{r['rph']} rph, quality {r['quality_rel']}"
+                 if "rph" in r else f"FAILED ({r['failed']})"),
+              file=sys.stderr)
+
+    pace = PaceController(
+        PaceBounds(deadline_s=(0.25, 8.0), overselect=(0.0, 1.0)),
+        seed=args.steering_seed, deadline_s=1.0, overselect=0.0)
+    steered = one_run(CohortPolicy(deadline_s=1.0, quorum=quorum),
+                      pace=pace)
+    if "rph" not in steered:
+        raise RuntimeError(f"steered run failed: {steered.get('failed')}")
+    steered["quality_rel"] = round(_quality_rel(steered.pop("final"),
+                                                ref["final"]), 4)
+
+    qualified = [r for r in fixed
+                 if "rph" in r and r["quality_rel"] <= quality_tol]
+    best_fixed = (max(qualified, key=lambda r: r["rph"]) if qualified
+                  else None)
+    speedup = (round(steered["rph"] / best_fixed["rph"], 3)
+               if best_fixed else None)
+    threshold = 1.10  # the gate: at least 10% more rounds/hour
+    ok = (steered["quality_rel"] <= quality_tol and best_fixed is not None
+          and speedup is not None and speedup >= threshold)
+    return {
+        "metric": (f"fedpace steered rounds/hour (seeded diurnal trace "
+                   f"x{scale}, {transport}, {world - 1} clients, "
+                   f"target {cohort_target})"),
+        "value": steered["rph"],
+        "unit": "rounds/hour",
+        "rounds": rounds,
+        "steered": steered,
+        "pace_decisions": len(pace.decisions),
+        "pace_final": {"deadline_s": pace.deadline_s,
+                       "overselect": pace.overselect},
+        "fixed_sweep": fixed,
+        "best_fixed_rph": best_fixed["rph"] if best_fixed else None,
+        "best_fixed_config": best_fixed["config"] if best_fixed else None,
+        "speedup_vs_best_fixed": speedup,
+        "speedup_threshold": threshold,
+        "quality_tol": quality_tol,
+        "trace": trace.to_dict(),
+        "transport": transport,
+        "pass": ok,
+    }
+
+
+# ---------------------------------------------------------------------------
 # the command line
 # ---------------------------------------------------------------------------
 def _parser():
@@ -1195,6 +1376,40 @@ def _parser():
                    help="comma-separated specs for --compression_sweep")
     p.add_argument("--repeats", type=int, default=5,
                    help="timing repeats a spec in --compression_sweep")
+    p.add_argument("--steering", action="store_true",
+                   help="pace-steering bench (resilience/steering.py): on "
+                        "one seeded diurnal trace, a sweep of fixed "
+                        "(deadline, overselect) configurations and one "
+                        "steered run over the real control plane; the "
+                        "record has the steered rounds/hour, the best "
+                        "surviving fixed configuration's and the speedup, "
+                        "passing at >= 1.10x with the final model within "
+                        "--steering_quality_tol. Host only: no device")
+    p.add_argument("--steering_rounds", type=int, default=20,
+                   help="steering bench: federated rounds per run")
+    p.add_argument("--steering_scale", type=float, default=1.0,
+                   help="steering bench: trace duration multiplier "
+                        "(smaller = faster, noisier)")
+    p.add_argument("--steering_seed", type=int, default=7,
+                   help="steering bench: trace/load-generator seed")
+    p.add_argument("--steering_trace", type=str, default=None,
+                   help="steering bench: DiurnalTrace JSON file to "
+                        "replay (default: the built-in curve)")
+    p.add_argument("--steering_transport", default="tcp",
+                   choices=("tcp", "eventloop"),
+                   help="steering bench: control-plane transport")
+    p.add_argument("--steering_quality_tol", type=float, default=0.5,
+                   help="steering bench: max relative final-model "
+                        "deviation from the unshaped full-participation "
+                        "run for a run to qualify")
+    p.add_argument("--warmup", type=int, default=0,
+                   help="build the run's kernel libraries before the "
+                        "warmup round (fedml_tpu_torch.compile); the "
+                        "record adds warmup_programs and warmup_seconds")
+    p.add_argument("--compile_cache_dir", type=str, default=None,
+                   help="build and load the kernel libraries in this "
+                        "directory instead of build/ "
+                        "(utils/compile_cache.py)")
     p.add_argument("--ledger", type=str,
                    default="bench_results/torch_ledger.jsonl",
                    help="perf-regression ledger of the port: every run "
@@ -1217,13 +1432,9 @@ def _refusal(args, unknown):
     """Why the command line asks for something the port does not run,
     or None."""
     for tok in unknown:
-        if not tok.startswith("--"):
-            continue
-        name = tok.split("=", 1)[0]
-        for flag, item in _UNPORTED_FLAGS:
-            if name == flag or name.startswith(flag + "_"):
-                return f"{name} is not ported: it waits for {item}"
-        return f"{name} is not a flag of the port's bench"
+        if tok.startswith("--"):
+            return (f"{tok.split('=', 1)[0]} is not a flag of the port's "
+                    "bench")
     if args.rounds < 1:
         return f"--rounds {args.rounds}: measure at least 1 round"
     if args.compressor is not None and not (
@@ -1240,10 +1451,13 @@ def main(argv=None):
     returns one record (a failure record carries ``error``)."""
     args, unknown = _parser().parse_known_args(argv)
     tools = args.compression_sweep or args.check
-    # the soaks run on the host alone, before the flagship recipes
-    soak = (None if tools else run_soak_bench if args.soak
+    # the control-plane benches run on the host alone, before the
+    # flagship recipes
+    soak = (None if tools else run_steering_bench if args.steering
+            else run_soak_bench if args.soak
             else run_tree_soak_bench if args.tree_soak else None)
     metric = ("compression tools" if tools
+              else _STEERING_FAILURE_METRIC if args.steering
               else "eventloop-soak" if args.soak
               else "tree-soak" if args.tree_soak
               else _MASSIVE_FAILURE_METRIC if args.massive_cohort
@@ -1263,20 +1477,23 @@ def main(argv=None):
     budget_s = max(45 * 60, 5 * 60 + (args.rounds + 1) * 5 * 60)
     watchdog = arm_watchdog(budget_s, f"{args.rounds} rounds", metric)
     try:
-        if soak is not None:
-            record = soak(args)
-        else:
-            device = (torch.device("cpu") if args.platform == "cpu"
-                      else resolve_device(None))
-            run = (run_compression_tools if tools
-                   else run_massive_cohort if args.massive_cohort
-                   else run_lm_bench if args.lm else run_resnet_bench)
-            record = run(args, device)
+        with compilation_cache(args.compile_cache_dir):
+            if soak is not None:
+                record = soak(args)
+            else:
+                device = (torch.device("cpu") if args.platform == "cpu"
+                          else resolve_device(None))
+                run = (run_compression_tools if tools
+                       else run_massive_cohort if args.massive_cohort
+                       else run_lm_bench if args.lm else run_resnet_bench)
+                record = run(args, device)
     except Exception:  # the one-line contract: report, then fail
         traceback.print_exc()
         return emit_failure(traceback.format_exc(limit=3)[-800:], metric)
     finally:
         watchdog.cancel()
+    if args.compile_cache_dir is not None:
+        record["compile_cache_dir"] = args.compile_cache_dir
     print(json.dumps(record), flush=True)
     # run_tree appends the tree soak's own rows
     if args.ledger and not tools and soak is not run_tree_soak_bench:

@@ -39,6 +39,11 @@ class TrainSpec:
         masks); ``loss_sum`` is the sum of the K per-client losses, so one
         backward gives each client its own gradient (every client update
         of ``parallel/engine.py`` trains through it).
+    kernels, lane_kernels
+        names of the kernel libraries (``ops/_build.py``) the spec's
+        training launches on a card through ``stacked_loss_fn`` and
+        through the packed lowering: what the warmup
+        (``fedml_tpu_torch/compile``) builds before the round loop.
     """
     init_fn: Callable[..., Any]
     loss_fn: Callable[..., Any]
@@ -47,6 +52,8 @@ class TrainSpec:
     augment_fn: Optional[Any] = None
     lane_loss_builder: Optional[Callable[..., Any]] = None
     stacked_loss_fn: Optional[Callable[..., Any]] = None
+    kernels: tuple = ()
+    lane_kernels: tuple = ()
 
 
 __all__ = ["TrainSpec"]

@@ -4,10 +4,19 @@ names and defaults, setup, the dataset and model switch, the spec choice
 and the run loop.
 
 Every flag of the reference parses, so its command lines run here. A
-flag whose path is not ported refuses a non-default value with
-``NotImplementedError`` naming its ROADMAP item (:func:`refuse_unported`).
-The run goes to the card; ``--platform cpu`` asks for the CPU, and
-without a card and without it the main raises (:func:`device_for`).
+flag whose path is not ported (``--mesh``) refuses a non-default value
+with ``NotImplementedError`` naming its ROADMAP item
+(:func:`refuse_unported`). The run goes to the card; ``--platform cpu``
+asks for the CPU, and without a card and without it the main raises
+(:func:`device_for`).
+
+The run-time tooling wraps ``api.train`` in :func:`run_fedavg_family`:
+``--warmup`` builds the kernel libraries before the loop, then the
+observability switchboard (:func:`observability_scope`: ``--trace``,
+``--flightrec``, ``--perfmon`` with ``--status_path`` and
+``--xprof_round``, ``--costmodel``), ``--profile_dir``, the race audit
+(:func:`race_audit_scope`) and the runtime audit (:func:`audit_scope`)
+nest around it, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,21 +31,11 @@ import torch
 from fedml_tpu_torch.resilience.integration import add_resilience_args
 from fedml_tpu_torch.resilience.steering import add_steering_args
 
-_A16_OBS = "ROADMAP A16 (the observability switchboard)"
 #: the segmentation sets (``main_fedseg`` trains them)
 SEGMENTATION_SETS = ("synthetic_segmentation", "pascal_voc", "coco_seg")
 #: flag -> (value that runs, the ROADMAP item a change waits for)
 _UNPORTED = {
     "mesh": (0, "ROADMAP A15 (multi-device)"),
-    "warmup": (0, "ROADMAP A16 (round-program warmup)"),
-    "compile_cache_dir": (None, "ROADMAP A16 (compile caches)"),
-    "audit": (0, "ROADMAP A16 (the runtime audit)"),
-    "race_audit": (0, "ROADMAP A16 (the runtime audit)"),
-    "trace": (0, _A16_OBS), "trace_dir": (None, _A16_OBS),
-    "flightrec": (0, _A16_OBS), "perfmon": (0, _A16_OBS),
-    "status_path": (None, _A16_OBS), "xprof_round": (None, _A16_OBS),
-    "xprof_dir": (None, _A16_OBS), "costmodel": (0, _A16_OBS),
-    "enable_wandb": (0, "ROADMAP A16 (the port carries no wandb mirror)"),
 }
 
 
@@ -170,7 +169,8 @@ def device_for(args) -> torch.device:
 
 
 def setup(args, run_name=None):
-    """Logging, seeds and the metrics sink (``--run_dir``)."""
+    """Logging, seeds and the metrics sink (``--run_dir``, mirrored to
+    wandb under ``--enable_wandb`` where it imports)."""
     from fedml_tpu_torch.utils.metrics import MetricsLogger, init_logging
 
     init_logging(proctitle=run_name)
@@ -178,7 +178,74 @@ def setup(args, run_name=None):
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
-    return MetricsLogger(run_dir=args.run_dir, config=args)
+    return MetricsLogger(run_dir=args.run_dir,
+                         enable_wandb=bool(getattr(args, "enable_wandb", 0)),
+                         run_name=run_name, config=args)
+
+
+def compile_cache_scope(args):
+    """The run's kernel build directory (``--compile_cache_dir``, else
+    ``build/``), restored when the run ends."""
+    from fedml_tpu_torch.utils.compile_cache import compilation_cache
+
+    return compilation_cache(getattr(args, "compile_cache_dir", None))
+
+
+def audit_scope(args, logger, wired=True):
+    """``--audit`` context: arms the runtime auditor
+    (``fedml_tpu_torch.analysis.runtime.audit``) with the run's metrics
+    sink. Mains whose round loop has no ``end_of_round_sync`` pass
+    ``wired=False``: the flag then warns instead of producing a
+    zero-round report."""
+    from fedml_tpu_torch.analysis.runtime import audit
+
+    enabled = bool(getattr(args, "audit", 0))
+    if enabled and not wired:
+        logging.warning(
+            "--audit is not wired for this entry point (its round loop "
+            "has no end_of_round_sync interception point); ignoring the "
+            "flag")
+        enabled = False
+    return audit(metrics_logger=logger, enabled=enabled)
+
+
+def observability_scope(args, logger):
+    """``--trace/--flightrec/--perfmon/--costmodel`` context: arms the
+    switchboard (``fedml_tpu_torch.observability.enable``) with the run's
+    metrics sink. Exports ``trace.json``/``spans.jsonl`` to
+    ``--trace_dir`` (default ``--run_dir``), flight-recorder dumps,
+    ``metrics.prom`` and ``status.json`` to ``--run_dir`` (else the trace
+    dir), and the ``--xprof_round`` capture to ``--xprof_dir`` (else that
+    same directory); a run with every flag off gets the no-op tracer."""
+    from fedml_tpu_torch.observability import enable
+
+    trace = bool(getattr(args, "trace", 0))
+    run_dir = getattr(args, "run_dir", None)
+    trace_dir = getattr(args, "trace_dir", None) or run_dir
+    if trace and trace_dir is None:
+        trace_dir = "."
+        logging.warning("--trace without --trace_dir/--run_dir: exporting "
+                        "trace.json/spans.jsonl to the working directory")
+    return enable(trace=trace, trace_dir=trace_dir,
+                  flightrec=bool(getattr(args, "flightrec", 0)),
+                  flightrec_dir=run_dir or trace_dir,
+                  metrics_logger=logger,
+                  perfmon=bool(getattr(args, "perfmon", 0)),
+                  status_path=getattr(args, "status_path", None),
+                  xprof_dir=getattr(args, "xprof_dir", None),
+                  xprof_round=getattr(args, "xprof_round", None),
+                  cost_model=bool(getattr(args, "costmodel", 0)))
+
+
+def race_audit_scope(args, logger):
+    """``--race_audit`` context: arms the concurrency race sanitizer
+    (``fedml_tpu_torch.analysis.runtime.race_audit``). The simulated
+    rounds are single-threaded and create few locks, so a zero report
+    there is honest; the TCP drivers are where it bites."""
+    from fedml_tpu_torch.analysis.runtime import race_audit
+
+    return race_audit(enabled=bool(getattr(args, "race_audit", 0)),
+                      metrics_logger=logger)
 
 
 def example_train_data(dataset):
@@ -247,15 +314,20 @@ def prepare(parser, argv, run_name):
 
 
 def run_fedavg_family(api, args, logger):
-    """``api.train`` with the reference's checkpoint wiring, under
-    ``--profile_dir``'s profiler trace: with ``--checkpoint_dir`` the
+    """``api.train`` with the reference's checkpoint wiring and run-time
+    tooling: with ``--checkpoint_dir`` the
     config is snapshot, ``--resume`` restores the global state, the
     server state, the run's seed, the batch-shuffle generator and the
     round index from the latest checkpoint (logging ``res/resumes``), and
     a checkpoint is saved every ``--save_frequency`` rounds and at the
-    last one. Works for any API with those attributes and a
-    ``train(on_round=)`` (every FedAvg-family main and the centralized
-    trainer)."""
+    last one. The run builds its kernel libraries in
+    ``--compile_cache_dir`` (:func:`compile_cache_scope`); after any
+    restore and before the loop, ``--warmup`` builds them all
+    (``compile.warmup_api``; its report goes to the sink). The loop runs
+    inside the observability scope, ``--profile_dir``'s trace, the race
+    audit and the runtime audit, nested as in the reference. Works for
+    any API with those attributes and a ``train(on_round=)`` (every
+    FedAvg-family main and the centralized trainer)."""
     from fedml_tpu_torch.utils.checkpoint import Checkpointer
     from fedml_tpu_torch.utils.profiling import profile_trace
 
@@ -286,12 +358,20 @@ def run_fedavg_family(api, args, logger):
                       metric=metrics.get("Test/Acc"),
                       data_rng=api_._data_rng)
 
-    with profile_trace(args.profile_dir,
-                       enabled=args.profile_dir is not None):
-        api.train(on_round=on_round)
+    with compile_cache_scope(args) as cache_dir:
+        if getattr(args, "warmup", 0):
+            from fedml_tpu_torch.compile import warmup_api
+            logger({**warmup_api(api), "warmup/cache_dir": cache_dir})
+        with observability_scope(args, logger):
+            with profile_trace(args.profile_dir,
+                               enabled=args.profile_dir is not None):
+                with race_audit_scope(args, logger):
+                    with audit_scope(args, logger):
+                        api.train(on_round=on_round)
     return api.global_state
 
 
 __all__ = ["add_base_args", "refuse_unported", "device_for", "setup",
+           "compile_cache_scope", "audit_scope", "observability_scope", "race_audit_scope",
            "example_train_data", "load_dataset_and_model", "make_spec",
            "prepare", "run_fedavg_family"]

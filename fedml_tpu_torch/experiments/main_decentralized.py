@@ -63,7 +63,9 @@ def main(argv=None):
     api = DecentralizedFedAPI(dataset, spec, args, topology=topology,
                               algorithm=args.algorithm,
                               metrics_logger=logger, device=device)
-    states = api.train()
+    with common.compile_cache_scope(args), \
+            common.audit_scope(args, logger, wired=False):
+        states = api.train()
     logger.close()
     return api, states
 
@@ -87,7 +89,9 @@ def _online_main(args, device):
         DecentralizedOnlineAPI)
     api = DecentralizedOnlineAPI(streams, args, algorithm=args.algorithm,
                                  metrics_logger=logger, device=device)
-    w = api.train()
+    with common.compile_cache_scope(args), \
+            common.audit_scope(args, logger, wired=False):
+        w = api.train()
     logger.close()
     return api, w
 

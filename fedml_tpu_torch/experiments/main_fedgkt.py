@@ -48,7 +48,9 @@ def main(argv=None):
                                        num_classes=dataset[7])
     api = FedGKTAPI(dataset, client_model, server_model, args,
                     metrics_logger=logger, device=device)
-    api.train()
+    with common.compile_cache_scope(args), \
+            common.audit_scope(args, logger, wired=False):
+        api.train()
     logger.close()
     return api, api.server_state
 

@@ -103,7 +103,9 @@ def main(argv=None):
     from fedml_tpu_torch.algorithms.splitnn import SplitNNAPI
     api = SplitNNAPI(dataset, stem, head, args, metrics_logger=logger,
                      device=device)
-    api.train()
+    with common.compile_cache_scope(args), \
+            common.audit_scope(args, logger, wired=False):
+        api.train()
     logger.close()
     return api, api.server_params
 

@@ -88,7 +88,9 @@ def main(argv=None):
     api = VerticalFLAPI(party_models, party_data, y_train, args,
                         test_party_data=test_party_data, test_labels=y_test,
                         device=device)
-    history = api.fit()
+    with common.compile_cache_scope(args), \
+            common.audit_scope(args, logger, wired=False):
+        history = api.fit()
     for record in history:
         logger(record)
     logger.close()

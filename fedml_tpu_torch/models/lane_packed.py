@@ -257,7 +257,16 @@ def builder_for(model, lowering=None):
     return None
 
 
+def lane_kernel_libraries(model, lowering=None):
+    """Kernel libraries the packed lowering of ``model`` launches on a
+    card: the dW kernel's under the ResNet's ``pallas`` lowering."""
+    if isinstance(model, CifarResNet) and lowering == "pallas":
+        return ("grouped_conv_dw",)
+    return ()
+
+
 __all__ = ["lane_merge", "lane_unmerge", "merged_to_stacked", "lane_conv",
            "lane_conv_bgc", "lane_bn", "make_lane_packed_apply",
-           "make_lane_loss_builder", "builder_for", "lane_metrics",
+           "make_lane_loss_builder", "builder_for", "lane_kernel_libraries",
+           "lane_metrics",
            "MERGE_K", "BGC_MAX_CI", "LOWERINGS", "PACKED_FAMILIES"]

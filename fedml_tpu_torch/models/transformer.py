@@ -159,6 +159,11 @@ class TransformerLM(nn.Module):
                     m.bias.zero_()
         return self
 
+    @property
+    def kernel_libraries(self):
+        """The kernel libraries this model launches on a card."""
+        return () if self.attention_fn is not None else ("flash_attention",)
+
     def _attend(self, q, k, v):
         if self.attention_fn is not None:
             return self.attention_fn(q, k, v)

@@ -2,16 +2,16 @@
 round tracing (:mod:`.tracing`), the metrics registry (:mod:`.registry`),
 the control plane's flight recorder (:mod:`.flightrec`), the run-health
 monitor with its ``status.json`` writer and the perf-regression ledger
-(:mod:`.perfmon`), and the FLOP count of a local step (:mod:`.costmodel`).
+(:mod:`.perfmon`, with its ``--xprof_round`` profiler window), the
+per-round watcher of kernel-library builds and loads (:mod:`.compilemon`)
+and the FLOP cost model (:mod:`.costmodel`).
 
 Everything defaults OFF: the module-level tracer is a no-op, the
-registry, recorder and monitor globals are None, and every
-instrumentation point guards on that. :func:`enable` flips the
-switchboard for a scope and writes the artifacts on exit. Its pieces
-that wait for ROADMAP A16 (the per-round compile watcher, the profiler
-capture and the cost model) raise ``NotImplementedError`` when asked
-for, as do the mains' ``--trace``/``--perfmon``/``--status_path``
-flags.
+registry, recorder, monitor, watcher and cost-model globals are None,
+and every instrumentation point guards on that -- a run without the
+flags runs no observability code beyond one global read per event and
+computes bit-identical results. :func:`enable` flips the switchboard for
+a scope and writes the artifacts on exit.
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ import os
 import sys
 import threading
 
+from fedml_tpu_torch.observability.costmodel import (CostModel,
+                                                     get_cost_model,
+                                                     set_cost_model)
 from fedml_tpu_torch.observability.flightrec import (FlightRecorder,
                                                      get_flight_recorder,
                                                      set_flight_recorder)
@@ -47,34 +50,31 @@ def enable(trace=False, trace_dir=None, flightrec=False, flightrec_dir=None,
     ``enable``, same arguments).
 
     Yields an object with ``tracer`` / ``registry`` / ``recorder`` /
-    ``monitor`` attributes (None for the pieces left off;
-    ``compile_watcher`` and ``cost_model`` are always None). On exit:
-    exports ``trace.json`` + ``spans.jsonl`` into ``trace_dir``, dumps
-    the registry to ``metrics.prom`` (in ``flightrec_dir`` or
-    ``trace_dir`` when either is set), pushes the perf monitor's record
-    to ``metrics_logger``, forces a final ``status.json`` write, and
-    restores the previous globals (scopes nest).
+    ``compile_watcher`` / ``monitor`` / ``cost_model`` attributes (None
+    for the pieces left off). On exit: exports ``trace.json`` +
+    ``spans.jsonl`` into ``trace_dir``, dumps the registry to
+    ``metrics.prom`` (in ``flightrec_dir`` or ``trace_dir`` when either
+    is set), pushes the compile watcher's, the cost model's and the perf
+    monitor's reports to ``metrics_logger``, forces a final
+    ``status.json`` write, and restores the previous globals (scopes
+    nest).
 
-    ``compile_events`` defaults to ``trace`` as in the reference, so a
-    traced scope must pass ``compile_events=False`` until the compile
-    watcher is ported. ``perfmon`` arms the registry too (its histograms
-    need a sink); ``status_path`` defaults to ``<flightrec_dir or
-    trace_dir>/status.json`` when perfmon is on and either dir is set.
+    ``compile_events`` defaults to ``trace``. ``perfmon`` arms the
+    registry too (its histograms need a sink); ``status_path`` defaults
+    to ``<flightrec_dir or trace_dir>/status.json`` when perfmon is on
+    and either dir is set; ``xprof_round`` (with ``perfmon``) captures
+    that round under ``torch.profiler`` into ``xprof_dir`` (default that
+    same directory).
     """
     if compile_events is None:
         compile_events = bool(trace)
-    # refuse before any global is installed, so nothing leaks past here
-    for asked, what in ((compile_events, "compile_events=True (the "
-                         "per-round compile watcher)"),
-                        (xprof_round is not None, "xprof_round (the "
-                         "torch.profiler capture)"),
-                        (cost_model, "cost_model=True (CostModel)")):
-        if asked:
-            raise NotImplementedError(
-                f"enable({what}) waits for ROADMAP A16")
     state = _Scope()
-    prev_tracer = prev_reg = prev_fr = prev_mon = None
+    prev_tracer = prev_reg = prev_fr = prev_mon = prev_cm = None
     hooks = None
+    if compile_events:
+        from fedml_tpu_torch.observability.compilemon import watch_compiles
+        state._watch_cm = watch_compiles()
+        state.compile_watcher = state._watch_cm.__enter__()
     if trace:
         state.tracer = Tracer()
         prev_tracer = set_tracer(state.tracer)
@@ -91,11 +91,26 @@ def enable(trace=False, trace_dir=None, flightrec=False, flightrec_dir=None,
         out_dir = flightrec_dir or trace_dir
         if status_path is None and out_dir is not None:
             status_path = os.path.join(out_dir, "status.json")
-        state.monitor = PerfMonitor(status_path=status_path)
+        state.monitor = PerfMonitor(status_path=status_path,
+                                    xprof_dir=xprof_dir or out_dir,
+                                    xprof_round=xprof_round)
         prev_mon = set_perf_monitor(state.monitor)
+    if cost_model:
+        state.cost_model = CostModel()
+        prev_cm = set_cost_model(state.cost_model)
     try:
         yield state
     finally:
+        if state.compile_watcher is not None:
+            state._watch_cm.__exit__(None, None, None)
+            report = state.compile_watcher.report()
+            logging.info("compile watch: %s", report)
+            if metrics_logger is not None:
+                metrics_logger(report)
+        if state.cost_model is not None:
+            set_cost_model(prev_cm)
+            if metrics_logger is not None and state.cost_model.programs:
+                metrics_logger(state.cost_model.record())
         if state.monitor is not None:
             set_perf_monitor(prev_mon)
             state.monitor.status_update(force=True, final=True)
@@ -141,6 +156,7 @@ class _Scope:
         self.spans_path = None
         self.prom_path = None
         self.status_path = None
+        self._watch_cm = None
 
 
 def _install_crash_hooks(recorder):
@@ -188,4 +204,5 @@ __all__ = ["Tracer", "NoopTracer", "NOOP_TRACER", "Span", "SpanContext",
            "MetricsRegistry", "get_registry", "set_registry",
            "FlightRecorder", "get_flight_recorder", "set_flight_recorder",
            "PerfMonitor", "StatusWriter", "get_perf_monitor",
-           "set_perf_monitor", "enable"]
+           "set_perf_monitor",
+           "CostModel", "get_cost_model", "set_cost_model", "enable"]

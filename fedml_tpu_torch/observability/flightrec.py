@@ -1,7 +1,7 @@
 """Control-plane flight recorder: a bounded ring of events, dumped on death
 (counterpart of ``fedml_tpu/observability/flightrec.py``; installed by
-``observability.enable(flightrec=True)`` or ``set_flight_recorder``, the
-mains' ``--flightrec`` flag waits for ROADMAP A16).
+``observability.enable(flightrec=True)``, which the mains' ``--flightrec``
+flag arms, or ``set_flight_recorder``).
 
 A flaky chaos failure ("the round hung once at 2 a.m.") is only debuggable
 if the control plane's last N events survive the crash. The recorder keeps

@@ -6,9 +6,12 @@
   depth at fold, per report latency whose upper buckets are the
   straggler tail) and a rolling ``fed_rounds_per_hour`` gauge, and owns
   the optional status writer. Disabled cost: one module-global read per
-  instrumentation point (``get_perf_monitor() is None``). The
-  reference's ``--xprof_round`` capture (a ``jax.profiler`` window) is
-  ROADMAP A16's ``torch.profiler`` capture: asking for it raises.
+  instrumentation point (``get_perf_monitor() is None``). It also owns
+  the ``--xprof_round N`` window: a ``torch.profiler`` capture (host and
+  CUDA activity) of exactly round N, written to
+  ``<xprof_dir>/xprof_round_<N>/trace.json``, in place of the
+  reference's ``jax.profiler`` window; a no-op when the profiler is
+  unavailable or busy, and taken once.
 - :class:`StatusWriter` writes a throttled, atomic (tmp file +
   ``os.replace``) ``status.json`` snapshot, so an operator can read a
   distributed server's live health without attaching to its logs.
@@ -20,11 +23,13 @@
   against the median of its same-metric predecessors with a noise band
   and exits non-zero on regression.
 
-Stdlib only.
+Stdlib only at import time (torch is touched only inside an armed
+capture window).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -33,6 +38,7 @@ import time
 from collections import deque
 
 from fedml_tpu_torch.observability.registry import get_registry
+from fedml_tpu_torch.utils import profiling
 
 #: Bucket layouts for the monitor's histograms: latency-flavored seconds
 #: for round/report times, tighter sub-second edges for steps, small
@@ -105,16 +111,15 @@ class PerfMonitor:
 
     Every ``observe_*`` is a bounded-deque append plus, when the metrics
     registry is armed, one histogram observation: O(1) host work, no
-    device touches, no effect on any computed value. ``xprof_dir`` is
-    the reference's argument, unused until the capture is ported."""
+    device touches, no effect on any computed value."""
 
     def __init__(self, status_path=None, xprof_dir=None, xprof_round=None,
                  window=128, status_interval_s=2.0):
-        if xprof_round is not None:
-            raise NotImplementedError(
-                "PerfMonitor(xprof_round=...): the per-round profiler "
-                "capture (torch.profiler in place of the reference's "
-                "jax.profiler window) waits for ROADMAP A16")
+        self.xprof_dir = xprof_dir
+        self.xprof_round = (int(xprof_round)
+                            if xprof_round is not None else None)
+        self._xprof_done = False
+        self.xprof_path = None
         self.status = (StatusWriter(status_path,
                                     min_interval_s=status_interval_s)
                        if status_path else None)
@@ -196,6 +201,47 @@ class PerfMonitor:
             reg.observe("fed_buffer_depth_levels", int(depth),
                         buckets=COUNT_BUCKETS,
                         help="buffer depth observed at each fold")
+
+    # -- xprof window ------------------------------------------------------
+    def xprof(self, round_idx):
+        """Context manager: a ``torch.profiler`` capture of exactly round
+        ``xprof_round`` into ``<xprof_dir>/xprof_round_<N>/``. Any other
+        round, and a profiler that cannot start (unavailable, a capture
+        already running), is a clean no-op; the capture fires at most
+        once. With a card, a capture without device events raises
+        (``profiling.MissingDeviceTrace``)."""
+        if (self.xprof_round is None or self._xprof_done
+                or int(round_idx) != self.xprof_round):
+            return contextlib.nullcontext()
+        return self._xprof_capture(round_idx)
+
+    @contextlib.contextmanager
+    def _xprof_capture(self, round_idx):
+        out_dir = os.path.join(self.xprof_dir or ".",
+                               f"xprof_round_{int(round_idx)}")
+        started = False
+        try:
+            profiling.start_trace(out_dir)
+            started = True
+        except (ImportError, RuntimeError, ValueError, OSError) as e:
+            logging.warning("perfmon: --xprof_round %d capture unavailable "
+                            "(%s: %s) -- continuing without it",
+                            round_idx, type(e).__name__, e)
+        self._xprof_done = True  # one shot, even if the start failed
+        try:
+            yield
+        finally:
+            if started:
+                try:
+                    self.xprof_path = profiling.stop_trace()
+                    logging.info("perfmon: xprof trace of round %d -> %s",
+                                 round_idx, out_dir)
+                except profiling.MissingDeviceTrace:
+                    raise
+                except (ImportError, RuntimeError, ValueError,
+                        OSError) as e:
+                    logging.warning("perfmon: xprof stop failed (%s: %s)",
+                                    type(e).__name__, e)
 
     # -- status ------------------------------------------------------------
     def status_update(self, force=False, **fields):

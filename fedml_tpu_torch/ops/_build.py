@@ -12,6 +12,13 @@ builds its library at its first launch, and :func:`build_all` builds
 several at once, one ``nvcc`` per source, all started together.
 :data:`build_stats` counts this process's ``nvcc`` runs (the bench's
 compile fields).
+
+The build directory is :func:`build_dir` (``build/`` by default;
+``utils/compile_cache.py`` points it at ``--compile_cache_dir``), and
+every build and every first load of a library in this process is
+announced to the listeners of :func:`add_build_listener`: the compile
+watcher (``observability/compilemon.py``) books them per round, and the
+runtime auditor (``analysis/runtime.py``) reads its rounds.
 """
 
 from __future__ import annotations
@@ -30,11 +37,46 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _CSRC = os.path.join(_REPO, "fedml_tpu_torch", "csrc")
 _BUILD_DIR = os.path.join(_REPO, "build")
+_build_dir = _BUILD_DIR
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: this process's builds: ``nvcc`` runs, the wall seconds spent waiting on
 #: them, and libraries loaded as already built (a cache hit)
 build_stats = {"builds": 0, "seconds": 0.0, "cached": 0}
+_listeners = []
+
+
+def build_dir():
+    """Where libraries are built and looked for: ``build/`` at the root
+    of the checkout unless :func:`set_build_dir` moved it."""
+    return _build_dir
+
+
+def set_build_dir(path):
+    """Build and look for libraries in ``path`` (None: ``build/`` at the
+    root of the checkout); returns the previous directory."""
+    global _build_dir
+    prev, _build_dir = _build_dir, path or _BUILD_DIR
+    return prev
+
+
+def add_build_listener(fn):
+    """Call ``fn(event, **fields)`` on every build and every first load:
+    ``("build", names=[...], seconds=wall)`` once per ``nvcc`` batch
+    (the batch's compilers run at once, so it carries their common wall
+    seconds) and ``("load", name=..., cached=bool)`` when a library is
+    loaded into this process, ``cached`` when it was already built."""
+    _listeners.append(fn)
+
+
+def remove_build_listener(fn):
+    if fn in _listeners:
+        _listeners.remove(fn)
+
+
+def _notify(event, **fields):
+    for fn in list(_listeners):
+        fn(event, **fields)
 
 
 def nvcc():
@@ -55,13 +97,14 @@ class CudaLibrary:
     ``bind(lib)`` declares ``argtypes``/``restype`` of the library's C
     functions once it is loaded. :attr:`lib` builds on first use."""
 
-    def __init__(self, name, bind, csrc=_CSRC, build_dir=_BUILD_DIR):
+    def __init__(self, name, bind, csrc=_CSRC, build_dir=None):
         self.name = name
         self.csrc = csrc
-        self.build_dir = build_dir
+        self._build_dir = build_dir
         self.source = os.path.join(csrc, f"{name}.cu")
         self._bind = bind
         self._lib = None
+        self._loaded = None
         self._lock = threading.Lock()
 
     def key(self):
@@ -74,6 +117,11 @@ class CudaLibrary:
                          + b"\0")
         h.update("\0".join(_NVCC_FLAGS).encode())
         return h.hexdigest()[:16]
+
+    @property
+    def build_dir(self):
+        """The directory given at construction, else :func:`build_dir`."""
+        return self._build_dir or _build_dir
 
     def path(self):
         """``build/lib<name>-<key>.so``: the library of the files as they
@@ -94,7 +142,9 @@ class CudaLibrary:
 
     def _finish(self, path, started, output):
         """Load and bind ``path`` after the compiler (if it ran) has exited
-        with ``output``. Returns the compiler's report for this library."""
+        with ``output``. Returns the compiler's report for this library.
+        A library this process had loaded from another path (another
+        build directory) is loaded again."""
         log = path + ".log"
         if started is not None:
             proc, tmp = started
@@ -105,10 +155,11 @@ class CudaLibrary:
                 f.write(output)
             os.replace(tmp, path)
             self._lib = None
-        if self._lib is None:
+        if self._lib is None or self._loaded != path:
             lib = ctypes.CDLL(path)
             self._bind(lib)
-            self._lib = lib
+            self._lib, self._loaded = lib, path
+            _notify("load", name=self.name, cached=started is None)
         if not os.path.exists(log):
             return ""
         with open(log) as f:
@@ -140,10 +191,15 @@ def build_all(libraries):
         outputs = ["".join(s[0].communicate()) if s else "" for s in started]
         built = sum(s is not None for s in started)
         if built:
+            seconds = time.perf_counter() - t0
             build_stats["builds"] += built
-            build_stats["seconds"] += time.perf_counter() - t0
-        build_stats["cached"] += sum(s is None and lib._lib is None
-                                     for lib, s in zip(libraries, started))
+            build_stats["seconds"] += seconds
+            _notify("build", seconds=seconds,
+                    names=[lib.name for lib, s in zip(libraries, started)
+                           if s is not None])
+        build_stats["cached"] += sum(
+            s is None and lib._loaded != p
+            for lib, p, s in zip(libraries, paths, started))
         return {lib.name: lib._finish(p, s, out)
                 for lib, p, s, out in zip(libraries, paths, started, outputs)}
     finally:
@@ -174,5 +230,6 @@ def ptxas_usage(report):
     return out
 
 
-__all__ = ["CudaLibrary", "build_all", "build_stats", "nvcc",
-           "ptxas_usage"]
+__all__ = ["CudaLibrary", "build_all", "build_stats", "build_dir",
+           "set_build_dir", "add_build_listener", "remove_build_listener",
+           "nvcc", "ptxas_usage"]

@@ -43,6 +43,9 @@ import torch
 from fedml_tpu_torch.compression.compressors import ErrorFeedback
 from fedml_tpu_torch.compression.integration import ef_reconstruct
 from fedml_tpu_torch.core.trainer import TrainSpec
+from fedml_tpu_torch.observability.costmodel import (FLOPS_SOURCE,
+                                                     get_cost_model,
+                                                     train_step_flops)
 from fedml_tpu_torch.observability.tracing import get_tracer
 from fedml_tpu_torch.parallel.packing import (_steps_for, bucket_edge_for,
                                               gather_batches, pack_lanes,
@@ -715,7 +718,12 @@ class BucketedStreamRunner:
     (:func:`~fedml_tpu_torch.compression.integration.ef_reconstruct`).
     Residual rows are gathered by stable client id from a
     ``ResidualStore`` at dispatch and written back at the chunk's fold
-    point; padded lanes carry zero rows whose updates are dropped."""
+    point; padded lanes carry zero rows whose updates are dropped.
+
+    With a cost model armed (``observability.costmodel``), one client's
+    local step is counted once (``train_step_flops``; its FLOPs do not
+    depend on the bucket edge) and the round info carries per-bucket and
+    FLOP-weighted waste accounting, as the reference's does."""
 
     def __init__(self, spec: TrainSpec, cfg: ClientUpdateConfig,
                  payload_fn=None, server_fn=None, client_chunk=256,
@@ -728,8 +736,19 @@ class BucketedStreamRunner:
         self.batch_size = int(batch_size)
         self.epochs = int(epochs)
         self.edges = sorted(int(e) for e in edges)
+        self.spec, self.cfg = spec, cfg
         self._update = make_streamed_client_update(spec, cfg)
         self._dtypes = None
+        self._step_flops = None  # FLOPs of one client's local step
+
+    def step_flops(self, batches):
+        """FLOPs of one client's local step at the chunk's batch shape,
+        counted once per runner (``train_step_flops`` on the CPU)."""
+        if self._step_flops is None:
+            self._step_flops = train_step_flops(
+                self.spec, self.cfg,
+                {k: (tuple(v.shape[2:]), v.dtype) for k, v in batches.items()})
+        return self._step_flops
 
     def _chunk(self, global_state, batches, ns, trip, seeds, residuals=None,
                comp_seeds=None):
@@ -806,6 +825,7 @@ class BucketedStreamRunner:
         flushes = 0
         inflight = deque()
         tracer = get_tracer()
+        cm = get_cost_model()  # one global read when attribution is off
 
         def to_device(avg):
             return _tree_map(lambda x, d: torch.as_tensor(
@@ -883,6 +903,11 @@ class BucketedStreamRunner:
                 inflight.append((chunks, born, k, ids,
                                  self._chunk(gs, batches, n_dev, trip,
                                              chunk_seeds, res, c_seeds)))
+            if cm is not None:
+                # one step of the chunk across its lanes, as the
+                # reference's cost analysis charges a loop body once
+                cm.note(f"bucket_chunk_s{edge}",
+                        self.step_flops(batches) * self.client_chunk)
             chunks += 1
             st = b_stats[edge]
             st["clients"] += k
@@ -914,9 +939,19 @@ class BucketedStreamRunner:
             gs, ss = self.server_fn(
                 gs, to_device(_tree_map(lambda x: x / w_total, num)), ss,
                 int(flush_seed))
-        per_bucket = [{"edge": int(e), "skipped": int(b_stats[e]["chunks"]
-                                                       == 0), **b_stats[e]}
-                      for e in self.edges]
+        per_bucket = []
+        flops_exec = flops_true = 0.0
+        for e in self.edges:
+            st = b_stats[e]
+            row = {"edge": int(e), "skipped": int(st["chunks"] == 0), **st}
+            if cm is not None and st["chunks"]:
+                step = self._step_flops
+                row["flops_per_step"] = step
+                row["executed_flops"] = step * st["executed_steps"]
+                row["true_flops"] = step * st["true_steps"]
+                flops_exec += row["executed_flops"]
+                flops_true += row["true_flops"]
+            per_bucket.append(row)
         true_steps = int(steps_pc.sum())
         info = {
             "aux": {"n": np.asarray(ns, np.float32),
@@ -934,6 +969,12 @@ class BucketedStreamRunner:
                 "per_bucket": per_bucket,
             },
         }
+        if flops_exec > 0:
+            # padded waste in FLOPs
+            info["bucket"].update({
+                "executed_flops": flops_exec, "true_flops": flops_true,
+                "flops_waste_frac": round(1.0 - flops_true / flops_exec, 4),
+                "flops_source": FLOPS_SOURCE})
         if async_info is not None:
             info["async"] = async_info
         return gs, ss, info

@@ -94,7 +94,9 @@ def add_resilience_args(parser):
     parser.add_argument(
         "--race_audit", type=int, default=0,
         help="arm the concurrency race sanitizer over the control "
-             "plane's locks (ROADMAP A16)")
+             "plane's locks (analysis/runtime.py race_audit): lock-order "
+             "cycles and state locks held across a blocking frame write "
+             "go to the metrics sink")
     return parser
 
 

@@ -3,7 +3,11 @@
 appends one JSON line to ``<run_dir>/metrics.jsonl`` and rewrites
 ``<run_dir>/summary.json`` (the last value of each key, the
 wandb-summary equivalent); ``config.json`` holds the run's arguments.
-wandb is not carried (``--enable_wandb`` is refused by the mains)."""
+With a metrics registry armed (``observability.enable``) every record
+also carries the series that moved since the last one (``m/`` keys).
+With ``enable_wandb`` the records are mirrored to wandb when the package
+imports; where it does not, one log line says so and the JSONL stays
+the only sink. Nothing is installed."""
 
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import os
 import time
 
 from fedml_tpu_torch.core.locks import audited_lock
+from fedml_tpu_torch.observability.registry import get_registry
 
 
 def init_logging(proctitle=None):
@@ -41,7 +46,8 @@ class MetricsLogger:
     ``wire_flush_at_close`` record.
     """
 
-    def __init__(self, run_dir=None, config=None):
+    def __init__(self, run_dir=None, enable_wandb=False, run_name=None,
+                 config=None):
         self.run_dir = run_dir
         self._jsonl = None
         self._summary = {}
@@ -57,6 +63,18 @@ class MetricsLogger:
                                         if hasattr(config, "__dict__")
                                         else dict(config)),
                               f, indent=2, sort_keys=True)
+        self._wandb = None
+        if enable_wandb:
+            try:
+                import wandb
+            except ImportError:
+                logging.info("wandb not installed; metrics go to JSONL only")
+            else:
+                self._wandb = wandb
+                wandb.init(project="fedml_tpu", name=run_name,
+                           config=config if config is None else _jsonable(
+                               vars(config) if hasattr(config, "__dict__")
+                               else dict(config)))
 
     def count_wire(self, encoded_bytes, raw_bytes=0):
         """Accumulate on-wire payload bytes (and, optionally, what the same
@@ -77,6 +95,11 @@ class MetricsLogger:
                         self._wire_raw_bytes / self._wire_bytes, 3)
                 self._wire_bytes = 0
                 self._wire_raw_bytes = 0
+        registry = get_registry()
+        if registry is not None:
+            # every series that moved since the last record rides this
+            # one under an ``m/`` prefix
+            registry.snapshot_into(record)
         logging.info("%s", record)
         if self._jsonl is not None:
             self._jsonl.write(json.dumps({"_ts": time.time(), **record},
@@ -85,6 +108,8 @@ class MetricsLogger:
             self._summary.update(record)
             with open(os.path.join(self.run_dir, "summary.json"), "w") as f:
                 json.dump(self._summary, f, indent=2, sort_keys=True)
+        if self._wandb is not None:
+            self._wandb.log(record)
 
     __call__ = log
 
@@ -96,6 +121,9 @@ class MetricsLogger:
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None
+        if self._wandb is not None:
+            self._wandb.finish()
+            self._wandb = None
 
 
 def _jsonable(d):

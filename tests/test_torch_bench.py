@@ -6,8 +6,10 @@ constants within ``FLOPS_XCHECK_TOL`` (as the reference's cost model is
 held), the CPU smoke of both recipes through ``main`` (one JSON line
 with the reference's record keys, null device metrics), the
 control-plane soaks (``--soak``, ``--tree_soak``) with the reference's
-record keys on the host, the refusal of every unported flag naming its
-ROADMAP item, and the failure without a card."""
+record keys on the host, the kernel-build flags (``--warmup``,
+``--compile_cache_dir``) and the pace-steering bench (``--steering``)
+against the reference's ``run_steering_bench``, the refusal of a flag
+the reference bench lacks, and the failure without a card."""
 
 import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import json
@@ -29,6 +31,7 @@ from fedml_tpu_torch.models import resnet56
 from fedml_tpu_torch.models.transformer import TransformerLM
 from fedml_tpu_torch.observability import perfmon
 from fedml_tpu_torch.observability.costmodel import train_step_flops
+from fedml_tpu_torch.ops import _build
 from fedml_tpu_torch.parallel.engine import ClientUpdateConfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -264,18 +267,60 @@ def test_algo_fedopt_builds_the_server_adam_line():
     assert api.server_state["count"] == 0
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--warmup", "1"], "A16"),
-    (["--compile_cache_dir", "/nonexistent"], "A16"),
-    (["--steering"], "A16"),
-    (["--steering", "--compressor", "signsgd"], "A16"),
-    (["--compile_cache_dir", "/nonexistent", "--check"], "A16"),
-])
-def test_unported_flag_fails_naming_its_queue_item(capsys, argv, item):
-    record = tbench.main(argv + ["--platform", "cpu", "--smoke"])
-    assert _last_json(capsys) == record
-    assert record["value"] == 0.0 and f"ROADMAP {item}" in record["error"]
+def _steering_pass(record):
+    """The steering bench's pass rule, read off its own record: the
+    steered final model within the quality tolerance, and its rounds/hour
+    at least the threshold times the best qualifying fixed
+    configuration's."""
+    tol = record["quality_tol"]
+    qualified = [r for r in record["fixed_sweep"]
+                 if "rph" in r and r["quality_rel"] <= tol]
+    best = max(qualified, key=lambda r: r["rph"]) if qualified else None
+    assert record["best_fixed_rph"] == (best["rph"] if best else None)
+    return bool(record["steered"]["quality_rel"] <= tol and best is not None
+                and record["speedup_vs_best_fixed"] is not None
+                and record["speedup_vs_best_fixed"]
+                >= record["speedup_threshold"])
+
+
+def _warmed(record, d):
+    # on the CPU the wrappers run their plain versions: nothing to build
+    assert record["warmup_programs"] == record["compile_count"] == 0
+    assert "error" not in record
+
+
+def _cached(record, d):
+    assert record["compile_cache_dir"] == d and os.path.isdir(d)
+    assert _build.build_dir() != d  # the bench restores the default
+
+
+def _steered(record, d):
+    assert record["rounds"] == 2 and record["unit"] == "rounds/hour"
+    assert record["pass"] == _steering_pass(record)
+
+
+def _compressor_refused(record, d):
+    assert "--compressor applies to" in record["error"]
     assert tbench._exit_code(record) == 1
+
+
+@pytest.mark.parametrize("argv,check", [
+    (["--warmup", "1", "--clients", "8"], _warmed),
+    (["--compile_cache_dir", "{d}", "--lm"], _cached),
+    (["--steering", "--steering_rounds", "2", "--steering_scale", "0.05"],
+     _steered),
+    (["--steering", "--compressor", "signsgd"], _compressor_refused),
+    (["--compile_cache_dir", "{d}", "--check"], _cached),
+])
+def test_tooling_flag_runs_and_records(tmp_path, capsys, argv, check):
+    """``--warmup``, ``--compile_cache_dir`` and ``--steering`` (the flags
+    that waited for ROADMAP A16) run and leave their record keys."""
+    d = str(tmp_path / "cache")
+    argv = [a.replace("{d}", d) for a in argv]
+    record = tbench.main(argv + ["--platform", "cpu", "--smoke",
+                                 "--ledger", ""])
+    assert _last_json(capsys) == record
+    check(record, d)
 
 
 @pytest.mark.parametrize("argv", [["--soak_rounds", "2"],

@@ -68,9 +68,7 @@ TestCompressedWire = _res.TestCompressedWire
 TestAsyncServer = _async.TestAsyncServer
 
 
-class TestTcpChaos(_res.TestTcpChaos):
-    # arming the race audit from a run is ROADMAP A16
-    test_chaos_run_clean_under_race_audit = None
+TestTcpChaos = _res.TestTcpChaos
 
 
 class TestRecovery(_res.TestRecovery):
@@ -272,7 +270,7 @@ TCP_RUNS = [
     ("robust_norm_clip", lambda p: dict(
         round_policy=p.res.RoundPolicy(), trainer=_hetero_trainer(),
         robust=p.privacy.RobustPolicy(mode="norm_clip", clip_bound=1.0))),
-    # pace steering with the perf monitor off (ROADMAP A16): decisions
+    # pace steering with the perf monitor off: decisions
     # from the outcomes alone, the deadline steered within its bounds
     ("pace", lambda p: dict(
         round_policy=p.res.RoundPolicy(deadline_s=2.0, quorum=0.34),

@@ -8,8 +8,9 @@ on 8x8 ``synthetic_images``: the histories agree at 1e-4, ``--run_dir``
 gets the reference's files with the same keys, and ``evaluate_local``
 (with and without ``--ci``) agrees at 1e-4. Also: the flag set and its
 defaults equal the reference's, each unported flag refuses naming its
-ROADMAP item, and without a card and without ``--platform cpu`` the
-command exits non-zero."""
+ROADMAP item, each run-time tooling flag runs and writes its artifact or
+record, and without a card and without ``--platform cpu`` the command
+exits non-zero."""
 
 import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import argparse
@@ -126,22 +127,8 @@ def test_flags_and_defaults_are_the_reference_ones():
 
 @pytest.mark.parametrize("argv,item", [
     (["--mesh", "2"], "A15"),
-    (["--race_audit", "1", "--compressor", "topk:0.1"], "A16"),
     (["--mesh", "2", "--compressor", "qsgd:4"], "A15"),
-    (["--xprof_dir", "/nonexistent"], "A16"),
-    (["--warmup", "1"], "A16"),
-    (["--compile_cache_dir", "/nonexistent"], "A16"),
-    (["--trace", "1"], "A16"),
-    (["--flightrec", "1"], "A16"),
-    (["--perfmon", "1"], "A16"),
-    (["--costmodel", "1"], "A16"),
-    (["--audit", "1"], "A16"),
-    (["--race_audit", "1"], "A16"),
-    (["--enable_wandb", "1"], "A16"),
     (["--mesh", "4"], "A15"),
-    (["--status_path", "/nonexistent"], "A16"),
-    (["--xprof_round", "1"], "A16"),
-    (["--trace_dir", "/nonexistent"], "A16"),
     # the CV zoo and its file-backed sets run (test_torch_zoo_round.py);
     # the segmentation sets (A14c) train through main_fedseg, and the
     # classification mains refuse them, whatever the model
@@ -162,6 +149,126 @@ def test_unported_flag_refuses_naming_its_item(argv, item):
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main_fedavg.main(argv)
+
+
+def _records(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _merged(run_dir):
+    out = {}
+    for r in _records(run_dir):
+        out.update(r)
+    return out
+
+
+def _check_race(run, d):
+    m = _merged(run)
+    assert m["race/lock_order_cycles"] == [] and "race/locks_created" in m
+
+
+def _check_race_compressed(run, d):
+    _check_race(run, d)
+    assert all("bytes_on_wire" in r for r in _records(run) if "round" in r
+               and "Train/Loss" in r)
+
+
+def _check_xprof_dir(run, d):
+    assert os.listdir(d) == ["xprof_round_0"]
+    assert os.path.exists(os.path.join(d, "xprof_round_0", "trace.json"))
+
+
+def _check_warmup(run, d):
+    m = _merged(run)
+    # on the CPU the wrappers run their plain versions: nothing to build
+    assert m["warmup/programs"] == 0 and m["warmup/cache_misses"] == 0
+
+
+def _check_cache_dir(run, d):
+    from fedml_tpu_torch.ops import _build
+    # the run built in ``d``; the main restores the default after it
+    assert os.path.isdir(d) and _build.build_dir() == _build._BUILD_DIR
+
+
+def _check_trace(run, d):
+    for name in ("trace.json", "spans.jsonl"):
+        assert os.path.exists(os.path.join(run, name))
+    m = _merged(run)
+    assert m["compile/rounds"] == 2 and m["compile/cache_misses"] == 0
+
+
+def _check_flightrec(run, d):
+    assert os.path.exists(os.path.join(run, "metrics.prom"))
+
+
+def _check_perfmon(run, d):
+    status = json.load(open(os.path.join(run, "status.json")))
+    assert status["final"] is True
+    assert _merged(run)["perf/rounds_observed"] == 2
+
+
+def _check_costmodel(run, d):
+    m = _merged(run)
+    assert m["bucket/executed_flops"] >= m["bucket/true_flops"] > 0
+    assert m["cost/programs"] >= 1
+
+
+def _check_audit(run, d):
+    m = _merged(run)
+    assert m["audit/rounds"] == 2
+    assert m["audit/steady_state_retraces"] == 0
+    assert m["audit/transfer_guard_violations"] == 0
+
+
+def _check_wandb(run, d):
+    # wandb is not installed here: the JSONL stays the sink
+    assert len([r for r in _records(run) if "Train/Loss" in r]) == 2
+
+
+def _check_status_path(run, d):
+    assert json.load(open(d))["final"] is True
+
+
+def _check_xprof_round(run, d):
+    assert os.path.exists(os.path.join(run, "xprof_round_1", "trace.json"))
+    assert not os.path.exists(os.path.join(run, "xprof_round_0"))
+
+
+def _check_trace_dir(run, d):
+    assert os.path.exists(os.path.join(d, "trace.json"))
+    assert not os.path.exists(os.path.join(run, "trace.json"))
+
+
+@pytest.mark.parametrize("argv,check", [
+    (["--race_audit", "1", "--compressor", "topk:0.1"],
+     _check_race_compressed),
+    (["--perfmon", "1", "--xprof_round", "0", "--xprof_dir", "{d}"],
+     _check_xprof_dir),
+    (["--warmup", "1"], _check_warmup),
+    (["--compile_cache_dir", "{d}"], _check_cache_dir),
+    (["--trace", "1"], _check_trace),
+    (["--flightrec", "1"], _check_flightrec),
+    (["--perfmon", "1"], _check_perfmon),
+    (["--costmodel", "1", "--bucket_edges", "geometric"], _check_costmodel),
+    (["--audit", "1"], _check_audit),
+    (["--race_audit", "1"], _check_race),
+    (["--enable_wandb", "1"], _check_wandb),
+    (["--perfmon", "1", "--status_path", "{d}"], _check_status_path),
+    (["--perfmon", "1", "--xprof_round", "1"], _check_xprof_round),
+    (["--trace", "1", "--trace_dir", "{d}"], _check_trace_dir),
+])
+def test_tooling_flag_runs_and_writes_its_artifact(tmp_path, argv, check):
+    """Each run-time tooling flag (the ones that waited for ROADMAP A16)
+    runs through the main and leaves its artifact or record key."""
+    run, d = str(tmp_path / "run"), str(tmp_path / "out")
+    if check is _check_status_path:
+        d = str(tmp_path / "status.json")
+    argv = [a.replace("{d}", d) for a in argv] + [
+        "--platform", "cpu", "--comm_round", "2", "--client_num_in_total",
+        "2", "--client_num_per_round", "2", "--run_dir", run]
+    main_fedavg.main(argv)
+    check(run, d)
 
 
 def test_transport_eventloop_configures_as_in_the_reference(tmp_path,

@@ -482,17 +482,25 @@ def test_quick_start_runs_each_server_optimizer(opt):
 
 
 @pytest.mark.parametrize("name", sorted(MAINS))
-@pytest.mark.parametrize("flag,value,item", [("--race_audit", "1", "A16")])
-def test_main_refuses_resilience_flags(name, flag, value, item):
-    """The resilience group's flag whose path is still unported (the
-    race audit) refuses on every main; ``--overselect``,
+@pytest.mark.parametrize("flag,value,key", [("--race_audit", "1",
+                                             "race/lock_order_cycles")])
+def test_main_refuses_resilience_flags(name, flag, value, key, tmp_path):
+    """The resilience group's last flag, the race audit, runs on every
+    main now (it refused until the run-time tooling was ported) and
+    leaves its report in the run's records; ``--overselect``,
     ``--straggler_p``, ``--quorum``, ``--deadline`` and ``--pace_*`` run
     (``test_torch_resilience.py``), as do ``--async_agg``
     (``test_torch_async_agg.py``) and ``--transport``
     (:func:`test_main_transport_flag_only_configures`)."""
+    import json
+    import os
     module, argv = MAINS[name]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        module.main(argv + ["--platform", "cpu", flag, value])
+    run = str(tmp_path / "run")
+    module.main(argv + ["--platform", "cpu", "--comm_round", "1",
+                        "--run_dir", run, flag, value])
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    assert [r[key] for r in records if key in r] == [[]]
 
 
 @pytest.mark.parametrize("name", sorted(MAINS))

@@ -15,7 +15,8 @@ Three kinds of test:
   bit for bit; a tiny fp32 TransformerLM trained over the event loop by
   each package's own client update (parameters within ``LM_TCP_TOL``);
 - the port alone: the reference's chaos scenario over the event loop
-  without its race audit (ROADMAP A16), and every process the soak
+  without its race audit (the reference's, with it, runs above through
+  the port), and every process the soak
   spawns is a process of this package.
 
 Every socket test bounds itself through the drivers' ``timeout`` and
@@ -51,10 +52,7 @@ TestRejoinRateLimit = _net.TestRejoinRateLimit
 TestCompressedSoak = _net.TestCompressedSoak
 
 
-class TestTransportEquivalence(_net.TestTransportEquivalence):
-    # arming the race audit is ROADMAP A16: the scenario without it is
-    # test_chaos_over_the_event_loop_stitches_and_dumps below
-    test_chaos_kill_stall_with_stitched_observability = None
+TestTransportEquivalence = _net.TestTransportEquivalence
 
 
 class TestSoak(_net.TestSoak):

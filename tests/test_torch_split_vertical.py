@@ -23,6 +23,7 @@
 
 import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import csv
+import os
 import types
 
 import flax.linen as nn
@@ -492,8 +493,17 @@ def _without_nan(load):
     ("main_vfl", ["--mesh", "2"]),
     ("main_vfl", ["--trace", "1"]),
 ])
-def test_mains_refuse_unported_flags(main, argv):
+def test_mains_refuse_unported_flags(main, argv, tmp_path, monkeypatch):
+    """``--mesh`` waits for ROADMAP A15. ``--trace`` parses and, as in
+    the reference's VFL main (which opens no observability scope), writes
+    no trace."""
     import importlib
     module = importlib.import_module(f"fedml_tpu_torch.experiments.{main}")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        module.main(argv + ["--platform", "cpu"])
+    if "--mesh" in argv:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            module.main(argv + ["--platform", "cpu"])
+        return
+    monkeypatch.chdir(tmp_path)
+    module.main(argv + ["--platform", "cpu", "--dataset",
+                        "synthetic_vertical", "--epochs", "1"])
+    assert not os.path.exists(tmp_path / "trace.json")

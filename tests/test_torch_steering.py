@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import bench
 from fedml_tpu.algorithms.fedavg import FedAvgAPI as JaxFedAvgAPI
 from fedml_tpu.algorithms.specs import make_classification_spec as jax_spec
 from fedml_tpu.data import load_synthetic_federated
@@ -280,12 +281,43 @@ def test_transport_shaping_waits_for_the_control_plane():
     assert got[2] > 0 and got[1]
 
 
-def test_bench_steering_refusal_names_the_control_plane_and_perfmon(capsys):
-    """``--steering`` waits for the perf monitor (ROADMAP A16) alone now
-    that the TCP control plane is ported."""
-    record = tbench.main(["--steering", "--platform", "cpu", "--smoke"])
-    assert "ROADMAP A16" in record["error"]
-    assert "A13" not in record["error"]
+#: a fixed sweep entry's keys, by outcome
+_RUN_KEYS = {"wall_s", "rounds_completed", "degraded", "abandoned",
+             "config"}
+
+
+def _run_keys(run):
+    return set(run) - ({"rph", "quality_rel"} if "rph" in run
+                       else {"failed"})
+
+
+def test_bench_steering_record_and_pass_rule_equal_the_reference(capsys):
+    """``--steering`` at a cut scale against the reference's
+    ``run_steering_bench`` at the same arguments: the same record keys,
+    the same seeded trace and sweep, and each record's ``pass`` is the
+    reference's rule applied to that record (the timings, and so the
+    verdicts, are the wall clock's and are not compared)."""
+    from test_torch_bench import _last_json, _steering_pass
+
+    argv = ["--steering", "--steering_rounds", "2", "--steering_scale",
+            "0.05"]
+    got = tbench.main(argv + ["--ledger", ""])
+    assert _last_json(capsys) == got
+    args = tbench._parser().parse_args(argv + ["--ledger", ""])
+    rc = bench.run_steering_bench(args)
+    want = _last_json(capsys)
+    assert rc == (0 if want["pass"] else 1)
+    assert sorted(got) == sorted(want)
+    assert sorted(got["steered"]) == sorted(want["steered"])
+    assert got["trace"] == want["trace"]
+    assert [r["config"] for r in got["fixed_sweep"]] == \
+        [r["config"] for r in want["fixed_sweep"]]
+    for run in got["fixed_sweep"] + want["fixed_sweep"]:
+        assert _run_keys(run) == _RUN_KEYS, run
+    for record in (got, want):
+        assert record["pass"] == _steering_pass(record)
+        assert (record["speedup_threshold"], record["quality_tol"],
+                record["rounds"]) == (1.10, 0.5, 2)
 
 
 # -- the steered simulation (the reference's tests/test_steering.py) --------
