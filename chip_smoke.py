@@ -241,7 +241,28 @@ Phases (any failure exits non-zero):
    build in any round, B2-B4 launched; (c) in this process under
    deterministic kernels, the 2-round run with every flag on bit-equal
    to the same run with none;
-17. print the ``kernels`` JSON line and, last, the ``ok`` line.
+17. run the client-sharded rounds and the long-context main
+   (``phase_a15``): (a) ``main_longcontext`` at its defaults (T 512,
+   vocab 10004, 4 layers, 4 heads of 64, d_model 256, batch 32) with
+   ``--n_seq 1`` for ``A15_STEPS`` steps, in fp32 (its default, B2-B4's
+   CUDA-core route) and with ``--model_dtype bf16`` (their tensor-core
+   route), B3 and B4 launched layers x steps times in each and B2 as
+   often, B2-B4 at [32, 512, 4, 64] in bf16 and fp32 against their
+   plain versions (the first T 512 cases, timed beside SDPA), and the
+   same SGD steps from the same weights through the kernels and through
+   the plain ``mha`` in bf16 and fp32, their loss drift and their
+   parameter drift beside the parameters' move printed (recorded, not
+   gated); (b) one round of ResNet-56 at
+   full width (fp32, deterministic kernels, host-packed) through
+   ``main_fedavg --mesh 1`` (a one-rank NCCL ``clients`` mesh, the
+   sharded round's ``all_reduce``) held within ``A15_MESH_TOL`` of
+   ``--mesh 0``'s round, then one round of the sharded packed lanes
+   (``ShardedLaneRunner``, bf16, ``lane_lowering="pallas"``) with B1
+   launched 53 x lane steps; (c) one
+   ``compat.FedML_FedAvg_distributed`` call on the mesh. Two ranks
+   cannot share one card under NCCL: the ring and the multi-rank rounds
+   run in the CPU tests under gloo;
+18. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -267,6 +288,7 @@ import types
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 L, B = 8, 64
 # the LM flagship (bench.py --lm defaults): one attention launch is the
 # 8 clients x batch 4 of a chunk at T=80, 4 heads of 128
@@ -405,13 +427,14 @@ def mma_kernel_usage(_build, fa, grouped_conv, reports):
     return out
 
 
-def _attn_bounds(B, T, causal, itemsize=2):
+def _attn_bounds(B, T, causal, itemsize=2, D=ATTN_D,
+                 ops_per_s=BF16_OPS_PER_S):
     """Least times (ms) of B2, B3, B4 and of the whole backward on this
     launch: bytes (each input read once, each output written once) over
     the memory rate, and the products' operations on this data's valid
-    (query, key) pairs over the bf16 peak; the larger of the two, and
-    which."""
-    tensor = B * T * ATTN_H * ATTN_D * itemsize
+    (query, key) pairs over the peak of their type (bf16 by default);
+    the larger of the two, and which."""
+    tensor = B * T * ATTN_H * D * itemsize
     row = B * ATTN_H * T * 4                    # lse or delta, fp32
     pairs = B * ATTN_H * (T * (T + 1) // 2 if causal else T * T)
     out = {}
@@ -423,8 +446,8 @@ def _attn_bounds(B, T, causal, itemsize=2):
                                               ("bwd", 8, 1, 5)):
         nbytes = n_tensors * tensor + n_rows * row
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2 * products * ATTN_D * pairs / BF16_OPS_PER_S * 1e3
-        out[name] = {"bytes": nbytes, "ops": 2 * products * ATTN_D * pairs,
+        ops_ms = 2 * products * D * pairs / ops_per_s * 1e3
+        out[name] = {"bytes": nbytes, "ops": 2 * products * D * pairs,
                      "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms
                      else "operations"}
@@ -538,10 +561,11 @@ def phase_attention(torch, fa):
     return timing, errs
 
 
-def build_api(torch, lowering="pallas"):
+def build_api(torch, lowering="pallas", mesh=None):
     """FedAvgAPI of the main path: ResNet-56 (bf16), 16 clients x 256
     synthetic LDA alpha=0.5 samples, 8 lanes, batch 64, SGD lr 0.001 wd
-    0.001, augmentation on, on the card as a user would call it."""
+    0.001, augmentation on, on the card as a user would call it; on
+    ``mesh`` the lanes are sharded."""
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
     from fedml_tpu_torch.algorithms.specs import make_classification_spec
     from fedml_tpu_torch.data.augment import make_cifar_augment
@@ -562,7 +586,7 @@ def build_api(torch, lowering="pallas"):
         client_optimizer="sgd", frequency_of_the_test=10 ** 9, seed=0,
         client_chunk=L, wave_mode=3, device_resident="auto",
         device_data_cap_gb=4.0, device_dtype=None)
-    return FedAvgAPI(dataset, spec, args)
+    return FedAvgAPI(dataset, spec, args, mesh=mesh)
 
 
 def phase_main_path(torch, grouped_conv):
@@ -3184,6 +3208,277 @@ def phase_tooling(torch, fa, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+#: main_longcontext's local steps on the card
+A15_STEPS = 3
+#: ``--mesh 1`` against ``--mesh 0``: one host-packed fp32 round under
+#: deterministic kernels, the one-rank all_reduce a copy
+A15_MESH_TOL = 1e-5
+#: the long-context main at its defaults, the local path
+A15_LC = ["--n_seq", "1", "--steps", str(A15_STEPS)]
+#: ResNet-56 at full width, fp32, host-packed: 4 clients of 256, 1 epoch
+A15_RESNET = ["--model", "resnet56", "--dataset", "synthetic_images",
+              "--image_size", "32", "--client_num_in_total", "4",
+              "--client_num_per_round", "4", "--n_train", "1024",
+              "--batch_size", "64", "--epochs", "1", "--comm_round", "1",
+              "--device_resident", "0"]
+
+
+def _a15_lm_steps(torch, attention_fn, dtype):
+    """``A15_STEPS`` SGD steps (the main's lr) of main_longcontext's
+    model and data at its defaults on a one-rank mesh, computing in
+    ``dtype`` over fp32 parameters, the attention through the kernels
+    (``attention_fn`` None) or ``attention_fn``: the losses, the initial
+    and the final parameters. SGD, not the main's AdamW, so that the
+    parameters' drift is the gradients' and not Adam's sign noise."""
+    import numpy as np
+
+    from fedml_tpu_torch.experiments import main_longcontext
+    from fedml_tpu_torch.models.transformer import TransformerLM
+    from fedml_tpu_torch.parallel.seq_parallel import (
+        make_seq_mesh, make_seq_parallel_lm_step, place_lm_batch,
+        shift_targets)
+
+    args = main_longcontext.parser().parse_args(A15_LC)
+    mesh = make_seq_mesh(1, 1)
+    model = TransformerLM(vocab_size=args.vocab_size,
+                          n_layers=args.n_layers, n_heads=args.n_heads,
+                          d_model=args.d_model, max_len=args.seq_len,
+                          dtype=dtype, attention_fn=attention_fn)
+    data = np.random.default_rng(args.seed).integers(
+        0, args.vocab_size, (64, args.seq_len))
+    init_fn, step_fn = make_seq_parallel_lm_step(
+        model, mesh, lambda ps: torch.optim.SGD(ps, lr=args.lr))
+    params, opt = init_fn(args.seed)
+    init = {k: v.detach().clone() for k, v in params.items()}
+    losses, B = [], args.batch_size
+    for step in range(A15_STEPS):
+        idx = data[(step * B) % (64 - B + 1):][:B]
+        params, opt, loss = step_fn(
+            params, opt, *place_lm_batch(mesh, idx, shift_targets(idx)))
+        losses.append(float(loss))
+    return losses, init, params
+
+
+def _a15_attention_t512(torch, fa):
+    """B2-B4 at main_longcontext's launch [32, 512, 4, 64] (causal, q, k
+    and v strided views of one qkv product) in bf16 and fp32 against
+    their plain versions, with the card cases' tolerances; the bf16 and
+    fp32 launches timed beside their plain versions and SDPA."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    Bq, T, H, D = 32, 512, 4, 64
+    C = H * D
+    out = {}
+    for dtype, (rel, abs_) in ((torch.bfloat16, (1.6e-2, 1e-3)),
+                               (torch.float32, (1e-4, 1e-5))):
+        qkv = torch.randn(Bq, T, 3 * C, generator=gen, device=dev
+                          ).to(dtype)
+        q, k, v = (qkv[..., j * C:(j + 1) * C].reshape(Bq, T, H, D)
+                   for j in range(3))
+        do = torch.randn(Bq, T, H, D, generator=gen, device=dev).to(dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, True)
+        delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, do, lse_ref, delta.contiguous(), True)
+        dq = fa.flash_attention_dq(*args)
+        dk, dv = fa.flash_attention_dkv(*args)
+        dq_ref, dk_ref, dv_ref = fa.flash_attention_bwd_reference(*args)
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        errs = {"fwd": _check(f"fwd T512 {name}", o, o_ref, rel, abs_),
+                "lse": _check(f"lse T512 {name}", lse, lse_ref, 1e-4,
+                              1e-5),
+                "dq": _check(f"dq T512 {name}", dq, dq_ref, rel, abs_),
+                "dkv": max(_check(f"dk T512 {name}", dk, dk_ref, rel, abs_),
+                           _check(f"dv T512 {name}", dv, dv_ref, rel,
+                                  abs_))}
+        ref_args = args[:-1] + (True, D ** -0.5, T)
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qs, ks, vs))
+        out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        bwd_lib = timed_ms(lambda: torch.autograd.grad(
+            out_g, (qg, kg, vg), do.transpose(1, 2), retain_graph=True),
+            flush)
+        bf16 = dtype == torch.bfloat16
+        bounds = _attn_bounds(Bq, T, True, itemsize=2 if bf16 else 4, D=D,
+                              ops_per_s=(BF16_OPS_PER_S if bf16
+                                         else FP32_OPS_PER_S))
+        times = {
+            "fwd": (lambda: fa.flash_attention_fwd(q, k, v, True),
+                    lambda: fa.flash_attention_fwd_reference(q, k, v, True),
+                    lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, is_causal=True)),
+            "dq": (lambda: fa.flash_attention_dq(*args),
+                   lambda: fa.flash_attention_dq_reference(*ref_args),
+                   None),
+            "dkv": (lambda: fa.flash_attention_dkv(*args),
+                    lambda: fa.flash_attention_dkv_reference(*ref_args),
+                    None)}
+        for kname, (kern, plain, lib) in times.items():
+            row = {"case": f"longcontext_T512_{name}",
+                   "shape": [Bq, T, H, D], "ms": timed_ms(kern, flush),
+                   "plain_ms": timed_ms(plain, flush),
+                   "library_ms": (timed_ms(lib, flush) if lib is not None
+                                  else bwd_lib),
+                   "max_abs_err": errs[kname],
+                   "bound_ms": bounds[kname]["bound_ms"],
+                   "bound_by": bounds[kname]["bound_by"]}
+            out[(name, kname)] = row
+            print(f"attention_time_t512 {kname} " + json.dumps(row),
+                  flush=True)
+    return out
+
+
+def _a15_main_run(torch, fa, smi, dtype_flags, route):
+    """``main_longcontext``'s ``A15_STEPS`` steps at its defaults (plus
+    ``dtype_flags``) with B2-B4's counts zeroed just before: their
+    launches, each layers x steps (B2 at least that)."""
+    from fedml_tpu_torch.experiments import main_longcontext
+
+    for name in fa.launches:
+        fa.launches[name] = 0
+    t0 = time.time()
+    params, losses = main_longcontext.main(A15_LC + dtype_flags)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(fa.launches)
+    layers = main_longcontext.parser().parse_args([]).n_layers
+    want = layers * A15_STEPS
+    if not (launches["dq"] == launches["dkv"] == want
+            and launches["fwd"] >= want):
+        fail(f"main_longcontext {dtype_flags}: attention launches "
+             f"{launches}, want {want} = {layers} layers x {A15_STEPS} "
+             f"steps")
+    if not (all(math.isfinite(x) for x in losses)
+            and next(iter(params.values())).device.type == "cuda"):
+        fail(f"main_longcontext {dtype_flags}: losses {losses}")
+    print(f"a15 longcontext T=512 route={route} steps={A15_STEPS} "
+          f"losses={losses} launches={json.dumps(launches)} "
+          f"s={seconds:.2f} card={smi}", flush=True)
+    return launches
+
+
+def _a15_drift(torch, smi):
+    """The same SGD steps from the same weights through the kernels and
+    through the plain ``mha``, in bf16 (B2-B4's tensor-core route, the
+    ROADMAP watch item) and fp32 (the CUDA-core route): each step's loss
+    drift, and the parameters' largest drift beside their largest move
+    from the initial weights. Recorded, not gated."""
+    from fedml_tpu_torch.ops.attention import mha
+
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        k_losses, init, k_params = _a15_lm_steps(torch, None, dtype)
+        p_losses, _, p_params = _a15_lm_steps(
+            torch, lambda q, k, v: mha(q, k, v, causal=True), dtype)
+        with torch.no_grad():
+            drift = max(float((k_params[k] - p_params[k]).abs().max())
+                        for k in k_params)
+            move = max(float((k_params[k] - init[k]).abs().max())
+                       for k in k_params)
+        print(f"a15 b2_drift_{name} " + json.dumps({
+            "steps": A15_STEPS, "optimizer": "sgd",
+            "kernel_losses": k_losses, "plain_losses": p_losses,
+            "loss_drift": [a - b for a, b in zip(k_losses, p_losses)],
+            "max_param_drift": drift, "max_param_move": move,
+            "drift_over_move": drift / move if move else None,
+            "card": smi}), flush=True)
+
+
+def _a15_longcontext(torch, fa, smi):
+    """Phase 17 (a): the main's launches in fp32 (its default, B2-B4's
+    CUDA-core route) and in bf16 (their tensor-core route), the T 512
+    cases, the drift."""
+    launches = {
+        "fp32": _a15_main_run(torch, fa, smi, [], "cuda_core"),
+        "bf16": _a15_main_run(torch, fa, smi, ["--model_dtype", "bf16"],
+                              "mma")}
+    times = _a15_attention_t512(torch, fa)
+    _a15_drift(torch, smi)
+    return launches, times
+
+
+def _a15_mesh_round(torch, grouped_conv, smi):
+    """Phase 17 (b): ``--mesh 1`` against ``--mesh 0``, then the sharded
+    packed lanes under the ``pallas`` lowering."""
+    from fedml_tpu_torch.parallel.mesh import make_client_mesh
+    from fedml_tpu_torch.parallel.multihost import Sharded
+
+    states, times = {}, {}
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mesh in ("0", "1"):
+            api, times[mesh] = _experiment(A15_RESNET + ["--mesh", mesh])
+            states[mesh] = api.global_state
+            if (mesh == "1") != (api.mesh is not None):
+                fail(f"main_fedavg --mesh {mesh}: api.mesh {api.mesh}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    gap = _states_diff(torch, states["1"], states["0"])
+    if not gap <= A15_MESH_TOL:
+        fail(f"main_fedavg --mesh 1 differs from --mesh 0 by {gap}")
+    print(f"a15 mesh_round resnet56 mesh1_vs_mesh0={gap} "
+          f"s_per_round={json.dumps(times)} card={smi}", flush=True)
+
+    api = build_api(torch, mesh=make_client_mesh(1))
+    if not isinstance(api.device_data, Sharded) or not (
+            api.sharded_lane_runner and api.sharded_lane_runner.packed):
+        fail("FedAvgAPI(mesh=, wave_mode=3) took no sharded packed lanes")
+    grouped_conv.launches = 0
+    record = api.train_one_round()
+    launches, trip = grouped_conv.launches, api._last_trip
+    if launches != 53 * trip or not math.isfinite(record["Train/Loss"]):
+        fail(f"sharded packed lanes: B1 launched {launches} times, want "
+             f"53 x {trip} lane steps; {record}")
+    print(f"a15 sharded_lanes pallas lane_steps={trip} b1_launches="
+          f"{launches} train_loss={record['Train/Loss']} "
+          f"round_time_s={record['round_time_s']:.2f} card={smi}",
+          flush=True)
+    return launches
+
+
+def _a15_compat(torch, smi):
+    """Phase 17 (c): one ``FedML_FedAvg_distributed`` call on the card
+    over the one-rank mesh (LR on LEAF synthetic, 2 rounds)."""
+    from fedml_tpu_torch.compat import FedML_FedAvg_distributed, FedML_init
+    from fedml_tpu_torch.data.synthetic import load_synthetic_federated
+    from fedml_tpu_torch.models.linear import LogisticRegression
+
+    comm, rank, world = FedML_init()
+    ds = load_synthetic_federated(client_num=4, n_train=400, n_test=80,
+                                  seed=0)
+    args = types.SimpleNamespace(
+        client_num_in_total=4, client_num_per_round=4, comm_round=2,
+        epochs=1, batch_size=16, lr=0.3, wd=0.0, client_optimizer="sgd",
+        frequency_of_the_test=100, seed=0, class_num=ds[7], mesh=1)
+    x = ds[2]["x"]
+    api = FedML_FedAvg_distributed(
+        rank, world, None, comm, LogisticRegression(x.shape[1], ds[7]),
+        ds[0], ds[2], ds[3], ds[4], ds[5], ds[6], args)
+    acc = api.evaluate_global()["Test/Acc"]
+    if (api.round_idx != 2 or api.device.type != "cuda" or api.mesh is None
+            or not 0.0 <= acc <= 1.0):
+        fail(f"compat: round {api.round_idx} on {api.device}, acc {acc}")
+    print(f"a15 compat rank={rank} world={world} rounds={api.round_idx} "
+          f"test_acc={acc} card={smi}", flush=True)
+
+
+def phase_a15(torch, grouped_conv, fa, smi):
+    """Phase 17: the long-context main at T 512, the client-sharded
+    rounds on a one-rank NCCL mesh and the compat call; returns the
+    attention launches of the main's steps, B1's of the sharded lanes
+    and the T 512 times."""
+    t0 = time.time()
+    attn, times = _a15_longcontext(torch, fa, smi)
+    b1 = _a15_mesh_round(torch, grouped_conv, smi)
+    _a15_compat(torch, smi)
+    print(f"a15 phase_s={time.time() - t0:.1f} card={smi}", flush=True)
+    return {"attention": attn, "b1": b1, "t512": times}
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -3359,6 +3654,7 @@ def main():
     phase_serverless(torch, grouped_conv, fa, smi)
     phase_a14c(torch, grouped_conv, fa, smi)
     phase_tooling(torch, fa, smi)
+    phase_a15(torch, grouped_conv, fa, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

@@ -28,8 +28,16 @@ bypassed), or on the bucketed path as streaming error feedback, where
 ``none`` runs the plain chunk program. One ``ResidualStore`` sized by
 ``device_data_cap_gb`` carries the residuals by client id for both
 (they are not checkpointed, as in the reference), and every record
-carries ``bytes_on_wire`` and ``compression_ratio``. Meshes wait for
-ROADMAP A15.
+carries ``bytes_on_wire`` and ``compression_ratio``.
+
+``mesh=`` (a ``clients`` mesh, ``parallel/mesh.py``) runs the round over
+the mesh's ranks, every rank the same loop on its own device: with
+``--wave_mode`` 2 or 3 the resident rows are sharded in blocks over the
+ranks and trained as lanes (``ShardedLaneRunner``), otherwise each rank
+trains its block of the host-packed cohort (``make_sharded_round``).
+The per-client metrics are gathered to every rank
+(``multihost.gather_metrics``). A compressor or the bucketed path on a
+mesh is refused, as in the reference.
 """
 
 from __future__ import annotations
@@ -49,9 +57,11 @@ from fedml_tpu_torch.core.trainer import TrainSpec
 from fedml_tpu_torch.observability.perfmon import get_perf_monitor
 from fedml_tpu_torch.observability.tracing import get_tracer
 from fedml_tpu_torch.parallel.engine import (ClientUpdateConfig, LaneRunner,
-                                             WaveRunner, fold_seed,
-                                             make_eval_fn,
+                                             ShardedLaneRunner, WaveRunner,
+                                             fold_seed, make_eval_fn,
                                              make_indexed_sim_round)
+from fedml_tpu_torch.parallel.multihost import (gather_metrics,
+                                                global_cohort)
 from fedml_tpu_torch.parallel.packing import (_steps_for, pack_cohort,
                                               pack_eval, pack_schedule,
                                               packing_backend,
@@ -85,7 +95,9 @@ class FedAvgAPI:
         ``device_resident``, ``device_data_cap_gb``, ``device_dtype``,
         ``bucket_edges``, ``ci``, ...).
       device: ``None`` runs on the GPU and raises without one; pass
-        ``"cpu"`` to run on the CPU.
+        ``"cpu"`` to run on the CPU. On a mesh it defaults to the mesh's.
+      mesh: a ``clients`` :class:`~fedml_tpu_torch.parallel.mesh.Mesh`
+        for the sharded rounds.
       payload_fn / server_fn / server_state: aggregator hooks; payload_fn
         takes client- or lane-stacked local state.
       compressor: a spec string or compressor (default
@@ -99,15 +111,16 @@ class FedAvgAPI:
          self.test_data_global, self.train_data_local_num_dict,
          self.train_data_local_dict, self.test_data_local_dict,
          self.class_num) = dataset
-        self.spec, self.args = spec, args
-        self.device = resolve_device(device if device is not None
-                                     else getattr(args, "device", None))
+        self.spec, self.args, self.mesh = spec, args, mesh
+        device = device if device is not None else getattr(args, "device",
+                                                           None)
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"device {self.device} is not the mesh's "
+                             f"{mesh.device}")
         self.metrics_logger = metrics_logger or (
             lambda d: logging.info("%s", d))
-        if mesh is not None:
-            # a compressor on a mesh is refused too in the reference:
-            # mesh rounds aggregate over collectives, with no wire
-            raise NotImplementedError("mesh rounds wait for ROADMAP A15")
 
         self.cfg = cfg = ClientUpdateConfig(
             optimizer=getattr(args, "client_optimizer", "sgd"),
@@ -118,9 +131,20 @@ class FedAvgAPI:
         self.compressor = get_compressor(
             compressor if compressor is not None
             else getattr(args, "compressor", None))
+        if self.compressor is not None and mesh is not None:
+            raise ValueError(
+                "compressor= applies to the single-chip simulation and the "
+                "distributed control-plane paths; mesh rounds aggregate "
+                "over collectives, where the wire bottleneck being "
+                "compressed does not exist")
         async_policy = AggregationPolicy.from_args(args)
         use_buckets = (getattr(args, "bucket_edges", None) is not None
                        or async_policy is not None)
+        if use_buckets and mesh is not None:
+            raise ValueError(
+                "--bucket_edges/--async_agg run the single-chip bucketed "
+                "streaming path; it does not compose with --mesh (the "
+                "sharded-lane path owns multi-chip)")
         if (use_buckets and self.compressor is not None
                 and self.compressor.name == "none"):
             # the identity has no wire transform to stream: the plain
@@ -134,7 +158,8 @@ class FedAvgAPI:
                          else "none"),
             client_update=(spec, cfg))
         self.round_fn = self.program.compile_sim(spec, cfg, payload_fn,
-                                                 server_fn, compressed=False)
+                                                 server_fn, mesh=mesh,
+                                                 compressed=False)
         self.compressed_round_fn = None
         if self.compressor is not None and not use_buckets:
             self.compressed_round_fn = self.program.compile_sim(
@@ -152,17 +177,37 @@ class FedAvgAPI:
 
         self.device_data = None
         self.packed_lane_runner = None
+        self.sharded_lane_runner = None
         resident = str(getattr(args, "device_resident", "auto")).lower()
+        mode = int(getattr(args, "wave_mode", 1))
+        chunk = getattr(args, "client_chunk", 8) or 8
         # compressed rounds thread residuals, which only the host-packed
-        # round does: residency is bypassed under a compressor
+        # round does: residency is bypassed under a compressor. On a mesh
+        # only the lanes read resident rows
         stacked = (self._stack_if_fits(args)
                    if resident not in ("0", "false", "none", "")
                    and self.bucket_runner is None
-                   and self.compressor is None else None)
-        if stacked is not None:
-            self.device_data = {"x": stacked["x"], "y": stacked["y"]}
+                   and self.compressor is None
+                   and (mesh is None or mode in (2, 3)) else None)
+        if stacked is not None and mesh is not None:
+            # the rows sharded in blocks over the ranks, each rank
+            # training the cohort members it owns as lanes
+            self.device_data = global_cohort(
+                mesh, {"x": stacked["x"], "y": stacked["y"]})
+            if stacked["bf16"]:
+                local = self.device_data.local
+                local["x"] = local["x"].to(torch.bfloat16)
             self._client_ns = stacked["n"]
-            chunk = getattr(args, "client_chunk", 8) or 8
+            self.sharded_lane_runner = ShardedLaneRunner(
+                spec, cfg, mesh, payload_fn, server_fn, n_lanes=chunk,
+                packed=mode == 3 and spec.lane_loss_builder is not None)
+        elif stacked is not None:
+            x = torch.as_tensor(stacked["x"], device=self.device)
+            self.device_data = {
+                "x": x.to(torch.bfloat16) if stacked["bf16"] else x,
+                "y": torch.as_tensor(stacked["y"],
+                                     device=self.device).long()}
+            self._client_ns = stacked["n"]
             self.wave_runner = WaveRunner(spec, cfg, payload_fn, server_fn,
                                           client_chunk=chunk)
             self.lane_runner = LaneRunner(spec, cfg, payload_fn, server_fn,
@@ -239,10 +284,10 @@ class FedAvgAPI:
             batch_size=eff_bs, epochs=args.epochs, edges=edges)
 
     def _stack_if_fits(self, args):
-        """Stack every client's padded shard onto the device when it fits
-        ``device_data_cap_gb``; ``device_dtype`` bf16 halves a floating
-        ``x``. Returns ``{"x", "y"}`` device tensors and ``"n"``, or
-        None."""
+        """Stack every client's padded shard on the host when the stacks
+        fit ``device_data_cap_gb`` on the device; ``device_dtype`` bf16
+        halves a floating ``x`` there (``"bf16"``). Returns ``{"x", "y",
+        "n", "bf16"}`` or None."""
         C = len(self.train_data_local_dict)
         n_max = max(1, max(len(d["y"])
                            for d in self.train_data_local_dict.values()))
@@ -260,11 +305,7 @@ class FedAvgAPI:
             return None
         host = stack_clients([self.train_data_local_dict[i]
                               for i in range(C)])
-        x = torch.as_tensor(host["x"], device=self.device)
-        if cast_bf16:
-            x = x.to(torch.bfloat16)
-        y = torch.as_tensor(host["y"], device=self.device).long()
-        return {"x": x, "y": y, "n": host["n"]}
+        return dict(host, bf16=cast_bf16)
 
     def _sample_cohort(self, round_idx):
         """Cohort for one round: the seeded draw, or with resilience on
@@ -313,6 +354,10 @@ class FedAvgAPI:
         with get_tracer().span("broadcast", clients=len(client_indexes)):
             packed = pack_cohort(datasets, self.args.batch_size,
                                  self.args.epochs, rng=self._data_rng)
+            if self.mesh is not None:
+                # every rank packed the same cohort (the same seeded
+                # stream); each places its own block
+                return client_indexes, global_cohort(self.mesh, packed)
             packed = {k: torch.as_tensor(v, device=self.device)
                       for k, v in packed.items()}
             packed["y"] = packed["y"].long()
@@ -389,11 +434,13 @@ class FedAvgAPI:
             end_of_round_sync(self.global_state, self.device)
         dt = time.time() - t0
         with tracer.span("report"):
-            m = {k: float(v.sum()) for k, v in info["metrics"].items()}
+            round_metrics = (gather_metrics(info["metrics"])
+                             if self.mesh is not None else info["metrics"])
+            m = {k: float(v.sum()) for k, v in round_metrics.items()}
         self._last_metrics = m
         # the round's metrics as summed, per-client axes and all (FedSeg
         # reads its confusion matrix from them)
-        self._last_round_metrics = info["metrics"]
+        self._last_round_metrics = round_metrics
         train_metrics = {
             "round": self.round_idx,
             "Train/Loss": m["loss_sum"] / max(m["count"], 1),
@@ -444,7 +491,12 @@ class FedAvgAPI:
                                   self.args.epochs, rng=self._data_rng)
         mode = int(getattr(self.args, "wave_mode", 1))
         state = (self.global_state, self.server_state)
-        if mode in (2, 3):
+        if self.sharded_lane_runner is not None:
+            with tracer.span("local-train", mode="sharded-lanes"):
+                *state, info = self.sharded_lane_runner.run_round(
+                    *state, self.device_data, client_indexes, sched,
+                    round_seed)
+        elif mode in (2, 3):
             runner = (self.packed_lane_runner
                       if mode == 3 and self.packed_lane_runner is not None
                       else self.lane_runner)

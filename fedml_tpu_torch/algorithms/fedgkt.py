@@ -22,7 +22,7 @@ per-sample teacher logits.
 - ``evaluate`` scores the edge-to-server pipeline through every
   client's own extractor on its local test shard.
 
-The server phase over a ``model`` mesh axis waits for ROADMAP A15.
+The server phase over a ``model`` mesh axis waits for ROADMAP A15b.
 """
 
 from __future__ import annotations
@@ -89,7 +89,7 @@ class FedGKTAPI:
                 "model", 1) > 1:
             raise NotImplementedError(
                 "FedGKT's server phase over a model mesh axis waits for "
-                "ROADMAP A15 (multi-device)")
+                "ROADMAP A15b (tensor, pipeline and expert parallelism)")
         self.args = args
         self.device = resolve_device(device if device is not None
                                      else getattr(args, "device", None))

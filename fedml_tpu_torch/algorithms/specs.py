@@ -24,12 +24,12 @@ from torch.func import functional_call, vmap
 from fedml_tpu_torch.core.trainer import TrainSpec
 from fedml_tpu_torch.models.lane_packed import (LOWERINGS, builder_for,
                                                lane_kernel_libraries)
-from fedml_tpu_torch.models.layers import lecun_init_
+from fedml_tpu_torch.models.layers import fp32_or_wider, lecun_init_
 from fedml_tpu_torch.utils.torch_import import module_state
 
 
 def _loss_and_metrics(logits, y, mask):
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(fp32_or_wider(logits), dim=-1)
     per_sample = -logp.gather(-1, y.long()[..., None])[..., 0]
     count = mask.sum()
     loss = (per_sample * mask).sum() / torch.clamp(count, min=1.0)

@@ -88,8 +88,9 @@
 // two blocks share an SM. Rows that do not start on 16 bytes are loaded
 // element by element instead.
 //
-// B2, B3 and B4 in fp32 (which only the tests and the fp32 logits check
-// of chip_smoke.py run): the first design, on the CUDA cores. One block
+// B2, B3 and B4 in fp32 (which the fp32 models run, main_longcontext at
+// its defaults among them, besides the tests and the fp32 logits check of
+// chip_smoke.py): the first design, on the CUDA cores. One block
 // of 256 threads per (batch*head, 64-row tile): query tiles for B2 and
 // B3, key tiles for B4, which loop over the opposite operand's tiles
 // (skipping, causal, the tiles above the diagonal). The block stages its
@@ -1148,7 +1149,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         (float*)lse, strides_at(st, 0), strides_at(st, 1),
         strides_at(st, 2), strides_at(st, 3), H, Tq, Tk, k_len, scale,
         causal != 0);
-  } else {  // fp32, which only the tests run: the CUDA-core loop
+  } else {  // fp32 (the fp32 models): the CUDA-core loop
     const size_t smem = 3 * kTile * (D + 4) * sizeof(float);
     cudaError_t err = prepare(fwd_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
@@ -1177,7 +1178,7 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
         strides_at(st, 3), strides_at(st, 4), H, Tq, Tk, k_len, scale,
         causal != 0);
-  } else {  // fp32, which only the tests run: the CUDA-core loop
+  } else {  // fp32 (the fp32 models): the CUDA-core loop
     const size_t smem = (4 * kTile * (D + 4) + kTile * kLP) * sizeof(float);
     cudaError_t err = prepare(dq_kernel<T, D>, smem);
     if (err != cudaSuccess) return err;
@@ -1208,7 +1209,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
         strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Tq, Tk,
         k_len, scale, causal != 0);
-  } else {  // fp32, which only the tests run: the CUDA-core loop
+  } else {  // fp32 (the fp32 models): the CUDA-core loop
     const size_t smem =
         (4 * kTile * (D + 4) + 2 * kTile * kLP + 2 * kTile) * sizeof(float);
     cudaError_t err = prepare(dkv_kernel<T, D>, smem);

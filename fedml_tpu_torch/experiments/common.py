@@ -3,12 +3,16 @@
 names and defaults, setup, the dataset and model switch, the spec choice
 and the run loop.
 
-Every flag of the reference parses, so its command lines run here. A
-flag whose path is not ported (``--mesh``) refuses a non-default value
-with ``NotImplementedError`` naming its ROADMAP item
-(:func:`refuse_unported`). The run goes to the card; ``--platform cpu``
-asks for the CPU, and without a card and without it the main raises
-(:func:`device_for`).
+Every flag of the reference parses, so its command lines run here. The
+run goes to the card; ``--platform cpu`` asks for the CPU, and without a
+card and without it the main raises (:func:`device_for`).
+
+``--mesh N`` shards the clients over N ranks (:func:`make_mesh`), one
+process a device: launch N processes with ``FEDML_TPU_COORDINATOR``,
+``FEDML_TPU_NUM_PROCESSES`` and ``FEDML_TPU_PROCESS_ID`` set, or through
+``torchrun``; :func:`setup` joins the group, tags the log lines with the
+rank and writes metrics from rank 0 only. One process alone runs
+``--mesh 1`` over a one-rank group.
 
 The run-time tooling wraps ``api.train`` in :func:`run_fedavg_family`:
 ``--warmup`` builds the kernel libraries before the loop, then the
@@ -33,10 +37,6 @@ from fedml_tpu_torch.resilience.steering import add_steering_args
 
 #: the segmentation sets (``main_fedseg`` trains them)
 SEGMENTATION_SETS = ("synthetic_segmentation", "pascal_voc", "coco_seg")
-#: flag -> (value that runs, the ROADMAP item a change waits for)
-_UNPORTED = {
-    "mesh": (0, "ROADMAP A15 (multi-device)"),
-}
 
 
 def add_base_args(parser: argparse.ArgumentParser):
@@ -75,7 +75,8 @@ def add_base_args(parser: argparse.ArgumentParser):
                    help="train-time crop/flip/Cutout for the CIFAR family "
                         "on the device; 0 disables")
     p.add_argument("--mesh", type=int, default=0,
-                   help="multi-device rounds: not ported (ROADMAP A15)")
+                   help="shard clients over an N-rank mesh (0 = the "
+                        "single-device simulation)")
     p.add_argument("--wave_mode", type=int, default=1, choices=(0, 1, 2, 3),
                    help="device-resident rounds: 3 = packed lanes (falls "
                         "back to 2 without a packed lowering), 2 = vmap "
@@ -150,34 +151,72 @@ def add_base_args(parser: argparse.ArgumentParser):
 
 
 def refuse_unported(args):
-    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
-    flag set to a value whose path the port does not run."""
-    for name, (runs, item) in _UNPORTED.items():
-        if getattr(args, name, runs) != runs:
-            raise NotImplementedError(f"--{name} waits for {item}")
+    """Raise on a ``--platform`` the port does not run on."""
     if getattr(args, "platform", None) not in (None, "cpu"):
         raise ValueError(f"--platform {args.platform!r}: the port runs on "
                          "the card (default) or, asked, on the cpu")
 
 
 def device_for(args) -> torch.device:
-    """The card unless ``--platform cpu``; raises without a card."""
+    """The card unless ``--platform cpu``; raises without a card. A rank
+    of a group the environment describes joins it first, so a card rank
+    gets the ``cuda:<local rank>`` it is bound to."""
+    from fedml_tpu_torch.parallel.multihost import (
+        maybe_initialize_distributed)
     from fedml_tpu_torch.utils.device import resolve_device
 
-    return resolve_device("cpu" if getattr(args, "platform", None) == "cpu"
-                          else None)
+    device = "cpu" if getattr(args, "platform", None) == "cpu" else None
+    maybe_initialize_distributed(device)
+    return resolve_device(device)
+
+
+def make_mesh(args, device=None):
+    """The ``--mesh N`` clients mesh over the first N ranks, on
+    ``device`` (default :func:`device_for`), or None for ``--mesh 0``;
+    a mesh wider than the world raises."""
+    if not getattr(args, "mesh", 0):
+        return None
+    from fedml_tpu_torch.parallel.mesh import make_client_mesh
+
+    return make_client_mesh(
+        args.mesh, device=device if device is not None
+        else device_for(args))
+
+
+class _LogOnlySink:
+    """The metrics sink of a rank other than 0: the same call and close
+    surface, log lines only, no files."""
+
+    def __call__(self, d):
+        logging.info("%s", d)
+
+    log = __call__
+
+    def close(self, *a, **kw):
+        return None
 
 
 def setup(args, run_name=None):
-    """Logging, seeds and the metrics sink (``--run_dir``, mirrored to
-    wandb under ``--enable_wandb`` where it imports)."""
-    from fedml_tpu_torch.utils.metrics import MetricsLogger, init_logging
+    """The process group when the environment describes one
+    (``multihost.maybe_initialize_distributed``: a card rank binds
+    ``cuda:<local rank>`` and NCCL, ``--platform cpu`` gloo), logging
+    tagged with the rank, seeds and the metrics sink (``--run_dir``,
+    mirrored to wandb under ``--enable_wandb`` where it imports), which
+    writes on rank 0 only, as the reference's."""
+    from fedml_tpu_torch.parallel.multihost import (
+        is_primary, maybe_initialize_distributed)
+    from fedml_tpu_torch.utils.logging_utils import init_logging
+    from fedml_tpu_torch.utils.metrics import MetricsLogger
 
+    rank, world = maybe_initialize_distributed(
+        "cpu" if getattr(args, "platform", None) == "cpu" else None)
     init_logging(proctitle=run_name)
-    logging.info("args = %s", vars(args))
+    logging.info("args = %s (process %d/%d)", vars(args), rank, world)
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
+    if not is_primary():
+        return _LogOnlySink()
     return MetricsLogger(run_dir=args.run_dir,
                          enable_wandb=bool(getattr(args, "enable_wandb", 0)),
                          run_name=run_name, config=args)
@@ -295,10 +334,11 @@ def make_spec(args, model, dataset):
 
 
 def prepare(parser, argv, run_name):
-    """A main's common start: parse ``argv``, refuse unported flags,
-    resolve the device, set up logging, seeds and the metrics sink, load
-    the dataset and build the model and spec. ``run_name(args)`` names
-    the run. Returns ``(args, device, logger, dataset, spec)``."""
+    """A main's common start: parse ``argv``, check the platform,
+    resolve the device, set up the process group, logging, seeds and the
+    metrics sink, load the dataset and build the model and spec.
+    ``run_name(args)`` names the run. Returns ``(args, device, logger,
+    dataset, spec)``."""
     args = parser.parse_args(argv)
     refuse_unported(args)
     if args.dataset in SEGMENTATION_SETS:
@@ -328,14 +368,19 @@ def run_fedavg_family(api, args, logger):
     audit and the runtime audit, nested as in the reference. Works for
     any API with those attributes and a ``train(on_round=)`` (every
     FedAvg-family main and the centralized trainer)."""
+    from fedml_tpu_torch.parallel.multihost import is_primary, sync
     from fedml_tpu_torch.utils.checkpoint import Checkpointer
     from fedml_tpu_torch.utils.profiling import profile_trace
 
+    # every rank restores (the round index, the seeds and the states must
+    # agree across ranks); rank 0 alone writes
     ckpt = None
     if args.checkpoint_dir:
         ckpt = Checkpointer(args.checkpoint_dir)
-        ckpt.save_config(args)
+        if is_primary():
+            ckpt.save_config(args)
         if args.resume:
+            sync("pre-restore")
             saved = ckpt.restore(server_state_template=api.server_state,
                                  device=api.device)
             if saved is not None:
@@ -351,7 +396,7 @@ def run_fedavg_family(api, args, logger):
 
     def on_round(api_, metrics):
         last = api_.round_idx == args.comm_round
-        if (ckpt is not None
+        if (ckpt is not None and is_primary()
                 and (api_.round_idx % args.save_frequency == 0 or last)):
             ckpt.save(api_.round_idx, api_.global_state,
                       server_state=api_.server_state, rng=api_.seed,
@@ -371,7 +416,8 @@ def run_fedavg_family(api, args, logger):
     return api.global_state
 
 
-__all__ = ["add_base_args", "refuse_unported", "device_for", "setup",
+__all__ = ["add_base_args", "refuse_unported", "device_for", "make_mesh",
+           "setup",
            "compile_cache_scope", "audit_scope", "observability_scope", "race_audit_scope",
            "example_train_data", "load_dataset_and_model", "make_spec",
            "prepare", "run_fedavg_family"]

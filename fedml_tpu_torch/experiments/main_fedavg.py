@@ -28,6 +28,7 @@ def main(argv=None):
 
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
     api = FedAvgAPI(dataset, spec, args, device=device,
+                    mesh=common.make_mesh(args, device),
                     metrics_logger=logger)
     state = common.run_fedavg_family(api, args, logger)
     logger.close()

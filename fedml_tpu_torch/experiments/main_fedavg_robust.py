@@ -45,6 +45,7 @@ def main(argv=None):
 
     from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobustAPI
     api = FedAvgRobustAPI(dataset, spec, args, device=device,
+                          mesh=common.make_mesh(args, device),
                           metrics_logger=logger,
                           poisoned_test_data=poisoned_test)
     state = common.run_fedavg_family(api, args, logger)

@@ -68,6 +68,7 @@ def main(argv=None):
         drop_path_prob=args.drop_path_prob, in_channels=channels)
     spec = make_classification_spec(model, name="fednas_train")
     api = FedAvgAPI(dataset, spec, args, device=device,
+                    mesh=common.make_mesh(args, device),
                     metrics_logger=logger)
     state = common.run_fedavg_family(api, args, logger)
     logger.close()

@@ -32,6 +32,7 @@ def main(argv=None):
 
     from fedml_tpu_torch.algorithms.fedopt import FedOptAPI
     api = FedOptAPI(dataset, spec, args, device=device,
+                    mesh=common.make_mesh(args, device),
                     metrics_logger=logger)
     state = common.run_fedavg_family(api, args, logger)
     logger.close()

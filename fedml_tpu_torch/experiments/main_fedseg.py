@@ -47,6 +47,7 @@ def main(argv=None):
                     output_stride=args.outstride, in_channels=x.shape[-1])
     spec = make_segmentation_spec(model, num_classes=dataset[7])
     api = FedSegAPI(dataset, spec, args, device=device,
+                    mesh=common.make_mesh(args, device),
                     metrics_logger=logger)
     state = common.run_fedavg_family(api, args, logger)
     logger.close()

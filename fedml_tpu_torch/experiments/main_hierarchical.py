@@ -29,6 +29,7 @@ def main(argv=None):
 
     from fedml_tpu_torch.algorithms.hierarchical import HierarchicalFedAvgAPI
     api = HierarchicalFedAvgAPI(dataset, spec, args, device=device,
+                                mesh=common.make_mesh(args, device),
                                 metrics_logger=logger)
     state = common.run_fedavg_family(api, args, logger)
     logger.close()

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
+from fedml_tpu_torch.models.layers import fp32_or_wider
 from fedml_tpu_torch.models.resnet import CifarResNet, flax_batch_norm
 from fedml_tpu_torch.ops.grouped_conv import lane_conv_pallas
 
@@ -163,9 +164,10 @@ def make_lane_packed_apply(model, L: int, lowering: str = "blockdiag"):
                                   conv(f"{name}.downsample.0", x, s, 0))
                 x = F.relu(y + residual)
         B = x.shape[0]
-        feat = x.mean(dim=(2, 3)).reshape(B, L, -1).float()
-        logits = (torch.einsum("blc,loc->lbo", feat, p["fc.weight"].float())
-                  + p["fc.bias"][:, None, :].float())
+        feat = fp32_or_wider(x.mean(dim=(2, 3)).reshape(B, L, -1))
+        logits = (torch.einsum("blc,loc->lbo", feat,
+                               fp32_or_wider(p["fc.weight"]))
+                  + fp32_or_wider(p["fc.bias"][:, None, :]))
         return logits, new_bs
 
     return apply_fn
@@ -207,7 +209,7 @@ def _make_cnn_apply(model, L):
 def lane_metrics(logits, y, mask):
     """Per-lane masked cross-entropy and sums over ``[L, B]``: returns
     ``(per-lane mean loss [L], {"loss_sum", "correct", "count"} [L])``."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(fp32_or_wider(logits), dim=-1)
     per_sample = -logp.gather(-1, y.long()[..., None])[..., 0]
     count = mask.sum(dim=1)
     loss_sum = (per_sample * mask).sum(dim=1)

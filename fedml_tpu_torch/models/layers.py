@@ -47,6 +47,13 @@ def hwc(input_shape):
     return shape if len(shape) == 3 else shape + (1,)
 
 
+def fp32_or_wider(x):
+    """``x`` in fp32, or as it is when wider (a float64 computation
+    keeps its precision where the models' statistics and heads would
+    otherwise run in fp32)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def conv2d(conv, x, dtype):
     """``conv`` (an ``nn.Conv2d`` holding fp32 parameters) applied in
     ``dtype``, as flax's ``Conv(dtype=...)`` casts its kernel."""

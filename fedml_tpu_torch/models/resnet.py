@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fedml_tpu_torch.models.layers import conv2d
+from fedml_tpu_torch.models.layers import conv2d, fp32_or_wider
 
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -31,9 +31,10 @@ def flax_batch_norm(x, scale, bias, mean, var, train, dtype,
     (``momentum`` on the old running value, ``eps`` inside the root).
 
     Returns ``(y, new_mean, new_var)``; in eval mode the running stats
-    pass through. ``scale`` and ``bias`` may be None (no affine). Statistics and the normalisation run in fp32, the
-    result is cast to ``dtype``."""
-    xf = x.float()
+    pass through. ``scale`` and ``bias`` may be None (no affine).
+    Statistics and the normalisation run in fp32 (float64 for a float64
+    ``x``), the result is cast to ``dtype``."""
+    xf = fp32_or_wider(x)
     if train:
         dims = [d for d in range(x.dim()) if d != 1]
         mu = xf.mean(dim=dims)
@@ -142,7 +143,7 @@ class CifarResNet(nn.Module):
         x = F.relu(self.bn1(x))
         x = self.layer3(self.layer2(self.layer1(x)))
         x = x.mean(dim=(2, 3))
-        return F.linear(x.float(), self.fc.weight, self.fc.bias)
+        return F.linear(fp32_or_wider(x), self.fc.weight, self.fc.bias)
 
 
 def resnet56(class_num=10, dtype=torch.float32):

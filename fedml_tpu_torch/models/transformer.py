@@ -169,12 +169,15 @@ class TransformerLM(nn.Module):
             return self.attention_fn(q, k, v)
         return flash_attention(q, k, v, True)
 
-    def apply_params(self, params, idx, stacked=False, with_sown=False):
+    def apply_params(self, params, idx, stacked=False, with_sown=False,
+                     pos_offset=0):
         """Logits of ``idx`` under ``params`` (``{name: tensor}``). With
         ``stacked=True`` every parameter has a leading client axis K and
         ``idx`` is ``[K, B, T]``; the logits are then ``[K, B, T, V]``.
         ``with_sown=True`` returns ``(logits, aux)``: the blocks' sown
-        auxiliary losses summed per client (``[K]``, or a scalar)."""
+        auxiliary losses summed per client (``[K]``, or a scalar).
+        ``pos_offset`` is the absolute position of ``idx``'s first token
+        (a sequence shard's start under sequence parallelism)."""
         if not stacked:
             params = {k: v.unsqueeze(0) for k, v in params.items()}
             idx = idx.unsqueeze(0)
@@ -183,7 +186,8 @@ class TransformerLM(nn.Module):
         C, H = self.d_model, self.n_heads
         D = C // H
         x = (embed(P["tok_embed.weight"], idx, dt)
-             + P["pos_embed.weight"][:, None, :T].to(dt))
+             + P["pos_embed.weight"][:, None,
+                                    pos_offset:pos_offset + T].to(dt))
         aux = torch.zeros(K, device=idx.device)
         for i in range(self.n_layers):
             p = lambda n: P[f"blocks.{i}.{n}"]

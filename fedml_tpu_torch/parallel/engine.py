@@ -27,8 +27,15 @@ Random draws (augmentation, dropout) come from ``torch.Generator``s
 seeded per (client, local step): a client's seed is derived from its
 cohort slot the same way in every runner (:func:`client_seeds_for`), so
 the paths agree to float reassociation. The bucketed runner streams
-error feedback under a compressor (``compression/``). Sharded rounds wait
-for ROADMAP A15.
+error feedback under a compressor (``compression/``).
+
+Sharded rounds run over a ``clients`` mesh (``parallel/mesh.py``), one
+process a device: :func:`make_sharded_round` (the host-packed round,
+each rank training its block of the cohort) and ``ShardedLaneRunner``
+(each rank's resident rows as lanes). A client's seed comes from its
+global cohort slot, as on one device, and each rank's weighted payload
+sum meets the others' in one fp32 ``all_reduce`` with the weight total;
+the server step then runs replicated on every rank.
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ from fedml_tpu_torch.observability.costmodel import (FLOPS_SOURCE,
                                                      get_cost_model,
                                                      train_step_flops)
 from fedml_tpu_torch.observability.tracing import get_tracer
+from fedml_tpu_torch.parallel.mesh import CLIENT_AXIS
+from fedml_tpu_torch.parallel.multihost import (Sharded, all_reduce_sum,
+                                                global_cohort)
 from fedml_tpu_torch.parallel.packing import (_steps_for, bucket_edge_for,
                                               gather_batches, pack_lanes,
                                               pack_schedule, zero_pad_leading)
@@ -1001,6 +1011,26 @@ class LaneRunner:
                                          self.packed)
         self._dtypes = None
 
+    def _lanes(self, sched, seeds, dev):
+        """``sched`` packed into lanes on ``dev``, with each step's seed
+        from its client's entry of ``seeds``: ``(lanes, step_seeds,
+        trip)``, the trip at least one step."""
+        lanes = pack_lanes(sched, self.n_lanes)
+        trip = max(lanes.pop("trip"), 1)
+        step_seeds = fold_step_seeds(seeds, lanes["slot"],
+                                     lanes["local_step"])
+        lane_t = {k: torch.as_tensor(lanes[k], device=dev)
+                  for k in _LANE_KEYS}
+        lane_t["idx"] = lane_t["idx"].long()
+        lane_t["slot"] = lane_t["slot"].long()
+        return lane_t, step_seeds, trip
+
+    def _dtypes_for(self, global_state):
+        if self._dtypes is None:
+            self._dtypes = payload_dtype_template(self.payload_fn,
+                                                  global_state)
+        return self._dtypes
+
     def run_round(self, global_state, server_state, device_data, ids, sched,
                   round_seed):
         """Cohort ``ids`` (rows of ``device_data``), the full
@@ -1008,19 +1038,11 @@ class LaneRunner:
         ``(new_global, new_server_state, {"aux", "metrics", "trip"})``."""
         dev = device_data["x"].device
         C = len(np.asarray(sched["n"]))
-        lanes = pack_lanes(sched, self.n_lanes)
-        trip = max(lanes.pop("trip"), 1)
-        step_seeds = fold_step_seeds(client_seeds_for(round_seed, C),
-                                     lanes["slot"], lanes["local_step"])
-        lane_t = {k: torch.as_tensor(lanes[k], device=dev)
-                  for k in _LANE_KEYS}
-        lane_t["idx"] = lane_t["idx"].long()
-        lane_t["slot"] = lane_t["slot"].long()
+        lane_t, step_seeds, trip = self._lanes(
+            sched, client_seeds_for(round_seed, C), dev)
         rows = torch.as_tensor(np.asarray(ids, np.int64), device=dev)
         data = _flat_data(device_data)
-        if self._dtypes is None:
-            self._dtypes = payload_dtype_template(self.payload_fn,
-                                                  global_state)
+        dtypes = self._dtypes_for(global_state)
         # the reference's one jitted round program: the trip, the
         # weighted average and the server step
         with get_tracer().span("lanes", clients=int(C),
@@ -1031,16 +1053,90 @@ class LaneRunner:
             with torch.no_grad():
                 w_sum = torch.clamp(w.sum(), min=1e-12)
                 avg = _tree_map(lambda s, d: (s.sum(dim=0) / w_sum).to(d),
-                                pay, self._dtypes)
+                                pay, dtypes)
                 new_global, new_server = self.server_fn(
                     global_state, avg, server_state,
                     int(fold_seed(round_seed, 2)))
                 metrics = _tree_map(lambda m: m.sum(dim=0), msum)
-        steps_pc = (np.asarray(sched["mask"]).sum(axis=2) > 0).sum(axis=1)
-        aux = {"n": np.asarray(sched["n"], np.float32),
-               "steps": steps_pc.astype(np.int64)}
-        return new_global, new_server, {"aux": aux, "metrics": metrics,
-                                        "trip": trip}
+        return new_global, new_server, {"aux": _cohort_aux(sched),
+                                        "metrics": metrics, "trip": trip}
+
+
+def _cohort_aux(sched):
+    """The cohort's per-client ``n`` and true step counts (host)."""
+    steps_pc = (np.asarray(sched["mask"]).sum(axis=2) > 0).sum(axis=1)
+    return {"n": np.asarray(sched["n"], np.float32),
+            "steps": steps_pc.astype(np.int64)}
+
+
+class ShardedLaneRunner(LaneRunner):
+    """Lanes over a ``clients`` mesh: the resident client rows are
+    sharded in contiguous blocks over the mesh's client axis
+    (``device_data`` is this rank's :class:`Sharded` block), each rank
+    trains the cohort members it owns as LPT-packed lanes (vmap lanes, or
+    ``packed=True`` folding the lane axis into channels), and the ranks'
+    weighted payload sums, weight totals and metric sums meet in one
+    fp32 ``all_reduce``; the server step runs replicated.
+
+    Each rank runs its own lane load: there is no common trip, a rank
+    with no member of the cohort runs one fully masked step (its sums are
+    zeros), and every rank enters the collective once a round. A
+    client's step seeds come from its global cohort slot, so the round
+    equals the flat round on one device to float reassociation."""
+
+    def __init__(self, spec: TrainSpec, cfg: ClientUpdateConfig, mesh,
+                 payload_fn=None, server_fn=None, n_lanes=8, packed=False):
+        super().__init__(spec, cfg, payload_fn, server_fn, n_lanes=n_lanes,
+                         packed=packed)
+        self.mesh = mesh
+
+    def run_round(self, global_state, server_state, device_data, ids, sched,
+                  round_seed):
+        """``device_data`` is this rank's :class:`Sharded` block of the
+        resident stacks and ``ids`` the cohort's global rows; otherwise
+        the contract of :meth:`LaneRunner.run_round`. ``trip`` is this
+        rank's executed lane steps."""
+        local = device_data.local
+        dev = local["x"].device
+        block = local["x"].shape[0]
+        lo = device_data.start
+        ids = np.asarray(ids, np.int64)
+        C = len(ids)
+        members = np.nonzero((ids >= lo) & (ids < lo + block))[0]
+        seeds = client_seeds_for(round_seed, C)
+        if len(members):
+            sub = {k: np.asarray(sched[k])[members]
+                   for k in ("idx", "mask", "n")}
+            rows = ids[members] - lo
+        else:
+            # one inert client: a fully masked step, zero sums
+            mask = np.asarray(sched["mask"])
+            sub = {"idx": np.zeros((1,) + mask.shape[1:], np.int32),
+                   "mask": np.zeros((1,) + mask.shape[1:], np.float32),
+                   "n": np.zeros((1,), np.float32)}
+            members, rows = np.zeros(1, np.int64), np.zeros(1, np.int64)
+        lane_t, step_seeds, trip = self._lanes(sub, seeds[members], dev)
+        data = _flat_data(local)
+        dtypes = self._dtypes_for(global_state)
+        with get_tracer().span("sharded-lanes", clients=int(C),
+                               shards=int(self.mesh.shape[CLIENT_AXIS]),
+                               trip=int(trip)):
+            pay, w, msum = self._update(
+                global_state, data["x"], data["y"], data["n_max"],
+                torch.as_tensor(rows, device=dev), lane_t, step_seeds, trip)
+            with torch.no_grad():
+                w_sum, pay_sum, metrics = all_reduce_sum(
+                    (w.sum(), _tree_map(lambda p: p.sum(dim=0), pay),
+                     _tree_map(lambda m: m.sum(dim=0), msum)),
+                    self.mesh.group(CLIENT_AXIS))
+                w_sum = torch.clamp(w_sum, min=1e-12)
+                avg = _tree_map(lambda s, d: (s / w_sum).to(d), pay_sum,
+                                dtypes)
+                new_global, new_server = self.server_fn(
+                    global_state, avg, server_state,
+                    int(fold_seed(round_seed, 2)))
+        return new_global, new_server, {"aux": _cohort_aux(sched),
+                                        "metrics": metrics, "trip": trip}
 
 
 def _finish_round(payload_fn, server_fn, global_state, server_state, parts,
@@ -1132,6 +1228,52 @@ def make_sim_round(spec: TrainSpec, cfg: ClientUpdateConfig,
     return round_fn
 
 
+def make_sharded_round(spec: TrainSpec, cfg: ClientUpdateConfig, mesh,
+                       payload_fn=None, server_fn=None):
+    """The host-packed round over a ``clients`` mesh:
+    ``round_fn(global_state, server_state, cohort_data, round_seed)``
+    with ``cohort_data`` the host-replicated ``pack_cohort`` output (this
+    rank places its block, padded with zero-weight dummy clients) or its
+    :class:`Sharded` block from ``global_cohort``. Every rank trains its
+    block's clients at once, each from its global slot's seed, builds its
+    weighted payload sum in fp32 and ``all_reduce``s it with the weight
+    total; the server step runs replicated. Works on a mesh of one rank
+    too, through the same collective. Returns ``(new_global,
+    new_server_state, {"aux", "metrics"})`` with per-client aux and
+    metrics as :class:`Sharded` blocks (``multihost.gather_metrics``
+    reads them)."""
+    update = make_client_update(spec, cfg)
+    payload_fn = payload_fn or _default_payload
+    server_fn = server_fn or _default_server
+    group = mesh.group(CLIENT_AXIS)
+
+    def round_fn(global_state, server_state, cohort_data, round_seed):
+        sh = (cohort_data if isinstance(cohort_data, Sharded)
+              else global_cohort(mesh, cohort_data))
+        block = sh.local["mask"].shape[0]
+        seeds = client_seeds_for(round_seed, sh.total)[
+            sh.start:sh.start + block]
+        local, aux, metrics = update(global_state, sh.local, seeds)
+        with torch.no_grad():
+            payloads = payload_fn(local, global_state, aux)
+            w = aux["n"].float()
+            w_sum, pay_sum = all_reduce_sum(
+                (w.sum(), _weighted_sum(payloads, w)), group)
+            w_sum = torch.clamp(w_sum, min=1e-12)
+            avg = _tree_map(lambda s, d: (s / w_sum).to(d), pay_sum,
+                            payload_dtype_template(payload_fn,
+                                                   global_state))
+            new_global, new_server = server_fn(
+                global_state, avg, server_state,
+                int(fold_seed(round_seed, 2)))
+        shard = lambda tree: Sharded(tree, sh.start, sh.total, mesh,
+                                     CLIENT_AXIS)
+        return new_global, new_server, {"aux": shard(aux),
+                                        "metrics": shard(metrics)}
+
+    return round_fn
+
+
 def make_eval_fn(spec: TrainSpec):
     """Evaluation over packed masked batches (``pack_eval`` output, numpy
     or device tensors): ``eval_fn(state, data) -> {metric: 0-d tensor}``,
@@ -1159,6 +1301,7 @@ __all__ = ["ClientUpdateConfig", "SGD", "AMSGrad", "ClipByGlobalNorm",
            "make_client_update", "make_indexed_client_update",
            "make_loop_client_update", "make_lane_update",
            "make_packed_lane_update", "make_streamed_client_update",
-           "WaveRunner", "LaneRunner", "BucketedStreamRunner",
-           "make_indexed_sim_round", "make_sim_round", "make_eval_fn",
+           "WaveRunner", "LaneRunner", "ShardedLaneRunner",
+           "BucketedStreamRunner", "make_indexed_sim_round",
+           "make_sim_round", "make_sharded_round", "make_eval_fn",
            "payload_dtype_template"]

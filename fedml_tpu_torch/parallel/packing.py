@@ -279,14 +279,23 @@ def gather_batches(datasets, sched, members):
     return xb, yb
 
 
-def zero_pad_leading(arrays, pad):
-    """Zero-pad every array's leading (client) axis by ``pad`` rows: the
-    inert clients (``n`` = 0, fully masked schedules) that fill a ragged
-    chunk."""
+def zero_pad_leading(tree, pad):
+    """Every leaf's leading (client) axis padded with ``pad`` zero rows
+    (numpy arrays or tensors, in a dict or tuple tree): the inert clients,
+    ``n`` = 0 and fully masked schedules, that fill a ragged chunk or a
+    cohort that does not divide the mesh."""
     if not pad:
-        return arrays
-    return tuple(np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
-                 for a in arrays)
+        return tree
+    if isinstance(tree, dict):
+        return {k: zero_pad_leading(v, pad) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(zero_pad_leading(v, pad) for v in tree)
+    if hasattr(tree, "new_zeros"):  # a torch tensor
+        import torch
+
+        return torch.cat([tree, tree.new_zeros((pad,) + tuple(tree.shape[1:]))])
+    a = np.asarray(tree)
+    return np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
 
 
 def pack_eval(data, batch_size):

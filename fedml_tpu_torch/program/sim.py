@@ -2,7 +2,8 @@
 (counterpart of ``fedml_tpu/program/sim.py``): the host-packed round
 function (plain or compressed: the one decision the codec leg implies)
 and the bucketed streaming runner, with the program's privacy legs on
-the per-client payload hook. Mesh rounds wait for ROADMAP A15."""
+the per-client payload hook; on a ``clients`` mesh, the sharded
+round."""
 
 from __future__ import annotations
 
@@ -48,9 +49,13 @@ def _apply_privacy_legs(program, payload_fn):
 
 def compile_sim(program, spec, cfg, payload_fn=None, server_fn=None,
                 mesh=None, compressed=None, compressor=None):
-    """Program -> the host-packed round function: with the codec leg
-    enabled (or ``compressed=True``) the compressed round with per-client
-    error feedback
+    """Program -> the host-packed round function: with ``mesh`` the
+    sharded round over its ``clients`` axis
+    (:func:`~fedml_tpu_torch.parallel.engine.make_sharded_round`; the
+    codec leg is not lowered there, mesh aggregation being collectives
+    with no wire, and the caller refuses a compressor on a mesh); with
+    the codec leg enabled (or ``compressed=True``) the compressed round
+    with per-client error feedback
     (:func:`~fedml_tpu_torch.compression.integration.make_compressed_sim_round`),
     else the plain one
     (:func:`~fedml_tpu_torch.parallel.engine.make_sim_round`).
@@ -59,7 +64,8 @@ def compile_sim(program, spec, cfg, payload_fn=None, server_fn=None,
     configuration)."""
     payload_fn = _apply_privacy_legs(program, payload_fn)
     if mesh is not None:
-        raise NotImplementedError("mesh rounds wait for ROADMAP A15")
+        from fedml_tpu_torch.parallel.engine import make_sharded_round
+        return make_sharded_round(spec, cfg, mesh, payload_fn, server_fn)
     if compressed is None:
         compressed = program.codec.enabled
     if not compressed:

@@ -1,5 +1,6 @@
 """Metrics sink of the experiment mains (counterpart of
-``fedml_tpu/utils/metrics.py`` and ``init_logging``): every ``log()``
+``fedml_tpu/utils/metrics.py``; the log format is
+``utils/logging_utils.py``'s): every ``log()``
 appends one JSON line to ``<run_dir>/metrics.jsonl`` and rewrites
 ``<run_dir>/summary.json`` (the last value of each key, the
 wandb-summary equivalent); ``config.json`` holds the run's arguments.
@@ -18,20 +19,6 @@ import time
 
 from fedml_tpu_torch.core.locks import audited_lock
 from fedml_tpu_torch.observability.registry import get_registry
-
-
-def init_logging(proctitle=None):
-    """Root logging at INFO with the reference's line format;
-    ``proctitle`` is applied when ``setproctitle`` is installed."""
-    fmt = "0 - %(asctime)s %(filename)s:%(lineno)d] %(message)s"
-    logging.basicConfig(level=logging.INFO, format=fmt,
-                        datefmt="%a, %d %b %Y %H:%M:%S", force=True)
-    if proctitle:
-        try:
-            import setproctitle
-        except ImportError:
-            return
-        setproctitle.setproctitle(proctitle)
 
 
 class MetricsLogger:
@@ -144,4 +131,4 @@ def _jsonable_value(v):
     return str(v)
 
 
-__all__ = ["MetricsLogger", "init_logging"]
+__all__ = ["MetricsLogger"]

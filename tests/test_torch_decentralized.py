@@ -444,14 +444,16 @@ def test_main_decentralized_is_the_reference_main():
     (["--audit", "1"], "not wired"),
 ])
 def test_main_decentralized_refuses_unported_flags(argv, match, capfd):
-    """``--mesh`` waits for ROADMAP A15; ``--audit`` runs and, as in the
-    reference, warns that the gossip loop has no end-of-round sync to
-    audit."""
+    """``--mesh`` (ROADMAP A15) parses and, as in the reference, where
+    only the FedAvg family shards its clients, the gossip main runs on
+    one device; ``--audit`` runs and, as in the reference, warns that the
+    gossip loop has no end-of-round sync to audit."""
     from fedml_tpu_torch.experiments import main_decentralized
     argv = argv + ["--platform", "cpu"]
     if match.startswith("A"):
-        with pytest.raises(NotImplementedError, match=match):
-            main_decentralized.main(argv)
+        api, _ = main_decentralized.main(argv + ["--comm_round", "1"])
+        assert api.args.mesh == 2 and len(api.history) == 1
+        assert not hasattr(api, "mesh")
         return
     api, _ = main_decentralized.main(argv + ["--comm_round", "1"])
     # the main's logging setup writes to stderr

@@ -168,11 +168,17 @@ def test_train_loop_keeps_a_record_per_round(trajectories):
 
 
 def test_entry_point_refuses_unported_paths():
+    """Meshes run since ROADMAP A15a (a one-rank CPU mesh here; the
+    multi-rank rounds are ``test_torch_mesh.py``); a compressor on a mesh
+    is refused with the reference's message."""
+    from fedml_tpu_torch.parallel.mesh import make_client_mesh
+
     dataset = load_synthetic_images(client_num=4, n_train=80, n_test=16,
                                     image_size=8, seed=0)
     spec = make_classification_spec(CifarResNet(depth=DEPTH))
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        FedAvgAPI(dataset, spec, _args(), mesh=object(), device="cpu")
+    mesh = make_client_mesh(1, device="cpu")
+    api = FedAvgAPI(dataset, spec, _args(), mesh=mesh, device="cpu")
+    assert api.mesh is mesh and api.device == torch.device("cpu")
     args = _args()
     args.grad_clip = 5.0
     # clipping is ported (FedNAS): the local optimizer clips first
@@ -180,9 +186,9 @@ def test_entry_point_refuses_unported_paths():
     assert isinstance(make_optimizer(api.cfg), ClipByGlobalNorm)
     args = _args()
     args.compressor = "topk:0.1"
-    # a compressor on a mesh stays a refusal under the mesh's item
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        FedAvgAPI(dataset, spec, args, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh rounds aggregate over "
+                                         "collectives"):
+        FedAvgAPI(dataset, spec, args, mesh=mesh, device="cpu")
 
 
 def test_masked_step_leaves_lane_untouched():

@@ -13,7 +13,7 @@ fp32 (ROADMAP §C).
 The reference's FedGKT cases in ``tests/test_split_vertical_mpc.py``
 call jax in their bodies: the extractor and model-shape cases have
 counterparts here with the same asserts; the server phase over a
-``model`` mesh axis waits for ROADMAP A15 and is refused."""
+``model`` mesh axis waits for ROADMAP A15b and is refused."""
 
 import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import types

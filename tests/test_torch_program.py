@@ -184,7 +184,15 @@ def test_legs_waiting_for_later_work_raise():
         assert aggregator._fold_fn == (None if prog.robust is None
                                        else prog.robust.fold_entries)
     prog = RoundProgram()
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        prog.compile_sim(None, None, mesh=object())
+    # a mesh lowers to the sharded round since ROADMAP A15a (its rounds
+    # are held to the reference's in test_torch_mesh.py)
+    from fedml_tpu_torch.algorithms.specs import make_classification_spec
+    from fedml_tpu_torch.models.linear import LogisticRegression
+    from fedml_tpu_torch.parallel.engine import ClientUpdateConfig
+    from fedml_tpu_torch.parallel.mesh import make_client_mesh
+    sharded = prog.compile_sim(
+        make_classification_spec(LogisticRegression(60, 10)),
+        ClientUpdateConfig(), mesh=make_client_mesh(1, device="cpu"))
+    assert sharded.__qualname__.startswith("make_sharded_round")
     with pytest.raises(ValueError, match="codec leg is disabled"):
         prog.compile_sim(None, None, compressed=True)

@@ -494,14 +494,19 @@ def _without_nan(load):
     ("main_vfl", ["--trace", "1"]),
 ])
 def test_mains_refuse_unported_flags(main, argv, tmp_path, monkeypatch):
-    """``--mesh`` waits for ROADMAP A15. ``--trace`` parses and, as in
-    the reference's VFL main (which opens no observability scope), writes
-    no trace."""
+    """``--mesh`` (ROADMAP A15) parses and, as in the reference's
+    SplitNN and VFL mains, which shard nothing, the run stays on one
+    device. ``--trace`` parses and, as in the reference's VFL main (which
+    opens no observability scope), writes no trace."""
     import importlib
     module = importlib.import_module(f"fedml_tpu_torch.experiments.{main}")
     if "--mesh" in argv:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            module.main(argv + ["--platform", "cpu"])
+        extra = (["--dataset", "synthetic_images", "--n_train", "128",
+                  "--image_size", "8"] if main == "main_splitnn"
+                 else ["--dataset", "synthetic_vertical"])
+        out = module.main(argv + ["--platform", "cpu", "--epochs", "1",
+                                  "--comm_round", "1"] + extra)
+        assert out is not None
         return
     monkeypatch.chdir(tmp_path)
     module.main(argv + ["--platform", "cpu", "--dataset",
