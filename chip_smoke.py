@@ -262,7 +262,28 @@ Phases (any failure exits non-zero):
    ``compat.FedML_FedAvg_distributed`` call on the mesh. Two ranks
    cannot share one card under NCCL: the ring and the multi-rank rounds
    run in the CPU tests under gloo;
-18. print the ``kernels`` JSON line and, last, the ``ok`` line.
+18. run tensor, pipeline and expert parallelism and the measurement
+   scripts (``phase_a15b``, budget ``A15B_BUDGET_S`` = 60 s): at the LM
+   flagship's width (d_model 512, 4 layers, 4 heads of 128, T 80, vocab
+   90, bf16, batch 32) one tp step on a one-rank ``(data, model)`` NCCL
+   mesh (the blockwise ``tp_attention``, as in the reference) and one
+   GPipe step on one stage with 4 microbatches through the flash
+   kernels, B2, B3 and B4 each launched 4 layers x 4 microbatches = 16
+   times (counts set to 0 just before the step and read just after);
+   one ep step of the MoE LM of phase 8 (vocab 90, 4 layers, d_model
+   256, 8 experts, T 80, bf16) on a one-rank ``(data, expert)`` mesh;
+   each held against the plain unsharded step from the same weights
+   (SGD lr 0.1) within its ``A15B_TOL``, every leaf's gap against that
+   leaf's own move; pp's bound is also held below a planted fault (the
+   last microbatch's gradient dropped), which every leaf must read
+   above; then ``bench_lm`` (2 layers), ``bench_lane_conv`` (``pallas``
+   and ``packed``, B1 on the backward), ``hw_smoke_flash``,
+   ``profile_lane_step`` (2 lanes of 8 samples, B1 in its
+   ``B2_packed_lanes[pallas]`` row), ``bench_gkt`` (``--tiny``, one
+   round) and ``convergence`` (3 rounds of two configurations: a run
+   check, no plateau verdict) at cut sizes, each line with the card's
+   name and power limit;
+19. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -3479,6 +3500,228 @@ def phase_a15(torch, grouped_conv, fa, smi):
     return {"attention": attn, "b1": b1, "t512": times}
 
 
+#: phase 18's budget, in seconds of command time
+A15B_BUDGET_S = 60
+#: phase 18's batch (one chunk: 8 clients x batch 4) and microbatches
+A15B_BATCH, A15B_MICRO = 32, 4
+#: a model-parallel step against the plain unsharded step from the same
+#: weights (SGD lr 0.1, bf16 compute over fp32 parameters): the loss
+#: relative to itself, and each leaf's largest gap from the plain step
+#: relative to that leaf's own largest move (the worst leaf is held). On
+#: one rank tp's and ep's collectives are copies, so their steps differ
+#: from the plain step only in the order of bf16 roundings (ep applies
+#: the gate after the expert combine); pp splits the batch into
+#: microbatches, so its products see other shapes. A leaf that loses
+#: one microbatch's gradient, or gets it twice, is off by a share of its
+#: own move: phase 18 plants that fault (the last microbatch's gradient
+#: dropped) and fails unless every leaf of it reads above pp's bound.
+#: Readings on an H100 (worst leaf): tp 1.0e-5, ep 1.4e-4, pp 1.3e-2;
+#: the planted fault's least leaf 0.27; every loss gap 0.0
+A15B_TOL = {"tp": {"loss": 1e-5, "leaf": 1e-4},
+            "pp": {"loss": 1e-5, "leaf": 5e-2},
+            "ep": {"loss": 1e-5, "leaf": 1e-3}}
+
+
+def _leaf_gaps(new, want, init):
+    """``{leaf: gap / move}``: each leaf's largest gap from the plain
+    step's parameters over its largest move from the initial ones (0
+    where neither moved)."""
+    out = {}
+    for k in want:
+        gap = float((new[k].float() - want[k].float()).abs().max())
+        move = float((want[k].float() - init[k].float()).abs().max())
+        out[k] = gap / move if move > 0 else (0.0 if gap == 0 else math.inf)
+    return out
+
+
+def _a15b_check(kind, label, new, loss, want, want_loss, init, extra=None):
+    """One model-parallel step against the plain one; fails past
+    ``A15B_TOL[kind]``."""
+    ratios = _leaf_gaps(new, want, init)
+    worst = max(ratios, key=ratios.get)
+    loss_gap = abs(float(loss) - want_loss) / abs(want_loss)
+    row = {"loss": float(loss), "plain_loss": want_loss,
+           "loss_rel_gap": loss_gap, "worst_leaf": worst,
+           "leaf_gap_over_move": ratios[worst], "leaves": len(ratios),
+           **(extra or {})}
+    print(f"a15b {label} " + json.dumps(row), flush=True)
+    tol = A15B_TOL[kind]
+    if not (loss_gap <= tol["loss"] and ratios[worst] <= tol["leaf"]):
+        fail(f"a15b {label} past A15B_TOL[{kind!r}]: {row}")
+
+
+def _a15b_dropped_microbatch(torch, model, init, idx, tgt, rows):
+    """The plain step (SGD lr 0.1) from ``init`` with the gradient of the
+    batch's last ``rows`` rows dropped and the loss still the whole
+    batch's mean: what a GPipe step computes when one microbatch's
+    backward is lost."""
+    dev = next(iter(init.values())).device
+    ref = {k: p.clone().requires_grad_(True) for k, p in init.items()}
+    idx, tgt = (torch.as_tensor(a, device=dev).long() for a in (idx, tgt))
+    lp = torch.log_softmax(model.apply_params(ref, idx).float(), dim=-1)
+    mask = (tgt >= 0).float()
+    nll = -lp.gather(-1, tgt.clamp(min=0)[..., None])[..., 0]
+    keep = torch.ones_like(mask)
+    keep[-rows:] = 0.0
+    loss = (nll * mask * keep).sum() / mask.sum()
+    grads = torch.autograd.grad(loss, list(ref.values()))
+    return {k: ref[k].detach() - 0.1 * g for k, g in zip(ref, grads)}
+
+
+def _a15b_steps(torch, fa):
+    """Phase 18 (a): one tp, one pp and one ep step on one-rank meshes,
+    each against the plain unsharded step; returns pp's launches."""
+    import numpy as np
+
+    from fedml_tpu_torch.models.moe import MoETransformerLM
+    from fedml_tpu_torch.models.transformer import TransformerLM
+    from fedml_tpu_torch.parallel import expert_parallel as ep
+    from fedml_tpu_torch.parallel import pipeline_parallel as pp
+    from fedml_tpu_torch.parallel import tensor_parallel as tp
+    from fedml_tpu_torch.parallel.dryrun import unsharded_step
+    from fedml_tpu_torch.parallel.seq_parallel import shift_targets
+
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.1)  # noqa: E731
+    T, V = 80, 90
+    idx = np.random.default_rng(18).integers(0, V, (A15B_BATCH, T))
+    tgt = shift_targets(idx)
+    lm = dict(vocab_size=V, n_layers=LM_LAYERS, n_heads=LM_D // ATTN_D,
+              d_model=LM_D, max_len=T, dtype=torch.bfloat16)
+    copy = lambda ps: {k: v.detach().clone() for k, v in ps.items()}  # noqa: E731
+
+    mesh = tp.make_tp_mesh(1, 1)
+    model = TransformerLM(attention_fn=tp.tp_attention(), **lm)
+    init_fn, step_fn = tp.make_tp_lm_step(model, mesh, sgd)
+    params, opt = init_fn(0)
+    init = copy(params)
+    new, _, loss = step_fn(params, opt, idx, tgt)
+    want, want_loss = unsharded_step(model, init, idx)
+    _a15b_check("tp", "tp mesh=(1,1)", copy(new), loss, want, want_loss,
+                init)
+
+    mesh = pp.make_pp_mesh(1)
+    params, model = pp.init_pp_params(mesh, 0, **lm)
+    init = pp.unstack_pp_params(pp.gather_pp_params(params, mesh))
+    prep_fn, step_fn = pp.make_pp_lm_step(model, mesh, n_micro=A15B_MICRO)
+    batch = prep_fn(idx, tgt)
+    opt = sgd(pp.pp_leaves(params))
+    for name in fa.launches:
+        fa.launches[name] = 0
+    new, _, loss = step_fn(params, opt, *batch)
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    if set(launches.values()) != {LM_LAYERS * A15B_MICRO}:
+        fail(f"a15b pp: attention launches {launches}, want "
+             f"{LM_LAYERS} layers x {A15B_MICRO} microbatches each")
+    want, want_loss = unsharded_step(model, init, idx)
+    _a15b_check("pp", f"pp stages=1 n_micro={A15B_MICRO}",
+                pp.unstack_pp_params(pp.gather_pp_params(new, mesh)), loss,
+                want, want_loss, init, {"launches": launches})
+    # the planted fault: every leaf of a step that lost one microbatch's
+    # gradient must read past pp's bound
+    faulty = _leaf_gaps(_a15b_dropped_microbatch(
+        torch, model, init, idx, tgt, A15B_BATCH // A15B_MICRO), want, init)
+    least = min(faulty, key=faulty.get)
+    row = {"least_leaf": least, "leaf_gap_over_move": faulty[least],
+           "bound": A15B_TOL["pp"]["leaf"]}
+    print("a15b pp_fault dropped_microbatch " + json.dumps(row), flush=True)
+    if faulty[least] <= A15B_TOL["pp"]["leaf"]:
+        fail(f"a15b pp: a dropped microbatch passes the bound: {row}")
+
+    mesh = ep.make_ep_mesh(1, 1)
+    model = MoETransformerLM(vocab_size=V, max_len=T, dtype=torch.bfloat16)
+    init_fn, step_fn = ep.make_ep_lm_step(model, mesh, sgd)
+    params, opt = init_fn(0)
+    init = copy(params)
+    new, _, loss = step_fn(params, opt, idx, tgt)
+    want, want_loss = unsharded_step(model, init, idx, ep.MOE_AUX_WEIGHT)
+    _a15b_check("ep", f"ep mesh=(1,1) experts={model.n_experts}", copy(new),
+                loss, want, want_loss, init)
+    return launches
+
+
+def _a15b_scripts(smi):
+    """Phase 18 (b): the measurement scripts in-process at cut sizes,
+    each holding its own checks; B2-B4 and B1 must launch, and every
+    record must come from the card."""
+    import tempfile
+
+    from fedml_tpu_torch.ops import grouped_conv
+    from fedml_tpu_torch.scripts import (bench_gkt, bench_lane_conv,
+                                         bench_lm, convergence,
+                                         hw_smoke_flash, profile_lane_step)
+
+    def on_card(name, rec):
+        if rec.get("platform") != "gpu" or not rec.get("power_limit_w"):
+            fail(f"a15b {name}: not a card's record: {rec}")
+
+    rec = bench_lm.main(["--n_layers", "2", "--repeats", "3", "--inner",
+                         "3"])
+    on_card("bench_lm", rec)
+    if not (min(rec["attention_launches_per_step"].values()) > 0
+            and 0 < rec["mfu"] < 1):
+        fail(f"a15b bench_lm: {rec}")
+    print(f"a15b script=bench_lm ms_per_step={rec['ms_per_step']} "
+          f"mfu={rec['mfu']} card={smi}", flush=True)
+    rows = bench_lane_conv.main(["--cands", "pallas,packed", "--inner", "5",
+                                 "--repeats", "3"])
+    b1 = [r["b1_launches"] for r in rows
+          if r["cand"] == "pallas" and r["pass"] == "fwd+bwd"]
+    if len(rows) != 12 or len(b1) != 3 or min(b1) == 0:
+        fail(f"a15b bench_lane_conv: {len(rows)} rows (want 3 stages x 2 "
+             f"candidates x 2 passes), B1 launches {b1}")
+    print(f"a15b script=bench_lane_conv rows={len(rows)} card={smi}",
+          flush=True)
+    rec = hw_smoke_flash.main([])
+    on_card("hw_smoke_flash", rec)
+    print(f"a15b script=hw_smoke_flash launches="
+          f"{json.dumps(rec['launches'])} card={smi}", flush=True)
+
+    b1 = grouped_conv.launches
+    ms = profile_lane_step.main(["--lanes", "2", "--batch", "8",
+                                 "--repeats", "2"])
+    b1 = grouped_conv.launches - b1
+    if (len(ms) != 7 or not all(0 < v < math.inf for v in ms.values())
+            or b1 == 0):
+        fail(f"a15b profile_lane_step: {ms}, B1 launches {b1}")
+    print(f"a15b script=profile_lane_step rows={len(ms)} b1_launches={b1} "
+          f"card={smi}", flush=True)
+    rec = bench_gkt.main(["--tiny", "--rounds", "1", "--clients", "2"])
+    on_card("bench_gkt", rec)
+    if not (rec["value"] > 0 and math.isfinite(rec["train_acc_last"])):
+        fail(f"a15b bench_gkt: {rec}")
+    print(f"a15b script=bench_gkt round_s={rec['value']} card={smi}",
+          flush=True)
+    # a run check at a cut size: 3 rounds are no plateau, so the
+    # agreement bound is open here
+    with tempfile.TemporaryDirectory() as out:
+        rec = convergence.main([
+            "--rounds", "3", "--tail", "2", "--clients", "2", "--n_train",
+            "64", "--image", "8", "--depth", "8", "--tol", "1.0",
+            "--configs", "bf16_lanes,fp32_flat", "--outdir", out])
+        curves = {r["name"]: sum(1 for _ in open(
+            os.path.join(out, r["name"] + ".jsonl")))
+            for r in rec["results"]}
+    on_card("convergence", rec)
+    if (curves != {"bf16_lanes": 3, "fp32_flat": 3}
+            or not all(math.isfinite(r["final_loss"])
+                       for r in rec["results"])):
+        fail(f"a15b convergence: curves {curves}, {rec['results']}")
+    print(f"a15b script=convergence curves={json.dumps(curves)} "
+          f"card={smi}", flush=True)
+
+
+def phase_a15b(torch, fa, smi):
+    """Phase 18: tp, pp and ep steps on one-rank meshes, then the
+    measurement scripts; returns pp's attention launches."""
+    t0 = time.time()
+    launches = _a15b_steps(torch, fa)
+    _a15b_scripts(smi)
+    print(f"a15b phase_s={time.time() - t0:.1f} budget_s={A15B_BUDGET_S} "
+          f"card={smi}", flush=True)
+    return launches
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -3655,6 +3898,7 @@ def main():
     phase_a14c(torch, grouped_conv, fa, smi)
     phase_tooling(torch, fa, smi)
     phase_a15(torch, grouped_conv, fa, smi)
+    phase_a15b(torch, fa, smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

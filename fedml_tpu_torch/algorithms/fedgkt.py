@@ -21,8 +21,17 @@ per-sample teacher logits.
   changes nothing and is skipped.
 - ``evaluate`` scores the edge-to-server pipeline through every
   client's own extractor on its local test shard.
-
-The server phase over a ``model`` mesh axis waits for ROADMAP A15b.
+- Given a ``mesh`` with a ``model`` axis of ``n > 1`` ranks
+  (``parallel.mesh.make_client_mesh(1, n)``, one process a rank, every
+  rank running the whole API), each server batch splits over ``model``
+  when ``batch_size`` divides by ``n`` (else a warning, and the phase
+  runs unsharded, as in the reference): a rank trains on its rows, the
+  loss sums, counts and gradients are summed over ``model`` and the
+  BatchNorm statistics averaged, so every rank takes the same step (the
+  reference's ``nn.DataParallel`` semantics); the fresh logits are
+  gathered back in row order. A BN-free server equals the unsharded
+  phase; a BN server normalises each rank's rows apart, as DataParallel
+  does.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from torch.func import functional_call
 
 from fedml_tpu_torch.models.layers import lecun_init_
 from fedml_tpu_torch.parallel.engine import ClientUpdateConfig, make_optimizer
+from fedml_tpu_torch.parallel.mesh import MODEL_AXIS
+from fedml_tpu_torch.parallel.multihost import all_reduce_sum
 from fedml_tpu_torch.parallel.packing import pack_cohort, pack_eval
 from fedml_tpu_torch.utils.device import resolve_device
 from fedml_tpu_torch.utils.torch_import import module_state
@@ -85,12 +96,15 @@ class FedGKTAPI:
                  mesh=None, metrics_logger=None, device=None):
         (_, _, _, self.test_data_global, _, self.train_data_local_dict,
          self.test_data_local_dict, self.class_num) = dataset
-        if mesh is not None and dict(getattr(mesh, "shape", {})).get(
-                "model", 1) > 1:
-            raise NotImplementedError(
-                "FedGKT's server phase over a model mesh axis waits for "
-                "ROADMAP A15b (tensor, pipeline and expert parallelism)")
         self.args = args
+        self.mesh = None
+        n_shards = dict(getattr(mesh, "shape", {})).get(MODEL_AXIS, 1)
+        if n_shards > 1 and args.batch_size % n_shards:
+            logging.warning(
+                "fedgkt: batch_size %d not divisible by %d model shards; "
+                "server phase runs unsharded", args.batch_size, n_shards)
+        elif n_shards > 1:
+            self.mesh = mesh
         self.device = resolve_device(device if device is not None
                                      else getattr(args, "device", None))
         self.client_model, self.server_model = client_model, server_model
@@ -179,40 +193,65 @@ class FedGKTAPI:
         return state, feats, logits, msum
 
     # -- server phase --------------------------------------------------
+    def _server_shard(self):
+        """``(rows, group, n)`` of this rank's slice of every server
+        batch over ``model``, or ``(slice(None), None, 1)`` unsharded."""
+        if self.mesh is None:
+            return slice(None), None, 1
+        n = self.mesh.shape[MODEL_AXIS]
+        b = self.args.batch_size // n
+        me = self.mesh.index(MODEL_AXIS)
+        return slice(me * b, (me + 1) * b), self.mesh.group(MODEL_AXIS), n
+
     def _server_round(self, feats, client_logits, ys, masks, valid):
         """Train the server on every client's valid batches (client-major)
         for ``server_epochs``, then infer fresh logits for each; returns
-        ``[C, S, B, classes]`` logits (zeros for padded batches)."""
+        ``[C, S, B, classes]`` logits (zeros for padded batches). Over a
+        ``model`` axis each rank takes its rows of every batch and the
+        ranks meet in the sums (module docstring)."""
         sm, tx = self.server_model, self.server_tx
+        rows, group, n = self._server_shard()
         order = [(c, s) for c in range(valid.shape[0])
                  for s in range(valid.shape[1]) if valid[c, s]]
         state, opt = self.server_state, self.server_opt
         for _ in range(self.server_epochs):
             for c, s in order:
-                m = masks[c, s]
+                m = masks[c, s][rows]
                 p_req = {k: v.detach().requires_grad_(True)
                          for k, v in state["params"].items()}
                 logits, stats = _apply(
                     sm, {"params": p_req,
                          "batch_stats": state["batch_stats"]},
-                    feats[c][s], True)
-                ce = _masked_ce(logits, ys[c, s], m)
-                kl = kl_divergence(logits, client_logits[c][s], self.T) * m
+                    feats[c][s][rows], True)
+                ce = _masked_ce(logits, ys[c, s][rows], m)
+                kl = kl_divergence(logits, client_logits[c][s][rows],
+                                   self.T) * m
                 loss_sum = ce.sum() + self.alpha * kl.sum()
-                cnt = torch.clamp(m.sum(), min=1.0)
-                grads = {k: g / cnt for k, g in zip(p_req, torch.autograd.grad(
-                    loss_sum, list(p_req.values())))}
+                grads = dict(zip(p_req, torch.autograd.grad(
+                    loss_sum, list(p_req.values()))))
+                cnt = m.sum()
+                stats = {k: v.detach() for k, v in stats.items()}
+                if group is not None:
+                    cnt, grads, stats = all_reduce_sum((cnt, grads, stats),
+                                                       group)
+                    stats = {k: v / n for k, v in stats.items()}
+                cnt = torch.clamp(cnt, min=1.0)
+                grads = {k: g / cnt for k, g in grads.items()}
                 with torch.no_grad():
                     params, opt = tx.update(grads, opt, state["params"])
-                state = {"params": params,
-                         "batch_stats": {k: v.detach()
-                                         for k, v in stats.items()}}
+                state = {"params": params, "batch_stats": stats}
         self.server_state, self.server_opt = state, opt
         C, S, B = masks.shape
         out = torch.zeros((C, S, B, self.class_num), device=self.device)
         with torch.no_grad():
             for c, s in order:
-                out[c, s] = _apply(sm, state, feats[c][s], False)[0]
+                lg = _apply(sm, state, feats[c][s][rows], False)[0]
+                if group is not None:
+                    parts = [torch.empty_like(lg) for _ in range(n)]
+                    torch.distributed.all_gather(parts, lg.contiguous(),
+                                                 group=group)
+                    lg = torch.cat(parts)
+                out[c, s] = lg
         return out
 
     def train_one_round(self):

@@ -225,7 +225,7 @@ def card_power_limit_w():
         return None
 
 
-def _device_fields(device):
+def device_fields(device):
     """``device`` and ``power_limit_w`` for a record, and the peak FLOP/s
     (None on the CPU)."""
     if device.type != "cuda":
@@ -406,7 +406,7 @@ def run_resnet_bench(args, device):
                             "mask": ((bs,), torch.float32)})
     flops_per_sample = step_flops / bs
     analytic = TRAIN_FLOPS_PER_SAMPLE * (image / 32) ** 2
-    fields, peak = _device_fields(device)
+    fields, peak = device_fields(device)
     achieved = samples_per_round * flops_per_sample / round_s
     smoke = args.smoke or device.type != "cuda"
     epochs_run = 1 if args.smoke else args.epochs
@@ -529,7 +529,7 @@ def run_lm_bench(args, device):
     # executed client-steps include the padded ones: the device's load
     executed_flops = step_flops * binfo["executed_steps"]
     achieved = executed_flops / round_s
-    fields, peak = _device_fields(device)
+    fields, peak = device_fields(device)
     smoke = args.smoke or device.type != "cuda"
     return {
         "metric": (f"federated-LM rounds/hour (TransformerLM d{d} "
@@ -653,7 +653,7 @@ def run_massive_cohort(args, device):
     binfo = api._last_bucket_info["bucket"]
     per_bucket, exec_f, true_f = _bucket_flops(
         api, [b for b in binfo["per_bucket"] if not b["skipped"]], bs, dim)
-    fields, _ = _device_fields(device)
+    fields, _ = device_fields(device)
     comp = api.compressor is not None
     out = {
         "metric": (f"massive-cohort clients/sec (bucketed streaming, {C} "
@@ -768,7 +768,7 @@ def run_compression_tools(args, device):
     n_params = sum(int(v.numel()) for v in params.values())
     raw_binary = tree_wire_nbytes(ref)
     json_bytes = _json_list_nbytes(ref)
-    fields, _ = _device_fields(device)
+    fields, _ = device_fields(device)
     if args.check:
         ratio = json_bytes / raw_binary
         return {"metric": "codec size regression (none codec vs JSON "

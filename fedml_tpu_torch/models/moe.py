@@ -38,17 +38,14 @@ def capacity(n_tokens, n_experts, capacity_factor=1.25):
     return max(1, int(capacity_factor * n_tokens / n_experts))
 
 
-def moe_mlp(x, router_weight, router_bias, wi, wo, capacity_factor=1.25,
-            dtype=torch.float32):
-    """Top-1 routed expert MLP over K clients' tokens ``x [K, N, C]``
-    with per-client ``router_weight [K, E, C]``, ``router_bias [K, E]``,
-    ``wi [K, E, C, H]`` and ``wo [K, E, H, C]``. The router runs in fp32,
-    the experts in ``dtype``. Returns ``(y [K, N, C] in x's dtype, aux
-    [K], expert [K, N], keep [K, N])``: the Switch aux loss ``E *
-    sum_e(fraction routed to e * mean gate of e)`` and each token's route
-    and whether it fit its expert's capacity."""
-    K, N, C = x.shape
-    E = wi.shape[1]
+def route(x, router_weight, router_bias, n_experts, capacity_factor=1.25):
+    """Top-1 fixed-capacity routing of K clients' tokens ``x [K, N, C]``
+    (router in fp32): ``(disp [K, N, E, cap], gate_val [K, N], aux [K],
+    expert [K, N], keep [K, N, E])`` -- the one-hot dispatch/combine
+    tensor, each token's gate value (0 past capacity), the Switch aux
+    loss ``E * sum_e(fraction routed to e * mean gate of e)``, each
+    token's route and whether it fit its expert's queue."""
+    N, E = x.shape[1], n_experts
     cap = capacity(N, E, capacity_factor)
     gates = torch.softmax(dense(x.float(), router_weight, router_bias,
                                 torch.float32), dim=-1)          # [K, N, E]
@@ -63,13 +60,32 @@ def moe_mlp(x, router_weight, router_bias, wi, wo, capacity_factor=1.25,
             == torch.arange(cap, device=x.device)).float()
     disp = (onehot * keep)[..., None] * slot                     # [K,N,E,cap]
     gate_val = (gates * onehot * keep).sum(dim=-1)               # [K, N]
-    d = disp.to(dtype)
-    xin = torch.einsum("knec,knd->kecd", d, x.to(dtype))         # [K,E,cap,C]
+    aux = E * (onehot.mean(dim=1) * gates.mean(dim=1)).sum(dim=-1)
+    return disp, gate_val, aux, expert, keep
+
+
+def experts(xin, wi, wo, dtype):
+    """The expert MLPs over their token buffers ``xin [K, E, cap, C]``:
+    ``gelu(xin wi) wo`` in ``dtype``."""
     h = F.gelu(torch.einsum("kecd,kedh->kech", xin, wi.to(dtype)),
                approximate="tanh")
-    out = torch.einsum("kech,kehd->kecd", h, wo.to(dtype))
+    return torch.einsum("kech,kehd->kecd", h, wo.to(dtype))
+
+
+def moe_mlp(x, router_weight, router_bias, wi, wo, capacity_factor=1.25,
+            dtype=torch.float32):
+    """Top-1 routed expert MLP over K clients' tokens ``x [K, N, C]``
+    with per-client ``router_weight [K, E, C]``, ``router_bias [K, E]``,
+    ``wi [K, E, C, H]`` and ``wo [K, E, H, C]``. The router runs in fp32,
+    the experts in ``dtype``. Returns ``(y [K, N, C] in x's dtype, aux
+    [K], expert [K, N], keep [K, N])``: the Switch aux loss (:func:`route`)
+    and each token's route and whether it fit its expert's capacity."""
+    disp, gate_val, aux, expert, keep = route(
+        x, router_weight, router_bias, wi.shape[1], capacity_factor)
+    d = disp.to(dtype)
+    xin = torch.einsum("knec,knd->kecd", d, x.to(dtype))         # [K,E,cap,C]
+    out = experts(xin, wi, wo, dtype)
     y = torch.einsum("knec,kecd->knd", d, out) * gate_val[..., None].to(dtype)
-    aux = E * (onehot.mean(dim=1) * gates.mean(dim=1)).sum(dim=-1)
     return y.to(x.dtype), aux, expert, keep.any(dim=-1)
 
 
@@ -142,4 +158,4 @@ class MoETransformerLM(TransformerLM):
         self.n_experts, self.capacity_factor = n_experts, capacity_factor
 
 
-__all__ = ["capacity", "moe_mlp", "MoEMLP", "MoEBlock", "MoETransformerLM"]
+__all__ = ["capacity", "route", "experts", "moe_mlp", "MoEMLP", "MoEBlock", "MoETransformerLM"]

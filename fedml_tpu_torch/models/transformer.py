@@ -82,6 +82,41 @@ def embed(table, idx, dtype):
     return F.embedding(idx.long() + offs, table.to(dtype).reshape(K * V, -1))
 
 
+def _same(x):
+    return x
+
+
+def apply_block(x, get, n_heads, dtype, attend, enter=_same, leave=_same,
+                moe=None):
+    """One pre-LN block over ``x [K, B, T, C]``: ``get(name)`` gives the
+    block's client-stacked parameter (``"qkv.weight"``, ...), ``attend(q,
+    k, v)`` the attention over ``[K*B, T, H, D]``. ``moe(h [K, B*T, C])
+    -> (y, aux)`` replaces the dense MLP. Returns ``(x, aux or None)``.
+
+    The seams of tensor parallelism: ``enter`` wraps the input of the
+    column-parallel products (``qkv``, ``mlp_up``) and ``leave`` the
+    output of the row-parallel ones (``proj``, ``mlp_down``, whose bias is
+    added after it). A ``qkv`` weight of fewer than ``3C`` rows holds a
+    rank's heads: its q, k and v thirds are that many heads' rows."""
+    K, B, T, C = x.shape
+    D = C // n_heads
+    h = layer_norm(x, get("ln1.weight"), get("ln1.bias"), dtype)
+    qkv = dense(enter(h), get("qkv.weight"), None, dtype)
+    Cl = qkv.shape[-1] // 3
+    q, k, v = (qkv[..., j * Cl:(j + 1) * Cl].reshape(K * B, T, Cl // D, D)
+               for j in range(3))
+    att = attend(q, k, v).reshape(K, B, T, Cl)
+    x = x + leave(dense(att, get("proj.weight"), None, dtype))
+    h = layer_norm(x, get("ln2.weight"), get("ln2.bias"), dtype)
+    if moe is not None:
+        y, aux = moe(h.reshape(K, B * T, C))
+        return x + y.reshape(K, B, T, C), aux
+    h = F.gelu(dense(enter(h), get("mlp_up.weight"), get("mlp_up.bias"),
+                     dtype), approximate="tanh")
+    y = leave(dense(h, get("mlp_down.weight"), None, dtype))
+    return x + (y + _bc(get("mlp_down.bias").to(dtype), y)), None
+
+
 class _Block(nn.Module):
     """Parameter holder of one pre-LN block (applied by
     :meth:`TransformerLM.apply_params`). ``mlp_factory()`` builds the
@@ -169,51 +204,75 @@ class TransformerLM(nn.Module):
             return self.attention_fn(q, k, v)
         return flash_attention(q, k, v, True)
 
+    def embed_tokens(self, params, idx, pos_offset=0):
+        """Token plus position embeddings of ``idx [K, B, T]`` under
+        client-stacked ``params``, in the compute dtype."""
+        T = idx.shape[-1]
+        return (embed(params["tok_embed.weight"], idx, self.dtype)
+                + params["pos_embed.weight"][
+                    :, None, pos_offset:pos_offset + T].to(self.dtype))
+
+    def head_logits(self, params, x):
+        """The final LayerNorm and the fp32 head over ``x [K, B, T, C]``."""
+        x = layer_norm(x, params["ln_f.weight"], params["ln_f.bias"],
+                       self.dtype)
+        return dense(x.float(), params["head.weight"], params["head.bias"],
+                     torch.float32)
+
+    def _block_moe(self, params, i):
+        """Block ``i``'s MLP replacement as ``fn(h [K, N, C]) -> (y,
+        aux)`` over client-stacked ``params``, or None for a dense
+        block."""
+        moe = self.blocks[i].moe
+        if moe is None:
+            return None
+        prefix = f"blocks.{i}.moe."
+        sub = {k[len(prefix):]: v for k, v in params.items()
+               if k.startswith(prefix)}
+        # one client's [B*T, C] tokens route together
+        return lambda h: moe.apply_params(sub, h, self.dtype)
+
+    def apply_blocks(self, params, x, n_blocks=None, get=None, moe_for=None,
+                     enter=_same, leave=_same):
+        """The blocks over ``x [K, B, T, C]`` under client-stacked
+        ``params``: ``(x, aux [K])``, the sown auxiliary losses summed.
+
+        The seams of the sharded steps: ``get(params, i, name)`` gives
+        block ``i``'s parameter (default ``params["blocks.{i}.{name}"]``),
+        ``moe_for(params, i)`` its MLP replacement (default the model's
+        own), ``n_blocks`` how many blocks run (default all), and
+        ``enter``/``leave`` the tensor-parallel seams of
+        :func:`apply_block`."""
+        get = get or (lambda P, i, name: P[f"blocks.{i}.{name}"])
+        moe_for = moe_for or self._block_moe
+        aux = torch.zeros(x.shape[0], device=x.device)
+        for i in range(self.n_layers if n_blocks is None else n_blocks):
+            x, a = apply_block(x, lambda name, i=i: get(params, i, name),
+                               self.n_heads, self.dtype, self._attend,
+                               enter, leave, moe=moe_for(params, i))
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
     def apply_params(self, params, idx, stacked=False, with_sown=False,
-                     pos_offset=0):
+                     pos_offset=0, get=None, moe_for=None, enter=_same,
+                     leave=_same):
         """Logits of ``idx`` under ``params`` (``{name: tensor}``). With
         ``stacked=True`` every parameter has a leading client axis K and
         ``idx`` is ``[K, B, T]``; the logits are then ``[K, B, T, V]``.
         ``with_sown=True`` returns ``(logits, aux)``: the blocks' sown
         auxiliary losses summed per client (``[K]``, or a scalar).
         ``pos_offset`` is the absolute position of ``idx``'s first token
-        (a sequence shard's start under sequence parallelism)."""
+        (a sequence shard's start under sequence parallelism); ``get``,
+        ``moe_for``, ``enter`` and ``leave`` are :meth:`apply_blocks`'s
+        seams."""
         if not stacked:
             params = {k: v.unsqueeze(0) for k, v in params.items()}
             idx = idx.unsqueeze(0)
-        P, dt = params, self.dtype
-        K, B, T = idx.shape
-        C, H = self.d_model, self.n_heads
-        D = C // H
-        x = (embed(P["tok_embed.weight"], idx, dt)
-             + P["pos_embed.weight"][:, None,
-                                    pos_offset:pos_offset + T].to(dt))
-        aux = torch.zeros(K, device=idx.device)
-        for i in range(self.n_layers):
-            p = lambda n: P[f"blocks.{i}.{n}"]
-            h = layer_norm(x, p("ln1.weight"), p("ln1.bias"), dt)
-            qkv = dense(h, p("qkv.weight"), None, dt)
-            q, k, v = (qkv[..., j * C:(j + 1) * C].reshape(K * B, T, H, D)
-                       for j in range(3))
-            att = self._attend(q, k, v).reshape(K, B, T, C)
-            x = x + dense(att, p("proj.weight"), None, dt)
-            h = layer_norm(x, p("ln2.weight"), p("ln2.bias"), dt)
-            moe = self.blocks[i].moe
-            if moe is not None:
-                # one client's [B*T, C] tokens route together
-                prefix = f"blocks.{i}.moe."
-                y, a = moe.apply_params(
-                    {k[len(prefix):]: v for k, v in P.items()
-                     if k.startswith(prefix)}, h.reshape(K, B * T, C), dt)
-                x = x + y.reshape(K, B, T, C)
-                aux = aux + a
-                continue
-            h = F.gelu(dense(h, p("mlp_up.weight"), p("mlp_up.bias"), dt),
-                       approximate="tanh")
-            x = x + dense(h, p("mlp_down.weight"), p("mlp_down.bias"), dt)
-        x = layer_norm(x, P["ln_f.weight"], P["ln_f.bias"], dt)
-        logits = dense(x.float(), P["head.weight"], P["head.bias"],
-                       torch.float32)
+        x = self.embed_tokens(params, idx, pos_offset)
+        x, aux = self.apply_blocks(params, x, get=get, moe_for=moe_for,
+                                   enter=enter, leave=leave)
+        logits = self.head_logits(params, x)
         if not stacked:
             logits, aux = logits[0], aux[0]
         return (logits, aux) if with_sown else logits
@@ -237,4 +296,4 @@ def transformer_nwp(vocab_size: int = 10004, **kw):
 
 
 __all__ = ["TransformerLM", "transformer_nwp", "lm_loss", "layer_norm",
-           "dense", "embed"]
+           "dense", "embed", "apply_block"]

@@ -29,29 +29,10 @@ import torch
 import torch.distributed as dist
 
 from fedml_tpu_torch.ops.attention import NEG_INF, _online_step
+from fedml_tpu_torch.parallel.collectives import ring_peers as _ring_peers
+from fedml_tpu_torch.parallel.collectives import rotate as _rotate
 
 SEQ_AXIS = "seq"
-
-
-def _ring_peers(group):
-    """``(n, me, next, previous)``: the group's size, this rank's index
-    in it, and the global ranks it sends to and receives from."""
-    n = dist.get_world_size(group)
-    me = dist.get_rank(group)
-    return (n, me, dist.get_global_rank(group, (me + 1) % n),
-            dist.get_global_rank(group, (me - 1) % n))
-
-
-def _rotate(tensors, group, nxt, prv):
-    """Send ``tensors`` one hop along the ring and return the previous
-    rank's, in one batch of point-to-point operations."""
-    recv = [torch.empty_like(t) for t in tensors]
-    ops = ([dist.P2POp(dist.isend, t.contiguous(), nxt, group)
-            for t in tensors]
-           + [dist.P2POp(dist.irecv, r, prv, group) for r in recv])
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recv
 
 
 def _causal_bias(q_off, Tq, k_off, Tk, device):

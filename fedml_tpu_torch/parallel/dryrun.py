@@ -15,7 +15,16 @@ Cases, at the reference's sizes and bounds:
    against the flat round;
 6. ``sharded-mxu-lanes``: the packed lanes on a one-step cohort;
 7. ``seqpar``: one dp x sp LM step (``n_seq`` 4 when it divides n, else
-   n) against the unsharded step, loss and parameters within 1e-4.
+   n) against the unsharded step, loss and parameters within 1e-4;
+8. ``tp``: one dp x tp LM step (``n_model`` 4 when it divides n, else
+   n; as many heads, d_model 8 a head) against the unsharded step;
+9. ``pp``: one GPipe LM step over n stages of two blocks each, 2
+   microbatches, against the unsharded step;
+10. ``ep``: one dp x ep step of the MoE LM (``n_expert`` 4 when it
+   divides n, else n; as many experts) against the unsharded step.
+
+Cases 8-10 are the reference's cases 7-9 (``__graft_entry__.py:273``,
+``:311``, ``:346``), at its sizes and with its 1e-4 bound.
 
 The ResNet's state and compute are float64 (:data:`DTYPE`).
 Torch's convolutions over K clients at once are grouped convolutions
@@ -29,8 +38,7 @@ one per-client program whatever the cohort, so the reference holds fp32
 to 1e-5; in float64 what is left is the fp32 aggregation's
 reassociation.
 
-Tensor, pipeline and expert parallelism (the reference's cases 8-10)
-wait for ROADMAP A15b. Run it under a launcher, one process a device::
+Run it under a launcher, one process a device::
 
     torchrun --nproc_per_node 4 -m fedml_tpu_torch.parallel.dryrun \
         --platform cpu
@@ -128,7 +136,7 @@ def _lane_case(spec, cfg, mesh, state, clients, sched, packed, seed):
 def _seqpar(n, device, lm_params=None, lm_idx=None):
     """One dp x sp SGD step of a 1-layer LM against the unsharded step:
     ``(new params, loss, param err, loss err, mesh shape)``."""
-    from fedml_tpu_torch.models.transformer import TransformerLM, lm_loss
+    from fedml_tpu_torch.models.transformer import TransformerLM
     from fedml_tpu_torch.parallel.seq_parallel import (
         make_seq_mesh, make_seq_parallel_lm_step, place_lm_batch,
         seq_parallel_model, shift_targets)
@@ -145,35 +153,134 @@ def _seqpar(n, device, lm_params=None, lm_idx=None):
     init_fn, step_fn = make_seq_parallel_lm_step(
         model, mesh, lambda ps: torch.optim.SGD(ps, lr=0.1))
     params, opt = init_fn(3)
-    if lm_params is not None:
-        with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(torch.as_tensor(np.asarray(lm_params[k])))
+    _overwrite(params, lm_params)
     params0 = {k: p.detach().clone() for k, p in params.items()}
     new, _, loss = step_fn(params, opt, *place_lm_batch(mesh, idx, tgt))
-
-    local = TransformerLM(**kw)
-    ref = {k: p.clone().requires_grad_(True) for k, p in params0.items()}
-    ref_loss = lm_loss(local.apply_params(
-        ref, torch.as_tensor(idx, device=mesh.device).long()),
-        torch.as_tensor(tgt, device=mesh.device).long())
-    grads = dict(zip(ref, torch.autograd.grad(ref_loss,
-                                              list(ref.values()))))
-    ref_new = {k: ref[k].detach() - 0.1 * grads[k] for k in ref}
+    ref_new, ref_loss = unsharded_step(TransformerLM(**kw), params0, idx)
     new = {k: p.detach() for k, p in new.items()}
     return (new, float(loss), max_abs_diff(new, ref_new),
-            abs(float(loss) - ref_loss.item()), (n_data, n_seq))
+            abs(float(loss) - ref_loss), (n_data, n_seq))
+
+
+def unsharded_step(model, params0, idx, aux_weight=0.0):
+    """The single-device SGD step (lr 0.1) of ``model`` from ``params0``
+    on ``idx``: ``(new params, loss)``."""
+    from fedml_tpu_torch.models.transformer import lm_loss
+    from fedml_tpu_torch.parallel.seq_parallel import shift_targets
+
+    dev = next(iter(params0.values())).device
+    ref = {k: p.clone().requires_grad_(True) for k, p in params0.items()}
+    logits, aux = model.apply_params(
+        ref, torch.as_tensor(idx, device=dev).long(), with_sown=True)
+    loss = lm_loss(logits, torch.as_tensor(shift_targets(idx),
+                                           device=dev).long())
+    loss = loss + aux_weight * aux
+    grads = dict(zip(ref, torch.autograd.grad(loss, list(ref.values()))))
+    return ({k: ref[k].detach() - 0.1 * grads[k] for k in ref},
+            float(loss.detach()))
+
+
+def _overwrite(params, values):
+    if values is not None:
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(torch.as_tensor(np.asarray(values[k])))
+
+
+def _model_parallel(n, device, given=None):
+    """Cases 8-10: ``{case: (new params, loss, param err, loss err,
+    mesh shape)}``; ``given`` maps a case to ``(params, idx)`` replacing
+    its weights (torch names, whole) and tokens."""
+    from fedml_tpu_torch.models.moe import MoETransformerLM
+    from fedml_tpu_torch.models.transformer import TransformerLM
+    from fedml_tpu_torch.parallel import expert_parallel as ep
+    from fedml_tpu_torch.parallel import pipeline_parallel as pp
+    from fedml_tpu_torch.parallel import tensor_parallel as tp
+    from fedml_tpu_torch.parallel.seq_parallel import shift_targets
+    from fedml_tpu_torch.utils.torch_import import tp_shard_params
+
+    given = given or {}
+    sgd = lambda ps: torch.optim.SGD(ps, lr=0.1)  # noqa: E731
+    out = {}
+
+    def tokens(case, seed, shape):
+        if case in given:
+            return np.asarray(given[case][1])
+        return np.random.default_rng(seed).integers(0, 50, shape)
+
+    def finish(case, new, loss, model, full0, idx, shape, aux_weight=0.0):
+        want, want_loss = unsharded_step(model, full0, idx, aux_weight)
+        out[case] = (new, float(loss), max_abs_diff(new, want),
+                     abs(float(loss) - want_loss), shape)
+
+    n_tp = 4 if n % 4 == 0 else n
+    mesh = tp.make_tp_mesh(n // n_tp, n_tp, device=device)
+    kw = dict(vocab_size=50, n_layers=1, n_heads=n_tp, d_model=8 * n_tp,
+              max_len=32)
+    model = TransformerLM(attention_fn=tp.tp_attention(block_size=32), **kw)
+    init_fn, step_fn = tp.make_tp_lm_step(model, mesh, sgd)
+    params, opt = init_fn(5)
+    full0 = tp.gather_tp_params(params, mesh)
+    if "tp" in given:
+        full0 = {k: torch.as_tensor(np.asarray(v), device=mesh.device)
+                 for k, v in given["tp"][0].items()}
+        _overwrite(params, tp_shard_params(
+            full0, tp.tp_param_shardings(full0, mesh), n_tp,
+            mesh.index("model")))
+    idx = tokens("tp", 4, (2 * (n // n_tp), 32))
+    params, _, loss = step_fn(params, opt, idx, shift_targets(idx))
+    finish("tp", tp.gather_tp_params(params, mesh), loss, model, full0, idx,
+           (n // n_tp, n_tp))
+
+    mesh = pp.make_pp_mesh(n, device=device)
+    params, model = pp.init_pp_params(
+        mesh, 7, vocab_size=50, n_heads=2, d_model=32, max_len=32,
+        attention_fn=tp.tp_attention(block_size=16), n_layers=2 * n)
+    if "pp" in given:
+        params = pp.place_pp_params(pp.stack_pp_params(
+            {k: torch.as_tensor(np.asarray(v))
+             for k, v in given["pp"][0].items()}, n), mesh)
+    full0 = pp.unstack_pp_params(pp.gather_pp_params(params, mesh))
+    idx = tokens("pp", 6, (4, 16))
+    prep_fn, step_fn = pp.make_pp_lm_step(model, mesh, n_micro=2)
+    params, _, loss = step_fn(params, sgd(pp.pp_leaves(params)),
+                              *prep_fn(idx, shift_targets(idx)))
+    finish("pp", pp.unstack_pp_params(pp.gather_pp_params(params, mesh)),
+           loss, model, full0, idx, (n,))
+
+    n_ep = 4 if n % 4 == 0 else n
+    mesh = ep.make_ep_mesh(n // n_ep, n_ep, device=device)
+    model = MoETransformerLM(
+        vocab_size=50, n_layers=1, n_heads=2, d_model=16, max_len=32,
+        n_experts=n_ep, attention_fn=tp.tp_attention(block_size=16))
+    init_fn, step_fn = ep.make_ep_lm_step(model, mesh, sgd)
+    params, opt = init_fn(9)
+    full0 = ep.gather_ep_params(params, mesh)
+    if "ep" in given:
+        full0 = {k: torch.as_tensor(np.asarray(v), device=mesh.device)
+                 for k, v in given["ep"][0].items()}
+        _overwrite(params, tp_shard_params(
+            full0, ep.ep_param_shardings(full0, mesh), n_ep,
+            mesh.index("expert"), "expert"))
+    idx = tokens("ep", 8, (2 * (n // n_ep), 16))
+    params, _, loss = step_fn(params, opt, idx, shift_targets(idx))
+    finish("ep", ep.gather_ep_params(params, mesh), loss, model, full0, idx,
+           (n // n_ep, n_ep), ep.MOE_AUX_WEIGHT)
+    return out
 
 
 def dryrun_multichip(device=None, resnet_state=None, lm_params=None,
-                     lm_idx=None, depth=20):
-    """Cases 1-7 over the ranks of the current group (one rank alone
+                     lm_idx=None, depth=20, parallel=None):
+    """Cases 1-10 over the ranks of the current group (one rank alone
     when there is none), each asserted within its bound. ``device`` is
     ``"cpu"`` or None for the card; ``resnet_state`` and ``lm_params``
     replace the initial weights drawn from seeds 0 and 3, ``lm_idx`` the
-    LM's tokens; ``depth`` is the ResNet's. Returns ``{"n", "errors",
-    "states", "seqpar_loss", "seqpar_mesh"}``: each case's divergence
-    from its single-device round and its new state as numpy."""
+    LM's tokens; ``parallel`` maps ``"tp"``, ``"pp"`` and ``"ep"`` to
+    ``(params, idx)`` replacing theirs (drawn from seeds 5, 7 and 9;
+    tokens from 4, 6 and 8); ``depth`` is the ResNet's. Returns ``{"n",
+    "errors", "states", "losses", "meshes"}``: each case's divergence
+    from its single-device round, its new state as numpy, and the LM
+    cases' losses and mesh shapes."""
     import torch.distributed as dist
 
     from fedml_tpu_torch.algorithms.fedavg_robust import make_robust_hooks
@@ -255,12 +362,20 @@ def dryrun_multichip(device=None, resnet_state=None, lm_params=None,
                              f"params by {sp_err}")
     errors["seqpar"] = sp_err
     states["seqpar"] = to_numpy(new)
+    losses, meshes = {"seqpar": loss}, {"seqpar": shape}
+    for case, (new, loss, err, loss_err, shape) in _model_parallel(
+            n, device, parallel).items():
+        if not (loss_err < SEQPAR_TOL and err < SEQPAR_TOL):
+            raise AssertionError(f"{case} {shape}: loss off by {loss_err}, "
+                                 f"params by {err}")
+        errors[case], states[case] = err, to_numpy(new)
+        losses[case], meshes[case] = loss, shape
     rank = dist.get_rank() if dist.is_initialized() else 0
     if rank == 0:
         logging.info("dryrun_multichip(%d): OK -- %s", n, ", ".join(
             f"{k}={v:.2e}" for k, v in errors.items()))
-    return {"n": n, "errors": errors, "states": states,
-            "seqpar_loss": loss, "seqpar_mesh": shape}
+    return {"n": n, "errors": errors, "states": states, "losses": losses,
+            "meshes": meshes}
 
 
 def main(argv=None):
@@ -278,7 +393,8 @@ def main(argv=None):
     return dryrun_multichip(device=device)
 
 
-__all__ = ["dryrun_multichip", "max_abs_diff", "FEDAVG_TOL", "SEQPAR_TOL"]
+__all__ = ["dryrun_multichip", "unsharded_step", "max_abs_diff",
+           "FEDAVG_TOL", "SEQPAR_TOL"]
 
 
 if __name__ == "__main__":

@@ -78,14 +78,12 @@ class Mesh:
         return int(self.device_mesh.get_local_rank(axis))
 
 
-def make_2d_mesh(n_a: int, n_b: int, axis_names, devices=None,
-                 device=None) -> Mesh:
-    """A ``(n_a, n_b)`` grid over the first ranks of the world (or over
-    ``devices``, a list of ranks), the shared constructor behind the
-    ``(clients, model)`` and ``(data, seq)`` meshes. ``device`` is this
-    rank's device: ``"cpu"``, or for None the CUDA device the rank is
-    bound to (``multihost.maybe_initialize_distributed`` binds
-    ``cuda:<local rank>``)."""
+def make_mesh(shape, axis_names, devices=None, device=None) -> Mesh:
+    """A grid of ``shape`` (one size an axis) over the first ranks of the
+    world (or over ``devices``, a list of ranks), named ``axis_names``.
+    ``device`` is this rank's device: ``"cpu"``, or for None the CUDA
+    device the rank is bound to (``multihost.maybe_initialize_distributed``
+    binds ``cuda:<local rank>``)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     from fedml_tpu_torch.utils.device import resolve_device
@@ -94,12 +92,20 @@ def make_2d_mesh(n_a: int, n_b: int, axis_names, devices=None,
     ensure_process_group(dev)
     ranks = (list(range(dist.get_world_size())) if devices is None
              else [int(r) for r in devices])
-    need = n_a * n_b
+    need = int(np.prod(shape))
     if need > len(ranks):
         raise ValueError(f"mesh needs {need} devices, have {len(ranks)}")
-    grid = torch.tensor(ranks[:need]).reshape(n_a, n_b)
+    grid = torch.tensor(ranks[:need]).reshape(tuple(shape))
     return Mesh(DeviceMesh(dev.type, grid, mesh_dim_names=tuple(axis_names)),
                 dev)
+
+
+def make_2d_mesh(n_a: int, n_b: int, axis_names, devices=None,
+                 device=None) -> Mesh:
+    """A ``(n_a, n_b)`` :func:`make_mesh`, the shared constructor behind
+    the ``(clients, model)``, ``(data, seq)``, ``(data, model)`` and
+    ``(data, expert)`` meshes."""
+    return make_mesh((n_a, n_b), axis_names, devices, device)
 
 
 def make_client_mesh(n_client_shards=None, n_model_shards=1, devices=None,
@@ -148,6 +154,6 @@ def shard_cohort(mesh: Mesh, cohort_data):
 
 
 __all__ = ["CLIENT_AXIS", "MODEL_AXIS", "Mesh", "ensure_process_group",
-           "make_2d_mesh", "make_client_mesh", "client_sharding",
+           "make_mesh", "make_2d_mesh", "make_client_mesh", "client_sharding",
            "replicated_sharding", "zero_pad_leading",
            "pad_cohort_to_multiple", "shard_cohort"]

@@ -13,7 +13,7 @@ one fp32 ``all_reduce``. Parameters and optimizer state stay replicated:
 every rank takes the same step.
 
 A model that sows auxiliary losses (the Switch MoE) adds them with
-``aux_loss_weight``, averaged over the ranks: each rank routes its own
+``MOE_AUX_WEIGHT``, averaged over the ranks: each rank routes its own
 tokens, so the load-balancing term is the mean of the ranks' terms and
 equals the reference's, which routes the whole batch at once, on a
 mesh of one rank.
@@ -25,9 +25,11 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.ops.ring_attention import make_ring_attention
-from fedml_tpu_torch.parallel.multihost import all_reduce_sum, global_put
+from fedml_tpu_torch.parallel.lm_step import (DATA_AXIS, MOE_AUX_WEIGHT,
+                                              lm_loss_share, seeded_params,
+                                              sgd, sharded_step)
+from fedml_tpu_torch.parallel.multihost import global_put
 
-DATA_AXIS = "data"
 SEQ_AXIS = "seq"
 
 
@@ -47,15 +49,9 @@ def seq_parallel_model(model_cls, mesh, *, block_size: int = 512, **kw):
     return model_cls(attention_fn=ring, **kw)
 
 
-def _sgd(lr):
-    return lambda params: torch.optim.SGD(params, lr=lr)
-
-
-def make_seq_parallel_lm_step(model, mesh, tx=None,
-                              seq_axis: str = SEQ_AXIS,
-                              aux_loss_weight: float = 0.01):
+def make_seq_parallel_lm_step(model, mesh, tx=None):
     """``(init_fn, step_fn)`` for next-token training with the sequence
-    sharded over ``mesh[seq_axis]``.
+    sharded over the mesh's ``seq`` axis.
 
     ``tx(params) -> torch.optim.Optimizer`` builds the optimizer (default
     SGD at 1e-3). ``init_fn(seed) -> (params, opt)`` draws the model's
@@ -65,52 +61,34 @@ def make_seq_parallel_lm_step(model, mesh, tx=None,
     blocks (:func:`place_lm_batch`) of the tokens and of their targets,
     shifted globally before sharding (:func:`shift_targets`; targets < 0
     are masked), steps every rank alike and returns the global loss."""
-    tx = tx if tx is not None else _sgd(1e-3)
+    tx = tx if tx is not None else sgd(1e-3)
     group = mesh.group()
 
     def init_fn(seed):
-        model.reset_parameters_(torch.Generator().manual_seed(int(seed)))
-        params = {k: v.detach().clone().to(mesh.device).requires_grad_(True)
-                  for k, v in model.named_parameters()}
+        params = {k: v.clone().to(mesh.device).requires_grad_(True)
+                  for k, v in seeded_params(model, seed).items()}
         return params, tx(list(params.values()))
 
     def local_loss(params, idx, tgt):
-        # this rank's share of the global mean: its masked sum over the
-        # token count of the whole grid
-        off = mesh.index(seq_axis) * idx.shape[1]
+        # this rank's share of the global mean over the whole grid
+        off = mesh.index(SEQ_AXIS) * idx.shape[1]
         logits, aux = model.apply_params(params, idx, with_sown=True,
                                          pos_offset=off)
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        mask = (tgt >= 0).float()
-        nll = -lp.gather(-1, torch.clamp(tgt, min=0).long()[..., None])[
-            ..., 0]
-        count = all_reduce_sum(mask.sum(), group)
-        return ((nll * mask).sum() / torch.clamp(count, min=1.0)
-                + aux_loss_weight * aux / mesh.size)
+        return (lm_loss_share(logits, tgt, group)
+                + MOE_AUX_WEIGHT * aux / mesh.size)
 
     def step_fn(params, opt, idx, tgt):
-        opt.zero_grad(set_to_none=True)
         loss = local_loss(params, idx, tgt)
-        loss.backward()
-        with torch.no_grad():
-            grads = {k: (p.grad if p.grad is not None
-                         else torch.zeros_like(p))
-                     for k, p in params.items()}
-            loss_sum, grads = all_reduce_sum((loss, grads), group)
-            for k, p in params.items():
-                p.grad = grads[k].to(p.dtype)
-        opt.step()
-        return params, opt, loss_sum
+        return params, opt, sharded_step(params, opt, loss, group)
 
     return init_fn, step_fn
 
 
-def place_lm_batch(mesh, idx, tgt, data_axis: str = DATA_AXIS,
-                   seq_axis: str = SEQ_AXIS):
+def place_lm_batch(mesh, idx, tgt):
     """Host-replicated ``[B, T]`` tokens and targets -> this rank's
     ``(data, seq)`` blocks on its device, as int64."""
     return tuple(global_put(mesh, torch.as_tensor(np.asarray(a)).long(),
-                            (data_axis, seq_axis)) for a in (idx, tgt))
+                            (DATA_AXIS, SEQ_AXIS)) for a in (idx, tgt))
 
 
 def shift_targets(idx, pad_id: int = -1):
@@ -123,4 +101,5 @@ def shift_targets(idx, pad_id: int = -1):
 
 
 __all__ = ["make_seq_mesh", "make_seq_parallel_lm_step", "place_lm_batch",
-           "seq_parallel_model", "shift_targets", "DATA_AXIS", "SEQ_AXIS"]
+           "seq_parallel_model", "shift_targets", "DATA_AXIS",
+           "SEQ_AXIS"]

@@ -53,6 +53,16 @@ nested flax tree of any depth: a 4-D ``kernel`` HWIO -> OIHW
 A whole node state under the reference's names, BatchNorm statistics
 included (:func:`reference_state`), frames the gossip rounds' wire.
 
+The TransformerLM's parameters across model-parallel ranks (its
+``params`` dict, torch names): :func:`tp_shard_params` gives a rank of
+a tensor-parallel ``model`` axis its block of each sharded leaf (a spec
+of ``parallel/tensor_parallel.py`` ``tp_param_shardings``; a
+column-parallel ``qkv.weight`` block is the rank's heads' rows of each
+of q, k and v) and :func:`tp_gather_params` assembles the ranks' blocks
+back; :func:`stack_pp_params` lays ``blocks.{i}.*`` out as ``stages``
+``[S, k, ...]`` (stage ``s`` owns blocks ``s*k .. s*k + k - 1``) beside
+the ``shared`` rest, and :func:`unstack_pp_params` inverts it.
+
 Server optimizer state (:func:`server_state_from_optax`): the JAX
 package's optax chain state (``TraceState``, ``ScaleByAdamState`` or
 ``ScaleByRssState`` first) -> the port's ``{"trace"}``, ``{"count",
@@ -557,6 +567,96 @@ def reference_state(state):
     return out
 
 
+def _tp_block(name, t, dim, n, rank):
+    """Rank ``rank``'s block of ``t`` split ``n`` ways on ``dim``: for a
+    ``qkv.weight`` on dim 0, its rows of each of the q, k and v thirds."""
+    if name.endswith("qkv.weight") and dim == 0:
+        thirds = t.reshape((3, t.shape[0] // 3) + tuple(t.shape[1:]))
+        w = thirds.shape[1] // n
+        return thirds[:, rank * w:(rank + 1) * w].reshape(
+            (-1,) + tuple(t.shape[1:]))
+    w = t.shape[dim] // n
+    return t.narrow(dim, rank * w, w)
+
+
+def tp_shard_params(params, specs, n_model, rank, axis="model"):
+    """Rank ``rank``'s parameters of an ``n_model``-way tensor-parallel
+    ``axis``: each leaf whose spec (``specs[name]``, a tuple naming the
+    mesh axis of each leading dim) names ``axis`` cut to the rank's
+    block, the rest whole."""
+    out = {}
+    for name, t in params.items():
+        t = torch.as_tensor(t)
+        spec = tuple(specs[name])
+        out[name] = (_tp_block(name, t, spec.index(axis), n_model, rank)
+                     if axis in spec else t)
+    return out
+
+
+def tp_gather_params(shards, specs, axis="model"):
+    """Inverse of :func:`tp_shard_params`: the ranks' parameters (a list
+    in ``axis`` order) assembled into whole leaves."""
+    out = {}
+    for name, t in shards[0].items():
+        spec = tuple(specs[name])
+        if axis not in spec:
+            out[name] = torch.as_tensor(t)
+            continue
+        parts = [torch.as_tensor(s[name]) for s in shards]
+        dim = spec.index(axis)
+        if name.endswith("qkv.weight") and dim == 0:
+            thirds = [p.reshape((3, -1) + tuple(p.shape[1:])) for p in parts]
+            out[name] = torch.cat(thirds, dim=1).reshape(
+                (-1,) + tuple(parts[0].shape[1:]))
+        else:
+            out[name] = torch.cat(parts, dim=dim)
+    return out
+
+
+def _block_index(name):
+    parts = name.split(".")
+    return int(parts[1]) if parts[0] == "blocks" else None
+
+
+def stack_pp_params(params, n_stages):
+    """A TransformerLM's ``params`` (torch names) -> the pipeline layout
+    ``{"stages": {suffix: [S, k, ...]}, "shared": {...}}``: block ``s*k
+    + j`` becomes ``stages[suffix][s, j]``."""
+    idxs = sorted({i for i in map(_block_index, params) if i is not None})
+    if idxs != list(range(len(idxs))):
+        raise ValueError(f"non-contiguous block keys in params: {idxs}")
+    n_blocks = len(idxs)
+    if n_blocks == 0 or n_blocks % n_stages:
+        raise ValueError(
+            f"model has {n_blocks} blocks -- pp requires a nonzero "
+            f"multiple of n_stages={n_stages} (a remainder would silently "
+            "ride in 'shared' untrained)")
+    k = n_blocks // n_stages
+    suffixes = [n[len("blocks.0."):] for n in params
+                if n.startswith("blocks.0.")]
+    stages = {x: torch.stack([torch.stack([
+        torch.as_tensor(params[f"blocks.{s * k + j}.{x}"]) for j in range(k)])
+        for s in range(n_stages)]) for x in suffixes}
+    shared = {n: torch.as_tensor(t) for n, t in params.items()
+              if _block_index(n) is None}
+    return {"stages": stages, "shared": shared}
+
+
+def unstack_pp_params(pp_params, n_stages=None):
+    """Inverse of :func:`stack_pp_params` (``n_stages`` is read from the
+    stacked leaves; given, it must agree)."""
+    first = next(iter(pp_params["stages"].values()))
+    S, k = first.shape[0], first.shape[1]
+    if n_stages is not None and n_stages != S:
+        raise ValueError(f"stacked for {S} stages, not {n_stages}")
+    out = dict(pp_params["shared"])
+    for x, t in pp_params["stages"].items():
+        for s in range(S):
+            for j in range(k):
+                out[f"blocks.{s * k + j}.{x}"] = t[s, j]
+    return out
+
+
 __all__ = ["variables_to_state", "state_to_variables",
            "lm_variables_to_state", "lm_state_to_variables",
            "cv_variables_to_state", "cv_state_to_variables",
@@ -565,4 +665,5 @@ __all__ = ["variables_to_state", "state_to_variables",
            "module_state", "server_state_from_optax",
            "server_state_to_optax", "reference_names", "reference_tree",
            "reference_state",
-           "gate_split", "gate_join"]
+           "gate_split", "gate_join", "tp_shard_params",
+           "tp_gather_params", "stack_pp_params", "unstack_pp_params"]

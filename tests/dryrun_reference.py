@@ -1,7 +1,8 @@
-"""The reference's dry-run cases 1-7 (``__graft_entry__.py:72``
-``dryrun_multichip``) in this process, on conftest's forced CPU devices,
-and the checks the port's dry-run tests (``test_torch_dryrun*.py``)
-hold over a spawned group.
+"""The reference's dry-run cases 1-9 (``__graft_entry__.py:72``
+``dryrun_multichip``; the port's 1-10, its seventh case split in two)
+in this process, on conftest's forced CPU devices, and the checks the
+port's dry-run tests (``test_torch_dryrun*.py``) hold over a spawned
+group.
 
 The ResNet cases run at depth 8 (the same ``CifarResNet`` code path as
 the dry run's ResNet-20, whose sharded-round compiles take about 8 s a
@@ -9,7 +10,9 @@ case here, against about 4 s) in float64 under ``jax.enable_x64``, with
 float64 weights drawn by ``seeded_variables``: the port's dry run
 computes in float64 (``fedml_tpu_torch/parallel/dryrun.py`` says why),
 and an fp32 reference would stray from it by BatchNorm's amplification
-of its own rounding. The LM case runs in fp32, as in the reference."""
+of its own rounding. The LM cases run in fp32, as in the reference:
+dp x sp, and tp, pp and ep (``tests/parallel_reference.py``) at the
+reference's sizes from flax's weights drawn from keys 5, 7 and 9."""
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ import numpy as np
 import optax
 import torch
 
+import parallel_reference as preference
 import torch_dist_cases as cases
 from fedml_tpu_torch.utils.torch_import import (lm_variables_to_state,
                                                 variables_to_state)
@@ -26,6 +30,8 @@ DEPTH = 8
 #: the port's dry-run states against the reference's: the fp32
 #: aggregation's reassociation on either side, and the LM's fp32 step
 TOL = {"resnet": 1e-5, "seqpar": 1e-4}
+#: the LM cases, held to the reference's LM bound
+LM_CASES = ("seqpar", "tp", "pp", "ep")
 
 
 def _cohort(n_clients, seed):
@@ -60,6 +66,42 @@ def lm_case(n):
                                       jnp.zeros((1, T), jnp.int32))["params"]
     idx = np.random.default_rng(2).integers(0, 50, (B, T))
     return n_data, n_seq, kw, jax.tree.map(np.asarray, params), idx
+
+
+def parallel_cases(n):
+    """The tp, pp and ep cases' meshes, models, weights (flax's, numpy)
+    and tokens at the reference's sizes: ``{case: (grid, kw, params,
+    idx)}``."""
+    n_tp = 4 if n % 4 == 0 else n
+    tp_kw = dict(vocab_size=50, n_layers=1, n_heads=n_tp, d_model=8 * n_tp,
+                 max_len=32)
+    pp_kw = dict(vocab_size=50, n_heads=2, d_model=32, max_len=32)
+    ep_kw = dict(vocab_size=50, n_layers=1, n_heads=2, d_model=16,
+                 max_len=32, n_experts=n_tp)
+    return {
+        "tp": ((n // n_tp, n_tp), tp_kw, preference.lm_params(tp_kw, 5, 32),
+               np.random.default_rng(4).integers(0, 50,
+                                                 (2 * (n // n_tp), 32))),
+        "pp": ((n,), pp_kw, preference.lm_params(
+            dict(pp_kw, n_layers=2 * n), 7, 32),
+            np.random.default_rng(6).integers(0, 50, (4, 16))),
+        "ep": ((n // n_tp, n_tp), ep_kw,
+               preference.lm_params(ep_kw, 9, 32, moe=True),
+               np.random.default_rng(8).integers(0, 50,
+                                                 (2 * (n // n_tp), 16)))}
+
+
+def parallel_reference_cases(n):
+    """The reference's tp, pp and ep steps of :func:`parallel_cases`:
+    ``{case: (new params, loss)}``."""
+    cases_ = parallel_cases(n)
+    (d, m), kw, params, idx = cases_["tp"]
+    out = {"tp": preference.tp_step(params, idx, d, m, kw, 32)}
+    _, kw, params, idx = cases_["pp"]
+    out["pp"] = preference.pp_step(params, idx, n, kw, 2, 16)
+    (d, m), kw, params, idx = cases_["ep"]
+    out["ep"] = preference.ep_step(params, idx, d, m, kw, 16)
+    return out
 
 
 def reference_cases(n, variables):
@@ -161,7 +203,7 @@ def assert_matches(report, ref):
     """Every case of the port's report within :data:`TOL` of the
     reference's."""
     for case, state in report["states"].items():
-        lm = case == "seqpar"
+        lm = case in LM_CASES
         got = dict(jax.tree_util.tree_leaves_with_path(
             port_state(state, lm)))
         want = jax.tree_util.tree_leaves_with_path(ref[case])
@@ -170,20 +212,28 @@ def assert_matches(report, ref):
         for path, leaf in want:
             np.testing.assert_allclose(got[path], leaf, atol=tol,
                                        err_msg=f"{case} {path}")
-    assert abs(report["seqpar_loss"] - ref["seqpar_loss"]) < TOL["seqpar"]
+    assert abs(report["losses"]["seqpar"] - ref["seqpar_loss"]) < TOL[
+        "seqpar"]
+    for case in ("tp", "pp", "ep"):
+        np.testing.assert_allclose(report["losses"][case],
+                                   ref[f"{case}_loss"], rtol=1e-5,
+                                   err_msg=case)
 
 
 def check_reference_sizes(group):
     """The port's dry run at the reference's sizes over ``group``: its
-    seven cases within their bounds, the dp x sp grid, and the same
+    ten cases within their bounds, the LM cases' grids, and the same
     states on every rank."""
     outs = group.run(cases.dryrun)
     rep = outs[0]
-    assert rep["n"] == group.n and len(rep["errors"]) == 7
-    assert max(v for k, v in rep["errors"].items() if k != "seqpar") < 1e-5
-    assert rep["errors"]["seqpar"] < 1e-4
-    n_seq = 4 if group.n % 4 == 0 else group.n
-    assert tuple(rep["seqpar_mesh"]) == (group.n // n_seq, n_seq)
+    assert rep["n"] == group.n and len(rep["errors"]) == 10
+    assert max(v for k, v in rep["errors"].items()
+               if k not in LM_CASES) < 1e-5
+    assert max(rep["errors"][k] for k in LM_CASES) < 1e-4
+    n4 = 4 if group.n % 4 == 0 else group.n
+    assert {k: tuple(v) for k, v in rep["meshes"].items()} == {
+        "seqpar": (group.n // n4, n4), "tp": (group.n // n4, n4),
+        "pp": (group.n,), "ep": (group.n // n4, n4)}
     for other in outs[1:]:
         for case, state in rep["states"].items():
             for k, v in state.items():
@@ -199,9 +249,15 @@ def check_reference_values(group, monkeypatch):
     state = variables_to_state(variables, DEPTH)
     _, _, _, lm_params, idx = lm_case(group.n)
     lm = lm_variables_to_state({"params": lm_params})["params"]
+    parallel = {case: (preference.port_params(params), tokens)
+                for case, (_, _, params, tokens)
+                in parallel_cases(group.n).items()}
     rep = group.run(
         cases.dryrun, DEPTH,
         {part: {k: v.numpy() for k, v in leaves.items()}
          for part, leaves in state.items()},
-        {k: v.numpy() for k, v in lm.items()}, idx)[0]
-    assert_matches(rep, reference_cases(group.n, variables))
+        {k: v.numpy() for k, v in lm.items()}, idx, parallel)[0]
+    ref = reference_cases(group.n, variables)
+    for case, (new, loss) in parallel_reference_cases(group.n).items():
+        ref[case], ref[f"{case}_loss"] = {"params": new}, loss
+    assert_matches(rep, ref)

@@ -13,7 +13,9 @@ fp32 (ROADMAP §C).
 The reference's FedGKT cases in ``tests/test_split_vertical_mpc.py``
 call jax in their bodies: the extractor and model-shape cases have
 counterparts here with the same asserts; the server phase over a
-``model`` mesh axis waits for ROADMAP A15b and is refused."""
+``model`` mesh axis runs over spawned ranks in
+``test_torch_fedgkt_mesh.py``, and here a batch that the axis does not
+divide runs unsharded, as in the reference."""
 
 import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import types
@@ -168,19 +170,26 @@ def test_gkt_round_records_are_the_reference(gkt_rounds):
     assert abs(got["Test/Correct"] - want["Test/Correct"]) <= 1
 
 
-def test_gkt_server_phase_over_a_model_axis_waits_for_a15():
+def test_gkt_server_phase_over_a_model_axis_waits_for_a15(caplog):
+    """A ``model`` axis that does not divide the batch (8 over 3) logs
+    the reference's warning and runs unsharded; a ``model`` axis of 1
+    runs unsharded too (``test_torch_fedgkt_mesh.py`` splits it)."""
     ds = load_synthetic_images(client_num=2, n_train=32, n_test=16,
                                image_size=8, seed=0)
-    mesh = types.SimpleNamespace(shape={"clients": 1, "model": 8})
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        fedgkt.FedGKTAPI(ds, gkt.resnet5_56(class_num=10),
-                         gkt.GKTServerResNet(n=1, num_classes=10), _args(),
-                         mesh=mesh)
+    mesh = types.SimpleNamespace(shape={"clients": 1, "model": 3})
+    with caplog.at_level("WARNING"):
+        api = fedgkt.FedGKTAPI(ds, gkt.resnet5_56(class_num=10),
+                               gkt.GKTServerResNet(n=1, num_classes=10),
+                               _args(), mesh=mesh)
+    assert api.mesh is None
+    assert "not divisible by 3 model shards" in caplog.text
     # a mesh without a model axis over 1 runs unsharded, as it does there
     api = fedgkt.FedGKTAPI(ds, gkt.resnet5_56(class_num=10),
                            gkt.GKTServerResNet(n=1, num_classes=10), _args(),
                            mesh=types.SimpleNamespace(shape={"model": 1}))
-    assert api.round_idx == 0
+    assert api.round_idx == 0 and api.mesh is None
+    api.train_one_round()
+    assert api.round_idx == 1
 
 
 # -- counterparts of test_split_vertical_mpc.py's FedGKT cases ----------------

@@ -13,7 +13,9 @@
   reference's two-process case (``test_multihost.py:52``): the sharded
   LR round is the same on both ranks and equals this process's
   single-device round, every sample trained once, and one seq-parallel
-  LM step over both ranks matches the unsharded step.
+  LM step, one tensor-parallel step (8 heads over the two ranks) and one
+  two-stage pipeline step (the reference's ``test_multihost.py:137-185``
+  legs) over both ranks each match the unsharded step.
 - In a spawned gloo group of 2 and of 4 ranks: re-initialisation is
   tolerated, each rank places its padded block of a host-replicated
   cohort (int64 labels), ``gather_metrics`` gathers the blocks back,
@@ -33,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import parallel_reference
 import torch_dist
 import torch_dist_cases as cases
 from fedml_tpu import models
@@ -125,7 +128,15 @@ def test_two_process_round_matches_single_process(launcher, tmp_path,
     lm_params = {k: v.numpy() for k, v in
                  lm_variables_to_state(lm)["params"].items()}
     idx = np.random.default_rng(11).integers(0, 50, (4, 32))
-    init = {"lr": _reference_lr_init(), "lm": lm_params, "idx": idx}
+    tp_params = parallel_reference.port_params(
+        parallel_reference.lm_params(cases.MULTIHOST_TP, 22, 32))
+    pp_params = parallel_reference.port_params(parallel_reference.lm_params(
+        dict(cases.MULTIHOST_PP, n_layers=2), 32, 32))
+    tp_idx = np.random.default_rng(21).integers(0, 50, (4, 32))
+    pp_idx = np.random.default_rng(31).integers(0, 50, (4, 32))
+    init = {"lr": _reference_lr_init(), "lm": lm_params, "idx": idx,
+            "tp": tp_params, "tp_idx": tp_idx, "pp": pp_params,
+            "pp_idx": pp_idx}
     path = tmp_path / "init.npy"
     np.save(path, np.array(init, dtype=object), allow_pickle=True)
     port = torch_dist.free_port()
@@ -170,6 +181,30 @@ def test_two_process_round_matches_single_process(launcher, tmp_path,
     np.testing.assert_allclose(a["sp_loss"], float(loss.detach()),
                                rtol=1e-5)
     np.testing.assert_allclose(a["sp_checksum"], sp_ref, rtol=1e-5)
+    for name, params, kw, lm_idx, block in (
+            ("tp", tp_params, cases.MULTIHOST_TP, tp_idx, 16),
+            ("pp", pp_params, dict(cases.MULTIHOST_PP, n_layers=2), pp_idx,
+             None)):
+        want_loss, want_sum = _unsharded_step(params, lm_idx, kw, block)
+        np.testing.assert_allclose(a[f"{name}_loss"], want_loss, rtol=1e-5)
+        np.testing.assert_allclose(a[f"{name}_checksum"], want_sum,
+                                   rtol=1e-5)
+
+
+def _unsharded_step(params, idx, kw, block):
+    """One unsharded SGD step (lr 0.1) of the port's LM: ``(loss, sum of
+    the new parameters)``."""
+    from fedml_tpu_torch.parallel.tensor_parallel import tp_attention
+
+    model = TransformerLM(attention_fn=tp_attention(block) if block
+                          else None, **kw)
+    p = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
+    loss = lm_loss(model.apply_params(p, torch.as_tensor(idx)),
+                   torch.as_tensor(shift_targets(idx)))
+    grads = torch.autograd.grad(loss, list(p.values()))
+    return float(loss.detach()), sum(
+        float((v - 0.1 * g).detach().double().sum())
+        for v, g in zip(p.values(), grads))
 
 
 def test_helpers_over_ranks(group):

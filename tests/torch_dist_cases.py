@@ -10,6 +10,12 @@ import torch
 #: the reference's two-process case's LR shard sizes
 #: (``tests/test_multihost.py:36``)
 MULTIHOST_SIZES = (16, 8, 24, 12, 16, 8, 8, 20)
+#: its tp and pp legs' LMs (``tests/test_multihost.py:137``, ``:161``):
+#: the tp model's 8 heads split over every rank, the pp model a block a
+#: rank (``n_layers`` from the weights)
+MULTIHOST_TP = dict(vocab_size=50, n_layers=1, n_heads=8, d_model=32,
+                    max_len=32)
+MULTIHOST_PP = dict(vocab_size=50, n_heads=2, d_model=32, max_len=32)
 
 
 def _np(tree):
@@ -242,7 +248,8 @@ def longcontext_main(argv):
     return _np({k: v.detach() for k, v in params.items()}), losses
 
 
-def dryrun(depth=20, resnet_state=None, lm_params=None, lm_idx=None):
+def dryrun(depth=20, resnet_state=None, lm_params=None, lm_idx=None,
+           parallel=None):
     """The port's dry run over the group: its report with the states."""
     from fedml_tpu_torch.parallel.dryrun import dryrun_multichip
 
@@ -252,7 +259,7 @@ def dryrun(depth=20, resnet_state=None, lm_params=None, lm_idx=None):
                  for part, leaves in resnet_state.items()}
     return dryrun_multichip(device="cpu", resnet_state=state,
                             lm_params=lm_params, lm_idx=lm_idx,
-                            depth=depth)
+                            depth=depth, parallel=parallel)
 
 
 def multihost_helpers():
@@ -327,3 +334,168 @@ def compat_call(name, mesh):
             [{k: v for k, v in m.items() if k != "round_time_s"}
              for m in api.history])
 
+
+
+def _sgd(lr=0.1):
+    return lambda ps: torch.optim.SGD(ps, lr=lr)
+
+
+def _assign(params, values):
+    with torch.no_grad():
+        for k, t in params.items():
+            t.copy_(torch.as_tensor(values[k]))
+
+
+def tp_step(params, idx, n_data, kw, block):
+    """One ``make_tp_lm_step`` SGD step (lr 0.1) of ``TransformerLM(**kw)``
+    under ``tp_attention(block)`` on an ``(n_data, world / n_data)`` mesh
+    from the whole ``params`` (torch names, numpy): ``{"local", "gathered",
+    "loss", "coord", "mesh"}`` -- this rank's shards after the step, every
+    leaf gathered whole on the rank, the loss, the rank's (data, model)
+    coordinate and the mesh's shape."""
+    from fedml_tpu_torch.models.transformer import TransformerLM
+    from fedml_tpu_torch.parallel import tensor_parallel as tp
+    from fedml_tpu_torch.parallel.seq_parallel import shift_targets
+    from fedml_tpu_torch.utils.torch_import import tp_shard_params
+
+    n_model = torch.distributed.get_world_size() // n_data
+    mesh = tp.make_tp_mesh(n_data, n_model, device="cpu")
+    model = TransformerLM(attention_fn=tp.tp_attention(block), **kw)
+    init_fn, step_fn = tp.make_tp_lm_step(model, mesh, _sgd())
+    p, opt = init_fn(0)
+    full = {k: torch.as_tensor(v) for k, v in params.items()}
+    _assign(p, tp_shard_params(full, tp.tp_param_shardings(full, mesh),
+                               n_model, mesh.index("model")))
+    new, _, loss = step_fn(p, opt, idx, shift_targets(idx))
+    return {"local": _np({k: v.detach() for k, v in new.items()}),
+            "gathered": _np(tp.gather_tp_params(new, mesh)),
+            "loss": float(loss), "mesh": dict(mesh.shape),
+            "coord": (mesh.index("data"), mesh.index("model"))}
+
+
+def pp_step(params, idx, kw, n_micro, block=None):
+    """One ``make_pp_lm_step`` SGD step (lr 0.1) over a stage a rank from
+    the whole ``params`` (torch names, numpy; ``n_layers`` from them):
+    ``{"stage", "params", "loss"}`` -- this rank's stacked blocks after
+    the step, every stage gathered and unstacked, the loss."""
+    from fedml_tpu_torch.parallel import pipeline_parallel as pp
+    from fedml_tpu_torch.parallel.seq_parallel import shift_targets
+    from fedml_tpu_torch.parallel.tensor_parallel import tp_attention
+
+    S = torch.distributed.get_world_size()
+    mesh = pp.make_pp_mesh(S, device="cpu")
+    n_layers = len({k.split(".")[1] for k in params
+                    if k.startswith("blocks.")})
+    _, model = pp.init_pp_params(
+        mesh, 0, n_layers=n_layers,
+        attention_fn=tp_attention(block) if block else None, **kw)
+    p = pp.place_pp_params(pp.stack_pp_params(
+        {k: torch.as_tensor(v) for k, v in params.items()}, S), mesh)
+    prep_fn, step_fn = pp.make_pp_lm_step(model, mesh, n_micro)
+    new, _, loss = step_fn(p, _sgd()(pp.pp_leaves(p)),
+                           *prep_fn(idx, shift_targets(idx)))
+    return {"stage": _np({k: v.detach() for k, v in new["stages"].items()}),
+            "params": _np(pp.unstack_pp_params(pp.gather_pp_params(new,
+                                                                   mesh))),
+            "loss": float(loss)}
+
+
+def pp_refusals():
+    """The pp builders' refusals over a stage a rank: ``{case: message}``
+    (ragged layers at init, a ragged model at the step builder, a ragged
+    stacking, a batch that does not split into the microbatches)."""
+    from fedml_tpu_torch.models.transformer import TransformerLM
+    from fedml_tpu_torch.parallel import pipeline_parallel as pp
+
+    S = torch.distributed.get_world_size()
+    mesh = pp.make_pp_mesh(S, device="cpu")
+    kw = dict(vocab_size=10, n_heads=2, d_model=8, max_len=8)
+    out = {}
+    calls = {
+        "init": lambda: pp.init_pp_params(mesh, 0, n_layers=S + 1, **kw),
+        "step": lambda: pp.make_pp_lm_step(
+            TransformerLM(n_layers=S + 1, **kw), mesh),
+        "stack": lambda: pp.stack_pp_params(dict(
+            TransformerLM(n_layers=S + 1, **kw).named_parameters()), S),
+        "micro": lambda: pp.make_pp_lm_step(
+            TransformerLM(n_layers=S, **kw), mesh, n_micro=3)[0](
+                np.zeros((4, 8)), np.zeros((4, 8)))}
+    for name, fn in calls.items():
+        try:
+            fn()
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def ep_step(params, idx, n_data, kw, block):
+    """One ``make_ep_lm_step`` SGD step (lr 0.1) of
+    ``MoETransformerLM(**kw)`` under ``tp_attention(block)`` on an
+    ``(n_data, world / n_data)`` mesh from the whole ``params``:
+    ``{"local", "gathered", "loss", "coord", "mesh"}`` as
+    :func:`tp_step`."""
+    from fedml_tpu_torch.models.moe import MoETransformerLM
+    from fedml_tpu_torch.parallel import expert_parallel as ep
+    from fedml_tpu_torch.parallel.seq_parallel import shift_targets
+    from fedml_tpu_torch.parallel.tensor_parallel import tp_attention
+    from fedml_tpu_torch.utils.torch_import import tp_shard_params
+
+    n_ep = torch.distributed.get_world_size() // n_data
+    mesh = ep.make_ep_mesh(n_data, n_ep, device="cpu")
+    model = MoETransformerLM(attention_fn=tp_attention(block), **kw)
+    init_fn, step_fn = ep.make_ep_lm_step(model, mesh, _sgd())
+    p, opt = init_fn(0)
+    full = {k: torch.as_tensor(v) for k, v in params.items()}
+    _assign(p, tp_shard_params(full, ep.ep_param_shardings(full, mesh),
+                               n_ep, mesh.index("expert"), "expert"))
+    new, _, loss = step_fn(p, opt, idx, shift_targets(idx))
+    return {"local": _np({k: v.detach() for k, v in new.items()}),
+            "gathered": _np(ep.gather_ep_params(new, mesh)),
+            "loss": float(loss), "mesh": dict(mesh.shape),
+            "coord": (mesh.index("data"), mesh.index("expert"))}
+
+
+class MLPServer(torch.nn.Module):
+    """The reference test's BN-free FedGKT server
+    (``tests/test_split_vertical_mpc.py:104``): flatten, Dense 32, ReLU,
+    Dense to the classes."""
+
+    def __init__(self, in_features, num_classes=10):
+        super().__init__()
+        self.fc1 = torch.nn.Linear(in_features, 32)
+        self.fc2 = torch.nn.Linear(32, num_classes)
+
+    def forward(self, features, train=False):
+        x = features.reshape(features.shape[0], -1)
+        return self.fc2(torch.relu(self.fc1(x)))
+
+
+def gkt_round(n_model, bn, batch_size=8):
+    """One FedGKT round (the reference test's 2 clients of synthetic 8x8
+    images, ``resnet5_56`` edges, batch 8) with the server phase over a
+    ``(1, n_model)`` mesh of the group's first ranks (None: unsharded),
+    the server :class:`MLPServer` or, with ``bn``, ``GKTServerResNet``
+    at ``n`` 1; then ``evaluate``: ``{"sharded", "record", "server",
+    "logits", "eval"}``."""
+    import types
+
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
+    from fedml_tpu_torch.data.synthetic import load_synthetic_images
+    from fedml_tpu_torch.models.gkt import GKTServerResNet, resnet5_56
+    from fedml_tpu_torch.parallel.mesh import make_client_mesh
+
+    mesh = (None if n_model is None
+            else make_client_mesh(1, n_model, device="cpu"))
+    ds = load_synthetic_images(client_num=2, n_train=64, n_test=32,
+                               image_size=8, seed=0)
+    args = types.SimpleNamespace(
+        client_num_per_round=2, comm_round=1, epochs=1,
+        batch_size=batch_size, lr=0.3, client_optimizer="sgd", wd=0.0,
+        frequency_of_the_test=100, ci=0, seed=0, device="cpu")
+    server = (GKTServerResNet(n=1, num_classes=10) if bn
+              else MLPServer(8 * 8 * 16))
+    api = FedGKTAPI(ds, resnet5_56(class_num=10), server, args, mesh=mesh)
+    record = api.train_one_round()
+    return {"sharded": api.mesh is not None, "record": record,
+            "server": _np(api.server_state["params"]),
+            "logits": api.server_logits.numpy(), "eval": api.evaluate()}

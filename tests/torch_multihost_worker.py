@@ -4,9 +4,10 @@ environment (``FEDML_TPU_COORDINATOR``, ``FEDML_TPU_NUM_PROCESSES``,
 ``FEDML_TPU_PROCESS_ID``, or torchrun's ``MASTER_ADDR``/``MASTER_PORT``/
 ``WORLD_SIZE``/``RANK``). It joins the group through
 ``maybe_initialize_distributed``, runs the sharded LR round of the
-reference's ``tests/multihost_worker.py`` and one seq-parallel LM step
-(``seq`` over every rank), and prints one ``RESULT`` line. Imports no
-JAX."""
+reference's ``tests/multihost_worker.py``, one seq-parallel LM step
+(``seq`` over every rank), one tensor-parallel step (``model`` over
+every rank) and one pipeline step (a stage a rank), and prints one
+``RESULT`` line. Imports no JAX."""
 
 import os
 import sys
@@ -35,9 +36,17 @@ def main():
                    for v in part.values())
     new, loss, _ = cases.sp_step(init["lm"], init["idx"], 1)
     sp_checksum = sum(float(np.float64(v).sum()) for v in new.values())
+    tp = cases.tp_step(init["tp"], init["tp_idx"], 1, cases.MULTIHOST_TP,
+                       16)
+    pp = cases.pp_step(init["pp"], init["pp_idx"], cases.MULTIHOST_PP, 2)
+    sums = {name: sum(float(np.float64(v).sum()) for v in params.values())
+            for name, params in (("tp", tp["gathered"]),
+                                 ("pp", pp["params"]))}
     print(f"RESULT process={rank} world={world} checksum={checksum!r} "
           f"count={out['count']!r} sp_loss={loss!r} "
-          f"sp_checksum={sp_checksum!r}", flush=True)
+          f"sp_checksum={sp_checksum!r} tp_loss={tp['loss']!r} "
+          f"tp_checksum={sums['tp']!r} pp_loss={pp['loss']!r} "
+          f"pp_checksum={sums['pp']!r}", flush=True)
 
 
 if __name__ == "__main__":
