@@ -283,7 +283,14 @@ Phases (any failure exits non-zero):
    round) and ``convergence`` (3 rounds of two configurations: a run
    check, no plateau verdict) at cut sizes, each line with the card's
    name and power limit;
-19. print the ``kernels`` JSON line and, last, the ``ok`` line.
+19. run the port's static analyzer over the port (``phase_fedlint``,
+   budget ``FEDLINT_BUDGET_S`` = 60 s): ``python -m
+   fedml_tpu_torch.analysis fedml_tpu_torch --baseline '' --format json
+   --max-seconds 60`` in a subprocess on this machine's Python, which
+   must exit 0 with 0 findings; the line prints the findings, the
+   rules, the analyzer's own wall time and the subprocess's, with the
+   card's name and power limit (no kernel runs);
+20. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -3722,6 +3729,38 @@ def phase_a15b(torch, fa, smi):
     return launches
 
 
+FEDLINT_BUDGET_S = 60
+
+
+def phase_fedlint(smi):
+    """Phase 19: the port's fedlint over the port, with no baseline, in
+    a subprocess: exit 0 and 0 findings within ``FEDLINT_BUDGET_S``."""
+    import re
+
+    from fedml_tpu_torch.analysis import RULES
+
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fedml_tpu_torch.analysis",
+         "fedml_tpu_torch", "--baseline", "", "--format", "json",
+         "--max-seconds", str(FEDLINT_BUDGET_S)],
+        cwd=HERE, capture_output=True, text=True,
+        timeout=3 * FEDLINT_BUDGET_S)
+    wall_s = time.time() - t0
+    try:
+        total = json.loads(proc.stdout)["summary"]["total"]
+    except (ValueError, KeyError) as e:
+        fail(f"fedlint: no JSON report ({e}): rc {proc.returncode}, "
+             f"{proc.stderr[-2000:]}")
+    lint_s = re.search(r"wall time ([0-9.]+)s", proc.stderr)
+    if proc.returncode != 0 or total != 0 or lint_s is None:
+        fail(f"fedlint: rc {proc.returncode}, {total} finding(s): "
+             f"{proc.stdout[:2000]} {proc.stderr[-2000:]}")
+    print(f"fedlint findings={total} rules={len(RULES)} "
+          f"lint_s={lint_s.group(1)} subprocess_s={wall_s:.1f} "
+          f"budget_s={FEDLINT_BUDGET_S} card={smi}", flush=True)
+
+
 def _device_us(torch, prof):
     """Device time (us) by kernel name of a ``torch.profiler`` run."""
     by_name = {}
@@ -3899,6 +3938,7 @@ def main():
     phase_tooling(torch, fa, smi)
     phase_a15(torch, grouped_conv, fa, smi)
     phase_a15b(torch, fa, smi)
+    phase_fedlint(smi)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

@@ -37,6 +37,7 @@ import threading
 import numpy as np
 import torch
 
+from fedml_tpu_torch.analysis.concurrency import find_lock_cycles
 from fedml_tpu_torch.core.locks import creation_site as _creation_site
 from fedml_tpu_torch.observability.compilemon import watch_compiles
 
@@ -216,32 +217,6 @@ class _AuditedLock:
         if name == "_inner":
             raise AttributeError(name)
         return getattr(self._inner, name)
-
-
-def find_lock_cycles(edges):
-    """Unique cycles in a directed acquisition-order edge set, deduped by
-    node set; each returned as ``[n1, ..., nk]`` (closing edge
-    ``nk -> n1``). The reference's detector
-    (``fedml_tpu/analysis/concurrency.py``), shared there by the static
-    pass and the runtime auditor."""
-    graph = {}
-    for a, b in edges:
-        graph.setdefault(a, set()).add(b)
-    out, seen = [], set()
-
-    def dfs(start, cur, path):
-        for nxt in sorted(graph.get(cur, ())):
-            if nxt == start:
-                key = frozenset(path)
-                if key not in seen:
-                    seen.add(key)
-                    out.append(list(path))
-            elif nxt not in path:
-                dfs(start, nxt, path + [nxt])
-
-    for start in sorted(graph):
-        dfs(start, start, [start])
-    return out
 
 
 class RaceAuditor:

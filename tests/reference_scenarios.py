@@ -47,11 +47,12 @@ def retarget(filename, drop=(), subs=(), env=None):
     return _module(filename, src, env)
 
 
-def retarget_defs(filename, names):
+def retarget_defs(filename, names, subs=(), env=None):
     """Only the top-level classes and functions ``names`` of the
     reference test module ``tests/<filename>``, with the module's plain
-    ``import x`` statements, retargeted as :func:`retarget` does; for
-    definitions that import what they use inside their bodies."""
+    ``import x`` statements, retargeted as :func:`retarget` does (its
+    ``subs`` and ``env`` too); for definitions that import what they use
+    inside their bodies, or whose other names ``env`` binds."""
     with open(os.path.join(HERE, filename)) as f:
         full = f.read()
     tree = ast.parse(full)
@@ -72,4 +73,8 @@ def retarget_defs(filename, names):
     for start, text in parts:
         src += "\n" * (start - line) + text
         line = start + text.count("\n")
-    return _module(filename, _IMPORT.sub("fedml_tpu_torch.", src), None)
+    src = _IMPORT.sub("fedml_tpu_torch.", src)
+    for pattern, repl in subs:
+        src, n = re.subn(pattern, repl, src)
+        assert n, (filename, pattern)
+    return _module(filename, src, env)
