@@ -288,9 +288,29 @@ Phases (any failure exits non-zero):
    fedml_tpu_torch.analysis fedml_tpu_torch --baseline '' --format json
    --max-seconds 60`` in a subprocess on this machine's Python, which
    must exit 0 with 0 findings; the line prints the findings, the
-   rules, the analyzer's own wall time and the subprocess's, with the
-   card's name and power limit (no kernel runs);
-20. print the ``kernels`` JSON line and, last, the ``ok`` line.
+   rules (all ``FEDLINT_RULES`` = 40 of the reference's catalog: the
+   per-module rules and the protocol, cross-class, determinism,
+   model-checking and privacy passes), the analyzer's own wall time and
+   the subprocess's, with the card's name and power limit (no kernel
+   runs);
+20. replay the model checker's counterexamples on the card
+   (``phase_modelcheck``, budget ``MC_BUDGET_S`` = 120 s), reusing
+   phase 11's LM flagship clients (``CP_WORLD`` = 5, the trainer on the
+   card): (a) the port's model checker over the reference's minimal
+   server x 2 clients fixture finds exactly one FL141 counterexample,
+   which ``trace_to_fault_plan`` compiles to a plan with no rules; (b)
+   that plan replays against ``run_tcp_fedavg`` with
+   ``ResilientFedAvgServer._on_report`` made inert (the original put back
+   in a ``finally``): the four clients' round-0 reports all arrive and
+   the run raises ``TimeoutError`` naming the hung round 0 after
+   ``MC_JOIN_S`` = 20 s; (c) the trace ``deliver sync server->client1``,
+   ``kill client1`` compiles to ``(FaultRule("kill", rank=2, nth=1),)``
+   and 2 rounds under it (``RoundPolicy``, quorum 0.3, phase 11's 24 s
+   deadline) finish with ``failed is None``, 2 history entries and one
+   client dropped. In (b) and (c) each of B2-B4 must launch once a layer
+   a step of the trainer calls recorded in the run; every line names the
+   card and its power limit;
+21. print the ``kernels`` JSON line and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -3730,11 +3750,15 @@ def phase_a15b(torch, fa, smi):
 
 
 FEDLINT_BUDGET_S = 60
+#: the reference's whole rule catalog, every pass on
+FEDLINT_RULES = 40
 
 
 def phase_fedlint(smi):
-    """Phase 19: the port's fedlint over the port, with no baseline, in
-    a subprocess: exit 0 and 0 findings within ``FEDLINT_BUDGET_S``."""
+    """Phase 19: the port's fedlint over the port, with no baseline and
+    every one of its ``FEDLINT_RULES`` rules on (the per-module rules and
+    the five project-wide passes), in a subprocess: exit 0 and 0
+    findings within ``FEDLINT_BUDGET_S``."""
     import re
 
     from fedml_tpu_torch.analysis import RULES
@@ -3753,12 +3777,219 @@ def phase_fedlint(smi):
         fail(f"fedlint: no JSON report ({e}): rc {proc.returncode}, "
              f"{proc.stderr[-2000:]}")
     lint_s = re.search(r"wall time ([0-9.]+)s", proc.stderr)
+    if len(RULES) != FEDLINT_RULES:
+        fail(f"fedlint: {len(RULES)} rules, the reference's catalog has "
+             f"{FEDLINT_RULES}")
     if proc.returncode != 0 or total != 0 or lint_s is None:
         fail(f"fedlint: rc {proc.returncode}, {total} finding(s): "
              f"{proc.stdout[:2000]} {proc.stderr[-2000:]}")
     print(f"fedlint findings={total} rules={len(RULES)} "
           f"lint_s={lint_s.group(1)} subprocess_s={wall_s:.1f} "
           f"budget_s={FEDLINT_BUDGET_S} card={smi}", flush=True)
+
+
+#: phase 20: its budget, and the join timeout after which the FL141
+#: replay must have hung (the four clients' round-0 LM updates take a
+#: few seconds on the card; phase 11's TCP rounds took 2.2-4.3 s)
+MC_BUDGET_S, MC_JOIN_S = 120, 20.0
+
+#: the model checker's minimal server x 2 clients protocol (the
+#: reference's tests/test_modelcheck.py fixture, with the port's
+#: imports): the report handler only logs, so the fault-free round 0
+#: never folds -- one FL141 counterexample
+MC_FIXTURE = (
+    "import logging\n"
+    "from fedml_tpu_torch.core.managers import ClientManager, ServerManager\n"
+    "from fedml_tpu_torch.core.comm.base import MSG_TYPE_PEER_LOST\n"
+    "from fedml_tpu_torch.core.message import Message\n"
+    "MSG_SYNC = 'sync'\n"
+    "MSG_REPORT = 'report'\n"
+    "class Srv(ServerManager):\n"
+    "    def register_message_receive_handlers(self):\n"
+    "        self.register_message_receive_handler(MSG_REPORT,\n"
+    "                                              self._on_report)\n"
+    "        self.register_message_receive_handler(MSG_TYPE_PEER_LOST,\n"
+    "                                              self._on_lost)\n"
+    "    def open_round(self):\n"
+    "        self.send_message(Message(MSG_SYNC, 0, 1))\n"
+    "    def _on_report(self, msg):\n"
+    "        logging.debug('report from %s', msg.get_sender_id())\n"
+    "    def _on_lost(self, msg):\n"
+    "        logging.warning('rank %s lost', msg.get_sender_id())\n"
+    "        self.cohort.discard(msg.get_sender_id())\n"
+    "class Cli(ClientManager):\n"
+    "    def register_message_receive_handlers(self):\n"
+    "        self.register_message_receive_handler(MSG_SYNC,\n"
+    "                                              self._on_sync)\n"
+    "        self.register_message_receive_handler(MSG_TYPE_PEER_LOST,\n"
+    "                                              self._on_cli_lost)\n"
+    "    def _on_sync(self, msg):\n"
+    "        self.send_message(Message(MSG_REPORT, 1, 0))\n"
+    "    def _on_cli_lost(self, msg):\n"
+    "        self.finish()\n")
+
+
+def _mc_counterexamples(src):
+    """Every counterexample the port's model checker finds over ``src``
+    (its fair and its faulted exploration of each server x client
+    pair)."""
+    import ast
+
+    from fedml_tpu_torch.analysis import modelcheck as mc
+    from fedml_tpu_torch.analysis.protocol import ProtocolIndex
+
+    index = ProtocolIndex()
+    index.add_module("fedml_tpu_torch/core/fsm_fake.py", ast.parse(src))
+    out = []
+    for server, client, drive, replies in mc.discover_pairs(
+            mc.compile_specs(index)):
+        fair, full, _events = mc.verify_pair(server, client, drive, replies)
+        out.extend(fair.counterexamples + full.counterexamples)
+    return out
+
+
+def _mc_run(fa, shards, train, run):
+    """``run(trainer)`` with the attention counters set to 0 just before
+    and read just after, and every trainer call recorded by rank: each of
+    B2-B4 must have launched once a layer a step of the recorded calls.
+    Returns run's result (or the exception it raised), the calls, the
+    launches and the seconds."""
+    import threading
+
+    calls, lock = {}, threading.Lock()
+
+    def recording(params, round_idx, rank):
+        out = train(params, round_idx, rank)
+        with lock:
+            calls[rank] = calls.get(rank, 0) + 1
+        return out
+
+    for name in fa.launches:
+        fa.launches[name] = 0
+    t0 = time.time()
+    try:
+        out = run(recording)
+    except Exception as e:  # the replay's hang is its expected result
+        out = e
+    secs = time.time() - t0
+    launches = dict(fa.launches)
+    expect = _cp_expected_launches(shards, calls)
+    if launches != {"fwd": expect, "dq": expect, "dkv": expect}:
+        fail(f"modelcheck: attention launches {launches}, the recorded "
+             f"trainer calls {calls} give {expect} each")
+    return out, dict(sorted(calls.items())), launches, secs
+
+
+def _mc_clients_gone(label, timeout=30.0):
+    """The run's client threads have all ended (a hung run's STOP wave
+    must release them)."""
+    import threading
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        alive = [t.name for t in threading.enumerate()
+                 if t.name.startswith("res-")]
+        if not alive:
+            return
+        time.sleep(0.2)
+    fail(f"modelcheck {label}: threads {alive} outlived the run")
+
+
+def phase_modelcheck(torch, fa, smi, cp):
+    """Phase 20: the model checker's counterexamples replayed on the card
+    (budget ``MC_BUDGET_S``). (a) The port's model checker, over the
+    reference's minimal server x 2 clients fixture, finds exactly one
+    FL141 counterexample, whose trace compiles to a plan with no rules.
+    (b) That plan replays against ``run_tcp_fedavg`` with
+    ``ResilientFedAvgServer._on_report`` made inert (it records the
+    delivery and folds nothing) while phase 11's four clients train the
+    LM flagship on the card through B2-B4: every report arrives, round 0
+    never folds, and the run raises ``TimeoutError`` naming the hang
+    after ``MC_JOIN_S``. (c) A faulted trace's kill compiles to
+    ``(FaultRule("kill", rank=2, nth=1),)``; 2 rounds under it at
+    ``quorum`` 0.3 and phase 11's deadline finish degraded with one
+    client dropped. B2-B4 are counted exactly in (b) and (c) against the
+    trainer calls recorded in each run."""
+    import numpy as np
+
+    from fedml_tpu_torch.analysis import modelcheck as mc
+    from fedml_tpu_torch.resilience import (FaultRule, RoundPolicy,
+                                            integration, run_tcp_fedavg)
+
+    t0 = time.time()
+    # (a) the model side
+    cexs = [c for c in _mc_counterexamples(MC_FIXTURE) if c.code == "FL141"]
+    if len(cexs) != 1 or not any("inert" in s for s in cexs[0].trace):
+        fail(f"modelcheck: {len(cexs)} FL141 counterexample(s), expected "
+             f"one with an inert delivery: {[c.trace for c in cexs]}")
+    plan = mc.trace_to_fault_plan(cexs[0].trace)
+    if plan.rules != ():
+        fail(f"modelcheck: the fault-free FL141 trace compiled to rules "
+             f"{plan.rules}")
+    print(f"modelcheck model=fl141 counterexamples={len(cexs)} trace="
+          f"{json.dumps(cexs[0].trace)} plan_rules={len(plan.rules)} "
+          f"card={smi}", flush=True)
+
+    # (b) the replay: the same mutation on the real server hangs round 0
+    original = integration.ResilientFedAvgServer._on_report
+    delivered = []
+
+    def inert_on_report(self, msg):
+        delivered.append(int(msg.get_sender_id()))
+
+    integration.ResilientFedAvgServer._on_report = inert_on_report
+    try:
+        err, calls, launches, secs = _mc_run(
+            fa, cp.shards, cp.train, lambda train: run_tcp_fedavg(
+                CP_WORLD, 1, RoundPolicy(), cp.init, trainer=train,
+                fault_plan=plan, timeout=600.0, join_timeout=MC_JOIN_S))
+    finally:
+        integration.ResilientFedAvgServer._on_report = original
+    _mc_clients_gone("replay")
+    if not (isinstance(err, TimeoutError) and "hung" in str(err)
+            and "round 0" in str(err)):
+        fail(f"modelcheck replay: expected a TimeoutError naming the hung "
+             f"round 0, got {err!r}")
+    every = list(range(1, CP_WORLD))
+    if sorted(delivered) != every or calls != {r: 1 for r in every}:
+        fail(f"modelcheck replay: reports delivered {delivered}, trainer "
+             f"calls {calls}; every client should report round 0 once")
+    print(f"modelcheck run=fl141_replay join_timeout_s={MC_JOIN_S} s="
+          f"{secs:.3f} error={json.dumps(str(err))} delivered="
+          f"{sorted(delivered)} trainer_calls={json.dumps(calls)} "
+          f"launches={json.dumps(launches)} card={smi}", flush=True)
+
+    # (c) a compiled kill, live on the control plane
+    plan = mc.trace_to_fault_plan(
+        ["deliver sync server->client1", "kill client1"], seed=5)
+    if plan.rules != (FaultRule(action="kill", rank=2, nth=1),):
+        fail(f"modelcheck kill: compiled {plan.rules}")
+    srv, calls, launches, secs = _mc_run(
+        fa, cp.shards, cp.train, lambda train: run_tcp_fedavg(
+            CP_WORLD, 2, RoundPolicy(deadline_s=CP_DEADLINE_S, quorum=0.3),
+            cp.init, trainer=train, fault_plan=plan, timeout=600.0,
+            join_timeout=600.0))
+    _mc_clients_gone("kill")
+    if isinstance(srv, Exception):
+        fail(f"modelcheck kill: the run raised {srv!r}")
+    if (srv.failed is not None or len(srv.history) != 2
+            or srv.counters["clients_dropped"] != 1):
+        fail(f"modelcheck kill: failed={srv.failed} history "
+             f"{len(srv.history)} counters {srv.counters}")
+    for h in srv.history:
+        if not all(np.isfinite(v).all() for v in h.values()):
+            fail("modelcheck kill: non-finite parameters")
+    print(f"modelcheck run=compiled_kill rules={plan.rules} s={secs:.3f} "
+          f"rounds={len(srv.history)} reporting={srv.reporting_log} "
+          f"counters={json.dumps(srv.counters)} trainer_calls="
+          f"{json.dumps(calls)} launches={json.dumps(launches)} "
+          f"card={smi}", flush=True)
+    phase_s = time.time() - t0
+    if phase_s > MC_BUDGET_S:
+        fail(f"modelcheck: {phase_s:.1f} s, over its {MC_BUDGET_S} s "
+             "budget")
+    print(f"modelcheck phase_s={phase_s:.1f} budget_s={MC_BUDGET_S} "
+          f"card={smi}", flush=True)
 
 
 def _device_us(torch, prof):
@@ -3939,6 +4170,7 @@ def main():
     phase_a15(torch, grouped_conv, fa, smi)
     phase_a15b(torch, fa, smi)
     phase_fedlint(smi)
+    phase_modelcheck(torch, fa, smi, cp)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, fa, grouped_conv)
 

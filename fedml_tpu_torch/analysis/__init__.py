@@ -21,6 +21,20 @@ package (counterpart of ``fedml_tpu/analysis``). Two halves:
   thread-safety rules (FL123 unguarded shared state, FL124 lock-order
   cycles, FL125 blocking under a state lock) and event-loop readiness
   (FL129, FL136), framework-neutral and the reference's own.
+- The reference's five project-wide passes, run by ``lint_paths`` over
+  the whole fileset, each index built once a run:
+  :mod:`~fedml_tpu_torch.analysis.protocol` (FL120-FL122, FL127,
+  FL128: FSM protocol verification over the port's ``core/managers.py``
+  roots), :mod:`~fedml_tpu_torch.analysis.crossclass` (FL126:
+  cross-class lock-order cycles and held-while-blocking chains),
+  :mod:`~fedml_tpu_torch.analysis.determinism` (FL131-FL135; FL133 also
+  reads torch's global stream and its constant seeding),
+  :mod:`~fedml_tpu_torch.analysis.modelcheck` (FL140-FL143, bounded
+  model checking of the composed FSMs; ``trace_to_fault_plan`` compiles
+  a counterexample into the port's ``resilience.faults.FaultPlan``) and
+  :mod:`~fedml_tpu_torch.analysis.privacy` (FL150-FL153; FL150's taint
+  survives torch's copies and views, FL151 reads a constant-seeded torch
+  ``Generator`` as underived).
 - :mod:`fedml_tpu_torch.analysis.runtime` -- ``audit()``, which books the
   kernel libraries built and loaded in each federated round (the port's
   compile events, in place of the reference's jit retraces) and counts
@@ -32,14 +46,11 @@ package (counterpart of ``fedml_tpu/analysis``). Two halves:
   halves of FL124/FL125.
 - :mod:`fedml_tpu_torch.analysis.locks` -- the analysis-facing re-export
   of the lock factories (``fedml_tpu_torch/core/locks.py``).
-
-The reference's project-wide protocol, cross-class, determinism,
-model-checking and privacy passes (FL120-FL122, FL126-FL128,
-FL131-FL135, FL140-FL143, FL150-FL153) are not part of the port yet
-(ROADMAP A16b (ii)).
 """
 
 from fedml_tpu_torch.analysis.concurrency import check_concurrency
+from fedml_tpu_torch.analysis.crossclass import (CrossClassIndex,
+                                                 check_crossclass)
 from fedml_tpu_torch.analysis.dataflow import ProjectIndex
 from fedml_tpu_torch.analysis.linter import (Finding, RULES, lint_paths,
                                              lint_source)
@@ -49,5 +60,6 @@ from fedml_tpu_torch.analysis.runtime import (RaceAuditor, RuntimeAuditor,
 
 __all__ = ["Finding", "RULES", "lint_paths", "lint_source",
            "ProjectIndex", "check_concurrency",
+           "CrossClassIndex", "check_crossclass",
            "RuntimeAuditor", "audit", "current_auditor",
            "RaceAuditor", "race_audit"]

@@ -3,9 +3,9 @@
 Exit codes: 0 = clean (or all findings baselined), 1 = new findings,
 2 = usage error. ``--write-baseline`` regenerates the checked-in baseline
 from the current findings (run it after deliberately accepting debt; the
-diff review of the baseline file IS the acceptance step). A ``--select``
-or ``--ignore`` naming a code of the reference's project-wide passes,
-not ported yet (ROADMAP A16b (ii)), is a usage error.
+diff review of the baseline file IS the acceptance step). ``--select``/
+``--ignore`` also gate the project-wide passes: a pass none of whose
+codes can survive them is not run.
 
 The reference's ``--fix``/``--diff`` (its FL104 donation fixer) are not
 flags here: torch has no buffer donation, so there is nothing to fix,
@@ -23,7 +23,7 @@ from fedml_tpu_torch.analysis.linter import (RULES, apply_baseline,
                                              lint_paths,
                                              load_baseline, render_json,
                                              render_sarif, render_text,
-                                             unported_codes, write_baseline)
+                                             write_baseline)
 
 # anchored to the installed package, not the cwd: the CLI must find the
 # shipped baseline from any directory
@@ -79,12 +79,6 @@ def main(argv=None):
         for code, (title, rationale) in sorted(RULES.items()):
             print(f"{code}: {title}\n    {rationale}")
         return 0
-
-    unported = unported_codes(args.select, args.ignore)
-    if unported:
-        print(f"fedlint: {', '.join(unported)} belong to the project-wide "
-              "passes not ported yet (ROADMAP A16b (ii))", file=sys.stderr)
-        return 2
 
     paths = args.paths or ["fedml_tpu_torch"]
     try:

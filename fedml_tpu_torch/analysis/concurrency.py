@@ -68,6 +68,8 @@ from __future__ import annotations
 
 import ast
 
+from fedml_tpu_torch.analysis.astwalk import walk
+
 #: Constructor names (last dotted segment) that create a lock, by kind.
 _STATE_CTORS = {"Lock", "RLock", "audited_lock", "audited_rlock"}
 _IO_CTORS = {"io_lock"}
@@ -108,7 +110,7 @@ _LOOP_REGISTER_ATTRS = {"register", "modify", "add_reader", "add_writer",
 #: loop, so the callback is held to the same FL129 grammar.
 _DECODE_STAGE_CTORS = {"DecodeStage"}
 
-#: Public aliases: the cross-class pass (FL126, ROADMAP A16b (ii))
+#: Public aliases: the cross-class pass (FL126, ``crossclass.py``)
 #: shares this pass's vocabulary -- lock-constructor classification and
 #: the blocking-call tables -- so the two generations can never disagree
 #: about what blocks or what is a state lock.
@@ -133,7 +135,7 @@ class _Access:
 def check_concurrency(tree, add):
     """Run FL123/FL124/FL125 over every class in ``tree``; findings go to
     ``add(node, code, message)`` (the module linter's collector)."""
-    for node in ast.walk(tree):
+    for node in walk(tree):
         if isinstance(node, ast.ClassDef):
             _ClassChecker(node, add).run()
 
@@ -157,7 +159,7 @@ class _ClassChecker:
     # -- lock family discovery -------------------------------------------
     def _collect_families(self):
         for fn in self.methods.values():
-            for node in ast.walk(fn):
+            for node in walk(fn):
                 if not isinstance(node, ast.Assign) \
                         or not isinstance(node.value, ast.Call):
                     continue
@@ -192,7 +194,7 @@ class _ClassChecker:
         expression: ``slock = self._send_locks.get(r)``,
         ``slocks = dict(self._send_locks)``."""
         out = {}
-        for node in ast.walk(fn):
+        for node in walk(fn):
             if isinstance(node, ast.Assign):
                 fam = self._expr_family(node.value)
                 if fam is None:
@@ -203,7 +205,7 @@ class _ClassChecker:
         return out
 
     def _expr_family(self, expr):
-        for node in ast.walk(expr):
+        for node in walk(expr):
             attr = _self_attr(node)
             if attr is not None and attr in self.families:
                 return attr
@@ -426,12 +428,12 @@ def check_eventloop(tree, add):
     Findings go to ``add(node, code, message)``."""
     class_methods = set()  # async METHODS are _EventLoopChecker roots --
     # the free-coroutine branch below must not double-report them
-    for node in ast.walk(tree):
+    for node in walk(tree):
         if isinstance(node, ast.ClassDef):
             for m in node.body:
                 if isinstance(m, ast.AsyncFunctionDef):
                     class_methods.add(id(m))
-    for node in ast.walk(tree):
+    for node in walk(tree):
         if isinstance(node, ast.ClassDef):
             _EventLoopChecker(node, add).run()
         elif isinstance(node, ast.AsyncFunctionDef) \
@@ -485,7 +487,7 @@ class _EventLoopChecker:
         roots = {name for name, fn in self.methods.items()
                  if isinstance(fn, ast.AsyncFunctionDef)}
         for fn in self.methods.values():
-            for node in ast.walk(fn):
+            for node in walk(fn):
                 if not isinstance(node, ast.Call):
                     continue
                 f = node.func
@@ -502,7 +504,7 @@ class _EventLoopChecker:
                     continue
                 for arg in list(node.args) + [kw.value
                                               for kw in node.keywords]:
-                    for sub in ast.walk(arg):
+                    for sub in walk(arg):
                         attr = _self_attr(sub)
                         if attr is not None and attr in self.methods:
                             roots.add(attr)
@@ -515,7 +517,7 @@ class _EventLoopChecker:
         graph = {}
         for name, fn in self.methods.items():
             callees = set()
-            for node in ast.walk(fn):
+            for node in walk(fn):
                 if isinstance(node, ast.Call):
                     attr = _self_attr(node.func)
                     if attr is not None and attr in self.methods:
@@ -596,12 +598,12 @@ def _busy_loops(fn):
             continue
         # a call in the TEST is progress too: `while sock.recv_into(b):
         # pass` is the loop's canonical drain shape, not a spin
-        body_nodes = [n for stmt in node.body for n in ast.walk(stmt)]
-        body_nodes += list(ast.walk(node.test))
+        body_nodes = [n for stmt in node.body for n in walk(stmt)]
+        body_nodes += list(walk(node.test))
         if any(isinstance(n, (ast.Call, ast.Await, ast.Yield,
                               ast.YieldFrom)) for n in body_nodes):
             continue
-        test_names = {n.id for n in ast.walk(node.test)
+        test_names = {n.id for n in walk(node.test)
                       if isinstance(n, ast.Name)}
         assigned = set()
         for n in body_nodes:
@@ -609,7 +611,7 @@ def _busy_loops(fn):
                 tgts = (n.targets if isinstance(n, ast.Assign)
                         else [n.target])
                 for t in tgts:
-                    for sub in ast.walk(t):
+                    for sub in walk(t):
                         if isinstance(sub, ast.Name):
                             assigned.add(sub.id)
         if not (test_names & assigned):
@@ -651,15 +653,15 @@ def _checked_attrs(cls):
     calls. A growth site whose attr shares a name-prefix with one of
     these is bounded (``tx`` grows, ``tx_bytes`` is compared)."""
     out = set()
-    for node in ast.walk(cls):
+    for node in walk(cls):
         if isinstance(node, ast.Compare):
             for side in [node.left] + list(node.comparators):
-                for sub in ast.walk(side):
+                for sub in walk(side):
                     if isinstance(sub, ast.Attribute):
                         out.add(sub.attr)
         if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \
                 and node.func.id == "len" and node.args:
-            for sub in ast.walk(node.args[0]):
+            for sub in walk(node.args[0]):
                 if isinstance(sub, ast.Attribute):
                     out.add(sub.attr)
     return out

@@ -50,6 +50,7 @@ from __future__ import annotations
 import ast
 import os
 
+from fedml_tpu_torch.analysis.astwalk import walk
 from fedml_tpu_torch.analysis.linter import (_GRAPH_CTOR,
                                              graph_context_target,
                                              is_graphed, tracer_call_info)
@@ -123,7 +124,7 @@ class _ModuleSymbols:
 
     # .. imports ..........................................................
     def _collect_imports(self, tree):
-        for node in ast.walk(tree):
+        for node in walk(tree):
             if isinstance(node, ast.ImportFrom) and node.module \
                     and node.level == 0:
                 for a in node.names:
@@ -167,7 +168,7 @@ class _ModuleSymbols:
     def _walk(self, node, class_name, fn_stack):
         body = getattr(node, "body", [])
         scope_defs = {}
-        for stmt in ast.walk(node):
+        for stmt in walk(node):
             if isinstance(stmt, (ast.FunctionDef, ast.AsyncFunctionDef)) \
                     and stmt is not node:
                 scope_defs.setdefault(stmt.name, stmt)
@@ -260,7 +261,7 @@ class _ModuleSymbols:
                         sym = self._graph_symbol(g, class_name)
                         if sym is None:
                             continue
-                        for n in ast.walk(child):
+                        for n in walk(child):
                             if isinstance(n, ast.Assign):
                                 for t in n.targets:
                                     keys = set()
@@ -496,7 +497,7 @@ class _ReplayChecker:
             headers = _header_nodes(stmt)
             # 1) reads of outputs a later call already overwrote
             for h in headers:
-                for node in ast.walk(h):
+                for node in walk(h):
                     key = _var_key(node)
                     if key is not None and key in stale \
                             and isinstance(getattr(node, "ctx", None),
@@ -517,7 +518,7 @@ class _ReplayChecker:
             # 3) this statement's graphed calls overwrite the outputs of
             # their callables' previous calls, then bindings register
             for h in headers:
-                for node in ast.walk(h):
+                for node in walk(h):
                     if not isinstance(node, ast.Call):
                         continue
                     sym = self._graphed(node, class_name, local_syms)
@@ -578,7 +579,7 @@ class _ReplayChecker:
     def _check_loop(self, loop, class_name, local_syms):
         rebound = set()
         called = set()
-        for stmt in ast.walk(loop):
+        for stmt in walk(loop):
             if isinstance(stmt, ast.Assign):
                 for tgt in stmt.targets:
                     _assigned_keys(tgt, rebound)

@@ -23,11 +23,17 @@ Two reference rules have no torch meaning and are never reported: FL104
 (torch has no buffer donation) and FL111 (torch has no ``lax.scan``
 carry). FL110 keeps its code with the torch hazard closest to a use
 after donation: reading a CUDA-graph output after the next replay
-overwrote it (:mod:`fedml_tpu_torch.analysis.dataflow`). The reference's
-project-wide passes (protocol, cross-class, determinism, model checking,
-privacy) are not part of the port yet (ROADMAP A16b (ii)); naming one
-of their codes in the CLI's ``--select``/``--ignore`` is a usage error
-(:func:`unported_codes`).
+overwrote it (:mod:`fedml_tpu_torch.analysis.dataflow`).
+
+The reference's five project-wide passes run over the whole fileset after
+the per-module rules, each behind its ``PASS_CODES`` gate, each index
+built once a run: protocol (FL120-FL122, FL127, FL128), cross-class
+concurrency (FL126), determinism (FL131-FL135), bounded model checking
+(FL140-FL143) and privacy information flow (FL150-FL153). They are
+framework-neutral but for three torch meanings: FL133 reads torch's
+global stream and its seeding calls, FL150's taint survives torch's
+copies, moves and views, and FL151 judges a torch ``Generator`` bound
+with a constant seed as underived.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ import tokenize
 from collections import Counter
 from dataclasses import dataclass, field
 from fnmatch import fnmatch
+
+from fedml_tpu_torch.analysis.astwalk import walk
 
 _NO_TORCH_MEANING = "no torch meaning; the port never reports it: "
 
@@ -162,6 +170,25 @@ RULES = {
         "(10^4-10^6 clients) that is an unbounded-cardinality leak that "
         "OOMs the registry and every scrape. Aggregate across clients, "
         "bucket the value into a histogram, or drop the label."),
+    "FL120": (
+        "message type sent but unhandled by any counterpart FSM",
+        "a `Message(TYPE, ...)` flowing into send_message/send_with_retry "
+        "whose TYPE no counterpart FSM registers a handler for is "
+        "silently logged-and-dropped by the receiving manager "
+        "(core/managers.py); the sender waits forever for a reply -- the "
+        "hung-round failure class of cross-device FL."),
+    "FL121": (
+        "FSM without a MSG_TYPE_PEER_LOST handler",
+        "DistributedManager fails fast when a transport reports a dead "
+        "peer and no MSG_TYPE_PEER_LOST handler is registered: the "
+        "receive loop stops and run() raises. An FSM that registers any "
+        "handler must decide its peer-death policy explicitly "
+        "(re-cohort, degrade, or shut down)."),
+    "FL122": (
+        "handler registered for a message type nothing sends",
+        "a registered handler whose type no counterpart FSM ever sends "
+        "is dead protocol state -- usually a renamed constant or a "
+        "deleted send path; the handler masks the protocol drift."),
     "FL123": (
         "cross-thread instance state accessed without its owning lock",
         "an attribute guarded by a state lock elsewhere in the class is "
@@ -183,6 +210,30 @@ RULES = {
         "Serialize I/O with a dedicated io_lock() "
         "(fedml_tpu_torch.analysis.locks) and keep state locks "
         "non-blocking."),
+    "FL126": (
+        "cross-class lock-order cycle or held-lock blocking chain",
+        "a call chain followed through attribute-typed fields "
+        "(self.com_manager, controller callbacks) either acquires locks "
+        "in a cycle no single class exhibits, or reaches a blocking "
+        "operation in another class while a state lock is held -- the "
+        "finish()-under-_advance_lock deadlock class that only the "
+        "runtime sanitizer used to catch. Lock identities are creation "
+        "sites (core/locks.creation_site), the same strings "
+        "race_audit() and the flight recorder report."),
+    "FL127": (
+        "FSM handler with a silent dead-end path",
+        "a registered message handler has an execution path that "
+        "neither replies, advances the round controller, terminates "
+        "(finish()/raise), nor logs the decision: the counterpart FSM "
+        "blocks forever on that path -- a silently hung round, the "
+        "temporal shape of FL120."),
+    "FL128": (
+        "payload key read/set mismatch between counterpart FSMs",
+        "a msg.get(key) read in a handler whose key no counterpart "
+        "Message.add() site sets returns None and corrupts the round "
+        "silently; a set key no counterpart handler reads is dead "
+        "bytes in every wire frame. Renamed keys produce both findings "
+        "as a pair."),
     "FL129": (
         "blocking call inside an event-loop callback or coroutine",
         "a method registered as selector/asyncio callback data (or any "
@@ -202,6 +253,51 @@ RULES = {
         "program subsystem exists to prevent. Build a RoundProgram "
         "(CohortPolicy/AggregationPolicy are its vocabulary) and drive "
         "folds through program.host_view()."),
+    "FL131": (
+        "float fold over unordered dict/set iteration on an aggregation path",
+        "a sum()/`+=` float accumulation whose iteration source is "
+        "unordered dict/set order, inside a function the aggregation "
+        "callgraph reaches: float addition does not commute, so the "
+        "fold's value depends on arrival order (the aggregate_reports "
+        "arrival-order bug). Iterate sorted(keys) -- the "
+        "fold_entries_fp64 contract."),
+    "FL132": (
+        "wall-clock read deciding control-law behavior",
+        "time.time()/monotonic()/perf_counter() flowing into an "
+        "if/while test, comparison, return, or self.* store inside a "
+        "steering controller or program leg: the control law's contract "
+        "is deterministic replay (quantized observations in, quantized "
+        "knobs out); a clock-decided branch makes two identical runs "
+        "steer differently. Measurement deltas feeding observe() "
+        "histograms stay legal."),
+    "FL133": (
+        "unseeded or constant-seeded randomness on a cohort/fault/trace path",
+        "a global random.*/np.random.* draw, or a torch draw "
+        "(`torch.rand`/`randn`/`randint`/`randperm`/`normal`/`bernoulli`/"
+        "`multinomial`, `*_like`) with no `generator=`, with no derived "
+        "reseed; a constant seed/default_rng()/`torch.manual_seed(<const>)`"
+        "/`torch.cuda.manual_seed[_all](<const>)`/"
+        "`torch.Generator().manual_seed(<const>)`: cohort draws, fault "
+        "injections, and trace shaping must derive from SeedSequence "
+        "spawns or the program's attempt_seed so a round is replayable "
+        "and distinct across attempts. The reference's constant "
+        "`PRNGKey` literal has no torch meaning (torch has no "
+        "key-splitting PRNG) and is never reported; the constant-seeded "
+        "Generator takes its place."),
+    "FL134": (
+        "float accumulation in a handler-thread-reachable method",
+        "a float `+=` fold on a path message-handler threads reach runs "
+        "in network arrival order by construction -- the schedule, not "
+        "the program, decides the value. Buffer the entries and fold "
+        "through program.fold_entries_fp64 / BufferedAggregator "
+        "(sorted-key fp64) instead."),
+    "FL135": (
+        "nondeterministic serialization on a manifest/status/wire path",
+        "json.dump/dumps without sort_keys=True, or an unsorted "
+        "os.listdir/glob enumeration feeding output: dict insertion "
+        "order and filesystem order are accidents, so two writers of "
+        "the same logical record emit different bytes and byte-equal "
+        "gates (wire goldens, status diffs, manifest pins) go flaky."),
     "FL136": (
         "busy loop or unbounded buffer growth in an event-loop callback",
         "a while-loop with no calls at all (no sleep, no I/O, no "
@@ -211,33 +307,114 @@ RULES = {
         "lets one slow peer absorb the process heap. The eventloop "
         "transport's high/low watermark pair "
         "(fedml_tpu_torch/net/eventloop.py) is the reference shape."),
+    "FL140": (
+        "protocol deadlock under the bounded fault model",
+        "explicit-state exploration of the composed server x clients "
+        "transition system reached an undecided round state with no "
+        "enabled transition: no in-flight frame, no fault budget and no "
+        "deadline can move the composition. The counterexample trace "
+        "(in the message) is the message sequence that wedges the "
+        "round; give the server deadline machinery or make the "
+        "peer-lost path actually shed the dead rank."),
+    "FL141": (
+        "round-decision liveness violated on the fault-free path",
+        "the whole-protocol generalization of FL127: with every frame "
+        "delivered and no faults injected, the composed round must "
+        "reach complete/degraded/abandoned by pure message exchange. A "
+        "fair path that drains the channel with the round still open "
+        "means a report is built but never folded -- the trace names "
+        "the hung round and the delivery the server ignored."),
+    "FL142": (
+        "state-sensitive unhandled send (temporal FL120)",
+        "a sent frame can *arrive*, while the round is undecided, at a "
+        "live peer whose registered handler is inert on every path "
+        "(logs only: no reply, no controller advance, no termination). "
+        "Type-level pairing (FL120) looks clean, but in the reachable "
+        "composed state the delivery is consumed without progress and "
+        "the round keeps waiting."),
+    "FL143": (
+        "rejoin can strand a rank outside every future cohort",
+        "after a shed, a PEER_JOIN delivered to the server must re-admit "
+        "the rank: exploration found a decided round with a rejoined, "
+        "alive rank still outside the cohort -- capacity that came back "
+        "stays dead for the run. Register a PEER_JOIN handler that "
+        "re-adds the rank and re-syncs it with the current model."),
+    "FL150": (
+        "raw client update material escapes to telemetry",
+        "taint from a material payload read (msg.get('params'/'cdelta'/"
+        "...), a payload-helper result, and what torch's copies, moves "
+        "and views of it keep: `.detach().cpu()`, `torch.as_tensor`) "
+        "reaches logging/json.dump/"
+        "metrics/flight-recorder inside a server-role FSM method. "
+        "Telemetry and manifests cross the trust boundary: they must "
+        "carry sanitized aggregates (fold/privatize/encode outputs) or "
+        "scalar metadata only, never a single client's tensors."),
+    "FL151": (
+        "DP leg ordering/derivation defect",
+        "the differential-privacy sanitizer must clip FIRST (bounding "
+        "per-client sensitivity) and then add noise calibrated to that "
+        "bound, drawn from a keyed derived stream. Flagged: a clip call "
+        "consuming a noise result (noise-before-clip voids the epsilon "
+        "accounting), or a noise draw on an rng not bound from a "
+        "*_rng(...) derivation / non-constant default_rng key (a torch "
+        "Generator bound by `.manual_seed(<const>)` is underived, as "
+        "`default_rng(0)` is)."),
+    "FL152": (
+        "secure-agg mask/codec commutation violated",
+        "masking only cancels in the finite field: field-encoding "
+        "(quantize) an already-masked value, or reconstructing from "
+        "dequantized (float-domain) partials, silently corrupts the "
+        "aggregate or voids share secrecy. Quantize -> share -> "
+        "reconstruct -> dequantize is the only valid order."),
+    "FL153": (
+        "declared DP leg bypassed on a send path",
+        "a client FSM that takes a dp policy adds update material to an "
+        "outbound message through a method whose self-call closure "
+        "never privatizes -- the sanitizer the round program declares "
+        "is skipped on that path. Privatize before .add() and before "
+        "the codec (noise must precede lossy compression)."),
 }
-
-#: The reference's project-wide passes, not ported yet (ROADMAP A16b
-#: (ii)): naming one of their codes in --select/--ignore is a usage
-#: error rather than a silent no-op.
-UNPORTED_CODES = frozenset((
-    "FL120", "FL121", "FL122", "FL126", "FL127", "FL128",
-    "FL131", "FL132", "FL133", "FL134", "FL135",
-    "FL140", "FL141", "FL142", "FL143",
-    "FL150", "FL151", "FL152", "FL153"))
-
-
-def unported_codes(*code_sets):
-    """Sorted codes of the not-yet-ported passes named in ``code_sets``
-    (each an iterable of codes, or None)."""
-    return sorted(set().union(*(set(c or ()) for c in code_sets))
-                  & UNPORTED_CODES)
-
 
 #: SARIF rule metadata: which analysis pass owns each rule (rendered as
 #: SARIF ``properties.tags`` so PR-annotation UIs can group findings).
 RULE_PASS = {
+    "FL120": "fedcheck-protocol", "FL121": "fedcheck-protocol",
+    "FL122": "fedcheck-protocol", "FL127": "fedcheck-protocol",
+    "FL128": "fedcheck-protocol",
     "FL123": "fedcheck-concurrency", "FL124": "fedcheck-concurrency",
-    "FL125": "fedcheck-concurrency", "FL129": "fedcheck-concurrency",
-    "FL136": "fedcheck-concurrency",
+    "FL125": "fedcheck-concurrency", "FL126": "fedcheck-concurrency",
+    "FL129": "fedcheck-concurrency", "FL136": "fedcheck-concurrency",
     "FL130": "fedlint-program",
+    "FL131": "fedcheck-determinism", "FL132": "fedcheck-determinism",
+    "FL133": "fedcheck-determinism", "FL134": "fedcheck-determinism",
+    "FL135": "fedcheck-determinism",
+    "FL140": "fedcheck-model", "FL141": "fedcheck-model",
+    "FL142": "fedcheck-model", "FL143": "fedcheck-model",
+    "FL150": "fedcheck-privacy", "FL151": "fedcheck-privacy",
+    "FL152": "fedcheck-privacy", "FL153": "fedcheck-privacy",
 }
+
+#: codes owned by each project-wide pass: a --select/--ignore set that
+#: cannot produce a pass's codes skips that pass entirely (run one pass
+#: in isolation without paying for the others)
+PASS_CODES = {
+    "protocol": frozenset(
+        ("FL120", "FL121", "FL122", "FL127", "FL128")),
+    "crossclass": frozenset(("FL126",)),
+    "determinism": frozenset(
+        ("FL131", "FL132", "FL133", "FL134", "FL135")),
+    "modelcheck": frozenset(("FL140", "FL141", "FL142", "FL143")),
+    "privacy": frozenset(("FL150", "FL151", "FL152", "FL153")),
+}
+
+
+def _pass_enabled(pass_name, select, ignore):
+    codes = PASS_CODES[pass_name]
+    if select is not None and not (codes & set(select)):
+        return False
+    if ignore is not None and codes <= set(ignore):
+        return False
+    return True
 
 
 def rule_tags(code):
@@ -245,7 +422,7 @@ def rule_tags(code):
     cross-reference for the rules whose findings the race sanitizer /
     flight recorder mirror at runtime."""
     tags = [RULE_PASS.get(code, "fedlint-torch")]
-    if code in ("FL124", "FL125"):
+    if code in ("FL124", "FL125", "FL126"):
         tags.append("race-audit-crossref")
     return tags
 
@@ -279,7 +456,7 @@ def _time_aliases(tree):
     """Local names bound to the ``time`` module and to its from-imported
     clock functions (``from time import perf_counter`` style)."""
     mods, funcs = set(), set()
-    for node in ast.walk(tree):
+    for node in walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
                 if a.name == "time":
@@ -427,7 +604,7 @@ class _Aliases:
 
     def __init__(self, tree):
         self.names = {"partial": "functools.partial"}
-        for node in ast.walk(tree):
+        for node in walk(tree):
             if isinstance(node, ast.Import):
                 for a in node.names:
                     if a.asname:
@@ -519,10 +696,10 @@ def graph_context_target(item, aliases):
 def collect_traced_sites(tree, aliases):
     sites = []
     defs = {}
-    for node in ast.walk(tree):
+    for node in walk(tree):
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             defs.setdefault(node.name, node)
-    for node in ast.walk(tree):
+    for node in walk(tree):
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             for dec in node.decorator_list:
                 kind = aliases.tracer_kind(dec)
@@ -682,7 +859,7 @@ class _ModuleLinter:
 
     def run(self):
         sites = collect_traced_sites(self.tree, self.aliases)
-        parents = {id(child): node for node in ast.walk(self.tree)
+        parents = {id(child): node for node in walk(self.tree)
                    for child in ast.iter_child_nodes(node)}
         self._parents = parents
         self._collect_fl115_bindings()
@@ -701,7 +878,7 @@ class _ModuleLinter:
         params = set(_param_names(site.func)) - scalars
         graph_body = isinstance(site.func, (ast.With, ast.AsyncWith))
         flagged_stmts = set()
-        for node in ast.walk(site.func):
+        for node in walk(site.func):
             if isinstance(node, ast.Call):
                 self._check_sync_call(node, params, graph_body)
                 self._check_np_call(node)
@@ -788,7 +965,7 @@ class _ModuleLinter:
                                for pat in _FL108_EXCLUDED)
         fl130_scoped = not any(fnmatch(posix, pat)
                                for pat in _FL130_EXEMPT_PATHS)
-        for node in ast.walk(self.tree):
+        for node in walk(self.tree):
             if isinstance(node, ast.Call):
                 self._check_pytree_sink(node)
                 self._check_metric_labels(node)
@@ -830,7 +1007,7 @@ class _ModuleLinter:
         a label elsewhere in the module."""
         self._registry_names, self._registry_attrs = set(), set()
         self._client_loop_vars = {}  # name -> {id(enclosing fn) | None}
-        for node in ast.walk(self.tree):
+        for node in walk(self.tree):
             if isinstance(node, ast.Assign) \
                     and isinstance(node.value, ast.Call):
                 _, fname = _call_root_name(node.value.func)
@@ -842,14 +1019,14 @@ class _ModuleLinter:
                             self._registry_attrs.add(t.attr)
             elif isinstance(node, ast.For):
                 iter_names = set()
-                for n in ast.walk(node.iter):
+                for n in walk(node.iter):
                     if isinstance(n, ast.Name):
                         iter_names.add(n.id)
                     elif isinstance(n, ast.Attribute):
                         iter_names.add(n.attr)
                 if iter_names & _FL115_COHORT_ITERS:
                     scope = self._enclosing_fn(node)
-                    for n in ast.walk(node.target):
+                    for n in walk(node.target):
                         if isinstance(n, ast.Name):
                             self._client_loop_vars.setdefault(
                                 n.id, set()).add(
@@ -859,7 +1036,7 @@ class _ModuleLinter:
         """First sub-expression of a label value that reads as a
         per-client identifier, or None. ``scope_id``: id() of the call
         site's enclosing function (loop-var taint is function-scoped)."""
-        for n in ast.walk(expr):
+        for n in walk(expr):
             if isinstance(n, ast.Name):
                 if _FL115_ID_RE.search(n.id) \
                         or scope_id in self._client_loop_vars.get(
@@ -912,7 +1089,7 @@ class _ModuleLinter:
         once, at its first placement. A spec out of static reach (a
         parameter, a rebound name) judges the whole scope clean."""
         scopes = {}
-        for node in ast.walk(self.tree):
+        for node in walk(self.tree):
             if isinstance(node, ast.Call) and self._is_global_put(node):
                 scope = self._enclosing_fn(node)
                 scopes.setdefault(id(scope), []).append(node)
@@ -975,7 +1152,7 @@ class _ModuleLinter:
                            and len(stmt.targets) == 1
                            and isinstance(stmt.targets[0], ast.Name)
                            and stmt.targets[0].id == name]
-                stores = [n for n in ast.walk(scope)
+                stores = [n for n in walk(scope)
                           if isinstance(n, ast.Name)
                           and isinstance(n.ctx, ast.Store) and n.id == name]
                 if len(assigns) == 1 and len(stores) == 1:
@@ -994,7 +1171,7 @@ class _ModuleLinter:
     def _check_captures(self, site, parents):
         func = site.func
         bound = set(_param_names(func))
-        for n in ast.walk(func):
+        for n in walk(func):
             if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Store):
                 bound.add(n.id)
             elif isinstance(n, ast.arg):
@@ -1003,7 +1180,7 @@ class _ModuleLinter:
                     and n is not func:
                 bound.add(n.name)
         free = {}
-        for n in ast.walk(func):
+        for n in walk(func):
             if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Load) \
                     and n.id not in bound:
                 free.setdefault(n.id, n)
@@ -1126,7 +1303,7 @@ class _ModuleLinter:
             return
         swallows = not any(
             isinstance(n, ast.Raise) or self._is_log_call(n)
-            for n in ast.walk(node))
+            for n in walk(node))
         what = "bare `except:`" if t is None else f"`except {t.id}:`"
         detail = ("silently swallows transport errors"
                   if swallows else "hides the specific failure mode")
@@ -1154,14 +1331,14 @@ class _ModuleLinter:
         for s in sites:
             if isinstance(s.func, (ast.FunctionDef, ast.AsyncFunctionDef)):
                 names.add(s.func.name)
-        module_classes = {n.name for n in ast.walk(self.tree)
+        module_classes = {n.name for n in walk(self.tree)
                           if isinstance(n, ast.ClassDef)
                           and any(self._is_nn_module(b) for b in n.bases)}
         module_name = None
         if self.index is not None:
             from fedml_tpu_torch.analysis.dataflow import ProjectIndex
             module_name = ProjectIndex.module_name(self.path)
-        for node in ast.walk(self.tree):
+        for node in walk(self.tree):
             if not (isinstance(node, ast.Assign)
                     and isinstance(node.value, ast.Call)):
                 continue
@@ -1224,7 +1401,7 @@ class _ModuleLinter:
 
         def region_calls(stmts, names, kernels=False):
             for stmt in stmts:
-                for n in ast.walk(stmt):
+                for n in walk(stmt):
                     if isinstance(n, ast.Call):
                         f = n.func
                         if isinstance(f, ast.Name) and f.id in names:
@@ -1239,7 +1416,7 @@ class _ModuleLinter:
             if region_calls(stmts, _SYNC_CALL_NAMES):
                 return True
             for stmt in stmts:
-                for n in ast.walk(stmt):
+                for n in walk(stmt):
                     # float(x)/int(x) on a non-literal: a value fetch that
                     # blocks on the producing computation
                     if (isinstance(n, ast.Call)
@@ -1263,7 +1440,7 @@ class _ModuleLinter:
                     todo.append(c)
                     yield c
 
-        for node in ast.walk(self.tree):
+        for node in walk(self.tree):
             for fld in ("body", "orelse", "finalbody"):
                 suite = getattr(node, fld, None)
                 if (not isinstance(suite, list) or not suite
@@ -1347,10 +1524,84 @@ def _lint_module(path, src, tree, index, select=None, ignore=None):
     return out
 
 
+def _emitted_findings(run, mod_info, select=None, ignore=None):
+    """Collect findings from a project-wide pass that reports through an
+    ``emit(module, node, code, message)`` callback, attaching each to its
+    owning module and honoring that module's suppressions.
+    ``mod_info``: dotted module name -> (rel path, src)."""
+    raw = []
+
+    def emit(module, node, code, message):
+        info = mod_info.get(module)
+        if info is None:
+            return
+        rel, src = info
+        lines = src.splitlines()
+        lineno = getattr(node, "lineno", 1)
+        text = lines[lineno - 1].strip() if 1 <= lineno <= len(lines) else ""
+        raw.append((module, Finding(
+            path=rel, line=lineno,
+            col=getattr(node, "col_offset", 0) + 1, code=code,
+            message=message, text=text)))
+
+    run(emit)
+    out = []
+    supp = {}
+    for module, f in raw:
+        if module not in supp:
+            supp[module] = _parse_suppressions(mod_info[module][1])
+        per_line, per_file = supp[module]
+        out.extend(_filter_findings([f], per_line, per_file,
+                                    select=select, ignore=ignore))
+    return out
+
+
+def _pass_indexes(select, ignore):
+    """pass name -> the pass-1 index it reads, for each project-wide pass
+    whose ``PASS_CODES`` can survive select/ignore, in the reference's
+    order. The model checker and the privacy pass ride the protocol
+    pass's index; an index no live pass reads is not built, so a
+    ``--select`` of one pass (or of none) does not pay for the others."""
+    from fedml_tpu_torch.analysis.crossclass import CrossClassIndex
+    from fedml_tpu_torch.analysis.determinism import DeterminismIndex
+    from fedml_tpu_torch.analysis.protocol import ProtocolIndex
+    kinds = {"protocol": ProtocolIndex, "crossclass": CrossClassIndex,
+             "determinism": DeterminismIndex, "modelcheck": ProtocolIndex,
+             "privacy": ProtocolIndex}
+    built = {}
+    return {name: built.setdefault(kinds[name], kinds[name]())
+            for name in PASS_CODES if _pass_enabled(name, select, ignore)}
+
+
+def _add_to_pass_indexes(indexes, path, tree):
+    """Pass 1 of one module into each distinct index of ``indexes``."""
+    for index in set(indexes.values()):
+        index.add_module(path, tree)
+
+
+def _project_findings(indexes, mod_info, select=None, ignore=None):
+    """Each pass of ``indexes`` (:func:`_pass_indexes`) over its index."""
+    from fedml_tpu_torch.analysis.crossclass import check_crossclass
+    from fedml_tpu_torch.analysis.determinism import check_determinism
+    from fedml_tpu_torch.analysis.modelcheck import check_model
+    from fedml_tpu_torch.analysis.privacy import check_privacy
+    from fedml_tpu_torch.analysis.protocol import check_protocol
+    checks = {"protocol": check_protocol, "crossclass": check_crossclass,
+              "determinism": check_determinism, "modelcheck": check_model,
+              "privacy": check_privacy}
+    findings = []
+    for name, index in indexes.items():
+        findings += _emitted_findings(
+            lambda emit, check=checks[name], index=index: check(index, emit),
+            mod_info, select=select, ignore=ignore)
+    return findings
+
+
 def lint_source(src, path="<string>", select=None, ignore=None):
     """Lint one module's source (project-wide rules see only this one
     module). Returns non-suppressed findings."""
     from fedml_tpu_torch.analysis.dataflow import ProjectIndex
+    from fedml_tpu_torch.analysis.protocol import ProtocolIndex
     try:
         tree = ast.parse(src, filename=path)
     except SyntaxError as e:
@@ -1358,8 +1609,15 @@ def lint_source(src, path="<string>", select=None, ignore=None):
                         code="FL100", message=f"syntax error: {e.msg}")]
     index = ProjectIndex()
     index.add_module(path, tree, _Aliases(tree))
-    return _lint_module(path, src, tree, index, select=select,
-                        ignore=ignore)
+    indexes = _pass_indexes(select, ignore)
+    _add_to_pass_indexes(indexes, path, tree)
+    mod_info = {ProtocolIndex.module_name(path): (path, src)}
+    findings = _lint_module(path, src, tree, index, select=select,
+                            ignore=ignore)
+    findings += _project_findings(indexes, mod_info, select=select,
+                                  ignore=ignore)
+    findings.sort(key=lambda f: (f.line, f.col, f.code))
+    return findings
 
 
 def iter_python_files(paths):
@@ -1377,12 +1635,19 @@ def iter_python_files(paths):
 
 def lint_paths(paths, select=None, ignore=None):
     """Two-pass project lint: pass 1 parses every file and builds the
-    cross-module symbol table (traced and graphed callables travel
-    through builder returns and imports); pass 2 runs the per-module
-    rules with that index in scope."""
+    cross-module symbol tables (traced and graphed callables travel
+    through factory returns and imports; protocol constants and FSM
+    classes through import edges); pass 2 runs the per-module rules with
+    the dataflow index in scope, then the project-wide protocol
+    (FL120-FL122, FL127/FL128), cross-class concurrency (FL126),
+    determinism (FL131-FL135), model-checking (FL140-FL143), and privacy
+    information-flow (FL150-FL153) passes over the whole fileset."""
     from fedml_tpu_torch.analysis.dataflow import ProjectIndex
+    from fedml_tpu_torch.analysis.protocol import ProtocolIndex
     index = ProjectIndex()
+    indexes = _pass_indexes(select, ignore)
     modules, findings = [], []
+    mod_info = {}
     for path in iter_python_files(paths):
         with open(path, encoding="utf-8") as fh:
             src = fh.read()
@@ -1395,10 +1660,14 @@ def lint_paths(paths, select=None, ignore=None):
                 code="FL100", message=f"syntax error: {e.msg}"))
             continue
         index.add_module(rel, tree, _Aliases(tree))
+        _add_to_pass_indexes(indexes, rel, tree)
+        mod_info[ProtocolIndex.module_name(rel)] = (rel, src)
         modules.append((rel, src, tree))
     for rel, src, tree in modules:
         findings.extend(_lint_module(rel, src, tree, index, select=select,
                                      ignore=ignore))
+    findings.extend(_project_findings(indexes, mod_info, select=select,
+                                      ignore=ignore))
     findings.sort(key=lambda f: (f.path, f.line, f.col, f.code))
     return findings
 

@@ -259,7 +259,8 @@ class ResilientFedAvgClient(ClientManager):
             if self.dp is not None:
                 # DP before codec, always: the mechanism's clip->noise
                 # runs on the raw delta, then the (lossy, NON-private)
-                # uplink encode sees only the privatized update
+                # uplink encode sees only the privatized update --
+                # fedcheck FL153 pins this order statically
                 params = self.dp.privatize_params(
                     msg.get("params"), params, self.rank, rnd, attempt)
             if self.compressor is None:

@@ -4,8 +4,9 @@ snippets are keyed on JAX (``TestSuppressions``, ``TestBaseline``,
 ``TestCli``, ``TestSarif``, ``TestSarifRuleMetadata``; the ``--fix``
 flag of ``TestDonationFix``, refused here), FL110's torch meaning (a
 CUDA-graph output read after the next replay), the torch shapes of the
-traced-site rules, and the refusal of the codes of the passes not ported yet
-(ROADMAP A16b (ii))."""
+traced-site rules, and the codes of the five project-wide passes, which
+the CLI refused (exit 2) until the passes were ported and now takes as
+it takes any other code."""
 
 import torch_threads  # noqa: F401  (caps torch threads under xdist)
 import ast
@@ -18,7 +19,7 @@ from fedml_tpu_torch.analysis import RULES, lint_paths, lint_source
 from fedml_tpu_torch.analysis.cli import DEFAULT_BASELINE
 from fedml_tpu_torch.analysis.cli import main as fedlint_main
 from fedml_tpu_torch.analysis.linter import (KERNEL_ENTRY_POINTS,
-                                             UNPORTED_CODES,
+                                             PASS_CODES,
                                              apply_baseline, load_baseline,
                                              render_json, render_sarif,
                                              render_text, rule_tags,
@@ -34,12 +35,38 @@ SRC = ("import torch\n"
        "def round_fn(x, n=4):\n"
        "    return x * n\n")
 
-#: the codes this slice ports
+#: the reference's whole catalog: the per-module rules and the codes of
+#: the five project-wide passes
 PORTED = {"FL101", "FL102", "FL103", "FL104", "FL105", "FL106", "FL107",
           "FL108", "FL109", "FL110", "FL111", "FL112", "FL113", "FL114",
-          "FL115", "FL123", "FL124", "FL125", "FL129", "FL130", "FL136"}
+          "FL115", "FL123", "FL124", "FL125", "FL129", "FL130", "FL136",
+          "FL120", "FL121", "FL122", "FL126", "FL127", "FL128",
+          "FL131", "FL132", "FL133", "FL134", "FL135",
+          "FL140", "FL141", "FL142", "FL143",
+          "FL150", "FL151", "FL152", "FL153"}
 JAX_KEYED = ("FL101", "FL102", "FL103", "FL104", "FL105", "FL109",
-             "FL110", "FL111", "FL112", "FL113", "FL114")
+             "FL110", "FL111", "FL112", "FL113", "FL114", "FL133",
+             "FL150", "FL151")
+
+#: a server whose sync no client registers a handler for: one FL120
+UNHANDLED_SEND = (
+    "from fedml_tpu_torch.core.managers import ClientManager, ServerManager\n"
+    "from fedml_tpu_torch.core.comm.base import MSG_TYPE_PEER_LOST\n"
+    "from fedml_tpu_torch.core.message import Message\n"
+    "class Srv(ServerManager):\n"
+    "    def register_message_receive_handlers(self):\n"
+    "        self.register_message_receive_handler(MSG_TYPE_PEER_LOST,\n"
+    "                                              self._on_lost)\n"
+    "    def open_round(self):\n"
+    "        self.send_message(Message('sync', 0, 1))\n"
+    "    def _on_lost(self, msg):\n"
+    "        self.finish()\n"
+    "class Cli(ClientManager):\n"
+    "    def register_message_receive_handlers(self):\n"
+    "        self.register_message_receive_handler(MSG_TYPE_PEER_LOST,\n"
+    "                                              self._on_lost)\n"
+    "    def _on_lost(self, msg):\n"
+    "        self.finish()\n")
 
 
 def codes(src, path=LIB_PATH):
@@ -55,7 +82,8 @@ def lines(src, path=LIB_PATH):
 class TestRuleTable:
     def test_rules_hold_exactly_the_ported_codes(self):
         assert set(RULES) == PORTED
-        assert not set(RULES) & UNPORTED_CODES
+        assert len(RULES) == 40
+        assert set().union(*PASS_CODES.values()) <= set(RULES)
 
     def test_each_jax_keyed_code_says_its_torch_meaning(self):
         for code in JAX_KEYED:
@@ -73,7 +101,9 @@ class TestRuleTable:
         out = capsys.readouterr().out
         for code in RULES:
             assert code in out
-        assert out.count("no torch meaning") == 2
+        # FL104 and FL111, and FL133's constant PRNGKey branch
+        assert out.count("no torch meaning") == 3
+        assert "`PRNGKey` literal has no torch meaning" in RULES["FL133"][1]
 
 
 # -- suppressions (TestSuppressions) --------------------------------------
@@ -202,10 +232,18 @@ class TestCli:
         ["--select", "fl150"]])
     def test_codes_of_unported_passes_are_a_usage_error(self, tmp_path,
                                                         capsys, argv):
-        assert fedlint_main([self._mod(tmp_path), "--baseline", ""]
-                            + argv) == 2
-        err = capsys.readouterr().err
-        assert "ROADMAP A16b (ii)" in err
+        """These codes were a usage error (exit 2) while their passes
+        were not ported; they now filter as any code does: a clean
+        module exits 0, and the passes run on a planted one."""
+        clean = tmp_path / "clean.py"
+        clean.write_text("x = 1\n")
+        assert fedlint_main([str(clean), "--baseline", ""] + argv) == 0
+        capsys.readouterr()
+        planted = self._mod(tmp_path, UNHANDLED_SEND)
+        assert fedlint_main([planted, "--baseline", "", "--format", "json"]
+                            + argv + ["--select", "FL120"]) == 1
+        out = json.loads(capsys.readouterr().out)
+        assert [f["code"] for f in out["findings"]] == ["FL120"]
 
     def test_unknown_codes_stay_a_silent_filter(self, tmp_path, capsys):
         # as in the reference: a code no pass owns selects nothing
@@ -246,7 +284,7 @@ class TestSarif:
         assert run["tool"]["driver"]["name"] == "fedlint"
         rule_ids = {r["id"] for r in run["tool"]["driver"]["rules"]}
         assert {"FL103", "FL110", "FL123"} <= rule_ids
-        assert not rule_ids & UNPORTED_CODES
+        assert rule_ids == set(RULES) | {"FL100"}
         res = run["results"][0]
         assert res["ruleId"] == "FL103"
         loc = res["locations"][0]["physicalLocation"]
@@ -300,6 +338,15 @@ class TestSarif:
         assert rules["FL101"]["properties"]["tags"] == ["fedlint-torch"]
         assert rule_tags("FL125") == ["fedcheck-concurrency",
                                       "race-audit-crossref"]
+        assert rule_tags("FL126") == ["fedcheck-concurrency",
+                                      "race-audit-crossref"]
+        for tag, codes_ in (("fedcheck-protocol", PASS_CODES["protocol"]),
+                            ("fedcheck-determinism",
+                             PASS_CODES["determinism"]),
+                            ("fedcheck-model", PASS_CODES["modelcheck"]),
+                            ("fedcheck-privacy", PASS_CODES["privacy"])):
+            for code in codes_:
+                assert rules[code]["properties"]["tags"] == [tag], code
 
     def test_catalog_entries_are_whole(self):
         for code, (title, rationale) in RULES.items():
@@ -707,3 +754,30 @@ class TestWallclockTiming:
         found = lint_paths([str(tmp_path)])
         assert [(f.code, f.line, f.path.endswith("timing.py"))
                 for f in found] == [("FL114", 7, True)]
+
+
+# -- the analyzer's cached walk --------------------------------------------
+
+class TestAstWalk:
+    def test_walk_is_ast_walk_over_every_file_of_the_port(self):
+        from fedml_tpu_torch.analysis.astwalk import walk
+        from fedml_tpu_torch.analysis.linter import iter_python_files
+        for path in iter_python_files([os.path.join(REPO_ROOT,
+                                                    "fedml_tpu_torch")]):
+            with open(path, encoding="utf-8") as fh:
+                tree = ast.parse(fh.read())
+            want = list(ast.walk(tree))
+            assert list(walk(tree)) == want, path
+            # the second walk reads the kept list: the same nodes again
+            assert list(walk(tree)) == want, path
+            fn = next((n for n in want if isinstance(n, ast.FunctionDef)),
+                      None)
+            if fn is not None:
+                assert list(walk(fn)) == list(ast.walk(fn)), path
+
+    def test_a_partial_walk_leaves_the_next_one_whole(self):
+        from fedml_tpu_torch.analysis.astwalk import walk
+        tree = ast.parse("def f(x):\n    return [y for y in x if y]\n")
+        it = walk(tree)
+        next(it)
+        assert list(walk(tree)) == list(ast.walk(tree))
