@@ -244,11 +244,14 @@ Phases (any failure exits non-zero):
 17. run the client-sharded rounds and the long-context main
    (``phase_a15``): (a) ``main_longcontext`` at its defaults (T 512,
    vocab 10004, 4 layers, 4 heads of 64, d_model 256, batch 32) with
-   ``--n_seq 1`` for ``A15_STEPS`` steps, in fp32 (its default, B2-B4's
-   CUDA-core route) and with ``--model_dtype bf16`` (their tensor-core
-   route), B3 and B4 launched layers x steps times in each and B2 as
-   often, B2-B4 at [32, 512, 4, 64] in bf16 and fp32 against their
-   plain versions (the first T 512 cases, timed beside SDPA), and the
+   ``--n_seq 1`` for ``A15_STEPS`` steps, in fp32 (its default: B2 on
+   the CUDA cores, B3 and B4 3xTF32 on the tensor cores) and with
+   ``--model_dtype bf16`` (B2-B4 on the tensor cores in bf16), B3 and B4
+   launched layers x steps times in each and B2 as often, B2-B4 at [32,
+   512, 4, 64] in bf16 and fp32 and at the LM flagship's width [32, 80,
+   4, 128] in fp32 against their plain versions (timed beside SDPA, the
+   whole backward too: delta, B3 and B4 as the autograd Function runs
+   them), and the
    same SGD steps from the same weights through the kernels and through
    the plain ``mha`` in bf16 and fp32, their loss drift and their
    parameter drift beside the parameters' move printed (recorded, not
@@ -333,10 +336,15 @@ import sys
 import time
 import types
 
+# the kernels' timer: median device time a call, after an L2 flush and a
+# device spin that covers the host's enqueue (its docstring says why)
+from fedml_tpu_torch.scripts._common import flushed_ms as timed_ms
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 tensor-core peak
 L, B = 8, 64
 # the LM flagship (bench.py --lm defaults): one attention launch is the
 # 8 clients x batch 4 of a chunk at T=80, 4 heads of 128
@@ -358,32 +366,6 @@ DW_SHAPES = [("stem", 3, 16, 32, 1), ("stage1", 16, 16, 32, 18),
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def timed_ms(fn, flush, iters=20, warmup=3):
-    """Median device time of ``fn`` per call (CUDA events), with the L2
-    cache flushed before each call as the training step would find it.
-    A spin of a few milliseconds on the device after the flush covers
-    the host's time to enqueue ``fn`` (autograd's backward of one
-    attention call outlasted a spin of half a millisecond), so the
-    events time the device's work and not the launch path; the median
-    drops a call whose host side stalled past the spin."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(10_000_000)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return sorted(times)[iters // 2]
 
 
 def phase_kernels(torch, grouped_conv):
@@ -450,8 +432,9 @@ def mma_kernel_usage(_build, fa, grouped_conv, reports):
     ``-Xptxas -v`` reports, with threads, shared memory and blocks an SM
     of their launch on this card: the bf16 dW kernel at each of the main
     path's four shapes (its ``CH`` instance and K splits too), the bf16
-    forward, dq and dk/dv kernels per head dim. Fails when a kernel is
-    missing from a report."""
+    forward, dq and dk/dv kernels and the fp32 (3xTF32) dq and dk/dv
+    kernels per head dim. Fails when a kernel is missing from a
+    report."""
     out = {}
     usage = _build.ptxas_usage(reports[grouped_conv.LIBRARY.name])
     fn = grouped_conv.MMA_KERNEL
@@ -466,12 +449,15 @@ def mma_kernel_usage(_build, fa, grouped_conv, reports):
     usage = _build.ptxas_usage(reports[fa.LIBRARY.name])
     for D in (128, 64):
         info = fa.mma_launch_info(D)
-        for name, fn in fa.MMA_KERNELS.items():
-            tag = fa.mma_kernel_tag(name, D)
-            found = [u for k, u in usage.items() if tag in k]
-            if len(found) != 1:
-                fail(f"{fn}<{D}> not in the ptxas report")
-            out[f"{name}_bf16_D{D}"] = {**found[0], **info[name]}
+        for dtype, kernels, suffix in (("bf16", fa.MMA_KERNELS, ""),
+                                       ("fp32", fa.TF32_KERNELS, "_tf32")):
+            for name, fn in kernels.items():
+                tag = fa.mma_kernel_tag(name, D, kernels)
+                found = [u for k, u in usage.items() if tag in k]
+                if len(found) != 1:
+                    fail(f"{fn}<{D}> not in the ptxas report")
+                out[f"{name}_{dtype}_D{D}"] = {**found[0],
+                                               **info[name + suffix]}
     return out
 
 
@@ -3307,75 +3293,121 @@ def _a15_lm_steps(torch, attention_fn, dtype):
     return losses, init, params
 
 
-def _a15_attention_t512(torch, fa):
-    """B2-B4 at main_longcontext's launch [32, 512, 4, 64] (causal, q, k
-    and v strided views of one qkv product) in bf16 and fp32 against
-    their plain versions, with the card cases' tolerances; the bf16 and
-    fp32 launches timed beside their plain versions and SDPA."""
+#: the attention launches phase 17 times beside SDPA: (case, batch, T,
+#: heads, head dim, dtypes) -- main_longcontext's launch, and the LM
+#: flagship's width in fp32 (the fp32 models' B3 and B4)
+A15_ATTN_TIMED = [("longcontext_T512", 32, 512, 4, 64, ("bf16", "fp32")),
+                  ("flagship_fp32", 32, 80, 4, 128, ("fp32",))]
+#: the card cases' tolerances (rel, abs) by dtype
+A15_ATTN_TOL = {"bf16": (1.6e-2, 1e-3), "fp32": (1e-4, 1e-5)}
+
+
+def _a15_attention_cases(torch, fa):
+    """B2-B4 at each launch of ``A15_ATTN_TIMED`` (causal, q, k and v
+    strided views of one qkv product) against their plain versions with
+    the card cases' tolerances, each timed beside its plain version and
+    SDPA; then the whole backward as the ``FlashAttention`` Function runs
+    it (delta, B3, B4), checked against the plain backward and timed
+    beside SDPA's backward (``bwd_ms``, with delta's kernels alone as
+    ``delta_ms``)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(5)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    Bq, T, H, D = 32, 512, 4, 64
-    C = H * D
     out = {}
-    for dtype, (rel, abs_) in ((torch.bfloat16, (1.6e-2, 1e-3)),
-                               (torch.float32, (1e-4, 1e-5))):
-        qkv = torch.randn(Bq, T, 3 * C, generator=gen, device=dev
-                          ).to(dtype)
-        q, k, v = (qkv[..., j * C:(j + 1) * C].reshape(Bq, T, H, D)
-                   for j in range(3))
-        do = torch.randn(Bq, T, H, D, generator=gen, device=dev).to(dtype)
-        o, lse = fa.flash_attention_fwd(q, k, v, True)
-        o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, True)
-        delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2)
-        args = (q, k, v, do, lse_ref, delta.contiguous(), True)
-        dq = fa.flash_attention_dq(*args)
-        dk, dv = fa.flash_attention_dkv(*args)
-        dq_ref, dk_ref, dv_ref = fa.flash_attention_bwd_reference(*args)
-        name = "bf16" if dtype == torch.bfloat16 else "fp32"
-        errs = {"fwd": _check(f"fwd T512 {name}", o, o_ref, rel, abs_),
-                "lse": _check(f"lse T512 {name}", lse, lse_ref, 1e-4,
-                              1e-5),
-                "dq": _check(f"dq T512 {name}", dq, dq_ref, rel, abs_),
-                "dkv": max(_check(f"dk T512 {name}", dk, dk_ref, rel, abs_),
-                           _check(f"dv T512 {name}", dv, dv_ref, rel,
-                                  abs_))}
-        ref_args = args[:-1] + (True, D ** -0.5, T)
-        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
-        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qs, ks, vs))
-        out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        bwd_lib = timed_ms(lambda: torch.autograd.grad(
-            out_g, (qg, kg, vg), do.transpose(1, 2), retain_graph=True),
-            flush)
-        bf16 = dtype == torch.bfloat16
-        bounds = _attn_bounds(Bq, T, True, itemsize=2 if bf16 else 4, D=D,
-                              ops_per_s=(BF16_OPS_PER_S if bf16
-                                         else FP32_OPS_PER_S))
-        times = {
-            "fwd": (lambda: fa.flash_attention_fwd(q, k, v, True),
-                    lambda: fa.flash_attention_fwd_reference(q, k, v, True),
-                    lambda: F.scaled_dot_product_attention(
-                        qs, ks, vs, is_causal=True)),
-            "dq": (lambda: fa.flash_attention_dq(*args),
-                   lambda: fa.flash_attention_dq_reference(*ref_args),
-                   None),
-            "dkv": (lambda: fa.flash_attention_dkv(*args),
-                    lambda: fa.flash_attention_dkv_reference(*ref_args),
-                    None)}
-        for kname, (kern, plain, lib) in times.items():
-            row = {"case": f"longcontext_T512_{name}",
-                   "shape": [Bq, T, H, D], "ms": timed_ms(kern, flush),
-                   "plain_ms": timed_ms(plain, flush),
-                   "library_ms": (timed_ms(lib, flush) if lib is not None
-                                  else bwd_lib),
-                   "max_abs_err": errs[kname],
-                   "bound_ms": bounds[kname]["bound_ms"],
-                   "bound_by": bounds[kname]["bound_by"]}
-            out[(name, kname)] = row
-            print(f"attention_time_t512 {kname} " + json.dumps(row),
-                  flush=True)
+    for case, Bq, T, H, D, dtypes in A15_ATTN_TIMED:
+        C = H * D
+        for name in dtypes:
+            dtype = torch.bfloat16 if name == "bf16" else torch.float32
+            rel, abs_ = A15_ATTN_TOL[name]
+            label = f"{case} {name}"
+            qkv = torch.randn(Bq, T, 3 * C, generator=gen, device=dev
+                              ).to(dtype)
+            q, k, v = (qkv[..., j * C:(j + 1) * C].reshape(Bq, T, H, D)
+                       for j in range(3))
+            do = torch.randn(Bq, T, H, D, generator=gen, device=dev
+                             ).to(dtype)
+            o, lse = fa.flash_attention_fwd(q, k, v, True)
+            o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, True)
+            delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2)
+            args = (q, k, v, do, lse_ref, delta.contiguous(), True)
+            dq = fa.flash_attention_dq(*args)
+            dk, dv = fa.flash_attention_dkv(*args)
+            dq_ref, dk_ref, dv_ref = fa.flash_attention_bwd_reference(*args)
+            errs = {"fwd": _check(f"fwd {label}", o, o_ref, rel, abs_),
+                    "lse": _check(f"lse {label}", lse, lse_ref, 1e-4, 1e-5),
+                    "dq": _check(f"dq {label}", dq, dq_ref, rel, abs_),
+                    "dkv": max(_check(f"dk {label}", dk, dk_ref, rel, abs_),
+                               _check(f"dv {label}", dv, dv_ref, rel,
+                                      abs_))}
+            ref_args = args[:-1] + (True, D ** -0.5, T)
+            qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+            qg, kg, vg = (t.detach().requires_grad_(True)
+                          for t in (qs, ks, vs))
+            out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            bwd_lib = timed_ms(lambda: torch.autograd.grad(
+                out_g, (qg, kg, vg), do.transpose(1, 2), retain_graph=True),
+                flush)
+            # the backward as the Function runs it, on its own forward
+            qf, kf, vf = (t.detach().requires_grad_(True) for t in (q, k, v))
+            out_f = fa.flash_attention(qf, kf, vf, True)
+            fa_bwd = lambda: torch.autograd.grad(out_f, (qf, kf, vf), do,
+                                                 retain_graph=True)
+            # delta as the Function forms it (ops/flash_attention.py)
+            delta_fn = lambda: (do.float() * o.float()).sum(
+                dim=-1).transpose(1, 2).contiguous()
+
+            def plain_bwd():
+                d = (do.float() * o.float()).sum(-1).transpose(1, 2)
+                return fa.flash_attention_bwd_reference(
+                    q, k, v, do, lse, d.contiguous(), True)
+
+            for gname, got, ref in zip(("dq", "dk", "dv"), fa_bwd(),
+                                       plain_bwd()):
+                errs["bwd"] = max(errs.get("bwd", 0.0), _check(
+                    f"FlashAttention backward {gname} {label}", got, ref,
+                    rel, abs_))
+            bf16 = dtype == torch.bfloat16
+            bounds = _attn_bounds(Bq, T, True, itemsize=2 if bf16 else 4,
+                                  D=D, ops_per_s=(BF16_OPS_PER_S if bf16
+                                                  else FP32_OPS_PER_S))
+            times = {
+                "fwd": (lambda: fa.flash_attention_fwd(q, k, v, True),
+                        lambda: fa.flash_attention_fwd_reference(q, k, v,
+                                                                 True),
+                        lambda: F.scaled_dot_product_attention(
+                            qs, ks, vs, is_causal=True)),
+                "dq": (lambda: fa.flash_attention_dq(*args),
+                       lambda: fa.flash_attention_dq_reference(*ref_args),
+                       None),
+                "dkv": (lambda: fa.flash_attention_dkv(*args),
+                        lambda: fa.flash_attention_dkv_reference(*ref_args),
+                        None),
+                "bwd": (fa_bwd, plain_bwd, None)}
+            prefix = ("attention_time_t512" if T == 512
+                      else "attention_time_flagship_fp32")
+            for kname, (kern, plain, lib) in times.items():
+                row = {"case": f"{case}_{name}", "shape": [Bq, T, H, D],
+                       "ms": timed_ms(kern, flush),
+                       "plain_ms": timed_ms(plain, flush),
+                       "library_ms": (timed_ms(lib, flush) if lib is not None
+                                      else bwd_lib),
+                       "max_abs_err": errs[kname],
+                       "bound_ms": bounds[kname]["bound_ms"],
+                       "bound_by": bounds[kname]["bound_by"]}
+                if not bf16:
+                    # the fp32 B3 and B4 take three TF32 products for each
+                    # fp32 one (3xTF32): their bound at that rate
+                    b = bounds[kname]
+                    row["bound_3xtf32_ms"] = max(
+                        b["bytes"] / HBM_BYTES_PER_S,
+                        3 * b["ops"] / TF32_OPS_PER_S) * 1e3
+                if kname == "bwd":
+                    row["bwd_ms"] = row["ms"]
+                    row["delta_ms"] = timed_ms(delta_fn, flush)
+                out[(case, name, kname)] = row
+                print(f"{prefix} {kname} " + json.dumps(row), flush=True)
     return out
 
 
@@ -3411,7 +3443,7 @@ def _a15_main_run(torch, fa, smi, dtype_flags, route):
 def _a15_drift(torch, smi):
     """The same SGD steps from the same weights through the kernels and
     through the plain ``mha``, in bf16 (B2-B4's tensor-core route, the
-    ROADMAP watch item) and fp32 (the CUDA-core route): each step's loss
+    ROADMAP watch item) and fp32 (B3 and B4 3xTF32): each step's loss
     drift, and the parameters' largest drift beside their largest move
     from the initial weights. Recorded, not gated."""
     from fedml_tpu_torch.ops.attention import mha
@@ -3435,14 +3467,14 @@ def _a15_drift(torch, smi):
 
 
 def _a15_longcontext(torch, fa, smi):
-    """Phase 17 (a): the main's launches in fp32 (its default, B2-B4's
-    CUDA-core route) and in bf16 (their tensor-core route), the T 512
-    cases, the drift."""
+    """Phase 17 (a): the main's launches in fp32 (its default: B2 on the
+    CUDA cores, B3 and B4 3xTF32) and in bf16 (B2-B4 in bf16 on the
+    tensor cores), the timed attention cases, the drift."""
     launches = {
-        "fp32": _a15_main_run(torch, fa, smi, [], "cuda_core"),
+        "fp32": _a15_main_run(torch, fa, smi, [], "fp32_3xtf32_bwd"),
         "bf16": _a15_main_run(torch, fa, smi, ["--model_dtype", "bf16"],
                               "mma")}
-    times = _a15_attention_t512(torch, fa)
+    times = _a15_attention_cases(torch, fa)
     _a15_drift(torch, smi)
     return launches, times
 

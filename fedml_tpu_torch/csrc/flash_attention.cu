@@ -22,7 +22,8 @@
 //
 // Numerics. Inputs are bf16 or fp32. Products take values of the input
 // type and sum in fp32, as the Pallas kernels' preferred_element_type=
-// float32. p (B2, B4) and ds (B3, B4) are rounded to the input type
+// float32 (B3 and B4 in fp32 to within about 2^-22 of each term,
+// below). p (B2, B4) and ds (B3, B4) are rounded to the input type
 // before their second product, as the Pallas kernels cast them. The
 // online-softmax state m, l, acc stays fp32, including the s <= NEG_INF/2
 // -> p = 0 guard and the m_keep rule. B2 takes the exact expf; in bf16 it
@@ -88,22 +89,51 @@
 // two blocks share an SM. Rows that do not start on 16 bytes are loaded
 // element by element instead.
 //
-// B2, B3 and B4 in fp32 (which the fp32 models run, main_longcontext at
-// its defaults among them, besides the tests and the fp32 logits check of
-// chip_smoke.py): the first design, on the CUDA cores. One block
-// of 256 threads per (batch*head, 64-row tile): query tiles for B2 and
-// B3, key tiles for B4, which loop over the opposite operand's tiles
-// (skipping, causal, the tiles above the diagonal). The block stages its
-// own tile and each opposite tile in shared memory as fp32, rows padded
-// to D+4 floats. Four threads share a tile row: each computes the scores
-// of every fourth column (16 of 64) and owns four of every sixteen
-// columns of the head dim of the row's accumulators; row maxima and sums
-// reduce over the four lanes by shuffles. Every shared-memory read is a
-// float4; each product is an fp32 FMA (exact for bf16 inputs). Tiles
-// arrive by 16-byte loads, all of a thread's in flight at once, and the
-// forward's p tile takes the K tile's place, so two forward blocks share
-// an SM. This design is bound by instruction issue at low occupancy, far
-// above its byte bound.
+// B2 in fp32 (which the fp32 models run, main_longcontext at its
+// defaults among them, besides the tests and the fp32 logits check of
+// chip_smoke.py): the first design, on the CUDA cores. One block of 256
+// threads per (batch*head, 64-row query tile) loops over the key tiles
+// (skipping, causal, those above the diagonal), staging its Q tile and
+// each K and V tile in shared memory as fp32, rows padded to D+4 floats.
+// Four threads share a tile row: each computes the scores of every fourth
+// column (16 of 64) and owns four of every sixteen columns of the head
+// dim of the row's accumulators; row maxima and sums reduce over the four
+// lanes by shuffles. Every shared-memory read is a float4; each product
+// is an fp32 FMA. Tiles arrive by 16-byte loads, all of a thread's in
+// flight at once, and the p tile takes the K tile's place, so two blocks
+// share an SM. This design is bound by instruction issue at low
+// occupancy, far above its byte bound.
+//
+// B3 and B4 in fp32: tensor cores at fp32 accuracy. At main_longcontext's
+// launch ([32, 512, 4, 64] fp32, causal) the functions move 84 MB (B3)
+// and 101 MB (B4), 25 and 30 us at 3.35 TB/s, against 6.5 and 8.6 GFLOP
+// on the valid (query, key) pairs: 96 and 129 us at the CUDA cores' 67
+// TFLOP/s, which the first design (four FMAs to a float4 shared load,
+// bound by instruction issue) missed six times over. TF32 on the tensor
+// cores (495 TFLOP/s) keeps 10 mantissa bits, about three decimal digits:
+// short of the fp32 tolerance. So each operand is split in registers as
+// its fragment is read, x = hi + lo with both tf32 (rounded as
+// cvt.rna.tf32 rounds), and each product is lo.hi + hi.lo + hi.hi on the
+// tensor cores (3xTF32, hopper_mma.cuh), within about 2^-22 of fp32's: 3
+// x the operations at 495 TFLOP/s, a bound of 39 and 52 us. The tensor
+// cores truncate the sums they accumulate, and ds = p (dP - delta)
+// cancels dP against an fp32 delta, so dP's products start from zero
+// every 8 columns of the head dim and are summed on the CUDA cores. The
+// kernels keep the bf16 kernels' layout above (B3: two warps per 16
+// query rows, K and V 16 keys at a time behind mbarriers; B4: one warp
+// per 16 keys owning their dK and dV), with mma.m16n8k8 on fp32 tiles of
+// D + 4 floats. The
+// operands whose reduction axis is the head dim come through ldmatrix
+// (an 8x8 b16 matrix is 8 rows of 4 floats); those whose reduction axis
+// is the tile's rows (K in B3, dO and Q in B4) by plain loads, as
+// ldmatrix.trans moves 16-bit elements and cannot transpose fp32. Each 8
+// of the reduction axis is read in the order 0, 4, 1, 5, ... (k t as row
+// 2t, k t+4 as row 2t+1), which makes the score accumulators the A
+// operand of the next product as they stand, with no shuffle, and keeps
+// the plain loads free of bank conflicts. p and ds stay fp32 (the
+// accurate expf) and are split like any other operand. A block holds
+// 102-103 KB of shared memory at D = 64 (two blocks an SM) and 198-199
+// KB at D = 128 (one).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -339,173 +369,6 @@ __global__ void __launch_bounds__(kThreads)
     // a fully masked row (l == 0) gets lse 0: the backward re-masks it
     if (t == 0)
       lse[(long long)bh * Tq + qpos] = l > 0.f ? m + logf(denom) : 0.f;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, Strides sq, Strides sk, Strides sv,
-              Strides sdo, Strides sdq, int H, int Tq, int Tk, int k_len,
-              float scale, bool causal) {
-  constexpr int LD = D + 4, NA = D / 4;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + kTile * LD;
-  float* sK = sdO + kTile * LD;
-  float* sV = sK + kTile * LD;
-  float* sDS = sV + kTile * LD;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * kTile;
-  const int r = threadIdx.x >> 2, t = threadIdx.x & 3, qpos = q0 + r;
-  const bool row_ok = qpos < Tq;
-  const float lse_r = row_ok ? lse[(long long)bh * Tq + qpos] : 0.f;
-  const float delta_r = row_ok ? delta[(long long)bh * Tq + qpos] : 0.f;
-
-  load_tile<T, D>(sQ, q, sq, b, h, q0, Tq);
-  load_tile<T, D>(sdO, dout, sdo, b, h, q0, Tq);
-  float acc[NA];
-#pragma unroll
-  for (int jj = 0; jj < NA; ++jj) acc[jj] = 0.f;
-
-  for (int k0 = 0; k0 < Tk; k0 += kTile) {
-    if (causal && k0 > q0 + kTile - 1) break;
-    __syncthreads();
-    load_tile<T, D>(sK, k, sk, b, h, k0, Tk);
-    load_tile<T, D>(sV, v, sv, b, h, k0, Tk);
-    __syncthreads();
-
-    float s[kCols], dov[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = dov[j] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      const float4 qd = ld4(&sQ[r * LD + d]), gd = ld4(&sdO[r * LD + d]);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int e = (t + 4 * j) * LD + d;
-        s[j] = fma4(qd, ld4(&sK[e]), s[j]);
-        dov[j] = fma4(gd, ld4(&sV[e]), dov[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      float p, ds;
-      probs_and_ds<T>(s[j], dov[j], lse_r, delta_r,
-                   row_ok && score_valid(qpos, k0 + t + 4 * j, k_len, causal),
-                   scale, &p, &ds);
-      sDS[r * kLP + t + 4 * j] = round_to<T>(ds);
-    }
-    __syncwarp();
-    for (int c = 0; c < kTile; c += 4) {
-      const float4 dsc = ld4(&sDS[r * kLP + c]);
-      const float* kc = sK + c * LD + 4 * t;
-#pragma unroll
-      for (int g = 0; g < NA / 4; ++g)
-        axpy4(dsc, ld4(kc + 16 * g), ld4(kc + LD + 16 * g),
-              ld4(kc + 2 * LD + 16 * g), ld4(kc + 3 * LD + 16 * g),
-              acc + 4 * g);
-    }
-  }
-
-  if (row_ok) {
-    T* row = dq + b * sdq.b + (long long)qpos * sdq.t + h * sdq.h;
-#pragma unroll
-    for (int a = 0; a < NA; ++a)
-      row[acc_col(a, t)] = from_f32<T>(scale * acc[a]);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dk,
-               T* __restrict__ dv, Strides sq, Strides sk, Strides sv,
-               Strides sdo, Strides sdk, Strides sdv, int H, int Tq, int Tk,
-               int k_len, float scale, bool causal) {
-  constexpr int LD = D + 4, NA = D / 4;
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + kTile * LD;
-  float* sQ = sV + kTile * LD;
-  float* sdO = sQ + kTile * LD;
-  float* sPT = sdO + kTile * LD;  // p^T of the tile pair: [key][query]
-  float* sDST = sPT + kTile * kLP;
-  float* sL = sDST + kTile * kLP;
-  float* sDl = sL + kTile;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.y * kTile;
-  const int c = threadIdx.x >> 2, t = threadIdx.x & 3, kpos = k0 + c;
-
-  load_tile<T, D>(sK, k, sk, b, h, k0, Tk);
-  load_tile<T, D>(sV, v, sv, b, h, k0, Tk);
-  float dk_acc[NA], dv_acc[NA];
-#pragma unroll
-  for (int jj = 0; jj < NA; ++jj) dk_acc[jj] = dv_acc[jj] = 0.f;
-
-  for (int q0 = 0; q0 < Tq; q0 += kTile) {
-    if (causal && q0 + kTile - 1 < k0) continue;  // above the diagonal
-    __syncthreads();
-    load_tile<T, D>(sQ, q, sq, b, h, q0, Tq);
-    load_tile<T, D>(sdO, dout, sdo, b, h, q0, Tq);
-    if (threadIdx.x < kTile) {
-      const int qp = q0 + threadIdx.x;
-      sL[threadIdx.x] = qp < Tq ? lse[(long long)bh * Tq + qp] : 0.f;
-      sDl[threadIdx.x] = qp < Tq ? delta[(long long)bh * Tq + qp] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kCols], dov[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = dov[j] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      const float4 kd = ld4(&sK[c * LD + d]), vd = ld4(&sV[c * LD + d]);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int e = (t + 4 * j) * LD + d;
-        s[j] = fma4(ld4(&sQ[e]), kd, s[j]);
-        dov[j] = fma4(ld4(&sdO[e]), vd, dov[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int rr = t + 4 * j, qpos = q0 + rr;
-      float p, ds;
-      probs_and_ds<T>(s[j], dov[j], sL[rr], sDl[rr],
-                   qpos < Tq && score_valid(qpos, kpos, k_len, causal), scale,
-                   &p, &ds);
-      sPT[c * kLP + rr] = round_to<T>(p);
-      sDST[c * kLP + rr] = round_to<T>(ds);
-    }
-    __syncwarp();
-    for (int rr = 0; rr < kTile; rr += 4) {
-      const float4 pr = ld4(&sPT[c * kLP + rr]);
-      const float4 dsr = ld4(&sDST[c * kLP + rr]);
-      const float* gr = sdO + rr * LD + 4 * t;
-      const float* qr = sQ + rr * LD + 4 * t;
-#pragma unroll
-      for (int g = 0; g < NA / 4; ++g) {
-        axpy4(pr, ld4(gr + 16 * g), ld4(gr + LD + 16 * g),
-              ld4(gr + 2 * LD + 16 * g), ld4(gr + 3 * LD + 16 * g),
-              dv_acc + 4 * g);
-        axpy4(dsr, ld4(qr + 16 * g), ld4(qr + LD + 16 * g),
-              ld4(qr + 2 * LD + 16 * g), ld4(qr + 3 * LD + 16 * g),
-              dk_acc + 4 * g);
-      }
-    }
-  }
-
-  if (kpos < Tk) {
-    T* krow = dk + b * sdk.b + (long long)kpos * sdk.t + h * sdk.h;
-    T* vrow = dv + b * sdv.b + (long long)kpos * sdv.t + h * sdv.h;
-#pragma unroll
-    for (int a = 0; a < NA; ++a) {
-      krow[acc_col(a, t)] = from_f32<T>(scale * dk_acc[a]);
-      vrow[acc_col(a, t)] = from_f32<T>(dv_acc[a]);
-    }
   }
 }
 
@@ -1125,6 +988,402 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// B3 and B4 in fp32, on tensor cores at fp32 accuracy (3xTF32)
+// ---------------------------------------------------------------------------
+
+// An fp32 tile row in shared memory: D + 4 floats (4 more than a multiple
+// of 32 at D = 64 and 128), so that every row starts on 16 bytes, the
+// eight rows one ldmatrix matrix reads lie in distinct banks, and so do
+// a warp's plain reads of rows 2t and 2t+1 of columns c + g (banks 8t + g
+// and 8t + 4 + g, past a common offset).
+template <int D> __host__ __device__ constexpr int f32_ld() { return D + 4; }
+
+// dq block: Q and dO tiles, then two buffers of a K and a V tile
+template <int D> constexpr size_t dq_tf32_smem_bytes() {
+  return (2 * kBwdRows + 4 * kBwdStep) * f32_ld<D>() * sizeof(float);
+}
+// dk/dv block: K and V tiles, two buffers of a Q and a dO tile, then two
+// buffers of the Q tile's lse and delta rows
+template <int D> constexpr size_t dkv_tf32_smem_bytes() {
+  return dq_tf32_smem_bytes<D>() + 4 * kBwdStep * sizeof(float);
+}
+
+// Issues the copies of rows [row0, row0 + ROWS) of one (batch, head) of a
+// [B, T, H, D] fp32 tensor into a shared tile; rows at or past `len` are
+// zero. Rows that start on 16 bytes (the model's qkv views and contiguous
+// tensors) go by cp.async, 16 bytes at a time; others by element loads.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_tile_f32(float* dst,
+                                               const float* __restrict__ src,
+                                               Strides st, int b, int h,
+                                               int row0, int len) {
+  const float* base = src + b * st.b + h * st.h;
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(base) % 16 == 0 && st.t % 4 == 0;
+  constexpr int kChunks = D / 4;  // 16-byte chunks a row
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += THREADS) {
+    const int r = e / kChunks, c = e % kChunks * 4, t = row0 + r;
+    const bool ok = t < len;
+    float* d = dst + r * f32_ld<D>() + c;
+    const float* s = base + (long long)(ok ? t : 0) * st.t + c;
+    if (aligned) {
+      hopper::cp_async16(d, s, ok);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = ok ? s[i] : 0.f;
+    }
+  }
+}
+
+// Lane's row address for an ldmatrix.x4 of the tf32 A operand (16 rows x
+// 8 columns) at (row r, col c) of an fp32 tile: matrices (rows 0-7, 8-15)
+// x (cols 0-3, 4-7).
+template <int D>
+__device__ __forceinline__ const float* a_rows_f32(const float* tile, int r,
+                                                   int c, int lane) {
+  return tile + (r + (lane & 15)) * f32_ld<D>() + c + (lane >> 4) * 4;
+}
+// ... for the B operands of two side-by-side n8 products that read rows
+// [r, r + 16) of a tile as their n axis and cols [c, c + 8) as k: r[0],
+// r[1] feed the product of rows r..r+7, r[2], r[3] that of rows r+8..r+15.
+template <int D>
+__device__ __forceinline__ const float* bn_rows_f32(const float* tile, int r,
+                                                    int c, int lane) {
+  return tile + (r + (lane & 7) + (lane >> 4) * 8) * f32_ld<D>() + c
+         + ((lane >> 3) & 1) * 4;
+}
+
+// The 16x16 sub-tile s = a . b^T of rows [ra, ra+16) of tile a and rows
+// [rb, rb+16) of tile b over the head dim, 3xTF32: s[j] holds columns
+// 8j..8j+7. With FRESH false the tensor cores sum all of it. With FRESH
+// true each 8 columns' three products start from zero and their sum is
+// added on the CUDA cores, rounded to nearest: the tensor cores truncate
+// what they accumulate, and along the head dim that bias grows with the
+// sum, which dP cannot afford: ds = p (dP - delta) cancels it against
+// delta, computed in fp32. The head dim is taken U k-steps of 8 at a time
+// in a loop that is not unrolled, which bounds how far ahead the compiler
+// hoists loads and splits, and so the registers they hold.
+template <int D, bool FRESH, int U = D / 8>
+__device__ __forceinline__ void score_tf32(float (&s)[2][4], const float* a,
+                                           int ra, const float* b, int rb,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll 1
+  for (int c0 = 0; c0 < D; c0 += 8 * U)
+#pragma unroll
+  for (int c = c0; c < c0 + 8 * U; c += 8) {
+    uint32_t f[4], ahi[4], alo[4], bhi[4], blo[4];
+    hopper::ldmatrix_x4(f, a_rows_f32<D>(a, ra, c, lane));
+    hopper::split_tf32(f, ahi, alo);
+    hopper::ldmatrix_x4(f, bn_rows_f32<D>(b, rb, c, lane));
+    hopper::split_tf32(f, bhi, blo);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (FRESH) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        hopper::mma_3xtf32(part, ahi, alo, bhi[2 * j], bhi[2 * j + 1],
+                           blo[2 * j], blo[2 * j + 1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] += part[i];
+      } else {
+        hopper::mma_3xtf32(s[j], ahi, alo, bhi[2 * j], bhi[2 * j + 1],
+                           blo[2 * j], blo[2 * j + 1]);
+      }
+    }
+  }
+}
+
+// acc (16 x D: acc[n] holds columns 8n..8n+7) += A . rows [r, r + 16) of
+// a tile, 3xTF32, where A is the split 16x16 operand of two k8 halves
+// (ahi[j], alo[j] from `split_a_tf32`: k t and t+4 of half j are rows
+// r + 8j + 2t and r + 8j + 2t + 1). Each lane reads its B values, rows
+// 2t and 2t+1 of column 8n + g, by plain loads: ldmatrix.trans moves
+// 16-bit elements and cannot transpose fp32.
+template <int D>
+__device__ __forceinline__ void acc_rows_tf32(float (&acc)[D / 8][4],
+                                              const uint32_t (&ahi)[2][4],
+                                              const uint32_t (&alo)[2][4],
+                                              const float* tile, int r, int g,
+                                              int t) {
+  constexpr int LD = f32_ld<D>();
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* col = tile + (r + 8 * j + 2 * t) * LD + 8 * n + g;
+      uint32_t hi0, lo0, hi1, lo1;
+      hopper::split_tf32(col[0], hi0, lo0);
+      hopper::split_tf32(col[LD], hi1, lo1);
+      hopper::mma_3xtf32(acc[n], ahi[j], alo[j], hi0, hi1, lo0, lo1);
+    }
+}
+
+// B3 in fp32: dq_mma_kernel's layout with 3xTF32 products. One block of
+// kDqThreads per (batch*head, kBwdRows query rows); warps 2m and 2m+1 own
+// query rows [16m, 16m + 16) of the tile and take its even and odd 16-key
+// groups, each summing its own dQ in registers; K and V arrive 16 keys at
+// a time behind an mbarrier each, double-buffered; at the end the odd
+// warp's sum is added to the even one's through shared memory, in that
+// order. The blocks take the query tiles from the last: causal, those
+// have the most keys, so they start first. Two blocks an SM at D = 64 (at
+// most 128 registers a thread), one at D = 128, as shared memory allows.
+// dq rows start on 8 bytes (the wrapper allocates it).
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, D == 64 ? 2 : 1)
+    dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   Strides sq, Strides sk, Strides sv, Strides sdo,
+                   Strides sdq, int H, int Tq, int Tk, int k_len,
+                   float scale, bool causal) {
+  constexpr int BQ = kBwdRows, BK = kBwdStep, LD = f32_ld<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sdO = sQ + BQ * LD;
+  float* sKV = sdO + BQ * LD;  // [buffer][K, V][BK][LD]
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp >> 1, par = warp & 1, r0 = q0 + 16 * rg;
+  // keys the block, and this warp, need: before k_len and, causal, not
+  // after the last query
+  const int kend = causal ? min(k_len, min(q0 + BQ, Tq)) : k_len;
+  const int kend_w = causal ? min(k_len, min(r0 + 16, Tq)) : k_len;
+  const int nkt = (kend + BK - 1) / BK;
+
+  __shared__ uint64_t bars[2][BK / 16];
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 2 * (BK / 16); ++i)
+      hopper::mbar_init(&bars[0][0] + i, kDqThreads);
+  __syncthreads();
+  auto stage_kv = [&](int kt) {
+    float* dst = sKV + (kt & 1) * 2 * BK * LD;
+    for (int c = 0; c < BK / 16; ++c) {
+      const int row0 = kt * BK + 16 * c;
+      stage_tile_f32<D, 16, kDqThreads>(dst + 16 * c * LD, k, sk, b, h, row0,
+                                        Tk);
+      stage_tile_f32<D, 16, kDqThreads>(dst + (BK + 16 * c) * LD, v, sv, b,
+                                        h, row0, Tk);
+      hopper::mbar_arrive_copies(&bars[kt & 1][c]);
+    }
+  };
+  // Q and dO first: the first 16 keys' barrier covers them too
+  stage_tile_f32<D, BQ, kDqThreads>(sQ, q, sq, b, h, q0, Tq);
+  stage_tile_f32<D, BQ, kDqThreads>(sdO, dout, sdo, b, h, q0, Tq);
+  if (nkt > 0) stage_kv(0);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) stage_kv(kt + 1);
+    const float* sK = sKV + (kt & 1) * 2 * BK * LD;
+    const float* sV = sK + BK * LD;
+    const int k0 = kt * BK;
+    // the warp's 16-key groups of this tile (every other one): none past
+    // its last key
+    const int kn = r0 < Tq ? min(BK, kend_w - k0) : 0;
+    for (int kk = 16 * par; kk < kn; kk += 32) {
+      hopper::mbar_wait(&bars[kt & 1][kk / 16], (kt >> 1) & 1);
+      // lse and delta of rows g and g + 8, read again for each sub-tile:
+      // held across the loop, they would take registers the kernel lacks
+      float lse_r[2], delta_r[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int qpos = r0 + g + 8 * i;
+        lse_r[i] = qpos < Tq ? lse[(long long)bh * Tq + qpos] : 0.f;
+        delta_r[i] = qpos < Tq ? delta[(long long)bh * Tq + qpos] : 0.f;
+      }
+      // dP's head dim 2 k-steps at a time: with S's unrolled whole, the
+      // kernel keeps within its 128 registers
+      float s[2][4], dp[2][4];
+      score_tf32<D, false>(s, sQ, 16 * rg, sK, kk, lane);
+      score_tf32<D, true, 2>(dp, sdO, 16 * rg, sV, kk, lane);
+      uint32_t dhi[2][4], dlo[2][4];  // dS, split: the A operand of dS.K
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qpos = r0 + g + 8 * (i >> 1);
+          const int kpos = k0 + kk + 8 * j + 2 * t + (i & 1);
+          float p;
+          probs_and_ds<float>(
+              s[j][i], dp[j][i], lse_r[i >> 1], delta_r[i >> 1],
+              qpos < Tq && score_valid(qpos, kpos, k_len, causal), scale, &p,
+              &ds[i]);
+        }
+        hopper::split_a_tf32(ds, dhi[j], dlo[j]);
+      }
+      acc_rows_tf32<D>(acc, dhi, dlo, sK, kk, g, t);
+    }
+    __syncthreads();  // this buffer is read before it is staged again
+  }
+  hopper::cp_async_wait_all();
+
+  // the odd warp's dQ onto the even one's, through the K and V buffers
+  __syncthreads();
+  float4* red = reinterpret_cast<float4*>(sKV) + rg * (D / 8) * 32 + lane;
+  if (par) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      red[n * 32] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+  }
+  __syncthreads();
+  if (par) return;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const float4 o = red[n * 32];
+    acc[n][0] += o.x;
+    acc[n][1] += o.y;
+    acc[n][2] += o.z;
+    acc[n][3] += o.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = r0 + g + 8 * i;
+    if (qpos >= Tq) continue;
+    float* row = dq + b * sdq.b + (long long)qpos * sdq.t + h * sdq.h;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n + 2 * t) =
+          make_float2(scale * acc[n][2 * i], scale * acc[n][2 * i + 1]);
+  }
+}
+
+// B4 in fp32: dkv_mma_kernel's layout with 3xTF32 products. One block of
+// kDkvThreads per (batch*head, kBwdRows key rows); warp m owns key rows
+// [16m, 16m + 16) of the tile and all of the head dim of their dK and dV
+// in registers; the query tiles arrive whole, double-buffered (commit
+// groups and a block barrier). The blocks take the key tiles in order:
+// causal, the first have the most queries, so they start first. Two
+// blocks an SM at D = 64, one at D = 128, as shared memory allows: up to
+// 255 registers a thread. dk and dv rows start on 8 bytes (the wrapper
+// allocates them).
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, D == 64 ? 2 : 1)
+    dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, Strides sq, Strides sk,
+                    Strides sv, Strides sdo, Strides sdk, Strides sdv, int H,
+                    int Tq, int Tk, int k_len, float scale, bool causal) {
+  constexpr int BK = kBwdRows, BQ = kBwdStep, LD = f32_ld<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + BK * LD;
+  float* sQdO = sV + BK * LD;         // [buffer][Q, dO][BQ][LD]
+  float* sLD = sQdO + 4 * BQ * LD;    // [buffer][lse, delta][BQ]
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, k0 = blockIdx.y * BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = 16 * warp, kw = k0 + kr;
+  // query tiles the block needs: none when all its keys are masked; causal,
+  // none wholly before its first key
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int nqt = k0 < k_len ? (Tq + BQ - 1) / BQ : qt0;
+
+  auto stage_q = [&](int qt) {
+    const int buf = (qt - qt0) & 1;
+    float* dst = sQdO + buf * 2 * BQ * LD;
+    float* vec = sLD + buf * 2 * BQ;
+    stage_tile_f32<D, BQ, kDkvThreads>(dst, q, sq, b, h, qt * BQ, Tq);
+    stage_tile_f32<D, BQ, kDkvThreads>(dst + BQ * LD, dout, sdo, b, h,
+                                       qt * BQ, Tq);
+    stage_vec<BQ, kDkvThreads>(vec, lse + (long long)bh * Tq, qt * BQ, Tq);
+    stage_vec<BQ, kDkvThreads>(vec + BQ, delta + (long long)bh * Tq, qt * BQ,
+                               Tq);
+  };
+  stage_tile_f32<D, BK, kDkvThreads>(sK, k, sk, b, h, k0, Tk);
+  stage_tile_f32<D, BK, kDkvThreads>(sV, v, sv, b, h, k0, Tk);
+  if (qt0 < nqt) stage_q(qt0);
+  hopper::cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    if (qt + 1 < nqt) stage_q(qt + 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();
+    __syncthreads();
+    const int buf = (qt - qt0) & 1;
+    const float* sQ = sQdO + buf * 2 * BQ * LD;
+    const float* sdO = sQ + BQ * LD;
+    const float* sL = sLD + buf * 2 * BQ;
+    const float* sDl = sL + BQ;
+    const int q0 = qt * BQ;
+    // the warp's 16-query groups of this tile: none past Tq, none when all
+    // its keys are masked
+    const int qn = kw < k_len ? min(BQ, Tq - q0) : 0;
+    for (int qq = 0; qq < qn; qq += 16) {
+      if (causal && q0 + qq + 15 < kw) continue;  // wholly above the diagonal
+      // a sub-tile wholly inside k_len, Tq and (causal) the diagonal needs
+      // no mask
+      const bool inner = kw + 16 <= k_len && q0 + qq + 16 <= Tq
+                         && (!causal || kw + 15 <= q0 + qq);
+      // keys x queries; at D = 128, 4 k-steps at a time, within 255
+      // registers
+      constexpr int U = D == 128 ? 4 : D / 8;
+      float s[2][4], dp[2][4];
+      score_tf32<D, false, U>(s, sK, kr, sQ, qq, lane);
+      score_tf32<D, true, U>(dp, sV, kr, sdO, qq, lane);
+      // P^T and dS^T, split: the A operands of P^T.dO and dS^T.Q
+      uint32_t phi[2][4], plo[2][4], dhi[2][4], dlo[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kpos = kw + g + 8 * (i >> 1);
+          const int col = qq + 8 * j + 2 * t + (i & 1), qpos = q0 + col;
+          probs_and_ds<float>(
+              s[j][i], dp[j][i], sL[col], sDl[col],
+              inner
+                  || (qpos < Tq && score_valid(qpos, kpos, k_len, causal)),
+              scale, &p[i], &ds[i]);
+        }
+        hopper::split_a_tf32(p, phi[j], plo[j]);
+        hopper::split_a_tf32(ds, dhi[j], dlo[j]);
+      }
+      acc_rows_tf32<D>(dv_acc, phi, plo, sdO, qq, g, t);
+      acc_rows_tf32<D>(dk_acc, dhi, dlo, sQ, qq, g, t);
+    }
+    __syncthreads();  // this buffer is read before it is staged again
+  }
+  hopper::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = kw + g + 8 * i;
+    if (kpos >= Tk) continue;
+    float* krow = dk + b * sdk.b + (long long)kpos * sdk.t + h * sdk.h;
+    float* vrow = dv + b * sdv.b + (long long)kpos * sdv.t + h * sdv.h;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(krow + 8 * n + 2 * t) = make_float2(
+          scale * dk_acc[n][2 * i], scale * dk_acc[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(vrow + 8 * n + 2 * t) =
+          make_float2(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    }
+  }
+}
+
 Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
@@ -1178,17 +1437,17 @@ int dq(const void* q, const void* k, const void* v, const void* dout,
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
         strides_at(st, 3), strides_at(st, 4), H, Tq, Tk, k_len, scale,
         causal != 0);
-  } else {  // fp32 (the fp32 models): the CUDA-core loop
-    const size_t smem = (4 * kTile * (D + 4) + kTile * kLP) * sizeof(float);
-    cudaError_t err = prepare(dq_kernel<T, D>, smem);
+  } else {  // fp32 (the fp32 models): 3xTF32 on the tensor cores
+    const size_t smem = dq_tf32_smem_bytes<D>();
+    cudaError_t err = prepare(dq_tf32_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
-    dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-        (const float*)lse, (const float*)delta, (T*)dq_out,
-        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-        strides_at(st, 3), strides_at(st, 4), H, Tq, Tk, k_len, scale,
-        causal != 0);
+    const dim3 grid(B * H, (Tq + kBwdRows - 1) / kBwdRows);
+    dq_tf32_kernel<D><<<grid, kDqThreads, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, (const float*)lse, (const float*)delta,
+        (float*)dq_out, strides_at(st, 0), strides_at(st, 1),
+        strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), H, Tq, Tk,
+        k_len, scale, causal != 0);
   }
   return cudaGetLastError();
 }
@@ -1209,18 +1468,17 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
         strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Tq, Tk,
         k_len, scale, causal != 0);
-  } else {  // fp32 (the fp32 models): the CUDA-core loop
-    const size_t smem =
-        (4 * kTile * (D + 4) + 2 * kTile * kLP + 2 * kTile) * sizeof(float);
-    cudaError_t err = prepare(dkv_kernel<T, D>, smem);
+  } else {  // fp32 (the fp32 models): 3xTF32 on the tensor cores
+    const size_t smem = dkv_tf32_smem_bytes<D>();
+    cudaError_t err = prepare(dkv_tf32_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(B * H, (Tk + kTile - 1) / kTile);
-    dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-        (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
-        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-        strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Tq, Tk,
-        k_len, scale, causal != 0);
+    const dim3 grid(B * H, (Tk + kBwdRows - 1) / kBwdRows);
+    dkv_tf32_kernel<D><<<grid, kDkvThreads, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v,
+        (const float*)dout, (const float*)lse, (const float*)delta,
+        (float*)dk, (float*)dv, strides_at(st, 0), strides_at(st, 1),
+        strides_at(st, 2), strides_at(st, 3), strides_at(st, 4),
+        strides_at(st, 5), H, Tq, Tk, k_len, scale, causal != 0);
   }
   return cudaGetLastError();
 }
@@ -1292,16 +1550,23 @@ int mma_info(int* out) {
   if (!err)
     err = occupancy(dq_mma_kernel<D>, kDqThreads, dq_smem_bytes<D>(),
                     out + 3);
-  return err ? err : occupancy(dkv_mma_kernel<D>, kDkvThreads,
-                               dkv_smem_bytes<D>(), out + 6);
+  if (!err)
+    err = occupancy(dkv_mma_kernel<D>, kDkvThreads, dkv_smem_bytes<D>(),
+                    out + 6);
+  if (!err)
+    err = occupancy(dq_tf32_kernel<D>, kDqThreads, dq_tf32_smem_bytes<D>(),
+                    out + 9);
+  return err ? err : occupancy(dkv_tf32_kernel<D>, kDkvThreads,
+                               dkv_tf32_smem_bytes<D>(), out + 12);
 }
 
 }  // namespace
 
-// The bf16 forward, dq and dk/dv kernels' launch shape at head dim D:
-// out[0..2] = the forward's threads a block, shared bytes a block, blocks
-// an SM can hold; out[3..5] the same for dq, out[6..8] for dk/dv. Returns
-// 0 or a CUDA error code.
+// The tensor-core kernels' launch shape at head dim D: out[0..2] = the
+// bf16 forward's threads a block, shared bytes a block, blocks an SM can
+// hold; out[3..5] the same for the bf16 dq, out[6..8] for the bf16 dk/dv,
+// out[9..11] for the fp32 dq, out[12..14] for the fp32 dk/dv. Returns 0
+// or a CUDA error code.
 extern "C" int fedml_flash_mma_info(int D, int* out) {
   switch (D) {
     case 64:

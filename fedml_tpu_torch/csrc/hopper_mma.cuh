@@ -4,7 +4,9 @@
 // asynchronous copies from device memory into shared memory (cp.async,
 // zero-filling rows that do not exist) with mbarriers that let a warp
 // wait for just the rows it reads next, and packing fp32 accumulators
-// into bf16 operands.
+// into bf16 operands; for fp32 inputs, the tf32 MMA m16n8k8 and the
+// split of each fp32 operand into two tf32 parts that makes three of its
+// products as accurate as one in fp32 (3xTF32).
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g in 0..7, t in
 // 0..3), as the PTX ISA defines them:
@@ -18,6 +20,22 @@
 // 8-15), packed to bf16 pairs, are the A operand of the next product
 // with those 16 columns as its reduction axis (`pack_a`): a result never
 // has to leave registers to feed the next product.
+//
+// mma.m16n8k8 with tf32 operands (fp32 bit patterns; the fp32 kernels'
+// 3xTF32 products) has other A and B fragments:
+//   A 16x8 (four b32):  a0 = (row g, col t)    a1 = (row g+8, col t)
+//                       a2 = (row g, col t+4)  a3 = (row g+8, col t+4)
+//   B 8x8 (k x n, two b32):  b0 = (k t, n g)   b1 = (k t+4, n g)
+//   C/D as above.
+// ldmatrix moves 16-bit pairs, so on an fp32 tile each 8x8 b16 matrix
+// is 8 rows of 4 floats and a lane receives (row g, col t) of it: the
+// A and B fragments of an operand whose reduction axis is its rows'
+// contiguous axis. The reduction axis may be permuted at will when A and
+// B share the permutation: reading k t as column 2t and k t+4 as column
+// 2t+1 of each 8, the accumulators of an n8 product are the A operand
+// {c0, c2, c1, c3} of the next product with those 8 columns as its
+// reduction axis (`split_a_tf32`), with no shuffle, and the B operand of
+// that product reads rows 2t and 2t+1 of its tile.
 
 #pragma once
 
@@ -146,6 +164,68 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// d += a . b: one 16x8x8 product, tf32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (10 mantissa bits, nearest, ties away from zero), as
+// fp32 bits: half the dropped unit added to the magnitude's bits, then the
+// 13 low bits cleared. This is cvt.rna.tf32.f32 for every finite x and
+// for inf, in two integer instructions where ptxas lowers cvt.rna to four
+// (a finite test and a select besides); only a NaN whose payload lies
+// wholly in the 13 low bits turns into inf, and its lo (x - inf) is NaN,
+// so a product it enters is NaN either way.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo to about 2^-22 of x, both tf32: hi is x rounded, lo the
+// rest rounded
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The same for the four fp32 bit patterns of a fragment
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// The accumulators of an n8 product, split, as the tf32 A operand of the
+// next product with those 8 columns as its reduction axis (k t -> column
+// 2t, k t+4 -> column 2t+1)
+__device__ __forceinline__ void split_a_tf32(const float (&c)[4],
+                                             uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// d += a . b at about fp32 accuracy (3xTF32) from the split operands: the
+// small terms first, alo.bhi + ahi.blo, then ahi.bhi; alo.blo (about
+// 2^-22 of a.b) is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           uint32_t bhi0, uint32_t bhi1,
+                                           uint32_t blo0, uint32_t blo1) {
+  mma_tf32(d, alo, bhi0, bhi1);
+  mma_tf32(d, ahi, blo0, blo1);
+  mma_tf32(d, ahi, bhi0, bhi1);
 }
 
 }  // namespace hopper

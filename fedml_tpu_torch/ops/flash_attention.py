@@ -79,34 +79,40 @@ def build():
 #: the bf16 tensor-core kernels by wrapper: B2, B3, B4
 MMA_KERNELS = {"fwd": "fwd_mma_kernel", "dq": "dq_mma_kernel",
                "dkv": "dkv_mma_kernel"}
+#: the fp32 tensor-core kernels (3xTF32) by wrapper: B3, B4
+TF32_KERNELS = {"dq": "dq_tf32_kernel", "dkv": "dkv_tf32_kernel"}
 
 
-def mma_kernel_tag(name, D):
-    """The part of the mangled name of the bf16 kernel of wrapper ``name``
-    (a key of :data:`MMA_KERNELS`) at head dim ``D`` that names it alone,
-    as ``-Xptxas -v`` reports it: ``14fwd_mma_kernelILi128E``."""
-    fn = MMA_KERNELS[name]
+def mma_kernel_tag(name, D, kernels=MMA_KERNELS):
+    """The part of the mangled name of the kernel of wrapper ``name`` (a
+    key of ``kernels``, :data:`MMA_KERNELS` or :data:`TF32_KERNELS`) at
+    head dim ``D`` that names it alone, as ``-Xptxas -v`` reports it:
+    ``14fwd_mma_kernelILi128E``."""
+    fn = kernels[name]
     return f"{len(fn)}{fn}ILi{D}E"
 
 
 def mma_launch_info(D=128):
-    """Launch shape of the bf16 forward (B2), dq (B3) and dk/dv (B4)
-    kernels at head dim ``D`` on the current card: ``{"fwd": {"threads",
-    "smem_bytes", "blocks_per_sm"}, "dq": {...}, "dkv": {...}}``."""
-    out = (ctypes.c_int * 9)()
+    """Launch shape of the tensor-core kernels at head dim ``D`` on the
+    current card: ``{"fwd": {"threads", "smem_bytes", "blocks_per_sm"},
+    "dq": {...}, "dkv": {...}}`` for bf16 B2-B4 and ``"dq_tf32"``,
+    ``"dkv_tf32"`` for fp32 B3 and B4."""
+    out = (ctypes.c_int * 15)()
     _raise_on(LIBRARY.lib.fedml_flash_mma_info(D, out), "mma_info")
     return {name: {"threads": out[i], "smem_bytes": out[i + 1],
                    "blocks_per_sm": out[i + 2]}
-            for name, i in (("fwd", 0), ("dq", 3), ("dkv", 6))}
+            for name, i in (("fwd", 0), ("dq", 3), ("dkv", 6),
+                            ("dq_tf32", 9), ("dkv_tf32", 12))}
 
 
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-def _scores(q, k, causal, scale, k_len):
-    """Masked fp32 scores ``[B, H, Tq, Tk]`` (the Pallas ``_mask``)."""
+def _scores(q, k, causal, scale, k_len, product=torch.einsum):
+    """Masked fp32 scores ``[B, H, Tq, Tk]`` (the Pallas ``_mask``), the
+    product ``q k^T`` taken by ``product(eq, q, k)``."""
     Tq, Tk = q.shape[1], k.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = product("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     qpos = torch.arange(Tq, device=q.device)[:, None]
     kpos = torch.arange(Tk, device=q.device)[None, :]
     valid = kpos < k_len
@@ -177,6 +183,57 @@ def flash_attention_bwd_reference(q, k, v, do, lse, delta, causal=False,
     args = (q, k, v, do, lse, delta, causal, scale, k_len)
     return ((flash_attention_dq_reference(*args),)
             + flash_attention_dkv_reference(*args))
+
+
+def tf32_split(x):
+    """``(hi, lo)`` of fp32 ``x`` as the fp32 B3 and B4 split each operand
+    (``tf32_rna`` in ``csrc/hopper_mma.cuh``, the rounding of
+    ``cvt.rna.tf32.f32``): ``hi`` is ``x`` rounded to TF32 -- the 13 low
+    mantissa bits dropped, to nearest with ties away from zero, inf and
+    NaN passed through -- and ``lo`` is ``x - hi`` rounded the same way.
+    Both fp32."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _tf32_rna(x):
+    bits = x.contiguous().view(torch.int32)
+    finite = torch.isfinite(x)
+    # on the magnitude, so that adding half the dropped unit rounds ties
+    # away from zero; a carry into the exponent is the right rounding
+    mag = torch.where(finite, bits & 0x7FFFFFFF, 0)
+    rounded = ((mag + 0x1000) & 0x7FFFE000) | (bits & -0x80000000)
+    return torch.where(finite, rounded.view(torch.float32), x)
+
+
+def _tf32_product(eq, a, b, passes):
+    """``einsum(eq, a, b)`` in fp32 from TF32 parts: ``passes`` 3 sums
+    ``lo_a hi_b + hi_a lo_b + hi_a hi_b`` (3xTF32, the kernels'
+    products), 1 takes ``hi_a hi_b`` (plain TF32)."""
+    (ahi, alo), (bhi, blo) = tf32_split(a.float()), tf32_split(b.float())
+    if passes == 1:
+        return torch.einsum(eq, ahi, bhi)
+    return (torch.einsum(eq, alo, bhi) + torch.einsum(eq, ahi, blo)
+            + torch.einsum(eq, ahi, bhi))
+
+
+def flash_attention_bwd_tf32_reference(q, k, v, do, lse, delta,
+                                       causal=False, scale=None, k_len=None,
+                                       passes=3):
+    """:func:`flash_attention_bwd_reference` in fp32 with each of its five
+    products taken from TF32 parts (:func:`tf32_split`), ``passes`` 3 as
+    the fp32 B3 and B4 take them (3xTF32) or 1 (plain TF32): the split's
+    arithmetic, for the tests. Nothing on the main path calls it."""
+    scale, k_len = _defaults(q, k, scale, k_len)
+    s = _scores(q, k, causal, scale, k_len,
+                lambda eq, a, b: _tf32_product(eq, a, b, passes))
+    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - lse[..., None]))
+    dov = _tf32_product("bqhd,bkhd->bhqk", do, v, passes)
+    ds = p * (dov - delta[..., None])
+    dq = scale * _tf32_product("bhqk,bkhd->bqhd", ds, k, passes)
+    dk = scale * _tf32_product("bhqk,bqhd->bkhd", ds, q, passes)
+    dv = _tf32_product("bhqk,bqhd->bkhd", p, do, passes)
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -339,8 +396,9 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
     return FlashAttention.apply(q, k, v, causal, scale)
 
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "MMA_KERNELS", "build", "mma_kernel_tag",
-           "mma_launch_info", "launches",
+__all__ = ["SUPPORTED_HEAD_DIMS", "MMA_KERNELS", "TF32_KERNELS", "build",
+           "mma_kernel_tag", "mma_launch_info", "launches", "tf32_split",
+           "flash_attention_bwd_tf32_reference",
            "flash_attention", "FlashAttention", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_fwd_reference",

@@ -1,6 +1,7 @@
 """What the measurement scripts share: the platform flag, the device, the
-card's name and power limit beside every number, and the timer (CUDA
-events on the card, the host clock on the CPU)."""
+card's name and power limit beside every number, and the timers (CUDA
+events on the card, the host clock on the CPU; ``flushed_ms`` for one
+kernel, which ``chip_smoke.py`` uses too)."""
 
 from __future__ import annotations
 
@@ -69,3 +70,28 @@ def call_ms(fn, device, repeats, warmup=2):
 def median(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2]
+
+
+def flushed_ms(fn, flush, iters=20, warmup=3):
+    """Median device time (ms) of ``fn`` a call (CUDA events), with the
+    L2 cache flushed before each call (``flush``, a 64 MB buffer, zeroed)
+    as a training step would find it. A 10 ms spin on the device after
+    the flush covers the host's time to enqueue ``fn`` (autograd's
+    backward of one attention call outlasted a spin of half a
+    millisecond), so the events time the device's work and not the
+    launch path; the median drops a call whose host side stalled past
+    the spin. ``chip_smoke.py`` times every kernel with it."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(10_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return median(times)

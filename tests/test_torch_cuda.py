@@ -186,14 +186,17 @@ def _qkv_do(dev, dtype, B, Tq, Tk, H, D, seed):
 # (B, Tq, Tk, H, D): the LM flagship's launch (8 clients x batch 4 at
 # T=80, 4 heads of 128), T of 1 and 129 (one row; one past two tiles),
 # Tq != Tk both ways, head dim 64; then the edges of the bf16 kernels'
-# 16-row sub-tiles and 32/64-row tiles (T of 15, 16, 17, 33, 63, 65) and
-# a T above 128 with Tq != Tk
+# 16-row sub-tiles and 32/64-row tiles (T of 15, 16, 17, 33, 63, 65), a
+# T above 128 with Tq != Tk, main_longcontext's T 512 at 4 heads of 64
+# (a batch of 4 of its 32) and a T of 500 that ends inside a 16-row
+# sub-tile at D 128
 ATTN_SHAPES = [(32, 80, 80, 4, 128), (2, 1, 1, 2, 128), (2, 129, 129, 2, 64),
                (2, 129, 129, 2, 128), (2, 40, 24, 3, 64),
                (2, 24, 70, 2, 128), (3, 80, 80, 2, 64),
                (2, 15, 15, 2, 128), (2, 16, 16, 2, 64), (2, 17, 17, 2, 128),
                (2, 33, 33, 2, 64), (2, 63, 63, 2, 128), (2, 65, 65, 2, 128),
-               (2, 200, 150, 2, 128)]
+               (2, 200, 150, 2, 128), (4, 512, 512, 4, 64),
+               (2, 500, 500, 2, 128)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -280,15 +283,15 @@ def test_bf16_causal_forward_masks_keys_past_k_len(cuda, D, Tq, Tk, k_len):
         assert torch.equal(lse, torch.zeros_like(lse))
 
 
-def test_flash_kernels_read_strided_qkv_views(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_read_strided_qkv_views(cuda, dtype):
     """q, k, v as column slices of one fused qkv product (the model's
     layout) give the same bits as contiguous copies: O and lse, dq, dk
     and dv."""
     B, T, H, D = 4, 80, 4, 128
     gen = torch.Generator(device=cuda).manual_seed(3)
-    qkv = torch.randn(B, T, 3 * H * D, generator=gen,
-                      device=cuda).to(torch.bfloat16)
-    do = torch.randn(B, T, H, D, generator=gen, device=cuda).to(torch.bfloat16)
+    qkv = torch.randn(B, T, 3 * H * D, generator=gen, device=cuda).to(dtype)
+    do = torch.randn(B, T, H, D, generator=gen, device=cuda).to(dtype)
     q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, T, H, D)
                for i in range(3))
     assert not q.is_contiguous()
@@ -301,18 +304,19 @@ def test_flash_kernels_read_strided_qkv_views(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernels_take_views_off_16_byte_rows(cuda, causal):
+def test_flash_kernels_take_views_off_16_byte_rows(cuda, causal, dtype):
     """q, k, v and dO whose rows do not start on 16 bytes (views one
     element into a buffer with an odd row stride) are read element by
     element: forward and backward match the plain versions."""
     B, T, H, D = 2, 70, 2, 128
     gen = torch.Generator(device=cuda).manual_seed(9)
     buf = torch.randn(4, B, T, H * D + 1, generator=gen,
-                      device=cuda).to(torch.bfloat16)
+                      device=cuda).to(dtype)
     q, k, v, do = (buf[i, :, :, 1:].reshape(B, T, H, D) for i in range(4))
-    assert q.data_ptr() % 16 and q.stride(1) % 8
-    rel, abs_ = _tol(torch.bfloat16)
+    assert q.data_ptr() % 16 and q.stride(1) % 4
+    rel, abs_ = _tol(dtype)
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
     o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal)
     _close_rel(o, o_ref, rel, abs_)
