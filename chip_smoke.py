@@ -10,13 +10,15 @@ Phases (any failure exits non-zero):
    ``build/`` (one nvcc per source, all at once), print the tensor-core
    kernels' registers and spills (``-Xptxas -v``) with their threads,
    shared memory and blocks an SM -- the bf16 dW kernel at each of
-   ResNet-56's four shapes, the bf16 forward, dq and dk/dv -- and read
-   the card's name and power limit;
+   ResNet-56's four shapes, the bf16 and the fp32 (3xTF32) forward, dq
+   and dk/dv at head dims 128 and 64 -- and read the card's name and
+   power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes of its main path, and time kernel, plain version, one library
    call computing the same function (a yardstick only) and the bound:
-   the grouped-conv dW (B1) at ResNet-56's four shapes in bf16 (each
-   line names the kernel's route, tensor cores or CUDA cores); the
+   the grouped-conv dW (B1) at ResNet-56's four shapes in bf16 and in
+   fp32 (each line names the kernel's route, tensor cores or CUDA
+   cores; in fp32 against cuDNN's fp32 dW with TF32 off); the
    flash-attention forward, dq and dk/dv (B2-B4) at the LM flagship's
    launch ([32, 80, 4, 128] bf16 causal), a ragged T, a non-causal case
    the experiment main's LM launch ([32, 20, 4, 64] causal) and one TCP
@@ -244,8 +246,8 @@ Phases (any failure exits non-zero):
 17. run the client-sharded rounds and the long-context main
    (``phase_a15``): (a) ``main_longcontext`` at its defaults (T 512,
    vocab 10004, 4 layers, 4 heads of 64, d_model 256, batch 32) with
-   ``--n_seq 1`` for ``A15_STEPS`` steps, in fp32 (its default: B2 on
-   the CUDA cores, B3 and B4 3xTF32 on the tensor cores) and with
+   ``--n_seq 1`` for ``A15_STEPS`` steps, in fp32 (its default: B2-B4
+   3xTF32 on the tensor cores) and with
    ``--model_dtype bf16`` (B2-B4 on the tensor cores in bf16), B3 and B4
    launched layers x steps times in each and B2 as often, B2-B4 at [32,
    512, 4, 64] in bf16 and fp32 and at the LM flagship's width [32, 80,
@@ -313,7 +315,9 @@ Phases (any failure exits non-zero):
    client dropped. In (b) and (c) each of B2-B4 must launch once a layer
    a step of the trainer calls recorded in the run; every line names the
    card and its power limit;
-21. print the ``kernels`` JSON line and, last, the ``ok`` line.
+21. print the ``kernels`` JSON line (B1-B4 on the main paths' bf16
+   launches, then B2-B4's fp32 kernels at ``main_longcontext``'s launch,
+   with their launches over its fp32 steps) and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -369,45 +373,61 @@ def fail(msg):
 
 
 def phase_kernels(torch, grouped_conv):
-    """Kernel vs plain version at the main path's four dW shapes."""
+    """Kernel vs plain version at the main path's four dW shapes, timed
+    beside cuDNN's ``conv2d_weight``: in bf16 (``dw_shape`` lines, the
+    main path's tensor-core route, tolerance 1e-3 * max|ref| + 1e-3),
+    then in fp32 (``dw_shape_fp32`` lines: ``dw_partial_kernel`` on the
+    CUDA cores against cuDNN in fp32, ``torch.backends.cudnn.allow_tf32``
+    False as ``main`` sets it and the line states; the card tests'
+    tolerance 1e-4 * max|ref| + 1e-5). Each line gives its error over its
+    tolerance. Returns the bf16 rows."""
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows = []
-    for label, ci, co, hw, per_step in DW_SHAPES:
-        x = torch.randn((B, L * ci, hw, hw), generator=gen, device=dev
-                        ).to(torch.bfloat16)
-        dy = torch.randn((B, L * co, hw, hw), generator=gen, device=dev
-                         ).to(torch.bfloat16)
-        args = (x, dy, L, 3, 3, (1, 1))
-        before = dict(grouped_conv.route_launches)
-        got = grouped_conv.grouped_conv_dw(*args)
-        route = [k for k, n in grouped_conv.route_launches.items()
-                 if n != before[k]]
-        ref = grouped_conv.grouped_conv_dw_reference(x.float(), dy.float(),
-                                                     L, 3, 3, (1, 1))
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        tol = 1e-3 * float(ref.abs().max()) + 1e-3
-        if not math.isfinite(err) or err > tol:
-            fail(f"grouped_conv_dw {label}: max|err| {err} > tol {tol}")
-        w_shape = (L * co, ci, 3, 3)
-        ms = timed_ms(lambda: grouped_conv.grouped_conv_dw(*args), flush)
-        plain_ms = timed_ms(
-            lambda: grouped_conv.grouped_conv_dw_reference(*args), flush)
-        library_ms = timed_ms(lambda: torch.nn.grad.conv2d_weight(
-            x, w_shape, dy, padding=1, groups=L), flush)
-        K = B * hw * hw
-        nbytes = x.numel() * 2 + dy.numel() * 2 + L * co * ci * 9 * 4
-        ops = 2 * L * ci * co * 9 * K
-        row = {"shape": label, "route": route[0], "x": list(x.shape),
-               "dy": list(dy.shape), "convs_per_step": per_step,
-               "max_abs_err": err, "tol": tol,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "ops_ms": ops / BF16_OPS_PER_S * 1e3}
-        print("dw_shape " + json.dumps(row), flush=True)
-        rows.append(row)
+    for dtype, prefix, ops_per_s, (rel, abs_) in (
+            (torch.bfloat16, "dw_shape", BF16_OPS_PER_S, (1e-3, 1e-3)),
+            (torch.float32, "dw_shape_fp32", FP32_OPS_PER_S, (1e-4, 1e-5))):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        itemsize = 2 if dtype == torch.bfloat16 else 4
+        for label, ci, co, hw, per_step in DW_SHAPES:
+            x = torch.randn((B, L * ci, hw, hw), generator=gen, device=dev
+                            ).to(dtype)
+            dy = torch.randn((B, L * co, hw, hw), generator=gen, device=dev
+                             ).to(dtype)
+            args = (x, dy, L, 3, 3, (1, 1))
+            before = dict(grouped_conv.route_launches)
+            got = grouped_conv.grouped_conv_dw(*args)
+            route = [k for k, n in grouped_conv.route_launches.items()
+                     if n != before[k]]
+            ref = grouped_conv.grouped_conv_dw_reference(
+                x.float(), dy.float(), L, 3, 3, (1, 1))
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            tol = rel * float(ref.abs().max()) + abs_
+            if not math.isfinite(err) or err > tol:
+                fail(f"grouped_conv_dw {label} {dtype}: max|err| {err} > "
+                     f"tol {tol}")
+            w_shape = (L * co, ci, 3, 3)
+            ms = timed_ms(lambda: grouped_conv.grouped_conv_dw(*args),
+                          flush)
+            plain_ms = timed_ms(
+                lambda: grouped_conv.grouped_conv_dw_reference(*args), flush)
+            library_ms = timed_ms(lambda: torch.nn.grad.conv2d_weight(
+                x, w_shape, dy, padding=1, groups=L), flush)
+            K = B * hw * hw
+            nbytes = (x.numel() + dy.numel()) * itemsize + L * co * ci * 9 * 4
+            ops = 2 * L * ci * co * 9 * K
+            row = {"shape": label, "route": route[0], "x": list(x.shape),
+                   "dy": list(dy.shape), "convs_per_step": per_step,
+                   "max_abs_err": err, "tol": tol, "err_over_tol": err / tol,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "ops_ms": ops / ops_per_s * 1e3}
+            if dtype == torch.float32:
+                row["cudnn_allow_tf32"] = torch.backends.cudnn.allow_tf32
+            print(f"{prefix} " + json.dumps(row), flush=True)
+            if dtype == torch.bfloat16:
+                rows.append(row)
     return rows
 
 
@@ -432,8 +452,8 @@ def mma_kernel_usage(_build, fa, grouped_conv, reports):
     ``-Xptxas -v`` reports, with threads, shared memory and blocks an SM
     of their launch on this card: the bf16 dW kernel at each of the main
     path's four shapes (its ``CH`` instance and K splits too), the bf16
-    forward, dq and dk/dv kernels and the fp32 (3xTF32) dq and dk/dv
-    kernels per head dim. Fails when a kernel is missing from a
+    forward, dq and dk/dv kernels and the fp32 (3xTF32) forward, dq and
+    dk/dv kernels per head dim. Fails when a kernel is missing from a
     report."""
     out = {}
     usage = _build.ptxas_usage(reports[grouped_conv.LIBRARY.name])
@@ -3369,9 +3389,12 @@ def _a15_attention_cases(torch, fa):
                     f"FlashAttention backward {gname} {label}", got, ref,
                     rel, abs_))
             bf16 = dtype == torch.bfloat16
+            # the fp32 B2-B4 take three TF32 products for each fp32 one
+            # (3xTF32): their bound is at a third of the TF32 rate, and
+            # the rate of fp32 on the CUDA cores is kept beside it
             bounds = _attn_bounds(Bq, T, True, itemsize=2 if bf16 else 4,
                                   D=D, ops_per_s=(BF16_OPS_PER_S if bf16
-                                                  else FP32_OPS_PER_S))
+                                                  else TF32_OPS_PER_S / 3))
             times = {
                 "fwd": (lambda: fa.flash_attention_fwd(q, k, v, True),
                         lambda: fa.flash_attention_fwd_reference(q, k, v,
@@ -3397,12 +3420,10 @@ def _a15_attention_cases(torch, fa):
                        "bound_ms": bounds[kname]["bound_ms"],
                        "bound_by": bounds[kname]["bound_by"]}
                 if not bf16:
-                    # the fp32 B3 and B4 take three TF32 products for each
-                    # fp32 one (3xTF32): their bound at that rate
                     b = bounds[kname]
-                    row["bound_3xtf32_ms"] = max(
+                    row["bound_fp32_cuda_core_ms"] = max(
                         b["bytes"] / HBM_BYTES_PER_S,
-                        3 * b["ops"] / TF32_OPS_PER_S) * 1e3
+                        b["ops"] / FP32_OPS_PER_S) * 1e3
                 if kname == "bwd":
                     row["bwd_ms"] = row["ms"]
                     row["delta_ms"] = timed_ms(delta_fn, flush)
@@ -3443,7 +3464,7 @@ def _a15_main_run(torch, fa, smi, dtype_flags, route):
 def _a15_drift(torch, smi):
     """The same SGD steps from the same weights through the kernels and
     through the plain ``mha``, in bf16 (B2-B4's tensor-core route, the
-    ROADMAP watch item) and fp32 (B3 and B4 3xTF32): each step's loss
+    ROADMAP watch item) and fp32 (B2-B4 3xTF32): each step's loss
     drift, and the parameters' largest drift beside their largest move
     from the initial weights. Recorded, not gated."""
     from fedml_tpu_torch.ops.attention import mha
@@ -3467,11 +3488,11 @@ def _a15_drift(torch, smi):
 
 
 def _a15_longcontext(torch, fa, smi):
-    """Phase 17 (a): the main's launches in fp32 (its default: B2 on the
-    CUDA cores, B3 and B4 3xTF32) and in bf16 (B2-B4 in bf16 on the
-    tensor cores), the timed attention cases, the drift."""
+    """Phase 17 (a): the main's launches in fp32 (its default: B2-B4
+    3xTF32 on the tensor cores) and in bf16 (B2-B4 in bf16 on the tensor
+    cores), the timed attention cases, the drift."""
     launches = {
-        "fp32": _a15_main_run(torch, fa, smi, [], "fp32_3xtf32_bwd"),
+        "fp32": _a15_main_run(torch, fa, smi, [], "fp32_3xtf32"),
         "bf16": _a15_main_run(torch, fa, smi, ["--model_dtype", "bf16"],
                               "mma")}
     times = _a15_attention_cases(torch, fa)
@@ -4199,7 +4220,7 @@ def main():
     phase_serverless(torch, grouped_conv, fa, smi)
     phase_a14c(torch, grouped_conv, fa, smi)
     phase_tooling(torch, fa, smi)
-    phase_a15(torch, grouped_conv, fa, smi)
+    a15 = phase_a15(torch, grouped_conv, fa, smi)
     phase_a15b(torch, fa, smi)
     phase_fedlint(smi)
     phase_modelcheck(torch, fa, smi, cp)
@@ -4229,6 +4250,19 @@ def main():
             "replaces": f"fedml_tpu/ops/pallas_attention.py:{line}",
             "launches": attn_launches[name],
             "max_abs_err": attn_errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    # the fp32 kernels (3xTF32), a launch at main_longcontext's [32, 512,
+    # 4, 64] causal, launches over its fp32 steps (phase 17 (a))
+    for name, line in (("fwd", 123), ("dq", 241), ("dkv", 255)):
+        t = a15["t512"][("longcontext_T512", "fp32", name)]
+        kernels.append({
+            "name": f"flash_attention_{name}_fp32", "route": "cuda",
+            "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"fedml_tpu/ops/pallas_attention.py:{line}",
+            "launches": a15["attention"]["fp32"][name],
+            "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

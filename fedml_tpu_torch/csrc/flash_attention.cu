@@ -22,19 +22,19 @@
 //
 // Numerics. Inputs are bf16 or fp32. Products take values of the input
 // type and sum in fp32, as the Pallas kernels' preferred_element_type=
-// float32 (B3 and B4 in fp32 to within about 2^-22 of each term,
-// below). p (B2, B4) and ds (B3, B4) are rounded to the input type
-// before their second product, as the Pallas kernels cast them. The
-// online-softmax state m, l, acc stays fp32, including the s <= NEG_INF/2
-// -> p = 0 guard and the m_keep rule. B2 takes the exact expf; in bf16 it
-// rounds p against the running maximum of the keys its warp has taken,
-// 16 at a time (the Pallas kernel at block 16 against the row's running
-// maximum, the plain version against the whole row's). In bf16, B3 and
-// B4 take exp from ex2.approx (`bwd_exp`), a few fp32 ulps off, before p
-// and ds are rounded to bf16: measured faster than expf on the card. Each
-// output tile is owned by one block, the partial sums of a warp pair
-// meet in a fixed order and there are no atomics, so a repeat call is
-// bit-equal.
+// float32 (in fp32 through three TF32 products, to within about 2^-22
+// of each term, below). p (B2, B4) and ds (B3, B4) are rounded to the
+// input type before their second product, as the Pallas kernels cast
+// them. The online-softmax state m, l, acc stays fp32, including the
+// s <= NEG_INF/2 -> p = 0 guard and the m_keep rule. B2 takes the exact
+// expf; in bf16 it rounds p against the running maximum of the keys its
+// warp has taken, 16 at a time (the Pallas kernel at block 16 against the
+// row's running maximum, the plain version against the whole row's). In
+// bf16, B3 and B4 take exp from ex2.approx (`bwd_exp`), a few fp32 ulps
+// off, before p and ds are rounded to bf16: measured faster than expf on
+// the card. Each output tile is owned by one block, the partial sums of a
+// warp pair meet in a fixed order and there are no atomics, so a repeat
+// call is bit-equal.
 //
 // What bounds them on the card. At the LM flagship's launch ([32, 80, 4,
 // 128] bf16, causal) the functions move 10.5 MB (B2), 13.1 MB (B3) and
@@ -70,9 +70,9 @@
 //   have landed; at the end the odd warp's state is merged into the even
 //   one's through shared memory, in that order, and O leaves through
 //   shared memory, 16 contiguous bytes a lane. A softmax step per 64-key
-//   tile with one warp per 16 rows (p rounded against the CUDA-core
-//   forward's running maximum) measured 1.7x slower, waiting for whole
-//   tiles and running the five sub-tiles of rows 64-79 in one warp.
+//   tile with one warp per 16 rows (p rounded against the tile's
+//   running maximum) measured 1.7x slower, waiting for whole tiles and
+//   running the five sub-tiles of rows 64-79 in one warp.
 // - B3: two warps share each 16 query rows and take every other 16-key
 //   group, which halves the longest chain of sub-tiles a warp runs (dQ
 //   summed in registers, the odd warp's onto the even one's through
@@ -89,51 +89,40 @@
 // two blocks share an SM. Rows that do not start on 16 bytes are loaded
 // element by element instead.
 //
-// B2 in fp32 (which the fp32 models run, main_longcontext at its
-// defaults among them, besides the tests and the fp32 logits check of
-// chip_smoke.py): the first design, on the CUDA cores. One block of 256
-// threads per (batch*head, 64-row query tile) loops over the key tiles
-// (skipping, causal, those above the diagonal), staging its Q tile and
-// each K and V tile in shared memory as fp32, rows padded to D+4 floats.
-// Four threads share a tile row: each computes the scores of every fourth
-// column (16 of 64) and owns four of every sixteen columns of the head
-// dim of the row's accumulators; row maxima and sums reduce over the four
-// lanes by shuffles. Every shared-memory read is a float4; each product
-// is an fp32 FMA. Tiles arrive by 16-byte loads, all of a thread's in
-// flight at once, and the p tile takes the K tile's place, so two blocks
-// share an SM. This design is bound by instruction issue at low
-// occupancy, far above its byte bound.
-//
-// B3 and B4 in fp32: tensor cores at fp32 accuracy. At main_longcontext's
-// launch ([32, 512, 4, 64] fp32, causal) the functions move 84 MB (B3)
-// and 101 MB (B4), 25 and 30 us at 3.35 TB/s, against 6.5 and 8.6 GFLOP
-// on the valid (query, key) pairs: 96 and 129 us at the CUDA cores' 67
-// TFLOP/s, which the first design (four FMAs to a float4 shared load,
-// bound by instruction issue) missed six times over. TF32 on the tensor
-// cores (495 TFLOP/s) keeps 10 mantissa bits, about three decimal digits:
-// short of the fp32 tolerance. So each operand is split in registers as
-// its fragment is read, x = hi + lo with both tf32 (rounded as
-// cvt.rna.tf32 rounds), and each product is lo.hi + hi.lo + hi.hi on the
-// tensor cores (3xTF32, hopper_mma.cuh), within about 2^-22 of fp32's: 3
-// x the operations at 495 TFLOP/s, a bound of 39 and 52 us. The tensor
-// cores truncate the sums they accumulate, and ds = p (dP - delta)
-// cancels dP against an fp32 delta, so dP's products start from zero
-// every 8 columns of the head dim and are summed on the CUDA cores. The
-// kernels keep the bf16 kernels' layout above (B3: two warps per 16
-// query rows, K and V 16 keys at a time behind mbarriers; B4: one warp
-// per 16 keys owning their dK and dV), with mma.m16n8k8 on fp32 tiles of
-// D + 4 floats. The
-// operands whose reduction axis is the head dim come through ldmatrix
-// (an 8x8 b16 matrix is 8 rows of 4 floats); those whose reduction axis
-// is the tile's rows (K in B3, dO and Q in B4) by plain loads, as
-// ldmatrix.trans moves 16-bit elements and cannot transpose fp32. Each 8
-// of the reduction axis is read in the order 0, 4, 1, 5, ... (k t as row
-// 2t, k t+4 as row 2t+1), which makes the score accumulators the A
-// operand of the next product as they stand, with no shuffle, and keeps
-// the plain loads free of bank conflicts. p and ds stay fp32 (the
-// accurate expf) and are split like any other operand. A block holds
-// 102-103 KB of shared memory at D = 64 (two blocks an SM) and 198-199
-// KB at D = 128 (one).
+// B2, B3 and B4 in fp32 (which the fp32 models run, main_longcontext at
+// its defaults among them): tensor cores at fp32 accuracy. At
+// main_longcontext's launch ([32, 512, 4, 64] fp32, causal) the functions
+// move 67 MB (B2), 84 MB (B3) and 101 MB (B4), 20-30 us at 3.35 TB/s,
+// against 4.3, 6.5 and 8.6 GFLOP on the valid (query, key) pairs: 64-129
+// us at the CUDA cores' 67 TFLOP/s, which the first design (four FMAs to
+// a float4 shared load, bound by instruction issue) missed five to six
+// times over. TF32 on the tensor cores (495 TFLOP/s) keeps 10 mantissa
+// bits, about three decimal digits: short of the fp32 tolerance. So each
+// operand is split in registers as its fragment is read, x = hi + lo with
+// both tf32 (rounded as cvt.rna.tf32 rounds), and each product is lo.hi +
+// hi.lo + hi.hi on the tensor cores (3xTF32, hopper_mma.cuh), within
+// about 2^-22 of fp32's: 3 x the operations at 495 TFLOP/s, a bound of
+// 26, 39 and 52 us. The tensor cores truncate the sums they accumulate,
+// and ds = p (dP - delta) cancels dP against an fp32 delta, so dP's
+// products start from zero every 8 columns of the head dim and are summed
+// on the CUDA cores; S does not cancel so, and sums on the tensor cores.
+// The kernels keep the bf16 kernels' layout above (B2 and B3: two warps
+// per 16 query rows, K and V 16 keys at a time behind mbarriers; B4: one
+// warp per 16 keys owning their dK and dV), with mma.m16n8k8 on fp32
+// tiles of D + 4 floats. The operands whose reduction axis is the head
+// dim come through ldmatrix (an 8x8 b16 matrix is 8 rows of 4 floats);
+// those whose reduction axis is the tile's rows (V in B2, K in B3, dO and
+// Q in B4) by plain loads, as ldmatrix.trans moves 16-bit elements and
+// cannot transpose fp32 (and wgmma's tf32 path wants both operands
+// K-major in shared memory). Each 8 of the reduction axis is read in the
+// order 0, 4, 1, 5, ... (k t as row 2t, k t+4 as row 2t+1), which makes
+// the score accumulators the A operand of the next product as they stand,
+// with no shuffle, and keeps the plain loads free of bank conflicts. p
+// and ds stay fp32 (the accurate expf) and are split like any other
+// operand. A block holds 87 KB (B2) and 102-103 KB (B3, B4) of shared
+// memory at D = 64 (two blocks an SM) and 198-199 KB (B3, B4: one) at D =
+// 128, where B2's blocks own 32 query rows and loop over 32-key tiles
+// (84 KB, two blocks an SM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -145,28 +134,7 @@
 
 namespace {
 
-constexpr int kTile = 64;          // query rows and key rows per tile
-constexpr int kThreads = 256;      // four threads per tile row
-constexpr int kCols = kTile / 4;   // score columns per thread
-constexpr int kLP = kTile + 4;     // padded row of a [64 x 64] tile
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX package
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-// v rounded to the input type and held as fp32 (the Pallas `.astype`)
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
 
 struct Strides {
   long long b, t, h;
@@ -200,176 +168,6 @@ __device__ __forceinline__ void probs_and_ds(float qk, float dov, float lse,
   const float s = valid ? qk * scale : kNegInf;
   *p = s <= kNegInf / 2 ? 0.f : bwd_exp<T>(s - lse);
   *ds = *p * (dov - delta);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// acc += a.x * b0 + a.y * b1 + a.z * b2 + a.w * b3, one FMA at a time
-__device__ __forceinline__ float fma4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// acc[0..3] += w.x * r0 + w.y * r1 + w.z * r2 + w.w * r3 (four rows of a
-// tile, four columns each), row by row
-__device__ __forceinline__ void axpy4(float4 w, float4 r0, float4 r1,
-                                      float4 r2, float4 r3, float* acc) {
-  const float4 rows[4] = {r0, r1, r2, r3};
-  const float ws[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc[0] = fmaf(ws[i], rows[i].x, acc[0]);
-    acc[1] = fmaf(ws[i], rows[i].y, acc[1]);
-    acc[2] = fmaf(ws[i], rows[i].z, acc[2]);
-    acc[3] = fmaf(ws[i], rows[i].w, acc[3]);
-  }
-}
-
-// Head-dim column of accumulator `a` of thread `t` of a row: four of every
-// sixteen columns, so four lanes read 64 contiguous bytes.
-__device__ __forceinline__ int acc_col(int a, int t) {
-  return 16 * (a >> 2) + 4 * t + (a & 3);
-}
-
-// Writes 16 bytes of the input type to `dst` (16-byte aligned) as fp32.
-__device__ __forceinline__ void put16(float* dst, uint4 raw, float) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&raw);
-}
-__device__ __forceinline__ void put16(float* dst, uint4 raw, __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-}
-
-// Stages rows [row0, row0 + kTile) of one (batch, head) of a [B, T, H, D]
-// tensor in shared memory as fp32, rows padded to D + 4; rows at or past
-// `len` are zero. When the rows start on 16-byte boundaries (the model's
-// qkv views and contiguous tensors do), every thread issues all its
-// 16-byte loads before it converts and stores any, so a tile costs about
-// one memory latency; otherwise it falls back to element loads.
-template <typename T, int D>
-__device__ void load_tile(float* dst, const T* __restrict__ src, Strides st,
-                          int b, int h, int row0, int len) {
-  const T* base = src + b * st.b + h * st.h;
-  constexpr int kVec = 16 / sizeof(T), kPerRow = D / kVec;
-  constexpr int kN = kTile * kPerRow / kThreads;
-  if (reinterpret_cast<unsigned long long>(base) % 16 == 0
-      && st.t % kVec == 0) {
-    uint4 raw[kN];
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int e = threadIdx.x + i * kThreads, t = row0 + e / kPerRow;
-      raw[i] = t < len ? *reinterpret_cast<const uint4*>(
-                             base + (long long)t * st.t + e % kPerRow * kVec)
-                       : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = 0; i < kN; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      put16(dst + e / kPerRow * (D + 4) + e % kPerRow * kVec, raw[i], T());
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, d = e % D, t = row0 + r;
-    dst[r * (D + 4) + d] =
-        t < len ? to_f32(base[(long long)t * st.t + d]) : 0.f;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
-               float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-               Strides so, int H, int Tq, int Tk, int k_len, float scale,
-               bool causal) {
-  constexpr int LD = D + 4, NA = D / 4;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kTile * LD;
-  float* sV = sK + kTile * LD;
-  // p takes the K tile's place once the scores are done, so that two
-  // blocks fit an SM's shared memory
-  float* sP = sK;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * kTile;
-  const int r = threadIdx.x >> 2, t = threadIdx.x & 3, qpos = q0 + r;
-
-  load_tile<T, D>(sQ, q, sq, b, h, q0, Tq);
-  float m = kNegInf, l = 0.f, acc[NA];
-#pragma unroll
-  for (int jj = 0; jj < NA; ++jj) acc[jj] = 0.f;
-
-  for (int k0 = 0; k0 < Tk; k0 += kTile) {
-    if (causal && k0 > q0 + kTile - 1) break;  // above the diagonal band
-    __syncthreads();  // the previous tiles' readers are done
-    load_tile<T, D>(sK, k, sk, b, h, k0, Tk);
-    load_tile<T, D>(sV, v, sv, b, h, k0, Tk);
-    __syncthreads();
-
-    float s[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      const float4 qd = ld4(&sQ[r * LD + d]);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        s[j] = fma4(qd, ld4(&sK[(t + 4 * j) * LD + d]), s[j]);
-    }
-    float blk = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      s[j] = score_valid(qpos, k0 + t + 4 * j, k_len, causal) ? s[j] * scale
-                                                              : kNegInf;
-      blk = fmaxf(blk, s[j]);
-    }
-    blk = fmaxf(blk, __shfl_xor_sync(0xffffffffu, blk, 1));
-    blk = fmaxf(blk, __shfl_xor_sync(0xffffffffu, blk, 2));
-    const float m_new = fmaxf(m, blk);
-    __syncthreads();  // every row's scores are done with the K tile
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const float p = s[j] <= kNegInf / 2 ? 0.f : expf(s[j] - m_new);
-      psum += p;
-      sP[r * kLP + t + 4 * j] = round_to<T>(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    const float corr = expf(m - m_new);
-    l = l * corr + psum;
-    __syncwarp();  // the row's p, written by its four lanes
-#pragma unroll
-    for (int jj = 0; jj < NA; ++jj) acc[jj] *= corr;
-    for (int c = 0; c < kTile; c += 4) {
-      const float4 pc = ld4(&sP[r * kLP + c]);
-      const float* vc = sV + c * LD + 4 * t;
-#pragma unroll
-      for (int g = 0; g < NA / 4; ++g)
-        axpy4(pc, ld4(vc + 16 * g), ld4(vc + LD + 16 * g),
-              ld4(vc + 2 * LD + 16 * g), ld4(vc + 3 * LD + 16 * g),
-              acc + 4 * g);
-    }
-    m = m_new <= kNegInf / 2 ? m : m_new;  // m_keep
-  }
-
-  if (qpos < Tq) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + b * so.b + (long long)qpos * so.t + h * so.h;
-#pragma unroll
-    for (int a = 0; a < NA; ++a)
-      orow[acc_col(a, t)] = from_f32<T>(acc[a] / denom);
-    // a fully masked row (l == 0) gets lse 0: the backward re-masks it
-    if (t == 0)
-      lse[(long long)bh * Tq + qpos] = l > 0.f ? m + logf(denom) : 0.f;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -989,7 +787,7 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
-// B3 and B4 in fp32, on tensor cores at fp32 accuracy (3xTF32)
+// B2, B3 and B4 in fp32, on tensor cores at fp32 accuracy (3xTF32)
 // ---------------------------------------------------------------------------
 
 // An fp32 tile row in shared memory: D + 4 floats (4 more than a multiple
@@ -1097,29 +895,40 @@ __device__ __forceinline__ void score_tf32(float (&s)[2][4], const float* a,
   }
 }
 
-// acc (16 x D: acc[n] holds columns 8n..8n+7) += A . rows [r, r + 16) of
-// a tile, 3xTF32, where A is the split 16x16 operand of two k8 halves
-// (ahi[j], alo[j] from `split_a_tf32`: k t and t+4 of half j are rows
-// r + 8j + 2t and r + 8j + 2t + 1). Each lane reads its B values, rows
-// 2t and 2t+1 of column 8n + g, by plain loads: ldmatrix.trans moves
-// 16-bit elements and cannot transpose fp32.
+// acc (16 x D: acc[n] holds columns 8n..8n+7) += A . rows [r, r + 8) of
+// a tile, 3xTF32, where A is the split 16x8 operand of one k8 half (ahi,
+// alo from `split_a_tf32`: k t and t+4 are rows r + 2t and r + 2t + 1).
+// Each lane reads its B values, rows 2t and 2t+1 of column 8n + g, by
+// plain loads: ldmatrix.trans moves 16-bit elements and cannot transpose
+// fp32.
+template <int D>
+__device__ __forceinline__ void acc_rows8_tf32(float (&acc)[D / 8][4],
+                                               const uint32_t (&ahi)[4],
+                                               const uint32_t (&alo)[4],
+                                               const float* tile, int r,
+                                               int g, int t) {
+  constexpr int LD = f32_ld<D>();
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const float* col = tile + (r + 2 * t) * LD + 8 * n + g;
+    uint32_t hi0, lo0, hi1, lo1;
+    hopper::split_tf32(col[0], hi0, lo0);
+    hopper::split_tf32(col[LD], hi1, lo1);
+    hopper::mma_3xtf32(acc[n], ahi, alo, hi0, hi1, lo0, lo1);
+  }
+}
+
+// acc (16 x D) += A . rows [r, r + 16) of a tile, 3xTF32, where A is the
+// split 16x16 operand of two k8 halves (ahi[j], alo[j]: half j is rows
+// r + 8j .. r + 8j + 7), one half after the other.
 template <int D>
 __device__ __forceinline__ void acc_rows_tf32(float (&acc)[D / 8][4],
                                               const uint32_t (&ahi)[2][4],
                                               const uint32_t (&alo)[2][4],
                                               const float* tile, int r, int g,
                                               int t) {
-  constexpr int LD = f32_ld<D>();
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float* col = tile + (r + 8 * j + 2 * t) * LD + 8 * n + g;
-      uint32_t hi0, lo0, hi1, lo1;
-      hopper::split_tf32(col[0], hi0, lo0);
-      hopper::split_tf32(col[LD], hi1, lo1);
-      hopper::mma_3xtf32(acc[n], ahi[j], alo[j], hi0, hi1, lo0, lo1);
-    }
+  acc_rows8_tf32<D>(acc, ahi[0], alo[0], tile, r, g, t);
+  acc_rows8_tf32<D>(acc, ahi[1], alo[1], tile, r + 8, g, t);
 }
 
 // B3 in fp32: dq_mma_kernel's layout with 3xTF32 products. One block of
@@ -1384,6 +1193,214 @@ __global__ void __launch_bounds__(kDkvThreads, D == 64 ? 2 : 1)
   }
 }
 
+// Query rows a block owns, which is also the keys of a loop tile, and
+// threads a block at head dim D. At D = 128, 32 rows and 32 keys, so that two blocks share an SM
+// (84,480 bytes each): at the LM flagship's width ([32, 80, 4, 128]) its
+// 384 blocks, two an SM, ran 10% faster than 256 blocks of 64 rows, one
+// an SM.
+template <int D> __host__ __device__ constexpr int fwd_tf32_tile() {
+  return D == 128 ? 32 : 64;
+}
+template <int D> __host__ __device__ constexpr int fwd_tf32_threads() {
+  return fwd_tf32_tile<D>() * 4;  // two warps per 16 query rows
+}
+// forward block: the Q tile, then two buffers of a K and a V tile (87 KB
+// at D = 64, 84 KB at D = 128: two blocks an SM)
+template <int D> constexpr size_t fwd_tf32_smem_bytes() {
+  return 5 * fwd_tf32_tile<D>() * f32_ld<D>() * sizeof(float);
+}
+
+// B2 in fp32: fwd_mma_kernel's layout with 3xTF32 products. One block of
+// fwd_tf32_threads<D>() per (batch*head, fwd_tf32_tile<D>() query rows);
+// warps 2m and 2m+1 own query rows [16m, 16m + 16) of the tile and take
+// its even and odd 16-key groups. Each keeps its own m, l and O (D/8
+// fragments of 16x8) in registers and takes one online-softmax step per
+// 16-key sub-tile: S = Q.K^T (Q and K through ldmatrix) into registers,
+// row max and sum over the row's four lanes, rescale of O, then p, in
+// fp32 and split as it stands (the A operand), times V by plain loads.
+// K and V arrive double-buffered, 16 keys at a time behind an mbarrier
+// each, as B3 stages them. At the end the odd warp's state is merged into
+// the even one's through shared memory, in that order. A warp whose rows
+// lie wholly past Tq only helps stage. The blocks take the query tiles
+// from the last: causal, those have the most keys, so they start first.
+// Two blocks an SM, as shared memory allows: at most 128 registers a
+// thread at D = 64 (256 threads), 255 at D = 128 (128 threads). o rows
+// start on 8 bytes (the wrapper allocates it).
+template <int D>
+__global__ void __launch_bounds__(fwd_tf32_threads<D>(), 2)
+    fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    float* __restrict__ lse, Strides sq, Strides sk,
+                    Strides sv, Strides so, int H, int Tq, int Tk, int k_len,
+                    float scale, bool causal) {
+  constexpr int BQ = fwd_tf32_tile<D>(), BK = BQ;
+  constexpr int LD = f32_ld<D>(), THREADS = fwd_tf32_threads<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sKV = sQ + BQ * LD;  // [buffer][K, V][BK][LD]
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp >> 1, par = warp & 1, r0 = q0 + 16 * rg;
+  // keys the block, and this warp, need: before k_len and, causal, not
+  // after the last query; none for rows wholly past Tq
+  const int kend = causal ? min(k_len, min(q0 + BQ, Tq)) : k_len;
+  const int kend_w = r0 >= Tq ? 0
+                     : causal ? min(k_len, min(r0 + 16, Tq))
+                              : k_len;
+  const int nkt = (kend + BK - 1) / BK;
+
+  __shared__ uint64_t bars[2][BK / 16];
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 2 * (BK / 16); ++i)
+      hopper::mbar_init(&bars[0][0] + i, THREADS);
+  __syncthreads();
+  auto stage_kv = [&](int kt) {
+    float* dst = sKV + (kt & 1) * 2 * BK * LD;
+    for (int c = 0; c < BK / 16; ++c) {
+      const int row0 = kt * BK + 16 * c;
+      stage_tile_f32<D, 16, THREADS>(dst + 16 * c * LD, k, sk, b, h, row0,
+                                     Tk);
+      stage_tile_f32<D, 16, THREADS>(dst + (BK + 16 * c) * LD, v, sv, b, h,
+                                     row0, Tk);
+      hopper::mbar_arrive_copies(&bars[kt & 1][c]);
+    }
+  };
+  // Q first: the first 16 keys' barrier covers it too
+  if (nkt > 0) {
+    stage_tile_f32<D, BQ, THREADS>(sQ, q, sq, b, h, q0, Tq);
+    stage_kv(0);
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g, g + 8
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) stage_kv(kt + 1);
+    const float* sK = sKV + (kt & 1) * 2 * BK * LD;
+    const float* sV = sK + BK * LD;
+    const int k0 = kt * BK;
+    const int kn = min(BK, kend_w - k0);  // keys of this tile the warp takes
+    // one online-softmax step per 16-key sub-tile, as soon as its keys
+    // have landed: S into registers, masked on the diagonal and edge
+    // sub-tiles only; rows g and g + 8 reduced over their four lanes
+    for (int kk = 16 * par; kk < kn; kk += 32) {
+      hopper::mbar_wait(&bars[kt & 1][kk / 16], (kt >> 1) & 1);
+      float s[2][4];
+      score_tf32<D, false>(s, sQ, 16 * rg, sK, kk, lane);
+      const int kb = k0 + kk;
+      const bool inner = kb + 16 <= k_len && (!causal || kb + 15 <= r0);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qpos = r0 + g + 8 * (i >> 1);
+          const int kpos = kb + 8 * jj + 2 * t + (i & 1);
+          s[jj][i] = inner || score_valid(qpos, kpos, k_len, causal)
+                         ? s[jj][i] * scale
+                         : kNegInf;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s[jj][i]);
+        }
+      float m_new[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m[r], mx[r]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float x = s[jj][i];
+          const float p = x <= kNegInf / 2 ? 0.f : expf(x - m_new[i >> 1]);
+          s[jj][i] = p;
+          psum[i >> 1] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+        psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+        const float corr = expf(m[r] - m_new[r]);
+        l[r] = l[r] * corr + psum[r];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[n][2 * r] *= corr;
+          acc[n][2 * r + 1] *= corr;
+        }
+        m[r] = m_new[r] <= kNegInf / 2 ? m[r] : m_new[r];  // m_keep
+      }
+      // O += P.V with p in fp32 (the Pallas `p.astype(v.dtype)` keeps
+      // it), split as the A operand as it stands, one 8-key half at a
+      // time: with both halves split before either product (as B3 and B4
+      // split them for acc_rows_tf32) the kernel spilled at D = 64
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t phi[4], plo[4];
+        hopper::split_a_tf32(s[j], phi, plo);
+        acc_rows8_tf32<D>(acc, phi, plo, sV, kk + 8 * j, g, t);
+      }
+    }
+    __syncthreads();  // this buffer is read before it is staged again
+  }
+  hopper::cp_async_wait_all();
+
+  // the odd warp's m, l and O onto the even one's, through the K and V
+  // buffers; a fully masked row (l == 0) gets O = 0 and lse 0: the
+  // backward re-masks it
+  __syncthreads();  // every copy has landed
+  float4* red =
+      reinterpret_cast<float4*>(sKV) + rg * (D / 8 + 1) * 32 + lane;
+  if (par) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      red[n * 32] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+    red[D / 8 * 32] = make_float4(m[0], m[1], l[0], l[1]);
+  }
+  __syncthreads();
+  if (par) return;
+  {
+    const float4 ml = red[D / 8 * 32];
+    const float mo[2] = {ml.x, ml.y}, lo[2] = {ml.z, ml.w};
+    float ce[2], co[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mt = fmaxf(m[r], mo[r]);
+      ce[r] = expf(m[r] - mt);
+      co[r] = expf(mo[r] - mt);
+      l[r] = l[r] * ce[r] + lo[r] * co[r];
+      m[r] = mt;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float4 a = red[n * 32];
+      acc[n][0] = acc[n][0] * ce[0] + a.x * co[0];
+      acc[n][1] = acc[n][1] * ce[0] + a.y * co[0];
+      acc[n][2] = acc[n][2] * ce[1] + a.z * co[1];
+      acc[n][3] = acc[n][3] * ce[1] + a.w * co[1];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = r0 + g + 8 * r;
+    if (qpos >= Tq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    float* row = o + b * so.b + (long long)qpos * so.t + h * so.h;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+    if (t == 0)
+      lse[(long long)bh * Tq + qpos] = l[r] > 0.f ? m[r] + logf(denom) : 0.f;
+  }
+}
+
 Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
@@ -1408,14 +1425,15 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         (float*)lse, strides_at(st, 0), strides_at(st, 1),
         strides_at(st, 2), strides_at(st, 3), H, Tq, Tk, k_len, scale,
         causal != 0);
-  } else {  // fp32 (the fp32 models): the CUDA-core loop
-    const size_t smem = 3 * kTile * (D + 4) * sizeof(float);
-    cudaError_t err = prepare(fwd_kernel<T, D>, smem);
+  } else {  // fp32 (the fp32 models): 3xTF32 on the tensor cores
+    const size_t smem = fwd_tf32_smem_bytes<D>();
+    cudaError_t err = prepare(fwd_tf32_kernel<D>, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(B * H, (Tq + kTile - 1) / kTile);
-    fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-        strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+    constexpr int BQ = fwd_tf32_tile<D>();
+    const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+    fwd_tf32_kernel<D><<<grid, fwd_tf32_threads<D>(), smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o,
+        (float*)lse, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
         strides_at(st, 3), H, Tq, Tk, k_len, scale, causal != 0);
   }
   return cudaGetLastError();
@@ -1556,8 +1574,11 @@ int mma_info(int* out) {
   if (!err)
     err = occupancy(dq_tf32_kernel<D>, kDqThreads, dq_tf32_smem_bytes<D>(),
                     out + 9);
-  return err ? err : occupancy(dkv_tf32_kernel<D>, kDkvThreads,
-                               dkv_tf32_smem_bytes<D>(), out + 12);
+  if (!err)
+    err = occupancy(dkv_tf32_kernel<D>, kDkvThreads, dkv_tf32_smem_bytes<D>(),
+                    out + 12);
+  return err ? err : occupancy(fwd_tf32_kernel<D>, fwd_tf32_threads<D>(),
+                               fwd_tf32_smem_bytes<D>(), out + 15);
 }
 
 }  // namespace
@@ -1565,8 +1586,8 @@ int mma_info(int* out) {
 // The tensor-core kernels' launch shape at head dim D: out[0..2] = the
 // bf16 forward's threads a block, shared bytes a block, blocks an SM can
 // hold; out[3..5] the same for the bf16 dq, out[6..8] for the bf16 dk/dv,
-// out[9..11] for the fp32 dq, out[12..14] for the fp32 dk/dv. Returns 0
-// or a CUDA error code.
+// out[9..11] for the fp32 dq, out[12..14] for the fp32 dk/dv, out[15..17]
+// for the fp32 forward. Returns 0 or a CUDA error code.
 extern "C" int fedml_flash_mma_info(int D, int* out) {
   switch (D) {
     case 64:

@@ -79,8 +79,9 @@ def build():
 #: the bf16 tensor-core kernels by wrapper: B2, B3, B4
 MMA_KERNELS = {"fwd": "fwd_mma_kernel", "dq": "dq_mma_kernel",
                "dkv": "dkv_mma_kernel"}
-#: the fp32 tensor-core kernels (3xTF32) by wrapper: B3, B4
-TF32_KERNELS = {"dq": "dq_tf32_kernel", "dkv": "dkv_tf32_kernel"}
+#: the fp32 tensor-core kernels (3xTF32) by wrapper: B2, B3, B4
+TF32_KERNELS = {"fwd": "fwd_tf32_kernel", "dq": "dq_tf32_kernel",
+                "dkv": "dkv_tf32_kernel"}
 
 
 def mma_kernel_tag(name, D, kernels=MMA_KERNELS):
@@ -95,14 +96,15 @@ def mma_kernel_tag(name, D, kernels=MMA_KERNELS):
 def mma_launch_info(D=128):
     """Launch shape of the tensor-core kernels at head dim ``D`` on the
     current card: ``{"fwd": {"threads", "smem_bytes", "blocks_per_sm"},
-    "dq": {...}, "dkv": {...}}`` for bf16 B2-B4 and ``"dq_tf32"``,
-    ``"dkv_tf32"`` for fp32 B3 and B4."""
-    out = (ctypes.c_int * 15)()
+    "dq": {...}, "dkv": {...}}`` for bf16 B2-B4 and ``"fwd_tf32"``,
+    ``"dq_tf32"``, ``"dkv_tf32"`` for fp32 B2-B4."""
+    out = (ctypes.c_int * 18)()
     _raise_on(LIBRARY.lib.fedml_flash_mma_info(D, out), "mma_info")
     return {name: {"threads": out[i], "smem_bytes": out[i + 1],
                    "blocks_per_sm": out[i + 2]}
             for name, i in (("fwd", 0), ("dq", 3), ("dkv", 6),
-                            ("dq_tf32", 9), ("dkv_tf32", 12))}
+                            ("dq_tf32", 9), ("dkv_tf32", 12),
+                            ("fwd_tf32", 15))}
 
 
 # ---------------------------------------------------------------------------
@@ -126,20 +128,29 @@ def _defaults(q, k, scale, k_len):
             k.shape[1] if k_len is None else int(k_len))
 
 
+def _softmax_out(s, pv):
+    """fp32 ``(O [B, Tq, H, D], lse [B, H, Tq])`` from the masked scores
+    ``s``, with the kernels' guard (p = 0 where s is masked), ``pv(p)``
+    taking the PV product."""
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m))
+    l = p.sum(dim=-1)
+    o = pv(p) / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    lse = torch.where(l > 0, m[..., 0] + torch.log(torch.clamp(l, min=1e-30)),
+                      0.0)
+    return o, lse
+
+
 def flash_attention_fwd_reference(q, k, v, causal=False, scale=None,
                                   k_len=None):
     """Plain version of B2: ``(O [B, Tq, H, D] in q's dtype, lse fp32
     [B, H, Tq])``, with the kernel's guard (p = 0 where s is masked) and
     p rounded to the input type before the PV product."""
     scale, k_len = _defaults(q, k, scale, k_len)
-    s = _scores(q, k, causal, scale, k_len)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m))
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    o = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
-    lse = torch.where(l > 0, m[..., 0] + torch.log(torch.clamp(l, min=1e-30)),
-                      0.0)
+    o, lse = _softmax_out(
+        _scores(q, k, causal, scale, k_len),
+        lambda p: torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                               v.float()))
     return o.to(q.dtype), lse
 
 
@@ -186,7 +197,7 @@ def flash_attention_bwd_reference(q, k, v, do, lse, delta, causal=False,
 
 
 def tf32_split(x):
-    """``(hi, lo)`` of fp32 ``x`` as the fp32 B3 and B4 split each operand
+    """``(hi, lo)`` of fp32 ``x`` as the fp32 B2-B4 split each operand
     (``tf32_rna`` in ``csrc/hopper_mma.cuh``, the rounding of
     ``cvt.rna.tf32.f32``): ``hi`` is ``x`` rounded to TF32 -- the 13 low
     mantissa bits dropped, to nearest with ties away from zero, inf and
@@ -215,6 +226,19 @@ def _tf32_product(eq, a, b, passes):
         return torch.einsum(eq, ahi, bhi)
     return (torch.einsum(eq, alo, bhi) + torch.einsum(eq, ahi, blo)
             + torch.einsum(eq, ahi, bhi))
+
+
+def flash_attention_fwd_tf32_reference(q, k, v, causal=False, scale=None,
+                                       k_len=None, passes=3):
+    """:func:`flash_attention_fwd_reference` in fp32 with both of its
+    products taken from TF32 parts (:func:`tf32_split`), ``passes`` 3 as
+    the fp32 B2 takes them (3xTF32) or 1 (plain TF32): the split's
+    arithmetic, for the tests. Nothing on the main path calls it."""
+    scale, k_len = _defaults(q, k, scale, k_len)
+    return _softmax_out(
+        _scores(q, k, causal, scale, k_len,
+                lambda eq, a, b: _tf32_product(eq, a, b, passes)),
+        lambda p: _tf32_product("bhqk,bkhd->bqhd", p, v, passes))
 
 
 def flash_attention_bwd_tf32_reference(q, k, v, do, lse, delta,
@@ -398,6 +422,7 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
 
 __all__ = ["SUPPORTED_HEAD_DIMS", "MMA_KERNELS", "TF32_KERNELS", "build",
            "mma_kernel_tag", "mma_launch_info", "launches", "tf32_split",
+           "flash_attention_fwd_tf32_reference",
            "flash_attention_bwd_tf32_reference",
            "flash_attention", "FlashAttention", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv",

@@ -40,7 +40,7 @@ REL, ABS = 1e-4, 1e-5  # the card tests' fp32 tolerance
 
 
 @contextlib.contextmanager
-def _launching(fa, lib):
+def launching(fa, lib):
     """The wrappers of ``fa`` launch through ``lib`` inside the block."""
     prev, fa.LIBRARY = fa.LIBRARY, lib
     try:
@@ -49,20 +49,41 @@ def _launching(fa, lib):
         fa.LIBRARY = prev
 
 
-def _bounds(B, T, H, D):
-    """Least ms of causal fp32 dq and dk/dv at each rate of
-    ``OPS_PER_S``: each input read once and each output written once,
-    against the valid (query, key) pairs' products (3 for dq, 4 for
-    dk/dv)."""
+#: (kernel, [B, T, H, D] tensors in and out, fp32 rows in and out,
+#: products on each valid (query, key) pair)
+KERNELS = {"fwd": (4, 1, 2), "dq": (5, 2, 3), "dkv": (6, 2, 4)}
+
+
+def bounds(B, T, H, D, names=("dq", "dkv")):
+    """Least ms of causal fp32 ``names`` (keys of :data:`KERNELS`) at
+    each rate of ``OPS_PER_S``: each input read once and each output
+    written once, against the valid (query, key) pairs' products."""
     tensor, row = B * T * H * D * 4, B * H * T * 4
     pairs = B * H * T * (T + 1) // 2
     out = {}
-    for name, n_tensors, products in (("dq", 5, 3), ("dkv", 6, 4)):
-        bytes_ms = (n_tensors * tensor + 2 * row) / HBM_BYTES_PER_S * 1e3
+    for name in names:
+        n_tensors, n_rows, products = KERNELS[name]
+        bytes_ms = ((n_tensors * tensor + n_rows * row) / HBM_BYTES_PER_S
+                    * 1e3)
         ops = 2 * products * D * pairs
         out[name] = {rate: max(bytes_ms, ops / per_s * 1e3)
                      for rate, per_s in OPS_PER_S.items()}
     return out
+
+
+def libraries(fa, against):
+    """``{"against": the flash-attention library built from the checkout
+    ``against`` into ``against/build``, "this": this checkout's}``, both
+    built."""
+    from fedml_tpu_torch.ops import _build
+
+    other = _build.CudaLibrary(
+        fa.LIBRARY.name, fa._bind,
+        csrc=os.path.join(against, "fedml_tpu_torch", "csrc"),
+        build_dir=os.path.join(against, "build"))
+    _build.build_all([other])
+    _build.build_all([fa.LIBRARY])
+    return {"against": other, "this": fa.LIBRARY}
 
 
 def _tf32_accumulation(dev, K=512):
@@ -90,7 +111,25 @@ def _tf32_accumulation(dev, K=512):
             "max": float(err.max())}
 
 
-def _worst(got, refs):
+def qkv_do(gen, B, T, H, D, views):
+    """fp32 q, k, v and dO [B, T, H, D] on ``gen``'s card: q, k and v
+    column slices of one qkv product (``views``, as the model hands them
+    over) or, as ``tests/test_torch_cuda.py`` ``_qkv_do`` makes them,
+    contiguous."""
+    dev = gen.device
+    if views:
+        qkv = torch.randn(B, T, 3 * H * D, generator=gen, device=dev)
+        q, k, v = (qkv[..., j * H * D:(j + 1) * H * D].reshape(B, T, H, D)
+                   for j in range(3))
+        return q, k, v, torch.randn(B, T, H, D, generator=gen, device=dev)
+    q, do = (torch.randn(B, T, H, D, generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn(B, T, H, D, generator=gen, device=dev)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def worst(got, refs):
     """Largest error of ``got`` over the fp32 tolerance of ``refs``."""
     return max(float((g - r).abs().max())
                / (REL * float(r.abs().max()) + ABS)
@@ -106,33 +145,12 @@ def main(argv=None):
     args = p.parse_args(argv)
     import torch.nn.functional as F
 
-    from fedml_tpu_torch.ops import _build
     from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(None)
     where = device_record(dev)[0]
-    other = _build.CudaLibrary(
-        fa.LIBRARY.name, fa._bind,
-        csrc=os.path.join(args.against, "fedml_tpu_torch", "csrc"),
-        build_dir=os.path.join(args.against, "build"))
-    _build.build_all([other])
-    _build.build_all([fa.LIBRARY])
-    libs = {"against": other, "this": fa.LIBRARY}
-
-    def qkv_do(gen, B, T, H, D, views):
-        if views:  # column slices of one qkv product
-            qkv = torch.randn(B, T, 3 * H * D, generator=gen, device=dev)
-            q, k, v = (qkv[..., j * H * D:(j + 1) * H * D].reshape(
-                B, T, H, D) for j in range(3))
-            return q, k, v, torch.randn(B, T, H, D, generator=gen,
-                                        device=dev)
-        # as tests/test_torch_cuda.py _qkv_do makes them
-        q, do = (torch.randn(B, T, H, D, generator=gen, device=dev)
-                 for _ in range(2))
-        k, v = (torch.randn(B, T, H, D, generator=gen, device=dev)
-                for _ in range(2))
-        return q, k, v, do
+    libs = libraries(fa, args.against)
 
     def bwd_args(q, k, v, do, causal=True, k_len=None):
         o, lse = fa.flash_attention_fwd_reference(q, k, v, causal,
@@ -150,9 +168,9 @@ def main(argv=None):
     refs = fa.flash_attention_bwd_reference(*main_args)
     errs, k_len_ratio = {}, {}
     for who, lib in libs.items():
-        with _launching(fa, lib):
+        with launching(fa, lib):
             got = kernels(main_args)
-            if _worst(got, refs) > 1:
+            if worst(got, refs) > 1:
                 raise SystemExit(f"{who}: dq, dk or dv past the tolerance")
             errs[who] = {name: float((g - r).abs().max())
                          for name, g, r in zip(("dq", "dk", "dv"), got,
@@ -164,7 +182,7 @@ def main(argv=None):
                 inputs = qkv_do(gen, 2, 80, 2, 128, False)
                 for causal in (False, True):
                     a2 = bwd_args(*inputs, causal, k_len)
-                    k_len_ratio[who] = max(k_len_ratio[who], _worst(
+                    k_len_ratio[who] = max(k_len_ratio[who], worst(
                         kernels(a2, k_len),
                         fa.flash_attention_bwd_reference(*a2, k_len=k_len)))
 
@@ -173,7 +191,7 @@ def main(argv=None):
              "dkv": lambda: fa.flash_attention_dkv(*main_args)}
     turns = []
     for who in ("against", "this", "this", "against"):
-        with _launching(fa, libs[who]):
+        with launching(fa, libs[who]):
             turns.append({"lib": who, **{name: flushed_ms(fn, flush)
                                          for name, fn in timed.items()}})
     q, k, v, do = main_args[:4]
@@ -187,7 +205,7 @@ def main(argv=None):
            "against": os.path.abspath(args.against), "turns": turns,
            "max_abs_err": errs, "k_len_err_over_tol": k_len_ratio,
            "tf32_matmul_err_ulps": _tf32_accumulation(dev),
-           "sdpa_bwd_ms": sdpa_bwd_ms, "bound_ms": _bounds(B, T, H, D),
+           "sdpa_bwd_ms": sdpa_bwd_ms, "bound_ms": bounds(B, T, H, D),
            **where}
     print(json.dumps(rec), flush=True)
     return rec

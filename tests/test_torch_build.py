@@ -87,13 +87,12 @@ ptxas info    : Function properties for _Z10dkv_kernelILi128EEvv
 ptxas info    : Used 128 registers, used 1 barriers, 432 bytes cmem[0]
 """
 
-# the bf16 tensor-core forward and the fp32 CUDA-core forward at D = 128,
-# mangled as the Itanium ABI mangles their signatures in
-# csrc/flash_attention.cu
+# the bf16 and the fp32 (3xTF32) tensor-core forwards at D = 128, mangled
+# as the Itanium ABI mangles their signatures in csrc/flash_attention.cu
 FWD_MMA = ("_ZN12_GLOBAL__N_114fwd_mma_kernelILi128EEEvPK13__nv_bfloat16"
            "S3_S3_PS1_PfNS_7StridesES6_S6_S6_iiiifb")
-FWD_F32 = ("_ZN12_GLOBAL__N_110fwd_kernelIfLi128EEEvPKT_S3_S3_PS1_PfNS_"
-           "7StridesES6_S6_S6_iiiifb")
+FWD_F32 = ("_ZN12_GLOBAL__N_115fwd_tf32_kernelILi128EEEvPKfS2_S2_PfS3_NS_"
+           "7StridesES4_S4_S4_iiiifb")
 FWD_REPORT = f"""\
 ptxas info    : Compiling entry function '{FWD_F32}' for 'sm_90a'
 ptxas info    : Function properties for {FWD_F32}
@@ -119,12 +118,14 @@ ptxas info    : Used 168 registers, used 1 barriers, 440 bytes cmem[0]
     ids=["bwd", "fwd_mma"])
 def test_ptxas_usage_reads_registers_and_spills_per_kernel(report, want,
                                                            tagged):
-    """Registers and spills per mangled name; the tag by which
-    ``chip_smoke.py`` finds the bf16 forward names it alone, not the fp32
-    forward."""
+    """Registers and spills per mangled name; the tags by which
+    ``chip_smoke.py`` finds the bf16 and the fp32 forward each name it
+    alone."""
     usage = _build.ptxas_usage(report)
     assert usage == want
     assert _build.ptxas_usage("") == {}
     if tagged:
         tag = fa.mma_kernel_tag("fwd", 128)
         assert [k for k in usage if tag in k] == [tagged]
+        tag = fa.mma_kernel_tag("fwd", 128, fa.TF32_KERNELS)
+        assert [k for k in usage if tag in k] == [FWD_F32]

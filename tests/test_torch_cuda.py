@@ -260,21 +260,22 @@ def test_flash_backward_masks_keys_past_k_len(cuda, dtype, causal, k_len):
     assert all(torch.equal(a, b) for a, b in zip(got, _bwd(args, k_len)))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("Tq,Tk,k_len", [(40, 70, 37), (24, 70, 45),
                                          (70, 40, 37), (80, 50, 21),
                                          (40, 70, 0)])
-def test_bf16_causal_forward_masks_keys_past_k_len(cuda, D, Tq, Tk, k_len):
-    """The bf16 forward, causal, with ``k_len`` ending inside a 16-key
-    sub-tile, Tq < Tk and Tq > Tk, or at 0 (every row fully masked: O and
-    lse zero): O and lse match the plain version and a repeat is
-    bit-equal."""
-    q, k, v, _ = _qkv_do(cuda, torch.bfloat16, 2, Tq, Tk, 2, D,
-                         Tq + 3 * Tk + k_len)
+def test_causal_forward_masks_keys_past_k_len(cuda, dtype, D, Tq, Tk,
+                                              k_len):
+    """The forward (bf16 and fp32), causal, with ``k_len`` ending inside a
+    16-key sub-tile, Tq < Tk and Tq > Tk, or at 0 (every row fully
+    masked: O and lse zero): O and lse match the plain version and a
+    repeat is bit-equal."""
+    q, k, v, _ = _qkv_do(cuda, dtype, 2, Tq, Tk, 2, D, Tq + 3 * Tk + k_len)
     o, lse = fa.flash_attention_fwd(q, k, v, True, k_len=k_len)
     o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, True,
                                                       k_len=k_len)
-    _close_rel(o, o_ref, *_tol(torch.bfloat16))
+    _close_rel(o, o_ref, *_tol(dtype))
     _close_rel(lse, lse_ref, 1e-4, 1e-5)
     o2, lse2 = fa.flash_attention_fwd(q, k, v, True, k_len=k_len)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)

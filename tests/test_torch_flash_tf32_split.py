@@ -1,21 +1,22 @@
-"""The arithmetic of the fp32 flash-attention backward's tensor-core
+"""The arithmetic of the fp32 flash-attention kernels' tensor-core
 products (3xTF32), on the CPU.
 
-The fp32 B3 and B4 kernels (``csrc/flash_attention.cu``) split each fp32
-operand as they read it, ``x = hi + lo`` with both parts rounded to TF32
-as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero), and
-take each product as ``lo.hi + hi.lo + hi.hi`` on the tensor cores.
+The fp32 B2, B3 and B4 kernels (``csrc/flash_attention.cu``) split each
+fp32 operand as they read it, ``x = hi + lo`` with both parts rounded to
+TF32 as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero),
+and take each product as ``lo.hi + hi.lo + hi.hi`` on the tensor cores.
 ``ops/flash_attention.py`` ``tf32_split`` emulates that rounding on the
-bits, and ``flash_attention_bwd_tf32_reference`` is the plain backward
-with each of its five products taken from those parts. Here the split
-is held to the rounding's definition, and the 3-pass backward to the
-fp32 plain backward at the card's fp32 tolerance (``1e-4 * max|ref| +
-1e-5``, as ``tests/test_torch_cuda.py`` holds the kernels) and to the JAX
-package's ``_fa_bwd`` (Pallas in interpret mode) at 1e-5, as
-``tests/test_torch_attention.py`` holds the plain backward. One-pass
-TF32 on the same inputs misses that tolerance: its error is about
-1e-3 of max|ref| (three decimal digits), the 3-pass one's below 1e-6.
-Inputs are made with numpy from a seed.
+bits, and ``flash_attention_fwd_tf32_reference`` and
+``flash_attention_bwd_tf32_reference`` are the plain forward and
+backward with each of their products taken from those parts. Here the
+split is held to the rounding's definition, and the 3-pass forward and
+backward to the fp32 plain versions at the card's fp32 tolerance
+(``1e-4 * max|ref| + 1e-5``, as ``tests/test_torch_cuda.py`` holds the
+kernels) and to the JAX package's ``_fa_fwd`` and ``_fa_bwd`` (Pallas in
+interpret mode) at 1e-5, as ``tests/test_torch_attention.py`` holds the
+plain versions. One-pass TF32 on the same inputs misses that tolerance:
+its error is about 3e-4 to 1e-3 of max|ref| (three decimal digits), the
+3-pass one's below 1e-6. Inputs are made with numpy from a seed.
 """
 
 import struct
@@ -89,7 +90,8 @@ def _bwd_args(q, k, v, do, causal, k_len=None):
 
 
 def _rel_err(got, want):
-    """Largest error of each of dq, dk, dv over max|want| + 0.1 (so that
+    """Largest error of each tensor (O, lse; dq, dk, dv) over max|want| +
+    0.1 (so that
     the card's ``1e-4 * max|ref| + 1e-5`` is about ``err <= 1e-4``)."""
     return [float((g - w).abs().max()) / (float(w.abs().max()) + 0.1)
             for g, w in zip(got, want)]
@@ -141,3 +143,52 @@ def test_3xtf32_backward_matches_pallas_bwd(causal, tq, tk, D, k_len):
                                                 delta, causal)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+# (causal, Tq, Tk, D, k_len): the kernels' head dims, square and ragged
+# both ways, keys past a k_len inside a 16-key group, and no key at all
+# (k_len 0)
+FWD_CASES = [(False, 24, 24, 64, None), (True, 24, 24, 128, None),
+             (False, 40, 24, 64, None), (True, 40, 24, 128, None),
+             (True, 24, 40, 64, None), (False, 33, 50, 128, 37),
+             (True, 50, 50, 64, 21), (True, 24, 40, 128, 0)]
+
+
+@pytest.mark.parametrize("causal,tq,tk,D,k_len", FWD_CASES)
+def test_3xtf32_forward_holds_the_fp32_tolerance(causal, tq, tk, D, k_len):
+    """The 3-pass forward's O and lse against the fp32 plain forward at
+    the card's fp32 tolerance; one-pass TF32 on the same inputs misses it
+    on O. With k_len 0 every row is fully masked: O and lse are 0."""
+    q, k, v, _ = _inputs(tq, tk, D)
+    want = fa.flash_attention_fwd_reference(q, k, v, causal, k_len=k_len)
+    got = fa.flash_attention_fwd_tf32_reference(q, k, v, causal,
+                                                k_len=k_len)
+    _within_card_tol(got, want)
+    one = fa.flash_attention_fwd_tf32_reference(q, k, v, causal,
+                                                k_len=k_len, passes=1)
+    if k_len == 0:
+        assert all(torch.equal(x, torch.zeros_like(x)) for x in got + one)
+        return
+    (err3,), (err1,) = _rel_err(got[:1], want[:1]), _rel_err(one[:1],
+                                                             want[:1])
+    assert err3 < 1e-6, err3
+    assert err1 > 1e-4, err1
+    assert err1 > 20 * err3, (err1, err3)
+
+
+@pytest.mark.parametrize("causal,tq,tk,D,k_len",
+                         [c for c in FWD_CASES if c[4] is None])
+def test_3xtf32_forward_matches_pallas_fwd(causal, tq, tk, D, k_len):
+    """The 3-pass forward against the JAX package's ``_fa_fwd``, as the
+    plain forward is held in ``tests/test_torch_attention.py`` (lse kept
+    as [B, H, Tq] by the port, [B, Tq, H] by the reference's wrapper)."""
+    q, k, v, _ = (x.numpy() for x in _inputs(tq, tk, D))
+    o_ref, (_, _, _, _, lse_ref) = jpa._fa_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, None, BLOCK,
+        BLOCK)
+    o, lse = fa.flash_attention_fwd_tf32_reference(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(lse_ref).transpose(0, 2, 1),
+                               atol=1e-5)
