@@ -11,8 +11,9 @@ Phases (any failure exits non-zero):
    kernels' registers and spills (``-Xptxas -v``) with their threads,
    shared memory and blocks an SM -- the bf16 dW kernel at each of
    ResNet-56's four shapes, the bf16 and the fp32 (3xTF32) forward, dq
-   and dk/dv at head dims 128 and 64 -- and read the card's name and
-   power limit;
+   and dk/dv at head dims 128 and 64, and the six kernels of the chunked
+   route that takes every head dim above 128 -- and read the card's
+   name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes of its main path, and time kernel, plain version, one library
    call computing the same function (a yardstick only) and the bound:
@@ -248,16 +249,19 @@ Phases (any failure exits non-zero):
    vocab 10004, 4 layers, 4 heads of 64, d_model 256, batch 32) with
    ``--n_seq 1`` for ``A15_STEPS`` steps, in fp32 (its default: B2-B4
    3xTF32 on the tensor cores) and with
-   ``--model_dtype bf16`` (B2-B4 on the tensor cores in bf16), B3 and B4
-   launched layers x steps times in each and B2 as often, B2-B4 at [32,
-   512, 4, 64] in bf16 and fp32 and at the LM flagship's width [32, 80,
-   4, 128] in fp32 against their plain versions (timed beside SDPA, the
+   ``--model_dtype bf16`` (B2-B4 on the tensor cores in bf16), then both
+   again at head dim 256 (``--d_model 1024 --n_heads 4``: B2-B4 through
+   the chunked route), B3 and B4 launched layers x steps times in each
+   and B2 as often, B2-B4 at [32, 512, 4, 64], [32, 512, 4, 256] and
+   [32, 512, 4, 384] in bf16 and fp32 and at the LM flagship's width
+   [32, 80, 4, 128] in fp32 against their plain versions (each error
+   over its tolerance, timed beside SDPA with the backend SDPA took, the
    whole backward too: delta, B3 and B4 as the autograd Function runs
-   them), and the
-   same SGD steps from the same weights through the kernels and through
-   the plain ``mha`` in bf16 and fp32, their loss drift and their
-   parameter drift beside the parameters' move printed (recorded, not
-   gated); (b) one round of ResNet-56 at
+   them), and the same SGD steps from the same weights through the
+   kernels and through the plain ``mha`` in bf16 and fp32 at head dims
+   64 and 256, their loss drift and their parameter drift beside the
+   parameters' move printed (recorded, not gated); (b) one round of
+   ResNet-56 at
    full width (fp32, deterministic kernels, host-packed) through
    ``main_fedavg --mesh 1`` (a one-rank NCCL ``clients`` mesh, the
    sharded round's ``all_reduce``) held within ``A15_MESH_TOL`` of
@@ -317,7 +321,9 @@ Phases (any failure exits non-zero):
    card and its power limit;
 21. print the ``kernels`` JSON line (B1-B4 on the main paths' bf16
    launches, then B2-B4's fp32 kernels at ``main_longcontext``'s launch,
-   with their launches over its fp32 steps) and, last, the ``ok`` line.
+   with their launches over its fp32 steps, then the chunked route's
+   bf16 and fp32 kernels at its launch at head dim 256, with their
+   launches over its steps at that width) and, last, the ``ok`` line.
 
 ``python3 chip_smoke.py --profile`` adds, before the last lines, B1's
 kernels (products and split-K pass) at each shape, the timer's floor,
@@ -453,8 +459,9 @@ def mma_kernel_usage(_build, fa, grouped_conv, reports):
     of their launch on this card: the bf16 dW kernel at each of the main
     path's four shapes (its ``CH`` instance and K splits too), the bf16
     forward, dq and dk/dv kernels and the fp32 (3xTF32) forward, dq and
-    dk/dv kernels per head dim. Fails when a kernel is missing from a
-    report."""
+    dk/dv kernels per head dim (64 and 128), and the chunked route's six
+    kernels of head dims above 128. Fails when a kernel is missing from
+    a report."""
     out = {}
     usage = _build.ptxas_usage(reports[grouped_conv.LIBRARY.name])
     fn = grouped_conv.MMA_KERNEL
@@ -478,6 +485,16 @@ def mma_kernel_usage(_build, fa, grouped_conv, reports):
                     fail(f"{fn}<{D}> not in the ptxas report")
                 out[f"{name}_{dtype}_D{D}"] = {**found[0],
                                                **info[name + suffix]}
+    # the chunked kernels of head dims above 128, one for every such D
+    # (launch shape at D 256: two chunks)
+    info = fa.mma_launch_info(256)
+    for dtype, suffix in (("bf16", ""), ("fp32", "_tf32")):
+        for name, fn in fa.WIDE_KERNELS.items():
+            tag = fa.wide_kernel_tag(name, dtype)
+            found = [u for k, u in usage.items() if tag in k]
+            if len(found) != 1:
+                fail(f"{fn}<{dtype}> not in the ptxas report")
+            out[f"{name}_{dtype}_wide"] = {**found[0], **info[name + suffix]}
     return out
 
 
@@ -3277,9 +3294,10 @@ A15_RESNET = ["--model", "resnet56", "--dataset", "synthetic_images",
               "--device_resident", "0"]
 
 
-def _a15_lm_steps(torch, attention_fn, dtype):
+def _a15_lm_steps(torch, attention_fn, dtype, flags=()):
     """``A15_STEPS`` SGD steps (the main's lr) of main_longcontext's
-    model and data at its defaults on a one-rank mesh, computing in
+    model and data at its defaults (plus ``flags``) on a one-rank mesh,
+    computing in
     ``dtype`` over fp32 parameters, the attention through the kernels
     (``attention_fn`` None) or ``attention_fn``: the losses, the initial
     and the final parameters. SGD, not the main's AdamW, so that the
@@ -3292,7 +3310,7 @@ def _a15_lm_steps(torch, attention_fn, dtype):
         make_seq_mesh, make_seq_parallel_lm_step, place_lm_batch,
         shift_targets)
 
-    args = main_longcontext.parser().parse_args(A15_LC)
+    args = main_longcontext.parser().parse_args(A15_LC + list(flags))
     mesh = make_seq_mesh(1, 1)
     model = TransformerLM(vocab_size=args.vocab_size,
                           n_layers=args.n_layers, n_heads=args.n_heads,
@@ -3314,31 +3332,50 @@ def _a15_lm_steps(torch, attention_fn, dtype):
 
 
 #: the attention launches phase 17 times beside SDPA: (case, batch, T,
-#: heads, head dim, dtypes) -- main_longcontext's launch, and the LM
-#: flagship's width in fp32 (the fp32 models' B3 and B4)
+#: heads, head dim, dtypes) -- main_longcontext's launch, the LM
+#: flagship's width in fp32 (the fp32 models' B3 and B4), and the
+#: chunked route above D 128 at main_longcontext --d_model 1024
+#: --n_heads 4 (D 256) and at D 384
 A15_ATTN_TIMED = [("longcontext_T512", 32, 512, 4, 64, ("bf16", "fp32")),
-                  ("flagship_fp32", 32, 80, 4, 128, ("fp32",))]
+                  ("flagship_fp32", 32, 80, 4, 128, ("fp32",)),
+                  ("longcontext_D256", 32, 512, 4, 256, ("bf16", "fp32")),
+                  ("longcontext_D384", 32, 512, 4, 384, ("bf16", "fp32"))]
+#: main_longcontext's flags for head dim 256 (d_model 1024, 4 heads)
+A15_WIDE = ["--d_model", "1024", "--n_heads", "4"]
 #: the card cases' tolerances (rel, abs) by dtype
 A15_ATTN_TOL = {"bf16": (1.6e-2, 1e-3), "fp32": (1e-4, 1e-5)}
+
+
+def _sdpa_backend(torch, q, k, v):
+    """The backend ``scaled_dot_product_attention`` takes for these
+    ``[B, H, T, D]`` inputs, causal (its own choice,
+    ``torch._fused_sdp_choice``): FLASH_ATTENTION, EFFICIENT_ATTENTION,
+    CUDNN_ATTENTION or MATH."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0,
+                                              True)).name
 
 
 def _a15_attention_cases(torch, fa):
     """B2-B4 at each launch of ``A15_ATTN_TIMED`` (causal, q, k and v
     strided views of one qkv product) against their plain versions with
     the card cases' tolerances, each timed beside its plain version and
-    SDPA; then the whole backward as the ``FlashAttention`` Function runs
-    it (delta, B3, B4), checked against the plain backward and timed
-    beside SDPA's backward (``bwd_ms``, with delta's kernels alone as
-    ``delta_ms``)."""
+    SDPA (the backend it took named); then the whole backward as the
+    ``FlashAttention`` Function runs it (delta, B3, B4), checked against
+    the plain backward and timed beside SDPA's backward (``bwd_ms``, with
+    delta's kernels alone as ``delta_ms``)."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(5)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     out = {}
+    worst = lambda *es: max(es, key=lambda e: e[1])
     for case, Bq, T, H, D, dtypes in A15_ATTN_TIMED:
         C = H * D
         for name in dtypes:
+            t0 = time.time()
             dtype = torch.bfloat16 if name == "bf16" else torch.float32
             rel, abs_ = A15_ATTN_TOL[name]
             label = f"{case} {name}"
@@ -3355,17 +3392,24 @@ def _a15_attention_cases(torch, fa):
             dq = fa.flash_attention_dq(*args)
             dk, dv = fa.flash_attention_dkv(*args)
             dq_ref, dk_ref, dv_ref = fa.flash_attention_bwd_reference(*args)
-            errs = {"fwd": _check(f"fwd {label}", o, o_ref, rel, abs_),
-                    "lse": _check(f"lse {label}", lse, lse_ref, 1e-4, 1e-5),
-                    "dq": _check(f"dq {label}", dq, dq_ref, rel, abs_),
-                    "dkv": max(_check(f"dk {label}", dk, dk_ref, rel, abs_),
-                               _check(f"dv {label}", dv, dv_ref, rel,
-                                      abs_))}
+            # (error, error over tolerance), the worst by the latter
+            def chk(what, got, ref, tol=(rel, abs_)):
+                err = _check(f"{what} {label}", got, ref, *tol)
+                return err, err / (tol[0] * float(ref.float().abs().max())
+                                   + tol[1])
+
+            errs = {"fwd": chk("fwd", o, o_ref),
+                    "lse": chk("lse", lse, lse_ref, (1e-4, 1e-5)),
+                    "dq": chk("dq", dq, dq_ref),
+                    "dkv": worst(chk("dk", dk, dk_ref),
+                                 chk("dv", dv, dv_ref))}
             ref_args = args[:-1] + (True, D ** -0.5, T)
             qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
             qg, kg, vg = (t.detach().requires_grad_(True)
                           for t in (qs, ks, vs))
             out_g = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            sdpa = {"fwd": _sdpa_backend(torch, qs, ks, vs),
+                    "bwd": _sdpa_backend(torch, qg, kg, vg)}
             bwd_lib = timed_ms(lambda: torch.autograd.grad(
                 out_g, (qg, kg, vg), do.transpose(1, 2), retain_graph=True),
                 flush)
@@ -3385,9 +3429,8 @@ def _a15_attention_cases(torch, fa):
 
             for gname, got, ref in zip(("dq", "dk", "dv"), fa_bwd(),
                                        plain_bwd()):
-                errs["bwd"] = max(errs.get("bwd", 0.0), _check(
-                    f"FlashAttention backward {gname} {label}", got, ref,
-                    rel, abs_))
+                errs["bwd"] = worst(errs.get("bwd", (0.0, 0.0)), chk(
+                    f"FlashAttention backward {gname}", got, ref))
             bf16 = dtype == torch.bfloat16
             # the fp32 B2-B4 take three TF32 products for each fp32 one
             # (3xTF32): their bound is at a third of the TF32 rate, and
@@ -3416,7 +3459,10 @@ def _a15_attention_cases(torch, fa):
                        "plain_ms": timed_ms(plain, flush),
                        "library_ms": (timed_ms(lib, flush) if lib is not None
                                       else bwd_lib),
-                       "max_abs_err": errs[kname],
+                       "sdpa_backend": sdpa["fwd" if kname == "fwd"
+                                            else "bwd"],
+                       "max_abs_err": errs[kname][0],
+                       "err_over_tol": errs[kname][1],
                        "bound_ms": bounds[kname]["bound_ms"],
                        "bound_by": bounds[kname]["bound_by"]}
                 if not bf16:
@@ -3429,50 +3475,58 @@ def _a15_attention_cases(torch, fa):
                     row["delta_ms"] = timed_ms(delta_fn, flush)
                 out[(case, name, kname)] = row
                 print(f"{prefix} {kname} " + json.dumps(row), flush=True)
+            print(f"a15 attention_case_s case={case}_{name} "
+                  f"s={time.time() - t0:.1f}", flush=True)
     return out
 
 
-def _a15_main_run(torch, fa, smi, dtype_flags, route):
+def _a15_main_run(torch, fa, smi, flags, route):
     """``main_longcontext``'s ``A15_STEPS`` steps at its defaults (plus
-    ``dtype_flags``) with B2-B4's counts zeroed just before: their
-    launches, each layers x steps (B2 at least that)."""
+    ``flags``: the dtype, the width) with B2-B4's counts zeroed just
+    before: their launches, each layers x steps (B2 at least that)."""
     from fedml_tpu_torch.experiments import main_longcontext
 
     for name in fa.launches:
         fa.launches[name] = 0
     t0 = time.time()
-    params, losses = main_longcontext.main(A15_LC + dtype_flags)
+    params, losses = main_longcontext.main(A15_LC + flags)
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = dict(fa.launches)
-    layers = main_longcontext.parser().parse_args([]).n_layers
-    want = layers * A15_STEPS
+    args = main_longcontext.parser().parse_args(A15_LC + flags)
+    want = args.n_layers * A15_STEPS
     if not (launches["dq"] == launches["dkv"] == want
             and launches["fwd"] >= want):
-        fail(f"main_longcontext {dtype_flags}: attention launches "
-             f"{launches}, want {want} = {layers} layers x {A15_STEPS} "
-             f"steps")
+        fail(f"main_longcontext {flags}: attention launches "
+             f"{launches}, want {want} = {args.n_layers} layers x "
+             f"{A15_STEPS} steps")
     if not (all(math.isfinite(x) for x in losses)
             and next(iter(params.values())).device.type == "cuda"):
-        fail(f"main_longcontext {dtype_flags}: losses {losses}")
-    print(f"a15 longcontext T=512 route={route} steps={A15_STEPS} "
-          f"losses={losses} launches={json.dumps(launches)} "
-          f"s={seconds:.2f} card={smi}", flush=True)
+        fail(f"main_longcontext {flags}: losses {losses}")
+    print(f"a15 longcontext T=512 D={args.d_model // args.n_heads} "
+          f"route={route} steps={A15_STEPS} losses={losses} "
+          f"launches={json.dumps(launches)} s={seconds:.2f} card={smi}",
+          flush=True)
     return launches
 
 
 def _a15_drift(torch, smi):
     """The same SGD steps from the same weights through the kernels and
     through the plain ``mha``, in bf16 (B2-B4's tensor-core route, the
-    ROADMAP watch item) and fp32 (B2-B4 3xTF32): each step's loss
-    drift, and the parameters' largest drift beside their largest move
-    from the initial weights. Recorded, not gated."""
+    ROADMAP watch item) and fp32 (B2-B4 3xTF32), at main_longcontext's
+    head dim 64 and at 256 (``A15_WIDE``: the chunked route): each
+    step's loss drift, and the parameters' largest drift beside their
+    largest move from the initial weights. Recorded, not gated."""
     from fedml_tpu_torch.ops.attention import mha
 
-    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        k_losses, init, k_params = _a15_lm_steps(torch, None, dtype)
+    for name, dtype, flags in (
+            ("bf16", torch.bfloat16, []), ("fp32", torch.float32, []),
+            ("bf16_D256", torch.bfloat16, A15_WIDE),
+            ("fp32_D256", torch.float32, A15_WIDE)):
+        t0 = time.time()
+        k_losses, init, k_params = _a15_lm_steps(torch, None, dtype, flags)
         p_losses, _, p_params = _a15_lm_steps(
-            torch, lambda q, k, v: mha(q, k, v, causal=True), dtype)
+            torch, lambda q, k, v: mha(q, k, v, causal=True), dtype, flags)
         with torch.no_grad():
             drift = max(float((k_params[k] - p_params[k]).abs().max())
                         for k in k_params)
@@ -3484,19 +3538,29 @@ def _a15_drift(torch, smi):
             "loss_drift": [a - b for a, b in zip(k_losses, p_losses)],
             "max_param_drift": drift, "max_param_move": move,
             "drift_over_move": drift / move if move else None,
-            "card": smi}), flush=True)
+            "s": round(time.time() - t0, 1), "card": smi}), flush=True)
 
 
 def _a15_longcontext(torch, fa, smi):
     """Phase 17 (a): the main's launches in fp32 (its default: B2-B4
     3xTF32 on the tensor cores) and in bf16 (B2-B4 in bf16 on the tensor
-    cores), the timed attention cases, the drift."""
+    cores), at its head dim 64 and at 256 (``A15_WIDE``, the chunked
+    route), the timed attention cases, the drift."""
+    t0 = time.time()
+    bf16 = ["--model_dtype", "bf16"]
     launches = {
         "fp32": _a15_main_run(torch, fa, smi, [], "fp32_3xtf32"),
-        "bf16": _a15_main_run(torch, fa, smi, ["--model_dtype", "bf16"],
-                              "mma")}
+        "bf16": _a15_main_run(torch, fa, smi, bf16, "mma"),
+        "fp32_D256": _a15_main_run(torch, fa, smi, A15_WIDE,
+                                   "fp32_3xtf32_wide"),
+        "bf16_D256": _a15_main_run(torch, fa, smi, bf16 + A15_WIDE,
+                                   "mma_wide")}
+    t1 = time.time()
     times = _a15_attention_cases(torch, fa)
+    t2 = time.time()
     _a15_drift(torch, smi)
+    print(f"a15 longcontext_s mains={t1 - t0:.1f} cases={t2 - t1:.1f} "
+          f"drift={time.time() - t2:.1f} card={smi}", flush=True)
     return launches, times
 
 
@@ -4266,6 +4330,22 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    # the chunked route above D 128, a launch at main_longcontext
+    # --d_model 1024 --n_heads 4 ([32, 512, 4, 256] causal), launches over
+    # that main's steps in each dtype (phase 17 (a))
+    for dtype, suffix in (("bf16", ""), ("fp32", "_fp32")):
+        for name, line in (("fwd", 123), ("dq", 241), ("dkv", 255)):
+            t = a15["t512"][("longcontext_D256", dtype, name)]
+            kernels.append({
+                "name": f"flash_attention_{name}_wide{suffix}",
+                "route": "cuda",
+                "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"fedml_tpu/ops/pallas_attention.py:{line}",
+                "launches": a15["attention"][f"{dtype}_D256"][name],
+                "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1401,6 +1401,521 @@ __global__ void __launch_bounds__(fwd_tf32_threads<D>(), 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// B2, B3 and B4 at head dims above 128 (any multiple of 128), bf16 and fp32
+// ---------------------------------------------------------------------------
+// The kernels above hold a block's tiles and a warp's accumulators over
+// the whole head dim, sized per D by template; at D 256 the bf16 dk/dv
+// kernel would need 256 accumulators a thread and the fp32 dq and dk/dv
+// kernels about 400 KB of shared memory a block. So here the head dim is
+// cut into chunks of kChunk = 128 columns, and the budget is the same at
+// every D: a block owns rows x output columns [c0, c0 + 128) (grid axis z
+// = chunk), holding D 128's accumulators (O, dQ: 64 fp32 registers a
+// thread; dK and dV: 128), and stages its operands through shared memory
+// 128 columns at a time. The score products S = Q.K^T and dP = dO.V^T sum
+// over the whole head dim: every chunk block forms them again (D / 128
+// times the score work), one staged chunk after the other, each chunk's
+// 16x16 sub-tile summed from zero and added in fp32 to its running sum,
+// which waits in shared memory between chunks (so a warp's registers hold
+// one sub-tile, as in the kernels above). The block's own chunk comes
+// last: its tile of V (B2), K (B3) or Q and dO (B4) is then in shared
+// memory for the accumulating product. In fp32 the tensor cores' truncated
+// sums thus restart every 128 columns of S (S at D 128's error) and every
+// 8 of dP, as in dq_tf32_kernel. Tiles are single-buffered behind a block
+// barrier a chunk step; two or three blocks an SM overlap one block's
+// copies with another's products. One warp owns 16 rows, so no partial
+// sums meet between warps; outputs are stored from registers. Each output
+// element has one owner and a fixed order of sums: a repeat call is
+// bit-equal. All chunk blocks of a row form the same m and l up to the
+// order of their chunk sums (equal at D 256, where two terms commute); the
+// block of chunk 0 writes lse.
+constexpr int kChunk = 128;
+
+// Rows a block owns and rows of a loop tile of each wide kernel by input
+// type: fp32 tiles take twice the bytes, so its tiles are halved where a
+// block would otherwise hold one block an SM
+template <typename T> struct Wide;
+template <> struct Wide<bf16> {
+  static constexpr int LD = tile_ld<kChunk>();
+  static constexpr int kFwdRows = 64, kFwdStep = 64, kFwdBlocks = 3;
+  static constexpr int kDqRows = 64, kDqStep = 64;
+  static constexpr int kDkvRows = 64, kDkvStep = 64;
+};
+template <> struct Wide<float> {
+  static constexpr int LD = f32_ld<kChunk>();
+  static constexpr int kFwdRows = 64, kFwdStep = 32, kFwdBlocks = 2;
+  static constexpr int kDqRows = 32, kDqStep = 32;
+  static constexpr int kDkvRows = 32, kDkvStep = 32;
+};
+
+// forward block: a Q chunk tile, a K and a V chunk tile, then the warps'
+// S sums (16 x 16 fp32 a warp and sub-tile); 68,608 bytes bf16, 75,776
+// fp32
+template <typename T> constexpr size_t fwd_wide_smem_bytes() {
+  using W = Wide<T>;
+  return (W::kFwdRows + 2 * W::kFwdStep) * W::LD * sizeof(T)
+         + W::kFwdRows * W::kFwdStep * sizeof(float);
+}
+// dq block: Q, dO, K and V chunk tiles, then the S and dP sums; 102,400
+// bytes bf16, 75,776 fp32
+template <typename T> constexpr size_t dq_wide_smem_bytes() {
+  using W = Wide<T>;
+  return 2 * (W::kDqRows + W::kDqStep) * W::LD * sizeof(T)
+         + 2 * W::kDqRows * W::kDqStep * sizeof(float);
+}
+// dk/dv block: K, V, Q and dO chunk tiles, the Q tile's lse and delta
+// rows, then the S and dP sums; 102,912 bytes bf16, 76,032 fp32
+template <typename T> constexpr size_t dkv_wide_smem_bytes() {
+  using W = Wide<T>;
+  return 2 * (W::kDkvRows + W::kDkvStep) * W::LD * sizeof(T)
+         + 2 * W::kDkvStep * sizeof(float)
+         + 2 * W::kDkvRows * W::kDkvStep * sizeof(float);
+}
+
+// Issues the copies of columns [c0, c0 + 128) of rows [row0, row0 + ROWS)
+// of one (batch, head) into a chunk tile; rows at or past `len` are zero
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src,
+                                            Strides st, int b, int h,
+                                            int row0, int len, int c0) {
+  stage_tile<kChunk, ROWS, THREADS>(dst, src + c0, st, b, h, row0, len);
+}
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void stage_chunk(float* dst, const float* src,
+                                            Strides st, int b, int h,
+                                            int row0, int len, int c0) {
+  stage_tile_f32<kChunk, ROWS, THREADS>(dst, src + c0, st, b, h, row0, len);
+}
+
+// The 16x16 sub-tile s = a . b^T of rows [ra, ra+16) of chunk tile a and
+// rows [rb, rb+16) of chunk tile b over the chunk's 128 columns, from
+// zero: s[j] holds columns 8j..8j+7. bf16 on mma.m16n8k16; fp32 as
+// score_tf32 (FRESH, U) takes it.
+template <bool FRESH, int U>
+__device__ __forceinline__ void chunk_score(float (&s)[2][4], const bf16* a,
+                                            int ra, const bf16* b, int rb,
+                                            int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChunk; c += 16) {
+    uint32_t fa[4], fb[4];
+    hopper::ldmatrix_x4(fa, a_rows<kChunk>(a, ra, c, lane));
+    hopper::ldmatrix_x4(fb, bn_rows<kChunk>(b, rb, c, lane));
+    hopper::mma_bf16(s[0], fa, fb[0], fb[1]);
+    hopper::mma_bf16(s[1], fa, fb[2], fb[3]);
+  }
+}
+template <bool FRESH, int U>
+__device__ __forceinline__ void chunk_score(float (&s)[2][4], const float* a,
+                                            int ra, const float* b, int rb,
+                                            int lane) {
+  score_tf32<kChunk, FRESH, U>(s, a, ra, b, rb, lane);
+}
+
+// acc (16 x 128: acc[n] holds columns 8n..8n+7) += p . rows [r, r + 16) of
+// a chunk tile, where p is a 16x16 sub-tile in the score accumulators'
+// layout (its columns the reduction axis): bf16, p rounded to bf16 pairs
+// and the tile through ldmatrix.trans; fp32, p split one 8-column half at
+// a time and the tile by plain loads (3xTF32), the halves in a loop that
+// is not unrolled, so that the second half's loads and splits are not
+// hoisted beside the first's (dkv_wide_kernel<float> holds 128
+// accumulators and spilled 8-20 bytes with it unrolled)
+__device__ __forceinline__ void chunk_acc(float (&acc)[kChunk / 8][4],
+                                          const float (&p)[2][4],
+                                          const bf16* tile, int r, int lane) {
+  uint32_t pa[4];
+  hopper::pack_a(pa, p[0], p[1]);
+#pragma unroll
+  for (int c = 0; c < kChunk; c += 16) {
+    uint32_t f[4];
+    hopper::ldmatrix_x4_trans(f, bk_rows<kChunk>(tile, r, c, lane));
+    hopper::mma_bf16(acc[c / 8], pa, f[0], f[1]);
+    hopper::mma_bf16(acc[c / 8 + 1], pa, f[2], f[3]);
+  }
+}
+__device__ __forceinline__ void chunk_acc(float (&acc)[kChunk / 8][4],
+                                          const float (&p)[2][4],
+                                          const float* tile, int r,
+                                          int lane) {
+#pragma unroll 1
+  for (int j = 0; j < 2; ++j) {
+    uint32_t hi[4], lo[4];
+    hopper::split_a_tf32(p[j], hi, lo);
+    acc_rows8_tf32<kChunk>(acc, hi, lo, tile, r + 8 * j, lane >> 2,
+                           lane & 3);
+  }
+}
+
+// A sub-tile's running sum over the chunks: this chunk's s plus what
+// `slot` (256 floats, lane-major) holds from the earlier ones (none on
+// the first); kept there for the next chunk unless this is the last
+__device__ __forceinline__ void carry_sum(float (&s)[2][4], float* slot,
+                                          int lane, bool first, bool last) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    float& x = s[e >> 2][e & 3];
+    if (!first) x += slot[e * 32 + lane];
+    if (!last) slot[e * 32 + lane] = x;
+  }
+}
+
+// Two adjacent output elements from fp32
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Rows g and g + 8 of a warp's 16 x 128 accumulators, times `mul`, to
+// columns [c0, c0 + 128) of rows [row0, row0 + 16) of one (batch, head);
+// rows at or past `len` are not written
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* __restrict__ dst, Strides st,
+                                            int b, int h, int row0, int len,
+                                            int c0,
+                                            const float (&acc)[kChunk / 8][4],
+                                            float mul, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + g + 8 * i;
+    if (row >= len) continue;
+    T* out = dst + b * st.b + (long long)row * st.t + h * st.h + c0;
+#pragma unroll
+    for (int n = 0; n < kChunk / 8; ++n)
+      store_pair(out + 8 * n + 2 * t, mul * acc[n][2 * i],
+                 mul * acc[n][2 * i + 1]);
+  }
+}
+
+// B2 above D 128: one block of 2 * kFwdRows threads per (batch*head,
+// kFwdRows query rows, output chunk); warp w owns query rows [16w, 16w +
+// 16) and takes every 16-key sub-tile of each key tile. Per key tile, one
+// step per head-dim chunk stages that chunk of Q and K (and, on the last
+// step, the block's chunk of V) and sums each sub-tile's S; on the last
+// step each sub-tile takes one online-softmax step as fwd_mma_kernel's
+// warps do, then O += P.V. The blocks take the query tiles from the last:
+// causal, those have the most keys, so they start first. o rows start on
+// 4 bytes (bf16) or 8 (fp32): the wrapper allocates it.
+template <typename T>
+__global__ void __launch_bounds__(2 * Wide<T>::kFwdRows, Wide<T>::kFwdBlocks)
+    fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, Strides sq, Strides sk,
+                    Strides sv, Strides so, int H, int Tq, int Tk, int k_len,
+                    int D, float scale, bool causal) {
+  using W = Wide<T>;
+  constexpr int BQ = W::kFwdRows, BK = W::kFwdStep, LD = W::LD;
+  constexpr int THREADS = 2 * BQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sK = sQ + BQ * LD;
+  T* sV = sK + BK * LD;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int nc = D / kChunk, c = blockIdx.z, c0 = c * kChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = q0 + 16 * warp;
+  float* sums = reinterpret_cast<float*>(sV + BK * LD) + warp * BK * 16;
+  // keys the block, and this warp, need: before k_len and, causal, not
+  // after the last query; none for rows wholly past Tq
+  const int kend = causal ? min(k_len, min(q0 + BQ, Tq)) : k_len;
+  const int kend_w = r0 >= Tq ? 0
+                     : causal ? min(k_len, min(r0 + 16, Tq))
+                              : k_len;
+  const int nkt = (kend + BK - 1) / BK;
+
+  float acc[kChunk / 8][4];
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g, g + 8
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BK;
+    const int kn = min(BK, kend_w - k0);  // keys of this tile the warp takes
+    for (int j = 0; j < nc; ++j) {
+      const int d0 = (c + 1 + j) % nc * kChunk;  // the block's own last
+      const bool last = j == nc - 1;
+      __syncthreads();  // the tiles are read before they are staged again
+      stage_chunk<BQ, THREADS>(sQ, q, sq, b, h, q0, Tq, d0);
+      stage_chunk<BK, THREADS>(sK, k, sk, b, h, k0, Tk, d0);
+      if (last) stage_chunk<BK, THREADS>(sV, v, sv, b, h, k0, Tk, c0);
+      hopper::cp_async_wait_all();
+      __syncthreads();
+      for (int kk = 0; kk < kn; kk += 16) {
+        float s[2][4];
+        chunk_score<false, kChunk / 8>(s, sQ, 16 * warp, sK, kk, lane);
+        carry_sum(s, sums + kk * 16, lane, j == 0, last);
+        if (!last) continue;
+        // one online-softmax step on the sub-tile's whole S, masked on
+        // the diagonal and edge sub-tiles only; rows g and g + 8 reduced
+        // over their four lanes
+        const int kb = k0 + kk;
+        const bool inner = kb + 16 <= k_len && (!causal || kb + 15 <= r0);
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int qpos = r0 + g + 8 * (i >> 1);
+            const int kpos = kb + 8 * jj + 2 * t + (i & 1);
+            s[jj][i] = inner || score_valid(qpos, kpos, k_len, causal)
+                           ? s[jj][i] * scale
+                           : kNegInf;
+            mx[i >> 1] = fmaxf(mx[i >> 1], s[jj][i]);
+          }
+        float m_new[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          m_new[r] = fmaxf(m[r], mx[r]);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float x = s[jj][i];
+            const float p = x <= kNegInf / 2 ? 0.f : expf(x - m_new[i >> 1]);
+            s[jj][i] = p;
+            psum[i >> 1] += p;
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+          psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+          const float corr = expf(m[r] - m_new[r]);
+          l[r] = l[r] * corr + psum[r];
+#pragma unroll
+          for (int n = 0; n < kChunk / 8; ++n) {
+            acc[n][2 * r] *= corr;
+            acc[n][2 * r + 1] *= corr;
+          }
+          m[r] = m_new[r] <= kNegInf / 2 ? m[r] : m_new[r];  // m_keep
+        }
+        // O += P.V: p rounded to bf16 in bf16 (the Pallas
+        // `p.astype(v.dtype)`), kept fp32 and split in fp32
+        chunk_acc(acc, s, sV, kk, lane);
+      }
+    }
+  }
+  // a fully masked row (l == 0) gets O = 0 and lse 0: the backward
+  // re-masks it
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float denom = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / denom;
+    const int qpos = r0 + g + 8 * r;
+    if (c == 0 && t == 0 && qpos < Tq)
+      lse[(long long)bh * Tq + qpos] = l[r] > 0.f ? m[r] + logf(denom) : 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n) {
+    acc[n][0] *= inv[0];
+    acc[n][1] *= inv[0];
+    acc[n][2] *= inv[1];
+    acc[n][3] *= inv[1];
+  }
+  store_chunk<T>(o, so, b, h, r0, Tq, c0, acc, 1.f, g, t);
+}
+
+// B3 above D 128: one block of 2 * kDqRows threads per (batch*head,
+// kDqRows query rows, dQ chunk); warp w owns query rows [16w, 16w + 16)
+// and takes every 16-key sub-tile. Per key tile, one step per head-dim
+// chunk stages that chunk of Q, dO, K and V and sums each sub-tile's S and
+// dP; on the last step (the block's own chunk) it re-forms p and ds and
+// adds dS.K[:, c0:c0+128] to dQ. The blocks take the query tiles from the
+// last, as dq_tf32_kernel. dq rows start on 4 or 8 bytes (the wrapper
+// allocates it).
+template <typename T>
+__global__ void __launch_bounds__(2 * Wide<T>::kDqRows, 2)
+    dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dq,
+                   Strides sq, Strides sk, Strides sv, Strides sdo,
+                   Strides sdq, int H, int Tq, int Tk, int k_len, int D,
+                   float scale, bool causal) {
+  using W = Wide<T>;
+  constexpr int BQ = W::kDqRows, BK = W::kDqStep, LD = W::LD;
+  constexpr int THREADS = 2 * BQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sdO = sQ + BQ * LD;
+  T* sK = sdO + BQ * LD;
+  T* sV = sK + BK * LD;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int nc = D / kChunk, c0 = blockIdx.z * kChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = q0 + 16 * warp;
+  float* s_sums = reinterpret_cast<float*>(sV + BK * LD) + warp * BK * 16;
+  float* dp_sums = s_sums + BQ * BK;
+  // keys the block, and this warp, need: before k_len and, causal, not
+  // after the last query
+  const int kend = causal ? min(k_len, min(q0 + BQ, Tq)) : k_len;
+  const int kend_w = causal ? min(k_len, min(r0 + 16, Tq)) : k_len;
+  const int nkt = (kend + BK - 1) / BK;
+
+  float lse_r[2], delta_r[2];  // of rows g and g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = r0 + g + 8 * i;
+    lse_r[i] = qpos < Tq ? lse[(long long)bh * Tq + qpos] : 0.f;
+    delta_r[i] = qpos < Tq ? delta[(long long)bh * Tq + qpos] : 0.f;
+  }
+  float acc[kChunk / 8][4];
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BK;
+    // the warp's keys of this tile: none past its last key
+    const int kn = r0 < Tq ? min(BK, kend_w - k0) : 0;
+    for (int j = 0; j < nc; ++j) {
+      const int d0 = (c0 / kChunk + 1 + j) % nc * kChunk;
+      const bool last = j == nc - 1;
+      __syncthreads();  // the tiles are read before they are staged again
+      stage_chunk<BQ, THREADS>(sQ, q, sq, b, h, q0, Tq, d0);
+      stage_chunk<BQ, THREADS>(sdO, dout, sdo, b, h, q0, Tq, d0);
+      stage_chunk<BK, THREADS>(sK, k, sk, b, h, k0, Tk, d0);
+      stage_chunk<BK, THREADS>(sV, v, sv, b, h, k0, Tk, d0);
+      hopper::cp_async_wait_all();
+      __syncthreads();
+      for (int kk = 0; kk < kn; kk += 16) {
+        float s[2][4], dp[2][4];
+        chunk_score<false, 4>(s, sQ, 16 * warp, sK, kk, lane);
+        carry_sum(s, s_sums + kk * 16, lane, j == 0, last);
+        chunk_score<true, 2>(dp, sdO, 16 * warp, sV, kk, lane);
+        carry_sum(dp, dp_sums + kk * 16, lane, j == 0, last);
+        if (!last) continue;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int qpos = r0 + g + 8 * (i >> 1);
+            const int kpos = k0 + kk + 8 * jj + 2 * t + (i & 1);
+            float p;
+            probs_and_ds<T>(
+                s[jj][i], dp[jj][i], lse_r[i >> 1], delta_r[i >> 1],
+                qpos < Tq && score_valid(qpos, kpos, k_len, causal), scale,
+                &p, &dp[jj][i]);
+          }
+        chunk_acc(acc, dp, sK, kk, lane);  // dQ += dS.K, K's chunk c0
+      }
+    }
+  }
+  store_chunk<T>(dq, sdq, b, h, r0, Tq, c0, acc, scale, g, t);
+}
+
+// B4 above D 128: one block of 2 * kDkvRows threads per (batch*head,
+// kDkvRows key rows, dK/dV chunk); warp w owns key rows [16w, 16w + 16)
+// and their dK and dV chunk (2 x 64 fp32 registers a thread, as
+// dkv_mma_kernel at D 128). Per query tile, one step per head-dim chunk
+// stages that chunk of K, V, Q and dO and sums each sub-tile's S^T and
+// dP^T; on the last step (the block's own chunk, with the tile's lse and
+// delta) it re-forms p and ds and adds P^T.dO and dS^T.Q of the chunk.
+// The blocks take the key tiles in order: causal, the first have the most
+// queries. dk and dv rows start on 4 or 8 bytes (the wrapper allocates
+// them).
+template <typename T>
+__global__ void __launch_bounds__(2 * Wide<T>::kDkvRows, 2)
+    dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+                    Strides sdo, Strides sdk, Strides sdv, int H, int Tq,
+                    int Tk, int k_len, int D, float scale, bool causal) {
+  using W = Wide<T>;
+  constexpr int BK = W::kDkvRows, BQ = W::kDkvStep, LD = W::LD;
+  constexpr int THREADS = 2 * BK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + BK * LD;
+  T* sQ = sV + BK * LD;
+  T* sdO = sQ + BQ * LD;
+  float* sL = reinterpret_cast<float*>(sdO + BQ * LD);  // lse, then delta
+  const float* sDl = sL + BQ;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, k0 = blockIdx.y * BK;
+  const int nc = D / kChunk, c0 = blockIdx.z * kChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, kr = 16 * warp, kw = k0 + kr;
+  float* s_sums = sL + 2 * BQ + warp * BQ * 16;
+  float* dp_sums = s_sums + BK * BQ;
+  // query tiles the block needs: none when all its keys are masked;
+  // causal, none wholly before its first key
+  const int qt0 = causal ? k0 / BQ : 0;
+  const int nqt = k0 < k_len ? (Tq + BQ - 1) / BQ : qt0;
+
+  float dk_acc[kChunk / 8][4], dv_acc[kChunk / 8][4];
+#pragma unroll
+  for (int n = 0; n < kChunk / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
+
+  for (int qt = qt0; qt < nqt; ++qt) {
+    const int q0 = qt * BQ;
+    // the warp's queries of this tile: none past Tq, none when all its
+    // keys are masked
+    const int qn = kw < k_len ? min(BQ, Tq - q0) : 0;
+    for (int j = 0; j < nc; ++j) {
+      const int d0 = (c0 / kChunk + 1 + j) % nc * kChunk;
+      const bool last = j == nc - 1;
+      __syncthreads();  // the tiles are read before they are staged again
+      stage_chunk<BK, THREADS>(sK, k, sk, b, h, k0, Tk, d0);
+      stage_chunk<BK, THREADS>(sV, v, sv, b, h, k0, Tk, d0);
+      stage_chunk<BQ, THREADS>(sQ, q, sq, b, h, q0, Tq, d0);
+      stage_chunk<BQ, THREADS>(sdO, dout, sdo, b, h, q0, Tq, d0);
+      if (last) {
+        stage_vec<BQ, THREADS>(sL, lse + (long long)bh * Tq, q0, Tq);
+        stage_vec<BQ, THREADS>(sL + BQ, delta + (long long)bh * Tq, q0, Tq);
+      }
+      hopper::cp_async_wait_all();
+      __syncthreads();
+      for (int qq = 0; qq < qn; qq += 16) {
+        if (causal && q0 + qq + 15 < kw) continue;  // wholly above the diagonal
+        // keys x queries; in fp32 the head dim 2 k-steps at a time, so
+        // that 255 registers hold the 128 accumulators with no spill
+        float s[2][4], dp[2][4];
+        chunk_score<false, 2>(s, sK, kr, sQ, qq, lane);
+        carry_sum(s, s_sums + qq * 16, lane, j == 0, last);
+        chunk_score<true, 2>(dp, sV, kr, sdO, qq, lane);
+        carry_sum(dp, dp_sums + qq * 16, lane, j == 0, last);
+        if (!last) continue;
+        // a sub-tile wholly inside k_len, Tq and (causal) the diagonal
+        // needs no mask
+        const bool inner = kw + 16 <= k_len && q0 + qq + 16 <= Tq
+                           && (!causal || kw + 15 <= q0 + qq);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int kpos = kw + g + 8 * (i >> 1);
+            const int col = qq + 8 * jj + 2 * t + (i & 1), qpos = q0 + col;
+            probs_and_ds<T>(
+                s[jj][i], dp[jj][i], sL[col], sDl[col],
+                inner
+                    || (qpos < Tq && score_valid(qpos, kpos, k_len, causal)),
+                scale, &s[jj][i], &dp[jj][i]);
+          }
+        chunk_acc(dv_acc, s, sdO, qq, lane);  // dV += P^T.dO
+        chunk_acc(dk_acc, dp, sQ, qq, lane);  // dK += dS^T.Q
+      }
+    }
+  }
+  store_chunk<T>(dk, sdk, b, h, kw, Tk, c0, dk_acc, scale, g, t);
+  store_chunk<T>(dv, sdv, b, h, kw, Tk, c0, dv_acc, 1.f, g, t);
+}
+
 Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
@@ -1501,6 +2016,67 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
+// The route above D 128: grid axis z takes the head dim's 128-column
+// chunks
+template <typename T>
+int fwd_wide(int D, const void* q, const void* k, const void* v, void* o,
+             void* lse, int B, int H, int Tq, int Tk, int k_len,
+             const long long* st, float scale, int causal,
+             cudaStream_t stream) {
+  constexpr int BQ = Wide<T>::kFwdRows;
+  const size_t smem = fwd_wide_smem_bytes<T>();
+  cudaError_t err = prepare(fwd_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tq + BQ - 1) / BQ, D / kChunk);
+  fwd_wide_kernel<T><<<grid, 2 * BQ, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3), H, Tq, Tk, k_len, D, scale, causal != 0);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dq_wide(int D, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* delta,
+            void* dq_out, int B, int H, int Tq, int Tk, int k_len,
+            const long long* st, float scale, int causal,
+            cudaStream_t stream) {
+  constexpr int BQ = Wide<T>::kDqRows;
+  const size_t smem = dq_wide_smem_bytes<T>();
+  cudaError_t err = prepare(dq_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tq + BQ - 1) / BQ, D / kChunk);
+  dq_wide_kernel<T><<<grid, 2 * BQ, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dq_out, strides_at(st, 0),
+      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
+      strides_at(st, 4), H, Tq, Tk, k_len, D, scale, causal != 0);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dkv_wide(int D, const void* q, const void* k, const void* v,
+             const void* dout, const void* lse, const void* delta, void* dk,
+             void* dv, int B, int H, int Tq, int Tk, int k_len,
+             const long long* st, float scale, int causal,
+             cudaStream_t stream) {
+  constexpr int BK = Wide<T>::kDkvRows;
+  const size_t smem = dkv_wide_smem_bytes<T>();
+  cudaError_t err = prepare(dkv_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tk + BK - 1) / BK, D / kChunk);
+  dkv_wide_kernel<T><<<grid, 2 * BK, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3), strides_at(st, 4), strides_at(st, 5), H, Tq, Tk,
+      k_len, D, scale, causal != 0);
+  return cudaGetLastError();
+}
+
+// A head dim of the chunked route: a multiple of 128 above 128
+inline bool wide_head_dim(int D) { return D > kChunk && D % kChunk == 0; }
+
 // Dispatch on the input type and the head dim; -1 for what the kernels
 // do not take (the Python wrappers check first).
 #define DISPATCH(FN, ...)                                                 \
@@ -1512,7 +2088,9 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
       return is_bf16 ? FN<__nv_bfloat16, 128>(__VA_ARGS__)                \
                      : FN<float, 128>(__VA_ARGS__);                       \
     default:                                                              \
-      return -1;                                                          \
+      if (!wide_head_dim(D)) return -1;                                   \
+      return is_bf16 ? FN##_wide<__nv_bfloat16>(D, __VA_ARGS__)           \
+                     : FN##_wide<float>(D, __VA_ARGS__);                  \
   }
 
 }  // namespace
@@ -1551,12 +2129,17 @@ extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v,
 
 namespace {
 
+constexpr int kInfo = 5;  // ints a kernel in fedml_flash_mma_info
+
 template <typename Kernel>
-int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
+int occupancy(Kernel kernel, int threads, size_t smem, int rows, int chunks,
+              int* out) {
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   out[0] = threads;
   out[1] = (int)smem;
+  out[3] = rows;
+  out[4] = chunks;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel,
                                                        threads, smem);
 }
@@ -1564,37 +2147,64 @@ int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
 template <int D>
 int mma_info(int* out) {
   int err = occupancy(fwd_mma_kernel<D>, kFwdThreads, fwd_smem_bytes<D>(),
-                      out);
+                      kFwdRows, 1, out);
   if (!err)
     err = occupancy(dq_mma_kernel<D>, kDqThreads, dq_smem_bytes<D>(),
-                    out + 3);
+                    kBwdRows, 1, out + kInfo);
   if (!err)
     err = occupancy(dkv_mma_kernel<D>, kDkvThreads, dkv_smem_bytes<D>(),
-                    out + 6);
+                    kBwdRows, 1, out + 2 * kInfo);
   if (!err)
     err = occupancy(dq_tf32_kernel<D>, kDqThreads, dq_tf32_smem_bytes<D>(),
-                    out + 9);
+                    kBwdRows, 1, out + 3 * kInfo);
   if (!err)
     err = occupancy(dkv_tf32_kernel<D>, kDkvThreads, dkv_tf32_smem_bytes<D>(),
-                    out + 12);
-  return err ? err : occupancy(fwd_tf32_kernel<D>, fwd_tf32_threads<D>(),
-                               fwd_tf32_smem_bytes<D>(), out + 15);
+                    kBwdRows, 1, out + 4 * kInfo);
+  return err ? err
+             : occupancy(fwd_tf32_kernel<D>, fwd_tf32_threads<D>(),
+                         fwd_tf32_smem_bytes<D>(), fwd_tf32_tile<D>(), 1,
+                         out + 5 * kInfo);
+}
+
+template <typename T>
+int wide_info(int D, int* fwd_out, int* dq_out, int* dkv_out) {
+  using W = Wide<T>;
+  const int nc = D / kChunk;
+  int err = occupancy(fwd_wide_kernel<T>, 2 * W::kFwdRows,
+                      fwd_wide_smem_bytes<T>(), W::kFwdRows, nc, fwd_out);
+  if (!err)
+    err = occupancy(dq_wide_kernel<T>, 2 * W::kDqRows,
+                    dq_wide_smem_bytes<T>(), W::kDqRows, nc, dq_out);
+  return err ? err
+             : occupancy(dkv_wide_kernel<T>, 2 * W::kDkvRows,
+                         dkv_wide_smem_bytes<T>(), W::kDkvRows, nc,
+                         dkv_out);
 }
 
 }  // namespace
 
-// The tensor-core kernels' launch shape at head dim D: out[0..2] = the
-// bf16 forward's threads a block, shared bytes a block, blocks an SM can
-// hold; out[3..5] the same for the bf16 dq, out[6..8] for the bf16 dk/dv,
-// out[9..11] for the fp32 dq, out[12..14] for the fp32 dk/dv, out[15..17]
-// for the fp32 forward. Returns 0 or a CUDA error code.
+// The tensor-core kernels' launch shape at head dim D, kInfo = 5 ints a
+// kernel: threads a block, shared bytes a block, blocks an SM can hold,
+// rows a block owns (queries for the forward and dq, keys for dk/dv) and
+// head-dim chunks (grid axis z: 1 at D 64 and 128, D / 128 above). out[0]
+// is the bf16 forward's, out[5] the bf16 dq's, out[10] the bf16 dk/dv's,
+// out[15] the fp32 dq's, out[20] the fp32 dk/dv's, out[25] the fp32
+// forward's: the kernels of D 64 and 128, and above 128 those of the
+// chunked route. Returns 0 or a CUDA error code (-1 for a head dim the
+// kernels do not take).
 extern "C" int fedml_flash_mma_info(int D, int* out) {
   switch (D) {
     case 64:
       return mma_info<64>(out);
     case 128:
       return mma_info<128>(out);
-    default:
-      return -1;
+    default: {
+      if (!wide_head_dim(D)) return -1;
+      const int err = wide_info<__nv_bfloat16>(D, out, out + kInfo,
+                                               out + 2 * kInfo);
+      return err ? err
+                 : wide_info<float>(D, out + 5 * kInfo, out + 3 * kInfo,
+                                    out + 4 * kInfo);
+    }
   }
 }

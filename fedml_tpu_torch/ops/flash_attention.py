@@ -21,9 +21,11 @@ query in absolute positions (``kpos <= qpos``). A fully masked row gets
 O = 0 and lse = 0.
 
 Each wrapper computes the plain version when its tensors lie on the
-CPU; on CUDA tensors it launches its kernel (bf16 or fp32, head dims
-:data:`SUPPORTED_HEAD_DIMS`) or raises. The kernels are compiled at
-their first launch (``ops/_build.py``), never at import.
+CPU; on CUDA tensors it launches its kernel (bf16 or fp32, the head
+dims :func:`head_dim_supported` takes: 64 and every multiple of 128,
+those above 128 through the chunked route, :data:`WIDE_KERNELS`) or
+raises. The kernels are compiled at their first launch
+(``ops/_build.py``), never at import.
 """
 
 from __future__ import annotations
@@ -36,8 +38,15 @@ import torch
 from fedml_tpu_torch.ops._build import CudaLibrary
 from fedml_tpu_torch.ops.attention import NEG_INF
 
-#: head dims the kernels are instantiated for
-SUPPORTED_HEAD_DIMS = (64, 128)
+
+def head_dim_supported(D):
+    """Whether the kernels take head dim ``D``: 64, or any multiple of
+    128 -- what the reference's Pallas kernels take on the TPU
+    (``_require_hw_head_dim``), and D 64 besides. D 64 and 128 have
+    kernels of their own; above 128 one chunked kernel a wrapper and
+    input type serves every multiple of 128."""
+    return D == 64 or (D > 0 and D % 128 == 0)
+
 
 #: kernel launches per wrapper (``fwd``: B2, ``dq``: B3, ``dkv``: B4);
 #: the plain versions on CPU tensors do not count. Exact when several
@@ -82,6 +91,10 @@ MMA_KERNELS = {"fwd": "fwd_mma_kernel", "dq": "dq_mma_kernel",
 #: the fp32 tensor-core kernels (3xTF32) by wrapper: B2, B3, B4
 TF32_KERNELS = {"fwd": "fwd_tf32_kernel", "dq": "dq_tf32_kernel",
                 "dkv": "dkv_tf32_kernel"}
+#: the kernels of head dims above 128 by wrapper: B2, B3, B4, each a
+#: template over the input type (bf16 on mma.m16n8k16, fp32 3xTF32)
+WIDE_KERNELS = {"fwd": "fwd_wide_kernel", "dq": "dq_wide_kernel",
+                "dkv": "dkv_wide_kernel"}
 
 
 def mma_kernel_tag(name, D, kernels=MMA_KERNELS):
@@ -93,18 +106,33 @@ def mma_kernel_tag(name, D, kernels=MMA_KERNELS):
     return f"{len(fn)}{fn}ILi{D}E"
 
 
+def wide_kernel_tag(name, dtype):
+    """The same for the kernel of wrapper ``name`` above D 128 (one for
+    every head dim) in ``dtype`` ("bf16" or "fp32"):
+    ``15fwd_wide_kernelIfE``."""
+    fn = WIDE_KERNELS[name]
+    arg = {"bf16": "13__nv_bfloat16", "fp32": "f"}[dtype]
+    return f"{len(fn)}{fn}I{arg}E"
+
+
+#: launch shape fields a kernel in ``fedml_flash_mma_info``'s output
+_INFO = ("threads", "smem_bytes", "blocks_per_sm", "rows", "chunks")
+
+
 def mma_launch_info(D=128):
     """Launch shape of the tensor-core kernels at head dim ``D`` on the
-    current card: ``{"fwd": {"threads", "smem_bytes", "blocks_per_sm"},
-    "dq": {...}, "dkv": {...}}`` for bf16 B2-B4 and ``"fwd_tf32"``,
-    ``"dq_tf32"``, ``"dkv_tf32"`` for fp32 B2-B4."""
-    out = (ctypes.c_int * 18)()
+    current card: ``{"fwd": {"threads", "smem_bytes", "blocks_per_sm",
+    "rows", "chunks"}, "dq": {...}, "dkv": {...}}`` for bf16 B2-B4 and
+    ``"fwd_tf32"``, ``"dq_tf32"``, ``"dkv_tf32"`` for fp32 B2-B4: the
+    kernels of D 64 and 128, or above 128 those of the chunked route
+    (``rows`` a block owns, ``chunks`` of 128 head-dim columns a row's
+    blocks split its output into: 1 at D 64 and 128, D / 128 above)."""
+    n = len(_INFO)
+    out = (ctypes.c_int * (6 * n))()
     _raise_on(LIBRARY.lib.fedml_flash_mma_info(D, out), "mma_info")
-    return {name: {"threads": out[i], "smem_bytes": out[i + 1],
-                   "blocks_per_sm": out[i + 2]}
-            for name, i in (("fwd", 0), ("dq", 3), ("dkv", 6),
-                            ("dq_tf32", 9), ("dkv_tf32", 12),
-                            ("fwd_tf32", 15))}
+    return {name: dict(zip(_INFO, out[i * n:(i + 1) * n]))
+            for i, name in enumerate(("fwd", "dq", "dkv", "dq_tf32",
+                                      "dkv_tf32", "fwd_tf32"))}
 
 
 # ---------------------------------------------------------------------------
@@ -159,8 +187,12 @@ def _probs_and_ds_reference(q, k, v, do, lse, delta, causal, scale, k_len):
     delta)``, fp32 ``[B, H, Tq, Tk]`` (the Pallas ``_probs_and_ds``)."""
     s = _scores(q, k, causal, scale, k_len)
     p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - lse[..., None]))
-    dov = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    return p, p * (dov - delta[..., None])
+    # dO v^T - delta in float64: where one key takes a row's attention the
+    # two cancel exactly, and fp32 leaves each with rounding noise of about
+    # eps |dO| |v| sqrt(D), which at D 256 alone reaches the card tests'
+    # fp32 tolerance on dk (0.96 of it against float64 on the CPU)
+    dov = torch.einsum("bqhd,bkhd->bhqk", do.double(), v.double())
+    return p, p * (dov - delta[..., None].double()).float()
 
 
 def flash_attention_dq_reference(q, k, v, do, lse, delta, causal, scale,
@@ -276,10 +308,10 @@ def _check_cuda(tensors, stats=()):
             raise ValueError("q, k, v (and dO) must be [B, T, H, D] with a "
                              "contiguous head dim")
     D = q.shape[-1]
-    if D not in SUPPORTED_HEAD_DIMS:
+    if not head_dim_supported(D):
         raise ValueError(
-            f"the flash attention kernels take head dims "
-            f"{SUPPORTED_HEAD_DIMS}, got D={D}; use "
+            f"the flash attention kernels take head dims 64 and multiples "
+            f"of 128, got D={D}; use "
             "fedml_tpu_torch.ops.attention.blockwise_attention for other "
             "head dims (same flash semantics, plain PyTorch)")
     for t in stats:
@@ -420,8 +452,9 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
     return FlashAttention.apply(q, k, v, causal, scale)
 
 
-__all__ = ["SUPPORTED_HEAD_DIMS", "MMA_KERNELS", "TF32_KERNELS", "build",
-           "mma_kernel_tag", "mma_launch_info", "launches", "tf32_split",
+__all__ = ["head_dim_supported", "MMA_KERNELS", "TF32_KERNELS",
+           "WIDE_KERNELS", "build", "mma_kernel_tag", "wide_kernel_tag",
+           "mma_launch_info", "launches", "tf32_split",
            "flash_attention_fwd_tf32_reference",
            "flash_attention_bwd_tf32_reference",
            "flash_attention", "FlashAttention", "flash_attention_fwd",

@@ -5,10 +5,10 @@ the materialising ``ops/attention.py`` ``mha``, with the reference's
 bounds (forward 2e-2, gradients of ``sum(out^2)`` 0.3).
 
 The reference's small-D guard (Mosaic takes head dims in multiples of
-128 only) has no counterpart: the port's kernels take D 64 and 128
-(``SUPPORTED_HEAD_DIMS``), so D 64 is held to the same bounds, and a
-head dim the kernels do not take (32) must raise ``ValueError`` on the
-card rather than fall back. On the CPU (``--platform cpu``) the
+128 only) has its counterpart in ``head_dim_supported``: the port's
+kernels take D 64 and every multiple of 128, so D 64 is held to the
+same bounds, and a head dim the kernels do not take (32) must raise
+``ValueError`` on the card rather than fall back. On the CPU (``--platform cpu``) the
 wrappers run their plain versions and launch nothing.
 
 Usage: python -m fedml_tpu_torch.scripts.hw_smoke_flash [--platform cpu

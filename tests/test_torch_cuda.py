@@ -189,14 +189,20 @@ def _qkv_do(dev, dtype, B, Tq, Tk, H, D, seed):
 # 16-row sub-tiles and 32/64-row tiles (T of 15, 16, 17, 33, 63, 65), a
 # T above 128 with Tq != Tk, main_longcontext's T 512 at 4 heads of 64
 # (a batch of 4 of its 32) and a T of 500 that ends inside a 16-row
-# sub-tile at D 128
+# sub-tile at D 128; then the chunked route above D 128 (head dims 256
+# and 384: two and three 128-column chunks): one past two tiles, Tq !=
+# Tk both ways, a T that ends one past a 16-row sub-tile and one that
+# ends inside one (T 500), and a T above 128 with Tq != Tk
 ATTN_SHAPES = [(32, 80, 80, 4, 128), (2, 1, 1, 2, 128), (2, 129, 129, 2, 64),
                (2, 129, 129, 2, 128), (2, 40, 24, 3, 64),
                (2, 24, 70, 2, 128), (3, 80, 80, 2, 64),
                (2, 15, 15, 2, 128), (2, 16, 16, 2, 64), (2, 17, 17, 2, 128),
                (2, 33, 33, 2, 64), (2, 63, 63, 2, 128), (2, 65, 65, 2, 128),
                (2, 200, 150, 2, 128), (4, 512, 512, 4, 64),
-               (2, 500, 500, 2, 128)]
+               (2, 500, 500, 2, 128),
+               (2, 129, 129, 2, 256), (2, 24, 70, 2, 256),
+               (2, 70, 24, 2, 384), (2, 17, 17, 2, 384),
+               (2, 500, 500, 2, 256), (2, 200, 150, 1, 384)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -242,13 +248,16 @@ def _bwd(args, k_len=None):
             + fa.flash_attention_dkv(*args, k_len=k_len))
 
 
+@pytest.mark.parametrize("D", [128, 256, 384])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("k_len", [0, 1, 37, 64])
-def test_flash_backward_masks_keys_past_k_len(cuda, dtype, causal, k_len):
+def test_flash_backward_masks_keys_past_k_len(cuda, dtype, causal, k_len,
+                                              D):
     """Keys at or past ``k_len`` get no attention: dq, dk and dv match the
-    plain versions, and with ``k_len = 0`` all three are zero."""
-    q, k, v, do = _qkv_do(cuda, dtype, 2, 80, 80, 2, 128, 17 + k_len)
+    plain versions, and with ``k_len = 0`` all three are zero (at D 128
+    and through the chunked route at D 256 and 384)."""
+    q, k, v, do = _qkv_do(cuda, dtype, 2, 80, 80, 2, D, 17 + k_len)
     args = _bwd_args(q, k, v, do, causal, k_len)
     rel, abs_ = _tol(dtype)
     got = _bwd(args, k_len)
@@ -261,7 +270,7 @@ def test_flash_backward_masks_keys_past_k_len(cuda, dtype, causal, k_len):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256, 384])
 @pytest.mark.parametrize("Tq,Tk,k_len", [(40, 70, 37), (24, 70, 45),
                                          (70, 40, 37), (80, 50, 21),
                                          (40, 70, 0)])
@@ -284,12 +293,13 @@ def test_causal_forward_masks_keys_past_k_len(cuda, dtype, D, Tq, Tk,
         assert torch.equal(lse, torch.zeros_like(lse))
 
 
+@pytest.mark.parametrize("D", [128, 256, 384])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_kernels_read_strided_qkv_views(cuda, dtype):
+def test_flash_kernels_read_strided_qkv_views(cuda, dtype, D):
     """q, k, v as column slices of one fused qkv product (the model's
     layout) give the same bits as contiguous copies: O and lse, dq, dk
     and dv."""
-    B, T, H, D = 4, 80, 4, 128
+    B, T, H = 4, 80, 4
     gen = torch.Generator(device=cuda).manual_seed(3)
     qkv = torch.randn(B, T, 3 * H * D, generator=gen, device=cuda).to(dtype)
     do = torch.randn(B, T, H, D, generator=gen, device=cuda).to(dtype)
@@ -305,13 +315,14 @@ def test_flash_kernels_read_strided_qkv_views(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("D", [128, 256, 384])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernels_take_views_off_16_byte_rows(cuda, causal, dtype):
+def test_flash_kernels_take_views_off_16_byte_rows(cuda, causal, dtype, D):
     """q, k, v and dO whose rows do not start on 16 bytes (views one
     element into a buffer with an odd row stride) are read element by
     element: forward and backward match the plain versions."""
-    B, T, H, D = 2, 70, 2, 128
+    B, T, H = 2, 70, 2
     gen = torch.Generator(device=cuda).manual_seed(9)
     buf = torch.randn(4, B, T, H * D + 1, generator=gen,
                       device=cuda).to(dtype)
@@ -356,3 +367,52 @@ def test_flash_kernels_refuse_unsupported_head_dims(cuda):
         fa.flash_attention_fwd(q, k, v)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), k.half(), v.half())
+
+
+@pytest.mark.parametrize("D", [96, 192])
+def test_flash_kernels_refuse_head_dims_off_multiples_of_128(cuda, D):
+    """Head dims other than 64 and the multiples of 128 raise on the card,
+    as the reference's kernels refuse them on the TPU, each wrapper before
+    it launches."""
+    q, k, v, do = _qkv_do(cuda, torch.bfloat16, 1, 16, 16, 1, D, D)
+    lse = torch.zeros(1, 1, 16, device=cuda)
+    before = dict(fa.launches)
+    with pytest.raises(ValueError, match="blockwise_attention"):
+        fa.flash_attention_fwd(q, k, v)
+    for fn in (fa.flash_attention_dq, fa.flash_attention_dkv):
+        with pytest.raises(ValueError, match="blockwise_attention"):
+            fn(q, k, v, do, lse, lse)
+    assert fa.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_take_head_dim_512(cuda, dtype):
+    """D 512 (four chunks) through the autograd Function: O and the
+    gradients match the plain versions, one launch of each kernel."""
+    q, k, v, g = _qkv_do(cuda, dtype, 2, 90, 90, 2, 512, 512)
+    rel, abs_ = _tol(dtype)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    before = dict(fa.launches)
+    o = fa.flash_attention(qr, kr, vr, True)
+    o.backward(g)
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        "fwd": 1, "dq": 1, "dkv": 1}
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, True)
+    _close_rel(o.detach(), o_ref, rel, abs_)
+    args = _bwd_args(q, k, v, g, True)
+    for got, want in zip((qr.grad, kr.grad, vr.grad),
+                         fa.flash_attention_bwd_reference(*args)):
+        _close_rel(got, want, rel, abs_)
+
+
+@pytest.mark.parametrize("D", [256, 384, 1024])
+def test_wide_kernels_launch_within_the_card(cuda, D):
+    """The chunked route's launch shape is the same at every head dim
+    above 128 but for its chunks: within a block's shared memory, at
+    least two blocks an SM, D / 128 chunks."""
+    base, info = fa.mma_launch_info(256), fa.mma_launch_info(D)
+    for name, i in info.items():
+        assert i["chunks"] == D // 128, name
+        assert {**i, "chunks": 2} == base[name], name
+        assert 0 < i["smem_bytes"] <= 232448, name
+        assert i["blocks_per_sm"] >= 2, name
