@@ -11,9 +11,9 @@ Phases (any failure exits non-zero):
    kernels' registers and spills (``-Xptxas -v``) with their threads,
    shared memory and blocks an SM -- the bf16 dW kernel at each of
    ResNet-56's four shapes, the bf16 and the fp32 (3xTF32) forward, dq
-   and dk/dv at head dims 128 and 64, and the six kernels of the chunked
-   route that takes every head dim above 128 -- and read the card's
-   name and power limit;
+   and dk/dv at head dims 128 and 64, and the kernels of head dims above
+   128 (dq's and dk/dv's chunked ones; the forward's at D 256, 384, 512
+   and above 512) -- and read the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes of its main path, and time kernel, plain version, one library
    call computing the same function (a yardstick only) and the bound:
@@ -459,9 +459,9 @@ def mma_kernel_usage(_build, fa, grouped_conv, reports):
     of their launch on this card: the bf16 dW kernel at each of the main
     path's four shapes (its ``CH`` instance and K splits too), the bf16
     forward, dq and dk/dv kernels and the fp32 (3xTF32) forward, dq and
-    dk/dv kernels per head dim (64 and 128), and the chunked route's six
-    kernels of head dims above 128. Fails when a kernel is missing from
-    a report."""
+    dk/dv kernels per head dim (64 and 128), and the kernels of head dims
+    above 128 (dq's and dk/dv's chunked ones, the forward's four
+    instances). Fails when a kernel is missing from a report."""
     out = {}
     usage = _build.ptxas_usage(reports[grouped_conv.LIBRARY.name])
     fn = grouped_conv.MMA_KERNEL
@@ -485,16 +485,22 @@ def mma_kernel_usage(_build, fa, grouped_conv, reports):
                     fail(f"{fn}<{D}> not in the ptxas report")
                 out[f"{name}_{dtype}_D{D}"] = {**found[0],
                                                **info[name + suffix]}
-    # the chunked kernels of head dims above 128, one for every such D
-    # (launch shape at D 256: two chunks)
-    info = fa.mma_launch_info(256)
-    for dtype, suffix in (("bf16", ""), ("fp32", "_tf32")):
-        for name, fn in fa.WIDE_KERNELS.items():
-            tag = fa.wide_kernel_tag(name, dtype)
-            found = [u for k, u in usage.items() if tag in k]
-            if len(found) != 1:
-                fail(f"{fn}<{dtype}> not in the ptxas report")
-            out[f"{name}_{dtype}_wide"] = {**found[0], **info[name + suffix]}
+    # the kernels of head dims above 128: dq's and dk/dv's chunked ones,
+    # one for every such D (launch shape at D 256: two chunks); the
+    # forward's instance at D 256 (``fwd_*_wide``), 384, 512 and, above
+    # 512, the one of grid axis z (D 1024)
+    for D in (256, 384, 512, 1024):
+        info = fa.mma_launch_info(D)
+        for dtype, suffix in (("bf16", ""), ("fp32", "_tf32")):
+            for name, fn in fa.WIDE_KERNELS.items():
+                if D != 256 and name != "fwd":
+                    continue
+                tag = fa.wide_kernel_tag(name, dtype, D)
+                found = [u for k, u in usage.items() if tag in k]
+                if len(found) != 1:
+                    fail(f"{fn}<{dtype}> at D {D} not in the ptxas report")
+                key = f"{name}_{dtype}_wide" + ("" if D == 256 else f"_D{D}")
+                out[key] = {**found[0], **info[name + suffix]}
     return out
 
 

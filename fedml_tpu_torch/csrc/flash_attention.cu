@@ -27,14 +27,15 @@
 // input type before their second product, as the Pallas kernels cast
 // them. The online-softmax state m, l, acc stays fp32, including the
 // s <= NEG_INF/2 -> p = 0 guard and the m_keep rule. B2 takes the exact
-// expf; in bf16 it rounds p against the running maximum of the keys its
-// warp has taken, 16 at a time (the Pallas kernel at block 16 against the
-// row's running maximum, the plain version against the whole row's). In
-// bf16, B3 and B4 take exp from ex2.approx (`bwd_exp`), a few fp32 ulps
-// off, before p and ds are rounded to bf16: measured faster than expf on
-// the card. Each output tile is owned by one block, the partial sums of a
-// warp pair meet in a fixed order and there are no atomics, so a repeat
-// call is bit-equal.
+// expf at D 64 and 128; in bf16 it rounds p against the running maximum
+// of the keys its warp has taken, 16 at a time (above D 128, a key tile at
+// a time; the Pallas kernel at block 16 against the row's running
+// maximum, the plain version against the whole row's). In bf16, B3, B4
+// and B2 above D 128 take exp from ex2.approx (`softmax_exp`), a few fp32
+// ulps off, before p and ds are rounded to bf16: measured faster than
+// expf on the card. Each output tile is owned by one block, the partial
+// sums of a warp pair meet in a fixed order and there are no atomics, so
+// a repeat call is bit-equal.
 //
 // What bounds them on the card. At the LM flagship's launch ([32, 80, 4,
 // 128] bf16, causal) the functions move 10.5 MB (B2), 13.1 MB (B3) and
@@ -147,13 +148,16 @@ __device__ __forceinline__ bool score_valid(int qpos, int kpos, int k_len,
   return kpos < k_len && (!causal || kpos <= qpos);
 }
 
-// exp of the backward's re-formation: for bf16 inputs the fast one
-// (ex2.approx, a few fp32 ulps), whose p and ds are rounded to bf16
-// (2^-8) before their products; for fp32 inputs the accurate one.
-template <typename T> __device__ __forceinline__ float bwd_exp(float x) {
+// exp of the backward's re-formation and of B2 above D 128: for bf16
+// inputs the fast one (ex2.approx, a few fp32 ulps), whose p and ds are
+// rounded to bf16 (2^-8) before their products; for fp32 inputs the
+// accurate one.
+template <typename T>
+__device__ __forceinline__ float softmax_exp(float x) {
   return expf(x);
 }
-template <> __device__ __forceinline__ float bwd_exp<__nv_bfloat16>(float x) {
+template <>
+__device__ __forceinline__ float softmax_exp<__nv_bfloat16>(float x) {
   return __expf(x);
 }
 
@@ -166,7 +170,7 @@ __device__ __forceinline__ void probs_and_ds(float qk, float dov, float lse,
                                              float scale, float* p,
                                              float* ds) {
   const float s = valid ? qk * scale : kNegInf;
-  *p = s <= kNegInf / 2 ? 0.f : bwd_exp<T>(s - lse);
+  *p = s <= kNegInf / 2 ? 0.f : softmax_exp<T>(s - lse);
   *ds = *p * (dov - delta);
 }
 
@@ -1408,54 +1412,43 @@ __global__ void __launch_bounds__(fwd_tf32_threads<D>(), 2)
 // the whole head dim, sized per D by template; at D 256 the bf16 dk/dv
 // kernel would need 256 accumulators a thread and the fp32 dq and dk/dv
 // kernels about 400 KB of shared memory a block. So here the head dim is
-// cut into chunks of kChunk = 128 columns, and the budget is the same at
+// cut into chunks of kChunk = 128 columns, and a warp's accumulators cover
+// one chunk (O, dQ: 64 fp32 registers a thread; dK and dV: 128), as at D
+// 128. The forward (fwd_wide_kernel, below) gives each 16 query rows one
+// warp per chunk and forms S once. B3 and B4 keep the budget the same at
 // every D: a block owns rows x output columns [c0, c0 + 128) (grid axis z
-// = chunk), holding D 128's accumulators (O, dQ: 64 fp32 registers a
-// thread; dK and dV: 128), and stages its operands through shared memory
-// 128 columns at a time. The score products S = Q.K^T and dP = dO.V^T sum
-// over the whole head dim: every chunk block forms them again (D / 128
-// times the score work), one staged chunk after the other, each chunk's
-// 16x16 sub-tile summed from zero and added in fp32 to its running sum,
-// which waits in shared memory between chunks (so a warp's registers hold
-// one sub-tile, as in the kernels above). The block's own chunk comes
-// last: its tile of V (B2), K (B3) or Q and dO (B4) is then in shared
-// memory for the accumulating product. In fp32 the tensor cores' truncated
-// sums thus restart every 128 columns of S (S at D 128's error) and every
-// 8 of dP, as in dq_tf32_kernel. Tiles are single-buffered behind a block
-// barrier a chunk step; two or three blocks an SM overlap one block's
-// copies with another's products. One warp owns 16 rows, so no partial
-// sums meet between warps; outputs are stored from registers. Each output
-// element has one owner and a fixed order of sums: a repeat call is
-// bit-equal. All chunk blocks of a row form the same m and l up to the
-// order of their chunk sums (equal at D 256, where two terms commute); the
-// block of chunk 0 writes lse.
+// = chunk) and stages its operands through shared memory 128 columns at a
+// time. Their score products S = Q.K^T and dP = dO.V^T sum over the whole
+// head dim: every chunk block forms them again (D / 128 times the score
+// work), one staged chunk after the other, each chunk's 16x16 sub-tile
+// summed from zero and added in fp32 to its running sum, which waits in
+// shared memory between chunks (so a warp's registers hold one sub-tile,
+// as in the kernels above). The block's own chunk comes last: its tile of
+// K (B3) or Q and dO (B4) is then in shared memory for the accumulating
+// product. In fp32 the tensor cores' truncated sums thus restart every
+// 128 columns of S (S at D 128's error) and every 8 of dP, as in
+// dq_tf32_kernel. Tiles are single-buffered behind a block barrier a
+// chunk step; two or three blocks an SM overlap one block's copies with
+// another's products. One warp owns 16 rows, so no partial sums meet
+// between warps; outputs are stored from registers. Each output element
+// has one owner and a fixed order of sums: a repeat call is bit-equal.
 constexpr int kChunk = 128;
 
-// Rows a block owns and rows of a loop tile of each wide kernel by input
-// type: fp32 tiles take twice the bytes, so its tiles are halved where a
-// block would otherwise hold one block an SM
+// Rows a block owns and rows of a loop tile of B3 and B4 above D 128 by
+// input type: fp32 tiles take twice the bytes, so its tiles are halved
+// where a block would otherwise hold one block an SM
 template <typename T> struct Wide;
 template <> struct Wide<bf16> {
   static constexpr int LD = tile_ld<kChunk>();
-  static constexpr int kFwdRows = 64, kFwdStep = 64, kFwdBlocks = 3;
   static constexpr int kDqRows = 64, kDqStep = 64;
   static constexpr int kDkvRows = 64, kDkvStep = 64;
 };
 template <> struct Wide<float> {
   static constexpr int LD = f32_ld<kChunk>();
-  static constexpr int kFwdRows = 64, kFwdStep = 32, kFwdBlocks = 2;
   static constexpr int kDqRows = 32, kDqStep = 32;
   static constexpr int kDkvRows = 32, kDkvStep = 32;
 };
 
-// forward block: a Q chunk tile, a K and a V chunk tile, then the warps'
-// S sums (16 x 16 fp32 a warp and sub-tile); 68,608 bytes bf16, 75,776
-// fp32
-template <typename T> constexpr size_t fwd_wide_smem_bytes() {
-  using W = Wide<T>;
-  return (W::kFwdRows + 2 * W::kFwdStep) * W::LD * sizeof(T)
-         + W::kFwdRows * W::kFwdStep * sizeof(float);
-}
 // dq block: Q, dO, K and V chunk tiles, then the S and dP sums; 102,400
 // bytes bf16, 75,776 fp32
 template <typename T> constexpr size_t dq_wide_smem_bytes() {
@@ -1591,42 +1584,338 @@ __device__ __forceinline__ void store_chunk(T* __restrict__ dst, Strides st,
   }
 }
 
-// B2 above D 128: one block of 2 * kFwdRows threads per (batch*head,
-// kFwdRows query rows, output chunk); warp w owns query rows [16w, 16w +
-// 16) and takes every 16-key sub-tile of each key tile. Per key tile, one
-// step per head-dim chunk stages that chunk of Q and K (and, on the last
-// step, the block's chunk of V) and sums each sub-tile's S; on the last
-// step each sub-tile takes one online-softmax step as fwd_mma_kernel's
-// warps do, then O += P.V. The blocks take the query tiles from the last:
-// causal, those have the most keys, so they start first. o rows start on
-// 4 bytes (bf16) or 8 (fp32): the wrapper allocates it.
-template <typename T>
-__global__ void __launch_bounds__(2 * Wide<T>::kFwdRows, Wide<T>::kFwdBlocks)
+// B2 above D 128: fwd_wide_kernel replaces the Pallas `_fwd_kernel`
+// (fedml_tpu/ops/pallas_attention.py, pallas_call in `_fwd_one_head`, line
+// 123), which holds [block_q, D] blocks of Q, K and V and one [block_q, D]
+// accumulator and forms S once a key tile. What bounds it on this card:
+// bytes in bf16 (at [32, 512, 4, 256] causal 134 MB, 0.040 ms at 3.35
+// TB/s, against 17 GFLOP on the valid pairs, 0.017 ms at 989 TFLOP/s) and
+// the 3xTF32 operations in fp32 (three times 17 GFLOP at 495 TFLOP/s,
+// 0.104 ms, against 0.080 ms of bytes). A warp's O accumulators cover 128
+// columns (64 fp32 registers a thread, as at D 128), so each 16-row strip
+// of a block's query tile has one warp per 128-column chunk of the head
+// dim: warp (strip, chunk) owns O of those rows and columns. Against the
+// four costs of the chunked forward it replaced (S formed D / 128 times,
+// Q restaged every key tile and chunk, single-buffered staging, running
+// sums parked in shared memory between chunk steps):
+// - S is formed once. Each warp sums its chunk's partial S (16 rows x the
+//   tile's keys) on the tensor cores from zero; the strip's partials meet
+//   in shared memory behind a named barrier of the strip's warps
+//   (bar.sync id, n: the other strips do not wait) and each warp adds them
+//   in one fixed order, chunk 0 first, so every warp of a strip holds the
+//   same S, bit for bit, forms the same m and l, and the chunk-0 warp
+//   writes lse. In fp32 a partial is a fresh tensor-core sum over 128
+//   columns (the tensor cores truncate what they accumulate), added to the
+//   others in fp32: S at D 128's accuracy, as before.
+// - Q is staged once, with the first key tile, and stays in shared memory
+//   for the whole key loop.
+// - K and V tiles, all of the block's head-dim columns, are
+//   double-buffered with cp.async groups: tile kt + 1 is in flight while
+//   tile kt is multiplied, one block barrier a tile.
+// - m, l and O stay in registers; the only shared-memory traffic besides
+//   the tiles is one exchange of partial S a key tile. One online-softmax
+//   step a key tile: p rounded to bf16 in bf16 (the Pallas
+//   `p.astype(v.dtype)`) against the running maximum of whole tiles, kept
+//   fp32 and split in fp32; then O += P.V over the warp's 128 columns of V.
+// Geometry (FwdWide; rows of D + 8 bf16 or D + 4 fp32 elements; shared
+// bytes = Q + two K and V buffers + the warps' partials), chosen among
+// 16-, 32- and 64-key tiles, 32- to 128-row blocks and one or two blocks
+// an SM by time on the card:
+//   D 256 bf16: 64 query rows, 16-key tiles,  8 warps,  75,776 bytes, 2
+//   D 384 bf16: 64 query rows, 32-key tiles, 12 warps, 175,104 bytes, 1
+//   D 512 bf16: 32 query rows, 16-key tiles,  8 warps, 108,032 bytes, 2
+//   D 256 fp32: 64 query rows, 32-key tiles,  8 warps, 216,064 bytes, 1
+//   D 384 fp32: 64 query rows, 16-key tiles, 12 warps, 210,944 bytes, 1
+//   D 512 fp32: 32 query rows, 16-key tiles,  8 warps, 206,336 bytes, 1
+// blocks an SM (two: at most 128 registers a thread). At [32, 512, 4, 256]
+// causal the kernel takes 4x (bf16) and 5x (fp32) its bound: staging alone
+// and compute alone each take about three quarters of the whole in bf16,
+// and clock stamps read a third of a warp's time at the block barrier, a
+// quarter in the softmax, while the tensor cores idle (PERF.md §6).
+// Taking the next tile's partial S beside this tile's softmax, three or
+// four buffers, two 16-row tiles a warp and a launch order keeping a
+// group of heads' K and V in L2 each gained under 5%, or lost elsewhere.
+// Above D 512 (PASSES) no block holds every chunk within 232,448 bytes:
+// a block holds 4 (D 512's geometry), the head dim's chunks go on grid
+// axis z in groups of 4, the last group ending at the head dim's end (it
+// may overlap the one before, and both then write the same bits), and the
+// chunks a block does not hold enter its partials from device memory,
+// element by element: S is formed ceil(D / 512) times. Warp w sums the
+// chunks of its class (chunk mod 4), each from zero, in order, so every
+// group forms the same S. The blocks take the query tiles from the last:
+// causal, those have the most keys. O is stored from registers; o rows
+// start on 4 bytes (bf16) or 8 (fp32): the wrapper allocates it. A repeat
+// call is bit-equal: fixed orders of sums and no atomics.
+template <typename T, int D> struct FwdWide {
+  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  static constexpr int kChunks = D / kChunk;  // warps a 16-row strip
+  static constexpr int kRows = D == 512 ? 32 : 64;  // query rows a block
+  static constexpr int kStep =                      // keys a tile
+      kBf16 ? (D == 384 ? 32 : 16) : (D == 256 ? 32 : 16);
+  static constexpr int kBlocks = kBf16 && D != 384 ? 2 : 1;  // an SM
+  static constexpr int LD = kBf16 ? tile_ld<D>() : f32_ld<D>();
+  static constexpr int kThreads = kRows / 16 * kChunks * 32;
+  static constexpr size_t kSmem = (kRows + 4 * kStep) * LD * sizeof(T)
+                                  + kThreads / 32 * 16 * kStep * sizeof(float);
+};
+
+// Issues the copies of rows [row0, row0 + ROWS) of one (batch, head),
+// columns [0, D) from `src`, into a tile of FwdWide's rows; rows at or
+// past `len` are zero
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_wide(bf16* dst, const bf16* src,
+                                           Strides st, int b, int h,
+                                           int row0, int len) {
+  stage_tile<D, ROWS, THREADS>(dst, src, st, b, h, row0, len);
+}
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_wide(float* dst, const float* src,
+                                           Strides st, int b, int h,
+                                           int row0, int len) {
+  stage_tile_f32<D, ROWS, THREADS>(dst, src, st, b, h, row0, len);
+}
+
+// A warp's partial S from zero: rows [r, r + 16) of tile a times every
+// key of tile b (16 at a time), over columns [c0, c0 + 128) of tiles D
+// wide; s[j] holds keys 8j..8j+7. bf16 on mma.m16n8k16; fp32 3xTF32 on
+// mma.m16n8k8, summed on the tensor cores. Each Q fragment serves every
+// 16-key group. No branch: keys a strip does not take are masked after,
+// and the loads of one step run ahead of the last one's products (with a
+// branch a 16-key group, the products waited on their loads one group at
+// a time: 24-29% slower in bf16).
+template <int D, int BK>
+__device__ __forceinline__ void partial_score(float (&s)[BK / 8][4],
+                                              const bf16* a, int r,
+                                              const bf16* b, int c0,
+                                              int lane) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChunk; c += 16) {
+    uint32_t fa[4];
+    hopper::ldmatrix_x4(fa, a_rows<D>(a, r, c0 + c, lane));
+#pragma unroll
+    for (int u = 0; u < BK / 16; ++u) {
+      uint32_t fb[4];
+      hopper::ldmatrix_x4(fb, bn_rows<D>(b, 16 * u, c0 + c, lane));
+      hopper::mma_bf16(s[2 * u], fa, fb[0], fb[1]);
+      hopper::mma_bf16(s[2 * u + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+template <int D, int BK>
+__device__ __forceinline__ void partial_score(float (&s)[BK / 8][4],
+                                              const float* a, int r,
+                                              const float* b, int c0,
+                                              int lane) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChunk; c += 8) {
+    uint32_t f[4], ahi[4], alo[4];
+    hopper::ldmatrix_x4(f, a_rows_f32<D>(a, r, c0 + c, lane));
+    hopper::split_tf32(f, ahi, alo);
+#pragma unroll
+    for (int u = 0; u < BK / 16; ++u) {
+      uint32_t bhi[4], blo[4];
+      hopper::ldmatrix_x4(f, bn_rows_f32<D>(b, 16 * u, c0 + c, lane));
+      hopper::split_tf32(f, bhi, blo);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        hopper::mma_3xtf32(s[2 * u + j], ahi, alo, bhi[2 * j], bhi[2 * j + 1],
+                           blo[2 * j], blo[2 * j + 1]);
+    }
+  }
+}
+
+// Two adjacent bf16 of a row as one b32 (the first in the low half), zero
+// when `ok` is false
+__device__ __forceinline__ uint32_t load_pair(const bf16* p, bool ok) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(0.f, 0.f);
+  if (ok) {
+    x.x = p[0];
+    x.y = p[1];
+  }
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// partial_score of head-dim columns [col, col + 128) read from device
+// memory, element by element, into the same fragments: rows r0.. of q
+// (zero at or past Tq) times keys k0.. of k (zero at or past Tk). The
+// products and their order are partial_score's, so a chunk's partial has
+// the same bits from either memory. Only above D 512.
+template <int BK>
+__device__ __forceinline__ void global_partial(
+    float (&s)[BK / 8][4], const bf16* __restrict__ q, Strides sq,
+    const bf16* __restrict__ k, Strides sk, int b, int h, int r0, int Tq,
+    int k0, int Tk, int col, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* qr[2];
+  bool qok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    qok[i] = row < Tq;
+    qr[i] = q + b * sq.b + h * sq.h + (long long)(qok[i] ? row : 0) * sq.t
+            + col + 2 * t;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+  for (int c = 0; c < kChunk; c += 16) {
+    const uint32_t fa[4] = {load_pair(qr[0] + c, qok[0]),
+                            load_pair(qr[1] + c, qok[1]),
+                            load_pair(qr[0] + c + 8, qok[0]),
+                            load_pair(qr[1] + c + 8, qok[1])};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const int key = k0 + 8 * j + g;
+      const bool ok = key < Tk;
+      const bf16* kr = k + b * sk.b + h * sk.h
+                       + (long long)(ok ? key : 0) * sk.t + col + c + 2 * t;
+      hopper::mma_bf16(s[j], fa, load_pair(kr, ok), load_pair(kr + 8, ok));
+    }
+  }
+}
+template <int BK>
+__device__ __forceinline__ void global_partial(
+    float (&s)[BK / 8][4], const float* __restrict__ q, Strides sq,
+    const float* __restrict__ k, Strides sk, int b, int h, int r0, int Tq,
+    int k0, int Tk, int col, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* qr[2];
+  bool qok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    qok[i] = row < Tq;
+    qr[i] = q + b * sq.b + h * sq.h + (long long)(qok[i] ? row : 0) * sq.t
+            + col + t;
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+  for (int c = 0; c < kChunk; c += 8) {
+    const uint32_t f[4] = {
+        __float_as_uint(qok[0] ? qr[0][c] : 0.f),
+        __float_as_uint(qok[1] ? qr[1][c] : 0.f),
+        __float_as_uint(qok[0] ? qr[0][c + 4] : 0.f),
+        __float_as_uint(qok[1] ? qr[1][c + 4] : 0.f)};
+    uint32_t ahi[4], alo[4];
+    hopper::split_tf32(f, ahi, alo);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const int key = k0 + 8 * j + g;
+      const bool ok = key < Tk;
+      const float* kr = k + b * sk.b + h * sk.h
+                        + (long long)(ok ? key : 0) * sk.t + col + c + t;
+      uint32_t hi0, lo0, hi1, lo1;
+      hopper::split_tf32(ok ? kr[0] : 0.f, hi0, lo0);
+      hopper::split_tf32(ok ? kr[4] : 0.f, hi1, lo1);
+      hopper::mma_3xtf32(s[j], ahi, alo, hi0, hi1, lo0, lo1);
+    }
+  }
+}
+
+// O (16 x 128: acc[n] holds columns 8n..8n+7) += P . V, where P holds the
+// tile's keys in the score accumulators' layout (0 where masked) and V is
+// columns [c0, c0 + 128) of the tile's V rows: bf16, p rounded to bf16
+// pairs and V through ldmatrix.trans; fp32, p split 8 keys at a time and V
+// by plain loads (3xTF32)
+template <int D, int BK>
+__device__ __forceinline__ void wide_pv(float (&acc)[kChunk / 8][4],
+                                        const float (&p)[BK / 8][4],
+                                        const bf16* sV, int c0, int lane) {
+#pragma unroll
+  for (int u = 0; u < BK / 16; ++u) {
+    uint32_t pa[4];
+    hopper::pack_a(pa, p[2 * u], p[2 * u + 1]);
+#pragma unroll
+    for (int c = 0; c < kChunk; c += 16) {
+      uint32_t f[4];
+      hopper::ldmatrix_x4_trans(f, bk_rows<D>(sV, 16 * u, c0 + c, lane));
+      hopper::mma_bf16(acc[c / 8], pa, f[0], f[1]);
+      hopper::mma_bf16(acc[c / 8 + 1], pa, f[2], f[3]);
+    }
+  }
+}
+template <int D, int BK>
+__device__ __forceinline__ void wide_pv(float (&acc)[kChunk / 8][4],
+                                        const float (&p)[BK / 8][4],
+                                        const float* sV, int c0, int lane) {
+  constexpr int LD = f32_ld<D>();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    uint32_t hi[4], lo[4];
+    hopper::split_a_tf32(p[j], hi, lo);
+#pragma unroll
+    for (int n = 0; n < kChunk / 8; ++n) {
+      const float* col = sV + (8 * j + 2 * t) * LD + c0 + 8 * n + g;
+      uint32_t hi0, lo0, hi1, lo1;
+      hopper::split_tf32(col[0], hi0, lo0);
+      hopper::split_tf32(col[LD], hi1, lo1);
+      hopper::mma_3xtf32(acc[n], hi, lo, hi0, hi1, lo0, lo1);
+    }
+  }
+}
+
+// B2 above D 128 (the note above): one block of FwdWide<T, D>::kThreads
+// per (batch*head, kRows query rows[, group of 4 chunks above D 512]);
+// warp w owns query rows [16 (w / kChunks), + 16) and head-dim chunk
+// w % kChunks of the block's columns.
+template <typename T, int D, bool PASSES>
+__global__ void __launch_bounds__(FwdWide<T, D>::kThreads,
+                                  FwdWide<T, D>::kBlocks)
     fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o,
                     float* __restrict__ lse, Strides sq, Strides sk,
                     Strides sv, Strides so, int H, int Tq, int Tk, int k_len,
-                    int D, float scale, bool causal) {
-  using W = Wide<T>;
-  constexpr int BQ = W::kFwdRows, BK = W::kFwdStep, LD = W::LD;
-  constexpr int THREADS = 2 * BQ;
+                    int nc, float scale, bool causal) {
+  using W = FwdWide<T, D>;
+  constexpr int BQ = W::kRows, BK = W::kStep, LD = W::LD, NC = W::kChunks;
+  constexpr int THREADS = W::kThreads, NJ = BK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQ + BQ * LD;
-  T* sV = sK + BK * LD;
+  T* sKV = sQ + BQ * LD;  // [buffer][K, V][BK][LD]
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int nc = D / kChunk, c = blockIdx.z, c0 = c * kChunk;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = q0 + 16 * warp;
-  float* sums = reinterpret_cast<float*>(sV + BK * LD) + warp * BK * 16;
-  // keys the block, and this warp, need: before k_len and, causal, not
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp / NC, cw = warp % NC, r0 = q0 + 16 * rg;
+  const int c0 = cw * kChunk;  // the warp's columns in the tiles
+  // the block's first chunk of the head dim (0 up to D 512) and the class
+  // of the warp's chunk, its place in the order of S's sum
+  const int base = PASSES ? min(NC * (int)blockIdx.z, nc - NC) : 0;
+  const int col0 = base * kChunk, cls = (base + cw) % NC;
+  // the strip's partial S: [class][n8 product][lane]
+  float4* slots = reinterpret_cast<float4*>(sKV + 4 * BK * LD)
+                  + rg * NC * NJ * 32;
+  // keys the block, and this strip, need: before k_len and, causal, not
   // after the last query; none for rows wholly past Tq
   const int kend = causal ? min(k_len, min(q0 + BQ, Tq)) : k_len;
   const int kend_w = r0 >= Tq ? 0
                      : causal ? min(k_len, min(r0 + 16, Tq))
                               : k_len;
   const int nkt = (kend + BK - 1) / BK;
+
+  auto stage_kv = [&](int kt) {
+    T* dst = sKV + (kt & 1) * 2 * BK * LD;
+    stage_wide<D, BK, THREADS>(dst, k + col0, sk, b, h, kt * BK, Tk);
+    stage_wide<D, BK, THREADS>(dst + BK * LD, v + col0, sv, b, h, kt * BK,
+                               Tk);
+  };
+  if (nkt > 0) {
+    stage_wide<D, BQ, THREADS>(sQ, q + col0, sq, b, h, q0, Tq);
+    stage_kv(0);
+  }
+  hopper::cp_async_commit();
 
   float acc[kChunk / 8][4];
 #pragma unroll
@@ -1636,74 +1925,114 @@ __global__ void __launch_bounds__(2 * Wide<T>::kFwdRows, Wide<T>::kFwdBlocks)
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g, g + 8
 
   for (int kt = 0; kt < nkt; ++kt) {
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    if (kt + 1 < nkt) stage_kv(kt + 1);
+    hopper::cp_async_commit();
+    const T* sK = sKV + (kt & 1) * 2 * BK * LD;
+    const T* sV = sK + BK * LD;
     const int k0 = kt * BK;
-    const int kn = min(BK, kend_w - k0);  // keys of this tile the warp takes
-    for (int j = 0; j < nc; ++j) {
-      const int d0 = (c + 1 + j) % nc * kChunk;  // the block's own last
-      const bool last = j == nc - 1;
-      __syncthreads();  // the tiles are read before they are staged again
-      stage_chunk<BQ, THREADS>(sQ, q, sq, b, h, q0, Tq, d0);
-      stage_chunk<BK, THREADS>(sK, k, sk, b, h, k0, Tk, d0);
-      if (last) stage_chunk<BK, THREADS>(sV, v, sv, b, h, k0, Tk, c0);
-      hopper::cp_async_wait_all();
-      __syncthreads();
-      for (int kk = 0; kk < kn; kk += 16) {
-        float s[2][4];
-        chunk_score<false, kChunk / 8>(s, sQ, 16 * warp, sK, kk, lane);
-        carry_sum(s, sums + kk * 16, lane, j == 0, last);
-        if (!last) continue;
-        // one online-softmax step on the sub-tile's whole S, masked on
-        // the diagonal and edge sub-tiles only; rows g and g + 8 reduced
-        // over their four lanes
-        const int kb = k0 + kk;
-        const bool inner = kb + 16 <= k_len && (!causal || kb + 15 <= r0);
-        float mx[2] = {kNegInf, kNegInf};
+    if (k0 >= kend_w) continue;  // no key of this tile for the strip
+    float s[NJ][4];
+    if constexpr (PASSES) {
+      // the chunks of the warp's class in order, each from zero: the one
+      // the block holds from shared memory, the others from device memory
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int qpos = r0 + g + 8 * (i >> 1);
-            const int kpos = kb + 8 * jj + 2 * t + (i & 1);
-            s[jj][i] = inner || score_valid(qpos, kpos, k_len, causal)
-                           ? s[jj][i] * scale
-                           : kNegInf;
-            mx[i >> 1] = fmaxf(mx[i >> 1], s[jj][i]);
-          }
-        float m_new[2], psum[2] = {0.f, 0.f};
+        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+      for (int ch = cls; ch < nc; ch += NC) {
+        float part[NJ][4];
+        if (ch == base + cw)
+          partial_score<D, BK>(part, sQ, 16 * rg, sK, c0, lane);
+        else
+          global_partial<BK>(part, q, sq, k, sk, b, h, r0, Tq, k0, Tk,
+                             ch * kChunk, lane);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          m_new[r] = fmaxf(m[r], mx[r]);
-        }
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float x = s[jj][i];
-            const float p = x <= kNegInf / 2 ? 0.f : expf(x - m_new[i >> 1]);
-            s[jj][i] = p;
-            psum[i >> 1] += p;
-          }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-          psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-          const float corr = expf(m[r] - m_new[r]);
-          l[r] = l[r] * corr + psum[r];
-#pragma unroll
-          for (int n = 0; n < kChunk / 8; ++n) {
-            acc[n][2 * r] *= corr;
-            acc[n][2 * r + 1] *= corr;
-          }
-          m[r] = m_new[r] <= kNegInf / 2 ? m[r] : m_new[r];  // m_keep
-        }
-        // O += P.V: p rounded to bf16 in bf16 (the Pallas
-        // `p.astype(v.dtype)`), kept fp32 and split in fp32
-        chunk_acc(acc, s, sV, kk, lane);
+          for (int i = 0; i < 4; ++i) s[j][i] += part[j][i];
       }
+    } else {
+      partial_score<D, BK>(s, sQ, 16 * rg, sK, c0, lane);
     }
+    // S of the strip: the partials of its warps added in class order
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      slots[(cls * NJ + j) * 32 + lane] =
+          make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+    hopper::bar_sync(1 + rg, NC * 32);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 own = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      float4 x = cls == 0 ? own : slots[j * 32 + lane];
+#pragma unroll
+      for (int c = 1; c < NC; ++c) {
+        const float4 y = c == cls ? own : slots[(c * NJ + j) * 32 + lane];
+        x.x += y.x;
+        x.y += y.y;
+        x.z += y.z;
+        x.w += y.w;
+      }
+      s[j][0] = x.x * scale;
+      s[j][1] = x.y * scale;
+      s[j][2] = x.z * scale;
+      s[j][3] = x.w * scale;
+    }
+    // one online-softmax step on the tile's S; masked only on a tile that
+    // reaches past k_len or (causal) a query of the strip; rows g and g + 8
+    // reduced over their four lanes, each from two partial maxima and sums
+    if (k0 + BK > k_len || (causal && k0 + BK - 1 > r0)) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qpos = r0 + g + 8 * (i >> 1);
+          const int kpos = k0 + 8 * j + 2 * t + (i & 1);
+          if (!score_valid(qpos, kpos, k_len, causal)) s[j][i] = kNegInf;
+        }
+    }
+    float mx[2][2] = {{kNegInf, kNegInf}, {kNegInf, kNegInf}};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mx[i >> 1][j & 1] = fmaxf(mx[i >> 1][j & 1], s[j][i]);
+    float m_new[2], psum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = fmaxf(mx[r][0], mx[r][1]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      m_new[r] = fmaxf(m[r], x);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = s[j][i];
+        const float p =
+            x <= kNegInf / 2 ? 0.f : softmax_exp<T>(x - m_new[i >> 1]);
+        s[j][i] = p;
+        psum[i >> 1][j & 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = psum[r][0] + psum[r][1];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const float corr = softmax_exp<T>(m[r] - m_new[r]);
+      l[r] = l[r] * corr + x;
+#pragma unroll
+      for (int n = 0; n < kChunk / 8; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
+      }
+      m[r] = m_new[r] <= kNegInf / 2 ? m[r] : m_new[r];  // m_keep
+    }
+    wide_pv<D, BK>(acc, s, sV, c0, lane);
   }
+
   // a fully masked row (l == 0) gets O = 0 and lse 0: the backward
   // re-masks it
   float inv[2];
@@ -1712,7 +2041,7 @@ __global__ void __launch_bounds__(2 * Wide<T>::kFwdRows, Wide<T>::kFwdBlocks)
     const float denom = fmaxf(l[r], 1e-30f);
     inv[r] = 1.f / denom;
     const int qpos = r0 + g + 8 * r;
-    if (c == 0 && t == 0 && qpos < Tq)
+    if (blockIdx.z == 0 && cw == 0 && t == 0 && qpos < Tq)
       lse[(long long)bh * Tq + qpos] = l[r] > 0.f ? m[r] + logf(denom) : 0.f;
   }
 #pragma unroll
@@ -1722,7 +2051,7 @@ __global__ void __launch_bounds__(2 * Wide<T>::kFwdRows, Wide<T>::kFwdBlocks)
     acc[n][2] *= inv[1];
     acc[n][3] *= inv[1];
   }
-  store_chunk<T>(o, so, b, h, r0, Tq, c0, acc, 1.f, g, t);
+  store_chunk<T>(o, so, b, h, r0, Tq, col0 + c0, acc, 1.f, g, t);
 }
 
 // B3 above D 128: one block of 2 * kDqRows threads per (batch*head,
@@ -2016,23 +2345,49 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-// The route above D 128: grid axis z takes the head dim's 128-column
-// chunks
+// The forward above D 128: the kernel holding every chunk at D 256, 384
+// and 512, above that 4 chunks a block on grid axis z
+template <typename T, int D, bool PASSES>
+int fwd_wide_launch(int nc, const void* q, const void* k, const void* v,
+                    void* o, void* lse, int B, int H, int Tq, int Tk,
+                    int k_len, const long long* st, float scale, int causal,
+                    cudaStream_t stream) {
+  using W = FwdWide<T, D>;
+  cudaError_t err = prepare(fwd_wide_kernel<T, D, PASSES>, W::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Tq + W::kRows - 1) / W::kRows,
+                  PASSES ? (nc + W::kChunks - 1) / W::kChunks : 1);
+  fwd_wide_kernel<T, D, PASSES><<<grid, W::kThreads, W::kSmem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3), H, Tq, Tk, k_len, nc, scale, causal != 0);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int fwd_wide(int D, const void* q, const void* k, const void* v, void* o,
              void* lse, int B, int H, int Tq, int Tk, int k_len,
              const long long* st, float scale, int causal,
              cudaStream_t stream) {
-  constexpr int BQ = Wide<T>::kFwdRows;
-  const size_t smem = fwd_wide_smem_bytes<T>();
-  cudaError_t err = prepare(fwd_wide_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tq + BQ - 1) / BQ, D / kChunk);
-  fwd_wide_kernel<T><<<grid, 2 * BQ, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), H, Tq, Tk, k_len, D, scale, causal != 0);
-  return cudaGetLastError();
+  const int nc = D / kChunk;
+  switch (nc) {
+    case 2:
+      return fwd_wide_launch<T, 256, false>(nc, q, k, v, o, lse, B, H, Tq,
+                                            Tk, k_len, st, scale, causal,
+                                            stream);
+    case 3:
+      return fwd_wide_launch<T, 384, false>(nc, q, k, v, o, lse, B, H, Tq,
+                                            Tk, k_len, st, scale, causal,
+                                            stream);
+    case 4:
+      return fwd_wide_launch<T, 512, false>(nc, q, k, v, o, lse, B, H, Tq,
+                                            Tk, k_len, st, scale, causal,
+                                            stream);
+    default:
+      return fwd_wide_launch<T, 512, true>(nc, q, k, v, o, lse, B, H, Tq,
+                                           Tk, k_len, st, scale, causal,
+                                           stream);
+  }
 }
 
 template <typename T>
@@ -2166,12 +2521,21 @@ int mma_info(int* out) {
                          out + 5 * kInfo);
 }
 
+template <typename T, int D, bool PASSES>
+int fwd_wide_info(int* out) {
+  using W = FwdWide<T, D>;
+  return occupancy(fwd_wide_kernel<T, D, PASSES>, W::kThreads, W::kSmem,
+                   W::kRows, W::kChunks, out);
+}
+
 template <typename T>
 int wide_info(int D, int* fwd_out, int* dq_out, int* dkv_out) {
   using W = Wide<T>;
   const int nc = D / kChunk;
-  int err = occupancy(fwd_wide_kernel<T>, 2 * W::kFwdRows,
-                      fwd_wide_smem_bytes<T>(), W::kFwdRows, nc, fwd_out);
+  int err = nc == 2   ? fwd_wide_info<T, 256, false>(fwd_out)
+            : nc == 3 ? fwd_wide_info<T, 384, false>(fwd_out)
+            : nc == 4 ? fwd_wide_info<T, 512, false>(fwd_out)
+                      : fwd_wide_info<T, 512, true>(fwd_out);
   if (!err)
     err = occupancy(dq_wide_kernel<T>, 2 * W::kDqRows,
                     dq_wide_smem_bytes<T>(), W::kDqRows, nc, dq_out);
@@ -2186,7 +2550,9 @@ int wide_info(int D, int* fwd_out, int* dq_out, int* dkv_out) {
 // The tensor-core kernels' launch shape at head dim D, kInfo = 5 ints a
 // kernel: threads a block, shared bytes a block, blocks an SM can hold,
 // rows a block owns (queries for the forward and dq, keys for dk/dv) and
-// head-dim chunks (grid axis z: 1 at D 64 and 128, D / 128 above). out[0]
+// 128-column head-dim chunks: for the forward those one block holds (1 at
+// D 64 and 128, D / 128 at D 256-512, 4 above), for dq and dk/dv those on
+// grid axis z, one a block (1 at D 64 and 128, D / 128 above). out[0]
 // is the bf16 forward's, out[5] the bf16 dq's, out[10] the bf16 dk/dv's,
 // out[15] the fp32 dq's, out[20] the fp32 dk/dv's, out[25] the fp32
 // forward's: the kernels of D 64 and 128, and above 128 those of the

@@ -3,10 +3,11 @@
 // operand loads from shared memory (ldmatrix), 16- and 4-byte
 // asynchronous copies from device memory into shared memory (cp.async,
 // zero-filling rows that do not exist) with mbarriers that let a warp
-// wait for just the rows it reads next, and packing fp32 accumulators
-// into bf16 operands; for fp32 inputs, the tf32 MMA m16n8k8 and the
-// split of each fp32 operand into two tf32 parts that makes three of its
-// products as accurate as one in fp32 (3xTF32).
+// wait for just the rows it reads next, named barriers for a few warps,
+// and packing fp32 accumulators into bf16 operands; for fp32 inputs, the
+// tf32 MMA m16n8k8 and the split of each fp32 operand into two tf32
+// parts that makes three of its products as accurate as one in fp32
+// (3xTF32).
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g in 0..7, t in
 // 0..3), as the PTX ISA defines them:
@@ -115,6 +116,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // Waits until every cp.async copy this thread issued has landed.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Waits until `count` threads (whole warps) have arrived at named barrier
+// `id` (1-15; 0 is __syncthreads'), and orders the shared-memory accesses
+// of those threads across it as __syncthreads does for a block's.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // An mbarrier (8 bytes of shared memory): a phase completes when `count`

@@ -92,9 +92,13 @@ MMA_KERNELS = {"fwd": "fwd_mma_kernel", "dq": "dq_mma_kernel",
 TF32_KERNELS = {"fwd": "fwd_tf32_kernel", "dq": "dq_tf32_kernel",
                 "dkv": "dkv_tf32_kernel"}
 #: the kernels of head dims above 128 by wrapper: B2, B3, B4, each a
-#: template over the input type (bf16 on mma.m16n8k16, fp32 3xTF32)
+#: template over the input type (bf16 on mma.m16n8k16, fp32 3xTF32); B2's
+#: also over the head-dim columns a block holds (every one at D 256, 384
+#: and 512; 512 above, with the rest of the chunks on grid axis z)
 WIDE_KERNELS = {"fwd": "fwd_wide_kernel", "dq": "dq_wide_kernel",
                 "dkv": "dkv_wide_kernel"}
+#: the most head-dim columns one block of ``fwd_wide_kernel`` holds
+WIDE_FWD_HELD = 512
 
 
 def mma_kernel_tag(name, D, kernels=MMA_KERNELS):
@@ -106,13 +110,18 @@ def mma_kernel_tag(name, D, kernels=MMA_KERNELS):
     return f"{len(fn)}{fn}ILi{D}E"
 
 
-def wide_kernel_tag(name, dtype):
-    """The same for the kernel of wrapper ``name`` above D 128 (one for
-    every head dim) in ``dtype`` ("bf16" or "fp32"):
-    ``15fwd_wide_kernelIfE``."""
+def wide_kernel_tag(name, dtype, D=256):
+    """The same for the kernel of wrapper ``name`` above D 128 in
+    ``dtype`` ("bf16" or "fp32") at head dim ``D``: dq's and dk/dv's serve
+    every such D (``15dq_wide_kernelIfE``), the forward's are instances
+    by the columns a block holds and whether chunks lie beyond them
+    (``15fwd_wide_kernelIfLi256ELb0EE``)."""
     fn = WIDE_KERNELS[name]
     arg = {"bf16": "13__nv_bfloat16", "fp32": "f"}[dtype]
-    return f"{len(fn)}{fn}I{arg}E"
+    if name != "fwd":
+        return f"{len(fn)}{fn}I{arg}E"
+    held = min(D, WIDE_FWD_HELD)
+    return f"{len(fn)}{fn}I{arg}Li{held}ELb{int(D > held)}EE"
 
 
 #: launch shape fields a kernel in ``fedml_flash_mma_info``'s output
@@ -124,9 +133,13 @@ def mma_launch_info(D=128):
     current card: ``{"fwd": {"threads", "smem_bytes", "blocks_per_sm",
     "rows", "chunks"}, "dq": {...}, "dkv": {...}}`` for bf16 B2-B4 and
     ``"fwd_tf32"``, ``"dq_tf32"``, ``"dkv_tf32"`` for fp32 B2-B4: the
-    kernels of D 64 and 128, or above 128 those of the chunked route
-    (``rows`` a block owns, ``chunks`` of 128 head-dim columns a row's
-    blocks split its output into: 1 at D 64 and 128, D / 128 above)."""
+    kernels of D 64 and 128, or above 128 those of head dim ``D``.
+    ``rows``: query rows (the forward, dq) or key rows (dk/dv) a block
+    owns. ``chunks``: 128-column chunks of the head dim -- for the
+    forward those one block holds and forms S over (1 at D 64 and 128,
+    every one, D / 128, at D 256-512, :data:`WIDE_FWD_HELD` / 128 above,
+    the rest on grid axis z); for dq and dk/dv those on grid axis z, one a
+    block (1 at D 64 and 128, D / 128 above)."""
     n = len(_INFO)
     out = (ctypes.c_int * (6 * n))()
     _raise_on(LIBRARY.lib.fedml_flash_mma_info(D, out), "mma_info")
@@ -453,7 +466,8 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
 
 
 __all__ = ["head_dim_supported", "MMA_KERNELS", "TF32_KERNELS",
-           "WIDE_KERNELS", "build", "mma_kernel_tag", "wide_kernel_tag",
+           "WIDE_KERNELS", "WIDE_FWD_HELD", "build", "mma_kernel_tag",
+           "wide_kernel_tag",
            "mma_launch_info", "launches", "tf32_split",
            "flash_attention_fwd_tf32_reference",
            "flash_attention_bwd_tf32_reference",

@@ -16,9 +16,9 @@ attention (B2-B4): against the plain versions on the same inputs in the
 same dtype; fp32 max|err| <= 1e-4*max|ref| + 1e-5 (sums in another
 order); bf16 max|err| <= 1.6e-2*max|ref| + 1e-3 -- both sides round
 their fp32 results to bf16 (one ulp is 2^-8 relative) and the kernel
-rounds p to bf16 against its running row maximum, 16 keys at a time in
-bf16 (B2) or tile by tile in fp32, where the plain version uses the
-final maximum. lse is fp32 on both sides and
+rounds p to bf16 against its running row maximum, 16 keys at a time
+(B2 at D 64 and 128) or a key tile at a time (above D 128), where the
+plain version uses the final maximum. lse is fp32 on both sides and
 held at 1e-4*max|lse| + 1e-5.
 """
 
@@ -270,7 +270,7 @@ def test_flash_backward_masks_keys_past_k_len(cuda, dtype, causal, k_len,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [64, 128, 256, 384])
+@pytest.mark.parametrize("D", [64, 128, 256, 384, 512, 1024])
 @pytest.mark.parametrize("Tq,Tk,k_len", [(40, 70, 37), (24, 70, 45),
                                          (70, 40, 37), (80, 50, 21),
                                          (40, 70, 0)])
@@ -293,7 +293,7 @@ def test_causal_forward_masks_keys_past_k_len(cuda, dtype, D, Tq, Tk,
         assert torch.equal(lse, torch.zeros_like(lse))
 
 
-@pytest.mark.parametrize("D", [128, 256, 384])
+@pytest.mark.parametrize("D", [128, 256, 384, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernels_read_strided_qkv_views(cuda, dtype, D):
     """q, k, v as column slices of one fused qkv product (the model's
@@ -315,7 +315,7 @@ def test_flash_kernels_read_strided_qkv_views(cuda, dtype, D):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("D", [128, 256, 384])
+@pytest.mark.parametrize("D", [128, 256, 384, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_kernels_take_views_off_16_byte_rows(cuda, causal, dtype, D):
@@ -405,14 +405,65 @@ def test_flash_kernels_take_head_dim_512(cuda, dtype):
         _close_rel(got, want, rel, abs_)
 
 
-@pytest.mark.parametrize("D", [256, 384, 1024])
+# (causal, Tq, Tk, k_len): a T ending inside a 16-row sub-tile, Tq != Tk
+# both ways, one past two 64-row tiles, and k_len 1 (one key takes every
+# row's attention)
+WIDE_FWD_CASES = [(False, 70, 70, None), (True, 70, 70, None),
+                  (True, 24, 90, None), (False, 90, 24, None),
+                  (True, 129, 129, None), (False, 80, 80, 1),
+                  (True, 80, 80, 1)]
+
+
+@pytest.mark.parametrize("D", [256, 384, 512, 640, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,Tq,Tk,k_len", WIDE_FWD_CASES)
+def test_wide_forward_forms_one_softmax_a_row(cuda, dtype, D, causal, Tq,
+                                              Tk, k_len):
+    """The forward above D 128 (one block forms S once over every chunk
+    at D 256-512; above, four chunks a block, the last group overlapping
+    the one before at D 640): O and lse match the plain version and a
+    repeat is bit-equal; exp(s - lse) over the plain scores sums to 1 in
+    every row, at lse's tolerance; and with V's chunks equal, every chunk
+    of a row's O has the same bits -- one m and l a row."""
+    q, k, v, _ = _qkv_do(cuda, dtype, 2, Tq, Tk, 2, D, Tq + Tk + D)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, k_len=k_len)
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, causal,
+                                                      k_len=k_len)
+    _close_rel(o, o_ref, *_tol(dtype))
+    _close_rel(lse, lse_ref, 1e-4, 1e-5)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal, k_len=k_len)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
+    qpos = torch.arange(Tq, device=cuda)[:, None]
+    kpos = torch.arange(Tk, device=cuda)[None, :]
+    valid = kpos < (Tk if k_len is None else k_len)
+    if causal:
+        valid = valid & (kpos <= qpos)
+    assert bool(valid.any(-1).all())
+    rowsum = torch.where(valid, torch.exp(s - lse[..., None]), 0.0).sum(-1)
+    _close_rel(rowsum, torch.ones_like(rowsum),
+               1e-4 * float(lse_ref.abs().max()), 1e-5)
+    v_same = v[..., :128].repeat(1, 1, 1, D // 128)
+    o3, _ = fa.flash_attention_fwd(q, k, v_same, causal, k_len=k_len)
+    for c in range(1, D // 128):
+        assert torch.equal(o3[..., 128 * c:128 * (c + 1)], o3[..., :128]), c
+
+
+@pytest.mark.parametrize("D", [256, 384, 512, 1024])
 def test_wide_kernels_launch_within_the_card(cuda, D):
-    """The chunked route's launch shape is the same at every head dim
-    above 128 but for its chunks: within a block's shared memory, at
-    least two blocks an SM, D / 128 chunks."""
+    """The launch shapes above D 128, within a block's shared memory.
+    dq and dk/dv: the same at every such head dim but for their D / 128
+    chunks on grid axis z, at least two blocks an SM. The forward: at
+    least one block an SM, and at D 256-512 one block holding every
+    chunk (S formed once), above that 4 chunks a block."""
     base, info = fa.mma_launch_info(256), fa.mma_launch_info(D)
     for name, i in info.items():
+        assert 0 < i["smem_bytes"] <= 232448, name
+        if name.startswith("fwd"):
+            assert i["chunks"] == min(D, fa.WIDE_FWD_HELD) // 128, name
+            assert i["blocks_per_sm"] >= 1, name
+            assert i["threads"] == i["rows"] // 16 * i["chunks"] * 32, name
+            continue
         assert i["chunks"] == D // 128, name
         assert {**i, "chunks": 2} == base[name], name
-        assert 0 < i["smem_bytes"] <= 232448, name
         assert i["blocks_per_sm"] >= 2, name

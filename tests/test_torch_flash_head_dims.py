@@ -1,7 +1,7 @@
 """Head dims above 128 against the JAX package on the same inputs: the
 plain versions of the flash-attention kernels (``ops/flash_attention.py``)
 against ``pallas_attention._fa_fwd``/``_fa_bwd`` (Pallas in interpret mode
-on the CPU) at D 256 and 384, the kernels' head-dim rule against the
+on the CPU) at D 256, 384 and 512, the kernels' head-dim rule against the
 reference's ``_require_hw_head_dim`` on the TPU, and one training step of
 the port's ``TransformerLM`` at head dim 256 against the Flax model.
 
@@ -51,7 +51,7 @@ def _bf16(x):
     return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("D", [256, 384])
+@pytest.mark.parametrize("D", [256, 384, 512])
 @pytest.mark.parametrize("causal,tq,tk", CASES)
 def test_plain_versions_match_pallas_in_fp32(causal, tq, tk, D):
     q, k, v, g = _inputs(tq, tk, D)
@@ -71,7 +71,7 @@ def test_plain_versions_match_pallas_in_fp32(causal, tq, tk, D):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
 
 
-@pytest.mark.parametrize("D", [256, 384])
+@pytest.mark.parametrize("D", [256, 384, 512])
 @pytest.mark.parametrize("causal,tq,tk", CASES)
 def test_plain_versions_match_pallas_in_bf16(causal, tq, tk, D):
     """Both sides take the same bf16 q, k, v (and dO, with the JAX
